@@ -4,14 +4,18 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``kbner_tpu_torch/csrc`` with
-``nvcc``, holds it against its plain PyTorch version on the card, and then
-serves retrieval-augmented NER through ``kbner_tpu_torch.serve.serve``:
-exhaustive BM25 over 1M synthetic wiki sentences held on the card, context
-fusion, and an XLM-R-large + CRF tagger at full width and depth (random
-weights from a seed, bfloat16, a 250002-entry hash vocabulary). It prints
-what it measured on the lines before the last and exits non-zero on any
-failure. Its last line is one JSON object naming the device.
+It builds the port's CUDA kernels from ``kbner_tpu_torch/csrc`` with
+``nvcc`` (one compiler per source, started together), holds each against
+its plain PyTorch version on the card, and then serves retrieval-augmented
+NER through ``kbner_tpu_torch.serve.serve`` twice over 1M synthetic wiki
+sentences held on the card: with the exhaustive engine (K1,
+``bm25_score.cu``) and with the pruned engine (K2,
+``delta16_rescore.cu``), each followed by context fusion and an
+XLM-R-large + CRF tagger at full width and depth (random weights from a
+seed, bfloat16, a 250002-entry hash vocabulary). The pruned top-10 is held
+against the exhaustive one. It prints what it measured on the lines before
+the last and exits non-zero on any failure. Its last line is one JSON
+object naming the device.
 
 It needs CUDA and the rest of the repository beside it: without either it
 fails before printing a result.
@@ -23,6 +27,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -35,6 +40,13 @@ K = 10                  # retrieved contexts per sentence (cli serve --k)
 MAX_QUERY_TERMS = 64    # Lq of the kernel (encode_queries default)
 HASH_VOCAB = 250002     # XLM-R's vocabulary size
 DEVICE = "cuda"
+KERNELS = ("bm25_score", "delta16_rescore")  # csrc/<name>.cu
+# the pruned engine's knobs as bench.py tunes them (bench.py:381-389)
+PRUNED_KNOBS = dict(rare_terms=16, posting_budget=6144, n_candidates=1024,
+                    tiny_width=384, tiny_pack=False, tiny_df_cap=128,
+                    tiny_cols_floor=512, d16_width_floor=32)
+MIN_RECALL = 0.9        # pruned top-10 against the exhaustive top-10
+SCORE_RTOL = 1e-2       # delta16 saturates tf > 7; f16 tiny sums
 
 # the H100 SXM rates the bound is taken against: HBM bytes/s from NVIDIA's
 # data sheet, and int32 operations/s on the CUDA cores. The data sheet's
@@ -44,7 +56,7 @@ DEVICE = "cuda"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 67e12 / 4
 
-# K1 against its plain version: float32 sums taken in another order
+# K1 and K2 against their plain versions: float32 sums in another order
 RTOL, ATOL = 1e-5, 1e-6
 
 NER_TAGS = [f"{p}-{t}" for t in ("PER", "LOC", "ORG", "MISC")
@@ -99,6 +111,33 @@ def assert_same_topk(got, want, k: int) -> None:
                                  f"{sorted(a ^ b)}")
 
 
+def check_delta16_cases(bm25, synth_rescore_operands, device) -> float:
+    """K2 against its plain version on rows with continuation slots: R2 =
+    1 and a segment over 128 slots (R2 = 2), ragged Q = 5 and C = 300,
+    invalid candidates at id 0, -1 query pads. Returns the largest
+    absolute difference."""
+    import torch
+
+    worst = 0.0
+    for Q, C, long_doc in ((5, 300, 0), (8, 128, 140), (3, 77, 140),
+                           (32, 1024, 0)):
+        qt, qw, cand, flat, off, lens, nc, k1, b, avgdl, r2 = \
+            synth_rescore_operands(Q + C, Q, C, long_doc=long_doc)
+        if r2 != (2 if long_doc else 1):
+            raise AssertionError(f"expected R2={1 + bool(long_doc)}, "
+                                 f"got {r2}")
+        ops = [torch.from_numpy(x).to(device)
+               for x in (qt, qw, cand, flat.view(np.int16), off, lens, nc)]
+        got = bm25.delta16_rescore(*ops, k1, b, avgdl, r2)
+        want = bm25.delta16_rescore_ref(*ops, k1, b, avgdl, r2)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        if not bool((want > 0).any()):
+            raise AssertionError("a K2 case matched no query term")
+        worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
 def check_kernel_cases(bm25, device) -> float:
     """K1 against its plain version on ragged edges (Q, N not multiples of
     the block), several query-term tiles, a doc-axis slice, and -1 pads in
@@ -124,6 +163,136 @@ def check_kernel_cases(bm25, device) -> float:
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
         worst = max(worst, float((got - want).abs().max()))
     return worst
+
+
+def serve_batches(serve, engine, batches, tagger, tokenizer, tag_dict):
+    """Serve every micro-batch through ``engine``; returns (responses,
+    per-stage ms per batch, ms per batch, peak allocated GB)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    stage_ms = {"retrieve": [], "fuse": [], "tag": []}
+    batch_ms = []
+    responses = []
+    for batch in batches:
+        timings = {}
+        t0 = time.perf_counter()
+        responses.extend(serve(batch, engine, tagger, tokenizer, tag_dict,
+                               k=K, batch_size=BATCH, timings=timings))
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        for key in stage_ms:
+            stage_ms[key].append(timings[key] * 1e3)
+    return (responses, stage_ms, batch_ms,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def report_serve(label, responses, batches, stage_ms, batch_ms, peak_gb,
+                 launches, card) -> float:
+    """Print one path's serve timings; returns requests/s after the first
+    batch."""
+    log(f"serve ({label}): {len(responses)} requests in {len(batches)} "
+        f"micro-batches of {BATCH}; {launches}; peak allocated "
+        f"{peak_gb:.2f} GB ({card})")
+    for key, vals in stage_ms.items():
+        name = "tag (encode+decode)" if key == "tag" else key
+        log(f"  stage {name:19s} ms per batch: "
+            + ", ".join(f"{v:.1f}" for v in vals))
+    log("  batch total               ms per batch: "
+        + ", ".join(f"{v:.1f}" for v in batch_ms))
+    steady = batch_ms[1:]
+    rate = BATCH * len(steady) / (sum(steady) / 1e3)
+    log(f"  after the first batch: {rate:.1f} requests/s, "
+        f"{np.mean(steady):.1f} ms per batch")
+    return rate
+
+
+def check_responses(requests, responses, tag_dict, eos) -> None:
+    """Each response echoes its request, has one tag per token from the
+    tag dictionary, and carries no retrieved-context token."""
+    if len(responses) != len(requests):
+        raise AssertionError(f"{len(responses)} responses to "
+                             f"{len(requests)} requests")
+    for req, resp in zip(requests, responses):
+        if resp["id"] != req["id"] or resp["tokens"] != req["tokens"]:
+            raise AssertionError(f"response {resp['id']} does not echo its "
+                                 "request")
+        if len(resp["tags"]) != len(resp["tokens"]):
+            raise AssertionError(f"response {resp['id']}: "
+                                 f"{len(resp['tags'])} tags for "
+                                 f"{len(resp['tokens'])} tokens")
+        if eos in resp["tokens"]:
+            raise AssertionError(f"response {resp['id']} carries retrieved "
+                                 "context tokens")
+        bad = [t for t in resp["tags"] if t not in tag_dict]
+        if bad:  # the context tag S-X is not in the dictionary either
+            raise AssertionError(f"response {resp['id']}: tags {bad} are "
+                                 "not in the tag dictionary")
+
+
+def delta16_need(d16) -> tuple:
+    """What delta16_rescore needs on these arguments, each byte once:
+    (bytes, int32 operations). Bytes are the 32-byte sectors the
+    candidates' segments occupy (slots [off, off + len) of 2 bytes, each
+    distinct sector once), each distinct candidate's offset, length and
+    norm code, the candidate ids, the query block and the output;
+    operations are one lookup of each segment slot per candidate."""
+    import torch
+
+    qt, qw, cand, flat, off, lens, normc = d16[:7]
+    ids = cand.long().flatten()
+    o, n = off[ids].long(), lens[ids].long()
+    n_slots = int(n.sum())
+    o, n = o[n > 0], n[n > 0]
+    n_sectors = 0
+    if n.numel():
+        first = o * 2 // 32
+        span = ((o + n) * 2 - 1) // 32 - first + 1
+        step = torch.arange(int(span.max()), device=o.device)
+        sectors = (first[:, None] + step)[step < span[:, None]]
+        n_sectors = int(torch.unique(sectors).numel())
+    n_docs = int(torch.unique(ids).numel())
+    n_bytes = (n_sectors * 32
+               + n_docs * (off.element_size() + lens.element_size()
+                           + normc.element_size())
+               + cand.nbytes + qt.nbytes + qw.nbytes + cand.numel() * 4)
+    return n_bytes, n_slots
+
+
+def retrieve_breakdown(engine, index, batch, bm25) -> dict:
+    """Where one batch's retrieve stage goes, in ms: query analysis and
+    encoding, the engine's host preparation (pruned: rare terms, the tiny
+    exact block, the remapped query block), the device search with its
+    copies (host clock, ending on the host), the device work alone (CUDA
+    events over 20 runs on prepared operands), and rendering the result
+    records. Run it after the served run on one of its batches: the pruned
+    query blocks' never-shrink widths are then those that run left."""
+    import torch
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (qt, qw), enc = wall(lambda: index.encode_queries(
+        [" ".join(r["tokens"]) for r in batch],
+        max_query_terms=MAX_QUERY_TERMS))
+    out = {"encode": enc}
+    if engine.mode == "pruned":
+        packed, out["host prep"] = wall(lambda: engine._pack_queries(qt, qw))
+        keys, field, (t_doc, t_ex), kw = engine._device_queries(packed)
+        out["device"] = time_cuda_ms(lambda: bm25.bm25_pruned_topk_packed(
+            keys, (field,), n_real_docs=index.n_docs, k=K, tiny_doc=t_doc,
+            tiny_ex=t_ex, **kw), iters=20)
+    else:
+        fields = [(torch.from_numpy(qt).to(engine.device),
+                   torch.from_numpy(qw).to(engine.device),
+                   *engine.fields["text"])]
+        out["device"] = time_cuda_ms(lambda: bm25.bm25_topk(fields, k=K),
+                                     iters=20)
+    (scores, ids), out["search"] = wall(
+        lambda: engine.search_encoded(qt, qw, k=K))
+    _, out["render"] = wall(lambda: engine._materialize(scores, ids))
+    return out
 
 
 class RenderedDocs:
@@ -162,6 +331,7 @@ def main() -> int:
     from kbner_tpu_torch.retrieval.fusion import fuse_contexts
     from kbner_tpu_torch.retrieval.index import BM25Index
     from kbner_tpu_torch.retrieval.synth import (sentence_queries,
+                                                 synth_rescore_operands,
                                                  synth_wiki_docs)
     from kbner_tpu_torch.serve import predict, request_record, serve
 
@@ -177,20 +347,29 @@ def main() -> int:
         f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device(DEVICE)
 
-    # -- 2. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    report = _kernels.build("bm25_score")
-    log(f"build: bm25_score.cu with nvcc for sm_90a in "
-        f"{time.perf_counter() - t0:.2f} s (set-up)")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    # -- 2. build -------------------------------------------------------------
+    def build(name):
+        t0 = time.perf_counter()
+        return _kernels.build(name), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        builds = dict(zip(KERNELS, ex.map(build, KERNELS)))
+    for name, (report, sec) in builds.items():
+        log(f"build: {name}.cu with nvcc for sm_90a in {sec:.2f} s "
+            "(set-up, built in parallel)")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
     # -- 3a. K1 against plain on edge shapes ---------------------------------
     err_cases = check_kernel_cases(bm25, dev)
     log(f"bm25_score_block vs plain on ragged / multi-tile / sliced / "
         f"-1-padded shapes: max abs err {err_cases:.3g} "
         f"(rtol {RTOL}, atol {ATOL})")
+    d16_err_cases = check_delta16_cases(bm25, synth_rescore_operands, dev)
+    log(f"delta16_rescore vs plain on R2=1 / R2=2 / ragged (Q=5, C=300) / "
+        f"id-0 / -1-padded cases with continuation slots: max abs err "
+        f"{d16_err_cases:.3g} (rtol {RTOL}, atol {ATOL})")
 
     # -- 4a. set-up of the main path -----------------------------------------
     t0 = time.perf_counter()
@@ -265,56 +444,21 @@ def main() -> int:
         f"{ops_ms:.3f} ms);"
         f" max abs err {err_main:.3g}, top-{K} ids equal within ties")
 
-    # -- 4b. the main path: serve micro-batches ------------------------------
+    # -- 4b. the exhaustive path: serve micro-batches ------------------------
     bm25.bm25_score_block.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    stage_ms = {"retrieve": [], "fuse": [], "tag": []}
-    batch_ms = []
-    responses = []
-    for batch in batches:
-        timings = {}
-        t0 = time.perf_counter()
-        responses.extend(serve(batch, engine, tagger, tokenizer, tag_dict,
-                               k=K, batch_size=BATCH, timings=timings))
-        batch_ms.append((time.perf_counter() - t0) * 1e3)
-        for key in stage_ms:
-            stage_ms[key].append(timings[key] * 1e3)
+    bm25.delta16_rescore.launches = 0
+    responses, stage_ms, batch_ms, peak_gb = serve_batches(
+        serve, engine, batches, tagger, tokenizer, tag_dict)
     launches = bm25.bm25_score_block.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    log(f"serve: {len(responses)} requests in {len(batches)} micro-batches "
-        f"of {BATCH}; bm25_score_block launches {launches}; peak "
-        f"allocated {peak_gb:.2f} GB ({card})")
-    for key, vals in stage_ms.items():
-        name = "tag (encode+decode)" if key == "tag" else key
-        log(f"  stage {name:19s} ms per batch: "
-            + ", ".join(f"{v:.1f}" for v in vals))
-    log("  batch total               ms per batch: "
-        + ", ".join(f"{v:.1f}" for v in batch_ms))
-    steady = batch_ms[1:]
-    rate = BATCH * len(steady) / (sum(steady) / 1e3)
-    log(f"  after the first batch: {rate:.1f} requests/s, "
-        f"{np.mean(steady):.1f} ms per batch")
-
-    # -- checks on what came out ---------------------------------------------
-    if launches < 1:
-        raise AssertionError("the served batches never launched the "
-                             "bm25_score_block kernel")
-    for req, resp in zip(requests, responses):
-        if resp["id"] != req["id"] or resp["tokens"] != req["tokens"]:
-            raise AssertionError(f"response {resp['id']} does not echo its "
-                                 "request")
-        if len(resp["tags"]) != len(resp["tokens"]):
-            raise AssertionError(f"response {resp['id']}: "
-                                 f"{len(resp['tags'])} tags for "
-                                 f"{len(resp['tokens'])} tokens")
-        if EOS_MARKER in resp["tokens"]:
-            raise AssertionError(f"response {resp['id']} carries retrieved "
-                                 "context tokens")
-        bad = [t for t in resp["tags"] if t not in tag_dict]
-        if bad:  # the context tag S-X is not in the dictionary either
-            raise AssertionError(f"response {resp['id']}: tags {bad} are "
-                                 "not in the tag dictionary")
+    stray = bm25.delta16_rescore.launches
+    ex_rate = report_serve("exhaustive", responses, batches, stage_ms,
+                           batch_ms, peak_gb,
+                           f"bm25_score_block launches {launches}", card)
+    if launches < 1 or stray:
+        raise AssertionError(
+            f"the exhaustive path launched bm25_score_block {launches} and "
+            f"delta16_rescore {stray} times")
+    check_responses(requests, responses, tag_dict, EOS_MARKER)
     # the fused records of the first batch, made again outside the counted
     # run: at least one sentence carried retrieved context into the tagger
     orig = [request_record(r) for r in batches[0]]
@@ -378,6 +522,111 @@ def main() -> int:
     log(f"tagger reference (tiny, float32, same weights): card vs CPU "
         f"emissions max abs err {em_err:.3g} (atol 1e-4), CRF tags equal")
 
+    # -- 4c. set-up of the pruned path ----------------------------------------
+    t0 = time.perf_counter()
+    pruned = RetrievalEngine(index, store=DocStore(RenderedDocs(docs)),
+                             mode="pruned", device=dev, **PRUNED_KNOBS)
+    torch.cuda.synchronize()
+    flat, off, lens, normc = pruned.rows
+    csr_off, csr_packed = pruned.csr
+    log(f"pruned engine: built in {time.perf_counter() - t0:.1f} s from the "
+        f"same index (set-up); R2={pruned.r2}, non-tiny terms "
+        f"T'={pruned.n_nontiny} (tiny: df <= {pruned.tiny_cap}), longest "
+        f"segment {pruned.max_seg} slots; on the card: delta16 rows "
+        f"{tuple(flat.shape)} {flat.nbytes / 1e6:.1f} MB, off/len/normc "
+        f"{(off.nbytes + lens.nbytes + normc.nbytes) / 1e6:.1f} MB, CSR "
+        f"{(csr_off.nbytes + csr_packed.nbytes) / 1e6:.1f} MB "
+        f"(window cap {pruned.per_term_cap})")
+
+    # -- 4d. the pruned path: serve micro-batches ----------------------------
+    bm25.bm25_score_block.launches = 0
+    bm25.delta16_rescore.launches = 0
+    p_responses, p_stage_ms, p_batch_ms, p_peak_gb = serve_batches(
+        serve, pruned, batches, tagger, tokenizer, tag_dict)
+    d16_launches = bm25.delta16_rescore.launches
+    stray = bm25.bm25_score_block.launches
+    p_rate = report_serve("pruned", p_responses, batches, p_stage_ms,
+                          p_batch_ms, p_peak_gb,
+                          f"delta16_rescore launches {d16_launches}", card)
+    if d16_launches < 1 or stray:
+        raise AssertionError(
+            f"the pruned path launched delta16_rescore {d16_launches} and "
+            f"bm25_score_block {stray} times")
+    check_responses(requests, p_responses, tag_dict, EOS_MARKER)
+    log("retrieve stage, ms per batch: exhaustive "
+        + ", ".join(f"{v:.1f}" for v in stage_ms["retrieve"])
+        + "; pruned " + ", ".join(f"{v:.1f}" for v in p_stage_ms["retrieve"])
+        + f"; requests/s after the first batch: exhaustive {ex_rate:.1f}, "
+        f"pruned {p_rate:.1f} ({card})")
+
+    # -- 3c. K2 against plain at the main path's shapes ----------------------
+    # the arguments the served search hands K2 for the first batch, made
+    # after the served run so its never-shrink query widths stay as served
+    keys, field, _, kw = pruned._device_queries(
+        pruned._pack_queries(qt_np, qw_np))
+    _, cand_valid, (d16,) = bm25.pass2_operands(keys, (field,), **kw)
+    got = bm25.delta16_rescore(*d16)
+    want = bm25.delta16_rescore_ref(*d16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    d16_err_main = float((got - want).abs().max())
+    del got, want, keys, field
+    d16_ms = time_cuda_ms(lambda: bm25.delta16_rescore(*d16), iters=200)
+    d16_plain_ms = time_cuda_ms(lambda: bm25.delta16_rescore_ref(*d16),
+                                iters=10)
+    Q2, W2 = d16[0].shape
+    C2 = d16[2].shape[1]
+    d16_bytes, d16_ops = delta16_need(d16)
+    d16_bytes_ms = d16_bytes / PEAK_BYTES_PER_S * 1e3
+    d16_ops_ms = d16_ops / PEAK_INT32_OPS_PER_S * 1e3
+    d16_bound_ms = max(d16_bytes_ms, d16_ops_ms)
+    d16_bound_by = "bytes" if d16_bytes_ms >= d16_ops_ms else "operations"
+    log(f"delta16_rescore at the serve shape Q={Q2} W={W2} C={C2} "
+        f"R2={d16[-1]} ({int(cand_valid.sum())} valid candidates) ({card}): "
+        f"kernel {d16_ms:.4f} ms, plain {d16_plain_ms:.3f} ms, bound "
+        f"{d16_bound_ms:.5f} ms by {d16_bound_by} ({d16_bytes / 1e6:.3f} MB "
+        f"= {d16_bytes_ms:.5f} ms; {d16_ops / 1e6:.3f} M int32 lookups = "
+        f"{d16_ops_ms:.5f} ms); max abs err {d16_err_main:.3g}")
+
+    for label, eng in (("exhaustive", engine), ("pruned", pruned)):
+        parts = retrieve_breakdown(eng, index, batches[1], bm25)
+        log(f"retrieve breakdown ({label}, batch 2), ms: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+            + " (search = host prep + device + copies, host clock; device "
+            f"by CUDA events) ({card})")
+
+    # the pruned top-10 against the exhaustive top-10 on the same queries,
+    # outside the counted runs
+    recalls, worst_rel = [], 0.0
+    for batch in batches:
+        qt_b, qw_b = index.encode_queries(
+            [" ".join(r["tokens"]) for r in batch],
+            max_query_terms=MAX_QUERY_TERMS)
+        es, ei = engine.search_encoded(qt_b, qw_b, k=K)
+        ps, pi = pruned.search_encoded(qt_b, qw_b, k=K)
+        for q in range(len(batch)):
+            exact = {int(d): float(x) for d, x in zip(ei[q], es[q]) if x > 0}
+            found = {int(d): float(x) for d, x in zip(pi[q], ps[q])
+                     if d >= 0 and x > 0}
+            if not exact:
+                continue
+            both = exact.keys() & found.keys()
+            recalls.append(len(both) / len(exact))
+            for d in both:
+                worst_rel = max(worst_rel,
+                                abs(found[d] - exact[d]) / abs(exact[d]))
+    recall = float(np.mean(recalls))
+    log(f"pruned vs exhaustive on {len(recalls)} queries: recall@{K} "
+        f"{recall:.4f} (bar {MIN_RECALL}); scores of docs in both top-{K} "
+        f"lists differ by at most {worst_rel:.3g} relative (bar "
+        f"{SCORE_RTOL})")
+    if recall < MIN_RECALL:
+        raise AssertionError(f"pruned recall@{K} {recall:.4f} is below "
+                             f"{MIN_RECALL}")
+    if worst_rel > SCORE_RTOL:
+        raise AssertionError(f"pruned scores differ from exhaustive by "
+                             f"{worst_rel:.3g} relative")
+
     # -- 5. kernels ----------------------------------------------------------
     kernels = [{
         "name": "bm25_score_block",
@@ -390,6 +639,18 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "delta16_rescore",
+        "route": "cuda",
+        "source": "kbner_tpu_torch/csrc/delta16_rescore.cu",
+        "replaces": "kbner_tpu/ops/bm25.py:delta16_rescore_pallas",
+        "launches": d16_launches,
+        "max_abs_err": max(d16_err_cases, d16_err_main),
+        "ms": d16_ms,
+        "plain_ms": d16_plain_ms,
+        "bound_ms": d16_bound_ms,
+        "bound_by": d16_bound_by,
         "library_ms": None,
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,8 +1,9 @@
 """kbner_tpu_torch — the PyTorch/CUDA port of kbner_tpu for NVIDIA Hopper.
 
 This package serves retrieval-augmented NER on one H100: BM25 retrieval
-over a device-resident index (scored by a hand-written CUDA kernel,
-``csrc/bm25_score.cu``), context fusion, and an XLM-R + CRF tagger. Its
+over a device-resident index, exhaustive (scored by the hand-written CUDA
+kernel ``csrc/bm25_score.cu``) or pruned (candidates rescored by
+``csrc/delta16_rescore.cu``), context fusion, and an XLM-R + CRF tagger. Its
 layout mirrors ``kbner_tpu`` (``data/``, ``retrieval/``, ``ops/``,
 ``models/``, ``cli.py``) so each module's JAX counterpart is found by path.
 

@@ -63,8 +63,11 @@ def cmd_serve(args) -> None:
 
     engine = None
     if args.kb:
+        # serving searches the text field only; the pruned engine takes no
+        # title index yet (ROADMAP A4), so none is built for it
         text_index, store, title_index = build_kb_from_jsonl(
-            args.kb, lang=args.lang)
+            args.kb, lang=args.lang,
+            with_title_index=args.engine_mode != "pruned")
         engine = RetrievalEngine(text_index, store=store,
                                  title_index=title_index,
                                  mode=args.engine_mode, device=args.device)
@@ -101,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--lang", default="en")
     sp.add_argument("--k", type=int, default=10)
     sp.add_argument("--mode", default="sentence_link")
-    sp.add_argument("--engine_mode", default="exhaustive")
+    sp.add_argument("--engine_mode", default="exhaustive",
+                    help="exhaustive (default) or pruned")
     sp.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     sp.set_defaults(fn=cmd_serve)

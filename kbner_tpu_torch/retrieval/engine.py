@@ -1,12 +1,23 @@
-"""Retrieval engine: device-resident BM25 index, batched exhaustive top-k
-(counterpart of ``kbner_tpu/retrieval/engine.py``, unsharded exhaustive
-mode).
+"""Retrieval engine: device-resident BM25 index, batched top-k
+(counterpart of ``kbner_tpu/retrieval/engine.py``, unsharded, text field
+for the pruned mode).
 
-The padded impact arrays of the text field (and an optional title field)
-live in device memory transposed to ``[Ld, N]``; a query batch is scored
-against every document by the CUDA kernel behind ``ops.bm25.bm25_topk``
-and only the top-k ids and scores come back. Document texts stay on the
-host and are materialized into result records with the reference's
+Two modes:
+
+* ``exhaustive``: the padded impact arrays of the text field (and an
+  optional title field) live in device memory transposed to ``[Ld, N]``;
+  a query batch is scored against every document by the CUDA kernel
+  behind ``ops.bm25.bm25_topk``.
+* ``pruned``: two-pass MaxScore-style search. Pass 1 reads the capped,
+  impact-ordered windows of each query's rarest terms from a packed CSR
+  on the device and pools them with the host-gathered exact sums of the
+  "tiny" terms (df <= ``tiny_cap``, left out of every device array); the
+  top ``n_candidates`` by pooled partial score are rescored exactly over
+  gap-coded 16-bit ("delta16") document rows by the CUDA kernel behind
+  ``ops.bm25.delta16_rescore``.
+
+Only the top-k ids and scores come back. Document texts stay on the host
+and are materialized into result records with the reference's
 retrieval-file fields (sentence/paragraph/title/score/url).
 """
 
@@ -19,8 +30,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.bm25 import bm25_topk
-from .index import BM25Index
+from ..ops.bm25 import (KEY_PAD, bm25_pruned_topk_packed, bm25_topk,
+                        gather_pruned_candidate_keys)
+from .index import BM25Index, long_to_int4
 
 _DOC_PAD = 512  # the doc axis is padded to a multiple of this on upload
 
@@ -60,13 +72,177 @@ class DocStore:
         )
 
 
-class RetrievalEngine:
-    """Exhaustive BM25 query execution over one language's index (text
-    field + optional title field for entity-boosted queries).
+# -- pass-2 row layout (delta16) -----------------------------------------------
 
-    ``doc_chunk`` scans the document axis in pieces of that size (a
-    multiple of 512) with a running top-k, bounding the score buffer at
-    ``[Q, doc_chunk]``; by default the whole axis is scored at once.
+def _place_length_groups(lens: np.ndarray, lanes: int, max_seg: int
+                         ) -> Tuple[np.ndarray, int]:
+    """Segment packing: docs grouped by segment length in ascending order;
+    equal-length segments tile ``lanes``-wide rows exactly (no segment
+    straddles a row boundary), longer ones start on a row boundary.
+    Returns (off [N] int64 slot offsets, total rows including the guard
+    rows a covering read of ``max_seg`` slots needs)."""
+    N = len(lens)
+    off = np.zeros(max(N, 1), dtype=np.int64)
+    cursor = 0
+    for L in np.unique(lens).tolist():
+        idx = np.nonzero(lens == L)[0]
+        if L == 0:
+            continue
+        if L <= lanes:
+            c = lanes // L
+            r = np.arange(len(idx), dtype=np.int64)
+            off[idx] = cursor + (r // c) * lanes + (r % c) * L
+            cursor += ((len(idx) + c - 1) // c) * lanes
+        else:
+            per = ((L + lanes - 1) // lanes) * lanes
+            off[idx] = cursor + np.arange(len(idx), dtype=np.int64) * per
+            cursor += len(idx) * per
+    r2 = 1 if max_seg <= lanes else (max_seg + lanes - 1) // lanes
+    return off, cursor // lanes + r2
+
+
+DELTA16_GAP_BITS = 13          # slot = (gap13 << 3) | tf3
+DELTA16_MAX_GAP = (1 << DELTA16_GAP_BITS) - 1  # 8191
+DELTA16_TF_CAP = 7             # tf saturates (tfNorm ~flat past it)
+DELTA16_CONT = np.uint16(DELTA16_MAX_GAP << 3)  # continuation: tf=0
+
+
+def _nontiny_remap(df: np.ndarray, tiny_cap: int
+                   ) -> Tuple[np.ndarray, int]:
+    """Dense df-descending remap of the non-tiny (df > tiny_cap) terms:
+    remap[orig] in [0, T') for non-tiny terms, -1 otherwise. Frequent terms
+    get small ids, so the within-doc gaps of sorted ids stay mostly under
+    the 13-bit field."""
+    nont = df > tiny_cap
+    Tp = int(nont.sum())
+    remap = np.full(len(df), -1, np.int64)
+    order = np.argsort(-df[nont], kind="stable")
+    ids = np.empty(Tp, np.int64)
+    ids[order] = np.arange(Tp)
+    remap[nont] = ids
+    return remap, Tp
+
+
+def _pack_doc_rows_delta16(
+    dt: np.ndarray,
+    di: np.ndarray,
+    remap: np.ndarray,
+    idf: np.ndarray,
+    norm: np.ndarray,
+    lanes: int = 128,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Delta-encoded 16-bit pass-2 rows from left-packed doc arrays
+    ``dt``/``di`` [N, L] (tiny terms already dropped), the dense remap, the
+    idf and the per-doc float32 norms ``k1 * (1 - b + b * dl / avgdl)``.
+
+    Per document the surviving terms are sorted by remapped id and stored
+    as gaps: one uint16 slot ``(gap13 << 3) | min(tf, 7)`` per posting,
+    preceded by ``gap // 8191`` continuation slots (tf = 0, gap field 8191)
+    when a gap overflows the field. tf is recovered exactly from the
+    impact: ``x = imp / idf = tf / (tf + norm)``.
+
+    Returns (flat [NR, lanes] uint16, off [N] int32 slot offsets,
+    lens [N] uint8|int32 slot counts, r2 covering rows).
+    """
+    N, L = dt.shape
+    valid = dt >= 0
+    rm = np.where(valid, remap[np.maximum(dt, 0)], np.int64(2**62))
+    if valid.any() and int(rm[valid].min()) < 0:
+        raise ValueError("delta16 rows require tiny terms dropped first")
+    order = np.argsort(rm, axis=1, kind="stable")
+    rm_s = np.take_along_axis(rm, order, axis=1)
+    di_s = np.take_along_axis(di, order, axis=1)
+    orig_s = np.take_along_axis(dt, order, axis=1)
+    v_s = rm_s < 2**62
+
+    idf_s = idf[np.maximum(orig_s, 0)].astype(np.float64)
+    x = np.where(v_s, di_s / np.maximum(idf_s, 1e-30), 0.0)
+    x = np.clip(x, 0.0, 1.0 - 1e-9)
+    tf = np.rint(norm[:, None] * x / (1.0 - x)).astype(np.int64)
+    tf = np.clip(tf, 1, DELTA16_TF_CAP)
+
+    prev = np.concatenate(
+        [np.zeros((N, 1), np.int64), rm_s[:, :-1]], axis=1)
+    gaps = np.where(v_s, rm_s - np.where(v_s, prev, 0), 0)
+    # the first valid slot's gap is the id itself
+    n_cont = gaps // DELTA16_MAX_GAP
+    rem = gaps - n_cont * DELTA16_MAX_GAP  # in [0, MAX_GAP)
+    slots_per = np.where(v_s, 1 + n_cont, 0)
+    lens = slots_per.sum(axis=1)
+    max_seg = int(lens.max(initial=0))
+
+    off, nr = _place_length_groups(lens, lanes, max(max_seg, 1))
+    if off.max(initial=0) + max_seg >= 2**31:
+        raise ValueError("delta16 layout exceeds int32 offsets; shard more")
+
+    flat = np.full(nr * lanes, 0, dtype=np.uint16)
+    # slot stream: per posting, n_cont continuations then the real slot
+    pv, jv = np.nonzero(v_s)
+    reps = slots_per[pv, jv]
+    tot = int(reps.sum())
+    pidx = np.repeat(np.arange(len(pv)), reps)
+    ends = np.cumsum(reps)
+    is_real = np.arange(tot) == np.repeat(ends - 1, reps)
+    vals = np.where(
+        is_real,
+        (rem[pv, jv][pidx].astype(np.uint32) << 3)
+        | tf[pv, jv][pidx].astype(np.uint32),
+        np.uint32(DELTA16_CONT)).astype(np.uint16)
+    # slot position within its doc (slots are doc-major)
+    doc_of_slot = pv[pidx]
+    first_global = np.repeat(np.cumsum(lens) - lens, lens.astype(np.int64))
+    slot_in_doc = np.arange(tot) - first_global
+    flat[off[doc_of_slot] + slot_in_doc] = vals
+    r2 = 1 if max_seg <= lanes else (max_seg + lanes - 1) // lanes
+    lens_dtype = np.uint8 if max_seg < 256 else np.int32
+    return (flat.reshape(nr, lanes), off.astype(np.int32),
+            lens.astype(lens_dtype), r2)
+
+
+def _drop_tiny_slots(dt: np.ndarray, di: np.ndarray, df: np.ndarray,
+                     tiny_cap: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Left-compacted copies of the padded doc arrays without the slots of
+    tiny terms (df <= tiny_cap): the host scores those exactly, so the
+    pass-2 rows need not carry them."""
+    keep = dt >= 0
+    keep[keep] = df[dt[keep]] > tiny_cap
+    new_len = keep.sum(axis=1)
+    ld = max(int(new_len.max(initial=0)), 1)
+    n = dt.shape[0]
+    dt2 = np.full((n, ld), -1, dtype=dt.dtype)
+    di2 = np.zeros((n, ld), dtype=di.dtype)
+    rows = np.nonzero(keep)[0]
+    cols = (np.cumsum(keep, axis=1) - 1)[keep]
+    dt2[rows, cols] = dt[keep]
+    di2[rows, cols] = di[keep]
+    return dt2, di2
+
+
+def _pow2_width(n: int, start: int) -> int:
+    """The least ``start * 2**i`` that is at least ``n``."""
+    w = start
+    while w < n:
+        w *= 2
+    return w
+
+
+class RetrievalEngine:
+    """BM25 query execution over one language's index (text field, plus an
+    optional title field for entity-boosted queries in exhaustive mode).
+
+    ``doc_chunk`` (exhaustive) scans the document axis in pieces of that
+    size (a multiple of 512) with a running top-k, bounding the score
+    buffer at ``[Q, doc_chunk]``; by default the whole axis is scored at
+    once. The pruned knobs keep the reference's names and defaults:
+    ``rare_terms`` pass-1 terms per query, each read to ``posting_budget
+    // rare_terms`` postings, terms above ``df_cap`` skipped in pass 1,
+    ``n_candidates`` rescored; ``compact_rows`` moves the terms with df <=
+    ``min(tiny_df_cap, per-term cap, df_cap)`` to the host-exact block,
+    capped at ``tiny_width`` entries per query and shipped as log codes
+    (``tiny_pack``), float16 (``tiny_f16``) or float32. The query-block
+    widths are powers of two that never shrink below ``tiny_cols_floor``,
+    ``d16_width_floor`` or an earlier batch's width; they set P and so C =
+    min(n_candidates, P), as in the reference.
     """
 
     def __init__(
@@ -77,33 +253,113 @@ class RetrievalEngine:
         doc_chunk: Optional[int] = None,
         mode: str = "exhaustive",
         device="cuda",
+        mesh=None,
+        rare_terms: int = 12,
+        posting_budget: int = 4096,
+        df_cap: Optional[int] = None,
+        n_candidates: int = 512,
+        compact_rows: bool = True,
+        tiny_df_cap: int = 64,
+        tiny_width: int = 0,
+        tiny_pack: bool = True,
+        tiny_f16: bool = True,
+        row_layout: str = "auto",
+        tiny_cols_floor: int = 0,
+        d16_width_floor: int = 0,
+        topc_recall: float = 0.0,
+        align_windows: bool = True,
+        deep_terms: int = 0,
+        deep_cap: int = 0,
     ):
-        if mode == "pruned":
-            raise NotImplementedError(
-                "mode='pruned' (two-pass BM25 with the delta16 rescore "
-                "kernel) is the next slice of kbner_tpu_torch; use "
-                "mode='exhaustive'")
-        if mode != "exhaustive":
+        if mode not in ("exhaustive", "pruned"):
             raise ValueError(f"unknown engine mode {mode!r}")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            raise NotImplementedError(
+                "a sharded engine (mesh) is not ported yet (ROADMAP A4)")
+        if device is False:
+            raise NotImplementedError(
+                "device=False (host arrays for a MixEngine) is not ported "
+                "yet (ROADMAP A4)")
+        self.mode = mode
         self.text_index = text_index
         self.title_index = title_index
         self.store = store
         self.doc_chunk = doc_chunk
+        if mode == "pruned":
+            self._init_pruned(
+                rare_terms, posting_budget, df_cap, n_candidates,
+                compact_rows, tiny_df_cap, tiny_width, tiny_pack, tiny_f16,
+                row_layout, tiny_cols_floor, d16_width_floor, topc_recall,
+                align_windows, deep_terms, deep_cap)
+        self.device = resolve_device(device)
         # field name -> device (doc_terms_t [Ld, N] int32,
-        # doc_impacts_t [Ld, N] float32), the kernel's doc operands
+        # doc_impacts_t [Ld, N] float32), the exhaustive kernel's operands
         self.fields = {}
         self._upload()
 
+    def _init_pruned(self, rare_terms, posting_budget, df_cap, n_candidates,
+                     compact_rows, tiny_df_cap, tiny_width, tiny_pack,
+                     tiny_f16, row_layout, tiny_cols_floor, d16_width_floor,
+                     topc_recall, align_windows, deep_terms,
+                     deep_cap) -> None:
+        """The pruned knobs and the values derived from them, as the
+        reference derives them; what a later slice ports raises here."""
+        idx = self.text_index
+        if self.title_index is not None:
+            raise NotImplementedError(
+                "a title index in pruned mode (packed32 title rows and a "
+                "title CSR) is not ported yet (ROADMAP A4)")
+        if deep_terms or deep_cap:
+            raise NotImplementedError(
+                "deep_terms/deep_cap are not ported yet (ROADMAP A4)")
+        if topc_recall > 0.0:
+            raise NotImplementedError(
+                "topc_recall > 0 (approx_max_k) has no torch counterpart; "
+                "the exact top-C is the ported path (ROADMAP A4)")
+        if row_layout not in ("auto", "delta16", "packed32"):
+            raise ValueError(f"unknown row_layout {row_layout!r}")
+        d16_ok = idx.doc_dl is not None and idx.params.quantize_norms
+        if row_layout == "delta16" and not d16_ok:
+            raise ValueError(
+                "row_layout='delta16' needs an index built with stored "
+                "doc lengths and quantize_norms=True")
+        if row_layout == "packed32" or not d16_ok:
+            raise NotImplementedError(
+                "packed32 pass-2 rows (row_layout='packed32', or 'auto' on "
+                "an index without stored doc lengths and quantized norms) "
+                "are not ported yet (ROADMAP A4)")
+        self.rare_terms = rare_terms
+        self.posting_budget = posting_budget
+        self.df_cap = df_cap if df_cap is not None else max(
+            256, idx.n_docs // 20)
+        self.n_candidates = n_candidates
+        self.per_term_cap = max(1, posting_budget // rare_terms)
+        self.compact_rows = compact_rows
+        self.tiny_cap = (min(tiny_df_cap, self.per_term_cap, self.df_cap)
+                         if compact_rows else 0)
+        self.tiny_width = tiny_width
+        self._want_tiny_pack = tiny_pack
+        self.tiny_f16 = tiny_f16
+        self._csr_aligned = align_windows
+        # never-shrink width floors of the query blocks
+        self._d16_w_floor = d16_width_floor
+        self._t_cols_floor = tiny_cols_floor
+        self._tiny_pack: Optional[Tuple[int]] = None  # (docbits,)
+
+    # -- device residency -----------------------------------------------------
+
     def _upload(self) -> None:
         """Pad the doc axis of every field to one shared multiple of
-        ``_DOC_PAD``, transpose to ``[Ld, N]`` and put it on the device."""
+        ``_DOC_PAD`` and put the mode's arrays on the device."""
         fields = {"text": self.text_index}
         if self.title_index is not None:
             fields["title"] = self.title_index
         n_padded = max(idx.doc_terms.shape[0] for idx in fields.values())
         n_padded = -(-n_padded // _DOC_PAD) * _DOC_PAD
         self.n_padded = n_padded
+        if self.mode == "pruned":
+            self._upload_pruned()
+            return
         for name, idx in fields.items():
             n = idx.doc_terms.shape[0]
             dt = np.pad(idx.doc_terms, ((0, n_padded - n), (0, 0)),
@@ -112,6 +368,262 @@ class RetrievalEngine:
             self.fields[name] = (
                 torch.from_numpy(np.ascontiguousarray(dt.T)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(di.T)).to(self.device))
+
+    def _upload_pruned(self) -> None:
+        """Delta16 pass-2 rows (int16 slots, int32 offsets and lengths,
+        uint8 norm codes) and the capped packed CSR of the text field."""
+        idx = self.text_index
+        n_padded = self.n_padded
+        if self.compact_rows and self._want_tiny_pack:
+            # one int32 per tiny entry, (code << docbits) | doc, when the
+            # doc id leaves at least 9 code bits
+            docbits = max(int(np.ceil(np.log2(max(n_padded, 2)))), 1)
+            if 32 - docbits >= 9:
+                self._tiny_pack = (docbits,)
+        n = idx.doc_terms.shape[0]
+        dt = np.pad(idx.doc_terms, ((0, n_padded - n), (0, 0)),
+                    constant_values=-1)
+        di = np.pad(idx.doc_impacts, ((0, n_padded - n), (0, 0)))
+        df = idx.csr[3]
+        if self.compact_rows:
+            dt, di = _drop_tiny_slots(dt, di, df, self.tiny_cap)
+        remap, self.n_nontiny = _nontiny_remap(df, self.tiny_cap)
+        self._d16_remap = remap
+        p = idx.params
+        dl = np.zeros(n_padded, np.int64)
+        dl[: len(idx.doc_dl)] = idx.doc_dl
+        norm = (p.k1 * (1.0 - p.b + p.b * dl / idx.avgdl)).astype(np.float32)
+        lut_max = int(dl.max(initial=0)) + 1
+        lut = np.fromiter((long_to_int4(i) for i in range(lut_max)),
+                          np.uint8, count=lut_max)
+        flat, off, lens, r2 = _pack_doc_rows_delta16(dt, di, remap, idx.idf,
+                                                      norm)
+        self.r2 = r2
+        self.max_seg = int(lens.max(initial=0))
+        self._row_meta = (float(p.k1), float(p.b), float(idx.avgdl))
+
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+        # the rows are stored as int16 and read as uint16: the kernel takes
+        # the raw 16 bits, the plain version widens with & 0xFFFF
+        self.rows = (put(flat.view(np.int16)), put(off),
+                     put(lens.astype(np.int32)), put(lut[dl]))
+        off32, packed, clo, cstep = idx.csr_rows_packed(
+            cap=self.per_term_cap, min_df=self.tiny_cap,
+            align_windows=self._csr_aligned)
+        self._csr_scale = (clo, cstep)
+        self.csr = (put(off32), put(packed))
+
+    # -- host query preparation (pruned) --------------------------------------
+
+    def _select_rare_terms(self, q_terms: np.ndarray,
+                           df_floor: int = 0) -> np.ndarray:
+        """Per query: the ``rare_terms`` lowest-df in-vocab terms with
+        df_floor < df <= df_cap (pass-1 term selection). With compact rows
+        ``df_floor`` leaves out the tiny terms, whose exact sums arrive in
+        the host block."""
+        df = self.text_index.csr[3]
+        big = np.iinfo(np.int64).max
+        term_df = np.where(q_terms >= 0, df[np.maximum(q_terms, 0)], big)
+        term_df = np.where((term_df <= self.df_cap) & (term_df > df_floor),
+                           term_df, big)
+        order = np.argsort(term_df, axis=1, kind="stable")[:, :self.rare_terms]
+        rare = np.take_along_axis(q_terms, order, axis=1).astype(np.int32)
+        rare[np.take_along_axis(term_df, order, axis=1) == big] = -1
+        return rare
+
+    def _gather_tiny_exact(self, q_terms: np.ndarray, q_weights: np.ndarray
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Host exact block of the tiny terms: per query, every posting of
+        every tiny query term, deduplicated by doc with impact sums and
+        weighted sums (float64 sums, docs in ascending order). Returns
+        (doc [Q, T] int32, imp [Q, T], exact [Q, T]) with -1/0 padding, T a
+        multiple of 128."""
+        offsets, p_doc, p_imp, df = self.text_index.csr
+        n_docs = self.text_index.n_docs
+        Q = q_terms.shape[0]
+        is_tiny = (q_terms >= 0) & (df[np.maximum(q_terms, 0)]
+                                    <= self.tiny_cap)
+        qidx, tpos = np.nonzero(is_tiny)
+        if len(qidx) == 0:
+            z = np.zeros((Q, 0), np.float32)
+            return np.full((Q, 0), -1, np.int32), z, z
+        terms = q_terms[qidx, tpos].astype(np.int64)
+        ws = q_weights[qidx, tpos].astype(np.float32)
+        dfs = df[terms]
+        total = int(dfs.sum())
+        cum = np.cumsum(dfs) - dfs
+        flat = (np.repeat(offsets[terms], dfs)
+                + (np.arange(total) - np.repeat(cum, dfs)))
+        docs = p_doc[flat].astype(np.int64)
+        imps = p_imp[flat]
+        key = np.repeat(qidx.astype(np.int64), dfs) * n_docs + docs
+        uniq, inv = np.unique(key, return_inverse=True)
+        s_imp = np.bincount(inv, weights=imps).astype(np.float32)
+        s_ex = np.bincount(inv, weights=imps * np.repeat(ws, dfs)).astype(
+            np.float32)
+        uq = uniq // n_docs
+        counts = np.bincount(uq, minlength=Q)
+        T = ((int(counts.max(initial=0)) + 127) // 128) * 128
+        pos = np.arange(len(uniq)) - np.repeat(
+            np.cumsum(counts) - counts, counts)
+        out_doc = np.full((Q, T), -1, np.int32)
+        out_imp = np.zeros((Q, T), np.float32)
+        out_ex = np.zeros((Q, T), np.float32)
+        out_doc[uq, pos] = (uniq % n_docs).astype(np.int32)
+        out_imp[uq, pos] = s_imp
+        out_ex[uq, pos] = s_ex
+        return out_doc, out_imp, out_ex
+
+    def _tiny_block(self, q_terms: np.ndarray, q_weights: np.ndarray
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """The tiny exact block, capped at ``tiny_width`` entries per query
+        (the largest exact sums are kept)."""
+        t_doc, _, t_ex = self._gather_tiny_exact(q_terms, q_weights)
+        if self.tiny_width and t_doc.shape[1] > self.tiny_width:
+            W = self.tiny_width
+            idx = np.argpartition(-t_ex, W - 1, axis=1)[:, :W]
+            t_doc = np.take_along_axis(t_doc, idx, axis=1)
+            t_ex = np.take_along_axis(t_ex, idx, axis=1)
+        return t_doc, t_ex
+
+    def _remap_queries_d16(self, qt: np.ndarray, qw: np.ndarray
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """The text field's pass-2 query block (the reference's
+        ``_text_query_block`` for delta16 rows): terms remapped into the
+        rows' dense id space with idf folded into the weights, left-packed
+        (tiny and OOV slots dropped) to a power-of-two width of at least
+        8."""
+        Q, L = qt.shape
+        safe = np.maximum(qt, 0)
+        q2 = np.where(qt >= 0, self._d16_remap[safe], -1)
+        w2 = (qw * self.text_index.idf[safe]).astype(np.float32)
+        valid = q2 >= 0
+        W = min(_pow2_width(int(valid.sum(axis=1).max(initial=1)), 8), L)
+        W = max(W, min(self._d16_w_floor, L))
+        self._d16_w_floor = max(self._d16_w_floor, W)
+        out_t = np.full((Q, W), -1, np.int32)
+        out_w = np.zeros((Q, W), np.float32)
+        rows, _ = np.nonzero(valid)
+        pos = (np.cumsum(valid, axis=1) - 1)[valid]
+        out_t[rows, pos] = q2[valid]
+        out_w[rows, pos] = w2[valid]
+        return out_t, out_w
+
+    def _pack_queries(self, q_terms: np.ndarray, q_weights: np.ndarray):
+        """Host half of a pruned search: the rare-term block, the tiny
+        exact block in its wire encoding (power-of-two width, never
+        shrinking), and the text query block. Separate arrays, not the
+        reference's single upload. Returns (rare, tiny, (qt2, qw2)) where
+        ``tiny`` is None, ``("pack", enc int64, lo, step)``, ``("f16",
+        doc, ex float16)`` or ``("f32", doc, ex float32)``."""
+        df_floor = self.tiny_cap if self.compact_rows else 0
+        rare = self._select_rare_terms(q_terms, df_floor=df_floor)
+        tiny = None
+        if self.compact_rows:
+            t_doc, t_ex = self._tiny_block(q_terms, q_weights)
+            t_cols = t_doc.shape[1]
+            if t_cols:
+                bucket = max(_pow2_width(t_cols, 256), self._t_cols_floor)
+                self._t_cols_floor = max(self._t_cols_floor, bucket)
+                pad = bucket - t_cols
+                t_doc = np.pad(t_doc, ((0, 0), (0, pad)), constant_values=-1)
+                t_ex = np.pad(t_ex, ((0, 0), (0, pad)))
+                if self._tiny_pack is not None:
+                    tiny = self._encode_tiny_pack(t_doc, t_ex)
+                elif self.tiny_f16:
+                    tiny = ("f16", t_doc, t_ex.astype(np.float16))
+                else:
+                    tiny = ("f32", t_doc, t_ex)
+        return rare, tiny, self._remap_queries_d16(q_terms, q_weights)
+
+    def _encode_tiny_pack(self, t_doc: np.ndarray, t_ex: np.ndarray):
+        """One 32-bit word per tiny entry, ``(log_code << docbits) | doc``,
+        on a per-batch log scale from the batch's exact-sum range; pads
+        are code 0 with an all-ones doc."""
+        docbits = self._tiny_pack[0]
+        levels = (1 << (32 - docbits)) - 2
+        p = t_ex > 0
+        if p.any():
+            lo = float(np.log(float(t_ex[p].min())))
+            hi = float(np.log(float(t_ex[p].max())))
+            step = max((hi - lo) / max(levels, 1), 1e-12)
+        else:
+            lo, step = 0.0, 1.0
+        code = np.zeros(t_ex.shape, np.uint32)
+        code[p] = np.clip(np.rint((np.log(t_ex[p]) - lo) / step),
+                          0, levels).astype(np.uint32) + 1
+        docmask = (1 << docbits) - 1
+        enc = (code << docbits) | np.where(
+            t_doc >= 0, t_doc, docmask).astype(np.uint32)
+        # the scale travels as float32, as in the reference's upload
+        return ("pack", enc.astype(np.int64), float(np.float32(lo)),
+                float(np.float32(step)))
+
+    # -- search ---------------------------------------------------------------
+
+    def _unpack_tiny(self, tiny) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device decode of the tiny block: (doc [Q, T] int64 with -1
+        pads, exact sums [Q, T] float32)."""
+        kind = tiny[0]
+        if kind == "pack":
+            _, enc, t_lo, t_step = tiny
+            enc = torch.from_numpy(enc).to(self.device)
+            docbits = self._tiny_pack[0]
+            d = enc & ((1 << docbits) - 1)
+            code = (enc >> docbits).to(torch.float32)
+            ex = torch.where(code > 0,
+                             torch.exp(t_lo + (code - 1.0) * t_step), 0.0)
+            return torch.where(ex > 0, d, -1), ex
+        _, t_doc, t_ex = tiny
+        return (torch.from_numpy(t_doc).to(self.device).long(),
+                torch.from_numpy(t_ex).to(self.device).to(torch.float32))
+
+    def _device_queries(self, packed):
+        """One batch's pruned-search operands on the device, from the
+        output of :meth:`_pack_queries`: the pooled pass-1 keys [Q, P]
+        int64 (rare-term windows, then the tiny block's keys), the delta16
+        text field, the decoded tiny block (or None, None) and the pass-1
+        keyword arguments of ``bm25_pruned_topk_packed`` (those
+        ``pass2_operands`` takes too)."""
+        rare, tiny, (qt2, qw2) = packed
+        csr_lo, csr_step = self._csr_scale
+        # one ranking scale for every key: the CSR's, with ln(64) of
+        # headroom so summed tiny contributions do not clip to code 255
+        rank_lo = csr_lo
+        rank_step = csr_step + float(np.log(64.0)) / 254.0
+        key_blocks = [gather_pruned_candidate_keys(
+            torch.from_numpy(rare).to(self.device), *self.csr,
+            self.per_term_cap, reencode=True, lo_src=csr_lo,
+            step_src=csr_step, lo_dst=rank_lo, step_dst=rank_step,
+            aligned=self._csr_aligned)]
+        t_doc = t_ex = None
+        if tiny is not None:
+            t_doc, t_ex = self._unpack_tiny(tiny)
+            code = torch.clamp(torch.round(
+                (torch.log(torch.clamp(t_ex, min=1e-30)) - rank_lo)
+                / rank_step) + 1.0, 1.0, 255.0).long()
+            ok = (t_doc >= 0) & (t_ex > 0)
+            key_blocks.append(torch.where(ok, (t_doc << 8) | code, KEY_PAD))
+        field = (torch.from_numpy(qt2).to(self.device),
+                 torch.from_numpy(qw2).to(self.device), *self.rows,
+                 *self._row_meta)
+        kwargs = dict(n_candidates=self.n_candidates,
+                      max_dup_shifts=self.rare_terms + (tiny is not None),
+                      imp_lo=rank_lo, imp_step=rank_step,
+                      ragged_rows=(self.r2,))
+        return torch.cat(key_blocks, dim=1), field, (t_doc, t_ex), kwargs
+
+    def _search_pruned(self, q_terms: np.ndarray, q_weights: np.ndarray,
+                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pooled pass 1 and pass 2 of one batch on the device: scores
+        [Q, k] float32 and ids [Q, k] int64 (-1 where fewer score)."""
+        keys, field, (t_doc, t_ex), kwargs = self._device_queries(
+            self._pack_queries(q_terms, q_weights))
+        return bm25_pruned_topk_packed(
+            keys, (field,), n_real_docs=self.text_index.n_docs, k=k,
+            tiny_doc=t_doc, tiny_ex=t_ex, **kwargs)
 
     def search_encoded(
         self,
@@ -122,6 +634,13 @@ class RetrievalEngine:
         title_weights: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k over pre-encoded queries. Returns (scores, ids) [Q, k]."""
+        if self.mode == "pruned":
+            if title_terms is not None:
+                raise ValueError("engine built without a title index")
+            scores, ids = self._search_pruned(
+                np.asarray(q_terms), np.asarray(q_weights), k)
+            return scores.cpu().numpy(), ids.cpu().numpy()
+
         def put(x, dtype):
             return torch.as_tensor(np.asarray(x, dtype=dtype),
                                    device=self.device)
@@ -136,6 +655,12 @@ class RetrievalEngine:
                            *self.fields["title"]))
         scores, ids = bm25_topk(fields, k=k, doc_chunk=self.doc_chunk)
         return scores.cpu().numpy(), ids.cpu().numpy()
+
+    def search_stream(self, batches, k: int = 10, **kwargs):
+        """The reference's pipelined stream of batches is not ported."""
+        raise NotImplementedError(
+            "search_stream (the pipelined pruned stream) is not ported yet "
+            "(ROADMAP A4); call search_encoded per batch")
 
     def search(
         self,
@@ -169,7 +694,7 @@ class RetrievalEngine:
     def _materialize(self, scores: np.ndarray, ids: np.ndarray
                      ) -> List[List[RetrievedDoc]]:
         """Result records per query; padding docs, non-matches (score <= 0)
-        and the -1 fill of a short chunked top-k are dropped."""
+        and the -1 fill of a short top-k are dropped."""
         results: List[List[RetrievedDoc]] = []
         n_real = self.text_index.n_docs
         for qi in range(ids.shape[0]):

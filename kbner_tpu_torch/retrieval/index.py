@@ -38,6 +38,43 @@ OOV_TERM = -2  # query term absent from the index vocabulary
 log = logging.getLogger("kbner_tpu_torch")
 
 
+def log_quantize(imps: np.ndarray, bits: int
+                 ) -> Tuple[np.ndarray, float, float]:
+    """Log-domain impact quantization: ``(codes, lo, step)``. Code 0 is
+    impact 0 (padding); positive impacts map to codes ``1 .. 2**bits - 1``
+    linearly in log space. Dequantize with ``exp(lo + (code - 1) * step)``.
+    """
+    pos = imps > 0
+    codes = np.zeros(imps.shape, dtype=np.uint16 if bits <= 16 else np.uint32)
+    if not pos.any():
+        return codes, 0.0, 1.0
+    logs = np.log(imps[pos])
+    lo = float(logs.min())
+    levels = (1 << bits) - 2
+    step = max((float(logs.max()) - lo) / max(levels, 1), 1e-12)
+    codes[pos] = np.clip(
+        np.rint((logs - lo) / step), 0, levels).astype(codes.dtype) + 1
+    return codes, lo, step
+
+
+def pack_postings(p_doc: np.ndarray, p_imp: np.ndarray, lanes: int = 128,
+                  guard_rows: int = 32) -> Tuple[np.ndarray, float, float]:
+    """Row-block postings into one int32 word each, ``(code8 << 24) |
+    doc_id`` (doc ids must fit 24 bits); padding slots are -1. Returns
+    (packed [NR, lanes] int32, lo, step) of the 8-bit log scale."""
+    nnz = len(p_doc)
+    if nnz and int(p_doc.max()) >= 0xFFFFFF:
+        raise ValueError(
+            f"doc id {int(p_doc.max())} needs > 24 bits; shard the index "
+            "(per-shard ids are local)")
+    codes, lo, step = log_quantize(p_imp, bits=8)
+    nr = (nnz + lanes - 1) // lanes + guard_rows
+    packed = np.full((nr * lanes,), -1, dtype=np.int32)
+    packed[:nnz] = ((codes.astype(np.uint32) << 24)
+                    | p_doc.astype(np.uint32)).view(np.int32)
+    return packed.reshape(nr, lanes), lo, step
+
+
 def long_to_int4(i: int) -> int:
     """Lucene SmallFloat.longToInt4: lossy 4-mantissa-bit integer encoding."""
     if i < 0:
@@ -104,7 +141,82 @@ class BM25Index:
         self.avgdl = avgdl
         self.params = params
         self.doc_dl = doc_dl  # per-doc (quantized) length in the norm
+        self._csr = None  # lazy (offsets, postings_doc, postings_imp, df)
         self._vocab_keys = None  # lazy sorted key array for batch lookup
+
+    # -- term-major postings (pass 1 of the pruned engine) --------------------
+
+    @property
+    def csr(self):
+        """Term-major CSR postings (offsets [V+1] int64, doc ids [NNZ]
+        int32, impacts [NNZ] float32, df [V] int64), built lazily from the
+        padded doc arrays. Postings within a term are impact-descending
+        (ties in doc order), so a capped prefix holds the term's
+        highest-impact documents."""
+        if self._csr is None:
+            valid = self.doc_terms >= 0
+            terms = self.doc_terms[valid]
+            docs = np.nonzero(valid)[0].astype(np.int32)
+            imps = self.doc_impacts[valid].astype(np.float32)
+            order = np.lexsort((-imps, terms))
+            terms_s = terms[order]
+            df = np.bincount(terms_s, minlength=len(self.vocab))
+            offsets = np.zeros(len(self.vocab) + 1, dtype=np.int64)
+            np.cumsum(df, out=offsets[1:])
+            self._csr = (offsets, docs[order], imps[order], df.astype(np.int64))
+        return self._csr
+
+    def csr_capped(self, cap: int, min_df: int = 0):
+        """CSR truncated to each term's ``cap`` highest-impact postings,
+        dropping terms with df <= ``min_df`` entirely (pass 1 never reads
+        past its window, and never looks up the tiny terms the host scores
+        exactly). Returns (offsets int64 [V+1], doc ids, impacts)."""
+        offsets, p_doc, p_imp, df = self.csr
+        V = len(self.vocab)
+        if (cap <= 0 or (df <= cap).all()) and min_df <= 0:
+            return offsets, p_doc, p_imp
+        starts = offsets[:-1]
+        pos = np.arange(len(p_doc), dtype=np.int64) - np.repeat(starts, df)
+        df_c = df.copy()
+        keep = np.ones(len(p_doc), bool)
+        if cap > 0:
+            keep &= pos < cap
+            np.minimum(df_c, cap, out=df_c)
+        if min_df > 0:
+            tiny = df <= min_df
+            keep &= ~np.repeat(tiny, df)
+            df_c[tiny] = 0
+        off_c = np.zeros(V + 1, dtype=np.int64)
+        np.cumsum(df_c, out=off_c[1:])
+        return off_c, p_doc[keep], p_imp[keep]
+
+    def csr_rows_packed(self, lanes: int = 128, guard_rows: int = 32,
+                        cap: int = 0, min_df: int = 0,
+                        align_windows: bool = False):
+        """Packed row-blocked postings, one int32 ``(impact8 << 24) |
+        doc_id`` per posting, of :meth:`csr_capped`. ``align_windows`` pads
+        every term's range to whole ``lanes``-wide rows, so each pass-1
+        window starts on a row boundary and needs ``ceil(cap / lanes)``
+        covering rows instead of ``cap // lanes + 1``. Returns (offsets
+        int32 [V+1], packed [NR, lanes] int32, lo, step)."""
+        offsets, p_doc, p_imp = self.csr_capped(cap, min_df=min_df)
+        if not align_windows:
+            return (offsets.astype(np.int32),) + pack_postings(
+                p_doc, p_imp, lanes=lanes, guard_rows=guard_rows)
+        df = np.diff(offsets)
+        padded = ((df + lanes - 1) // lanes) * lanes
+        new_off = np.zeros(len(offsets), dtype=np.int64)
+        np.cumsum(padded, out=new_off[1:])
+        total = int(new_off[-1])
+        codes, lo, step = log_quantize(p_imp.astype(np.float32), bits=8)
+        nr = (total + lanes - 1) // lanes + guard_rows
+        packed = np.full((nr * lanes,), -1, dtype=np.int32)
+        pos = (np.repeat(new_off[:-1], df)
+               + (np.arange(len(p_doc)) - np.repeat(offsets[:-1], df)))
+        packed[pos] = ((codes.astype(np.uint32) << 24)
+                       | p_doc.astype(np.uint32)).view(np.int32)
+        return (new_off.astype(np.int32), packed.reshape(nr, lanes),
+                lo, step)
 
     # -- construction ---------------------------------------------------------
 
@@ -273,10 +385,16 @@ class BM25Index:
             self._vocab_keys = keys[order]
             self._vocab_ids = ids[order]
         keys = self._vocab_keys
-        # astype(str), not astype(keys.dtype): a fixed-width cast would cut
-        # a token longer than every key down to a key it only begins with
-        toks = tokens.astype(str)
-        pos = np.searchsorted(keys, toks)
+        # the fixed-width cast of the reference: a token longer than every
+        # key is cut to the key width, so it can match a key it begins with
+        try:
+            toks = tokens.astype(keys.dtype) if keys.dtype.kind == "U" \
+                else tokens
+            pos = np.searchsorted(keys, toks)
+        except (TypeError, ValueError):  # mixed key types: dict fallback
+            return np.fromiter(
+                (self.vocab.get(t, OOV_TERM) for t in tokens), np.int64,
+                count=len(tokens))
         pos_c = np.minimum(pos, len(keys) - 1)
         hit = keys[pos_c] == toks
         return np.where(hit, self._vocab_ids[pos_c], OOV_TERM)

@@ -93,3 +93,71 @@ def sentence_queries(
     width = min(q_len, docs.shape[1])
     q[:, :width] = docs[ids, :width]
     return q, ids
+
+
+def synth_delta16_docs(
+    seed: int, n_docs: int = 64, max_terms: int = 10, vocab: int = 50_000,
+    long_doc: int = 0,
+):
+    """Inputs of the delta16 row packer (``engine._pack_doc_rows_delta16``)
+    for edge cases of the rescore kernel: ``n_docs`` docs of up to
+    ``max_terms`` distinct terms over a ``vocab``-term space whose remap
+    keeps its order (every term non-tiny, equal df), so the ids of a doc
+    spread over the whole space and gaps overflow the 13-bit field
+    (continuation slots); tf 1..6; with ``long_doc``, doc 1 holds that many
+    terms (a segment over 128 slots spans two rows). Norms (k1=1.2,
+    b=0.75) come from Lucene-quantized doc lengths. Returns (dt [N, L] int32, di [N, L]
+    float32, remap [V] int64, idf [V] float32, norm [N] float32,
+    norm_code [N] uint8, avgdl)."""
+    from .index import int4_to_long, long_to_int4
+
+    rng = np.random.RandomState(seed)
+    width = max(max_terms, long_doc)
+    dt = np.full((n_docs, width), -1, np.int32)
+    di = np.zeros((n_docs, width), np.float32)
+    idf = rng.uniform(0.5, 8.0, vocab).astype(np.float32)
+    dl = rng.randint(1, 300, n_docs)
+    code = np.asarray([long_to_int4(int(x)) for x in dl], np.uint8)
+    dlq = np.asarray([int4_to_long(int(c)) for c in code], np.int64)
+    avgdl = float(dl.mean())
+    norm = (1.2 * (1.0 - 0.75 + 0.75 * dlq / avgdl)).astype(np.float32)
+    for d in range(n_docs):
+        n = long_doc if (long_doc and d == 1) else rng.randint(
+            0, max_terms + 1)
+        terms = rng.choice(vocab, size=n, replace=False)
+        tfs = rng.randint(1, 7, size=n)
+        dt[d, :n] = terms
+        di[d, :n] = idf[terms] * tfs / (tfs + norm[d])
+    remap = np.arange(vocab, dtype=np.int64)
+    return dt, di, remap, idf, norm, code, avgdl
+
+
+def synth_rescore_operands(seed: int, Q: int, C: int, long_doc: int = 0,
+                           W: int = 16):
+    """A rescore batch over :func:`synth_delta16_docs` rows, as numpy
+    arrays: (q_terms [Q, W] int32, q_weights [Q, W] float32, cand [Q, C]
+    int32, flat [NR, 128] uint16, doc_off [N] int32, doc_len [N] int32,
+    norm_code [N] uint8, k1, b, avgdl, r2). A fifth of the candidates are
+    id 0 (where the engine puts invalid ones); with ``long_doc`` every
+    third is doc 1; each query holds up to W - 4 terms of its candidates,
+    one id that matches nothing likely, and -1 pads."""
+    from .engine import _pack_doc_rows_delta16
+
+    dt, di, remap, idf, norm, code, avgdl = synth_delta16_docs(
+        seed, long_doc=long_doc)
+    flat, off, lens, r2 = _pack_doc_rows_delta16(dt, di, remap, idf, norm)
+    rng = np.random.RandomState(seed)
+    cand = rng.randint(0, dt.shape[0], size=(Q, C)).astype(np.int32)
+    cand[rng.rand(Q, C) < 0.2] = 0
+    if long_doc:
+        cand[:, ::3] = 1
+    qt = np.full((Q, W), -1, np.int32)
+    for q in range(Q):
+        rows = dt[cand[q]]
+        pool = np.unique(remap[rows[rows >= 0]])
+        pick = rng.choice(pool, size=min(len(pool), W - 4), replace=False)
+        qt[q, :len(pick)] = pick
+        qt[q, W - 4] = rng.randint(0, len(remap))
+    qw = rng.uniform(0.5, 8.0, size=(Q, W)).astype(np.float32)
+    return (qt, qw, cand, flat, off, lens.astype(np.int32), code, 1.2, 0.75,
+            avgdl, r2)

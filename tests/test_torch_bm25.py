@@ -130,17 +130,15 @@ def test_index_build_and_queries_match_jax(quantize_norms):
 
 
 LOOKUP_DOCS = ["alpha extraordinary", "beta gamma"]
-# The one known difference from kbner_tpu's query-term lookup: it casts
-# query tokens to the key array's fixed width, so a token longer than every
-# key matches the key equal to its prefix; the port keeps whole tokens. The
-# parity test below leaves out only this query, and the test after it pins
-# both sides, so a fix in the reference shows there first.
+# kbner_tpu casts query tokens to the key array's fixed width, so a token
+# longer than every key matches the key equal to its prefix; the port
+# reproduces that.
 TRUNCATED_QUERY = "extraordinarylongword beta"
 
 
 @pytest.mark.parametrize("query", [
     "extraordinary beta", "alpha gamma zzz", "extra beta", "gamma gamma",
-    "Alpha, BETA!", ""])
+    "Alpha, BETA!", "", TRUNCATED_QUERY])
 def test_query_lookup_matches_jax(query):
     t = BM25Index.build(LOOKUP_DOCS, pad_docs_to=8)
     j = JIndex.build(LOOKUP_DOCS, pad_docs_to=8)
@@ -149,14 +147,16 @@ def test_query_lookup_matches_jax(query):
         np.testing.assert_array_equal(a, b)
 
 
-def test_query_term_longer_than_every_key_is_out_of_vocabulary():
-    """The port finds no term for "extraordinarylongword"; kbner_tpu
-    matches it to "extraordinary" (see TRUNCATED_QUERY)."""
+def test_query_term_longer_than_every_key_matches_its_prefix_key():
+    """Both packages map "extraordinarylongword" to "extraordinary", the
+    key it begins with that is as wide as the widest key."""
     t = BM25Index.build(LOOKUP_DOCS, pad_docs_to=8)
     qt, _ = t.encode_queries([TRUNCATED_QUERY], max_query_terms=4)
-    assert qt[0].tolist() == [t.vocab["beta"], -2, -2, -2]
+    assert sorted(qt[0].tolist()) == sorted(
+        [t.vocab["extraordinary"], t.vocab["beta"], -2, -2])
     j = JIndex.build(LOOKUP_DOCS, pad_docs_to=8)
     jq, _ = j.encode_queries([TRUNCATED_QUERY], max_query_terms=4)
+    assert sorted(jq[0].tolist()) == sorted(qt[0].tolist())
     assert j.vocab["extraordinary"] in jq[0].tolist()
 
 

@@ -1,5 +1,6 @@
-"""kbner_tpu_torch on the card: the CUDA kernel against its plain version,
-and retrieval and tagging on the card against the same on the CPU.
+"""kbner_tpu_torch on the card: the CUDA kernels against their plain
+versions, and retrieval (exhaustive and pruned) and tagging on the card
+against the same on the CPU.
 
 These tests need an NVIDIA GPU and skip without one. The machine with the
 card has no JAX, so run them there without the suite's conftest:
@@ -20,7 +21,9 @@ from kbner_tpu_torch.ops import bm25
 from kbner_tpu_torch.retrieval.engine import DocStore, RetrievalEngine
 from kbner_tpu_torch.retrieval.index import BM25Index
 from kbner_tpu_torch.retrieval.fusion import fuse_contexts
-from kbner_tpu_torch.retrieval.synth import sentence_queries, synth_wiki_docs
+from kbner_tpu_torch.retrieval.synth import (sentence_queries,
+                                             synth_rescore_operands,
+                                             synth_wiki_docs)
 from kbner_tpu_torch.serve import predict, request_record
 
 pytestmark = pytest.mark.cuda
@@ -107,6 +110,54 @@ def test_engine_on_card_matches_cpu(card, doc_chunk):
     gs, gi = gpu.search_encoded(qt, qw, k=10)
     assert bm25.bm25_score_block.launches > before
     _assert_same_topk(gs, gi, *cpu.search_encoded(qt, qw, k=10))
+
+
+@pytest.mark.parametrize("Q,C,long_doc", [
+    (5, 300, 0),       # ragged Q and C
+    (8, 128, 140),     # a segment over 128 slots: R2 = 2
+    (3, 77, 140),
+    (32, 1024, 0),     # the serve shape
+    (1, 1, 0),
+])
+def test_delta16_kernel_matches_plain(card, Q, C, long_doc):
+    """K2 against its plain version on rows with continuation slots, -1
+    query pads and invalid candidates at id 0."""
+    qt, qw, cand, flat, off, lens, nc, k1, b, avgdl, r2 = \
+        synth_rescore_operands(Q + C, Q, C, long_doc=long_doc)
+    assert r2 == (2 if long_doc else 1)
+    ops = [torch.from_numpy(x).to(card)
+           for x in (qt, qw, cand, flat.view(np.int16), off, lens, nc)]
+    before = bm25.delta16_rescore.launches
+    got = bm25.delta16_rescore(*ops, k1, b, avgdl, r2)
+    torch.cuda.synchronize()
+    assert bm25.delta16_rescore.launches == before + 1
+    want = bm25.delta16_rescore_ref(*ops, k1, b, avgdl, r2)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert (want > 0).any()
+
+
+def _pruned_engine(device):
+    docs = synth_wiki_docs(3000, vocab=4000, n_topics=40, seed=5)
+    vocab = {f"w{i}": i for i in range(4000)}
+    index = BM25Index.build_encoded(docs, vocab)
+    return docs, RetrievalEngine(
+        index, mode="pruned", device=device, rare_terms=16,
+        posting_budget=6144, n_candidates=1024, tiny_width=384,
+        tiny_pack=False, tiny_df_cap=128, tiny_cols_floor=512,
+        d16_width_floor=32)
+
+
+def test_pruned_engine_on_card_matches_cpu(card):
+    docs, gpu = _pruned_engine(card)
+    _, cpu = _pruned_engine("cpu")
+    q, _ = sentence_queries(docs, 32, 64, seed=3)
+    qt, qw = gpu.text_index.encode_queries(
+        [" ".join(f"w{t}" for t in r[r >= 0]) for r in q])
+    before = bm25.delta16_rescore.launches
+    gs, gi = gpu.search_encoded(qt, qw, k=10)
+    assert bm25.delta16_rescore.launches == before + 1
+    cs, ci = cpu.search_encoded(qt, qw, k=10)
+    _assert_same_topk(gs, gi, cs, ci)
 
 
 def test_tagging_on_card_matches_cpu(card):

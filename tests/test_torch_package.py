@@ -1,6 +1,6 @@
 """Package rules of the PyTorch port: it imports nothing of JAX or of
 kbner_tpu, its entry points run on the card unless the caller asks for the
-CPU, and the kernel wrapper hands CUDA tensors to the kernel only (the
+CPU, and each kernel wrapper hands CUDA tensors to its kernel only (the
 plain version is taken for CPU tensors and nowhere else).
 
 There is no card here: the CUDA branch is driven with meta tensors and a
@@ -25,7 +25,7 @@ from kbner_tpu_torch.models.tagger import SequenceTagger, TaggerConfig
 from kbner_tpu_torch.models.xlmr import XLMRConfig
 from kbner_tpu_torch.ops import _kernels, bm25
 from kbner_tpu_torch.retrieval.engine import RetrievalEngine
-from kbner_tpu_torch.retrieval.index import BM25Index
+from kbner_tpu_torch.retrieval.index import BM25Index, BM25Params
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "kbner_tpu_torch"
@@ -104,31 +104,92 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path, monkeypatch):
 
 
 def test_engine_modes_of_later_slices_raise():
-    index = BM25Index.build(["a b c"], pad_docs_to=8)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        RetrievalEngine(index, mode="pruned", device="cpu")
+    """The pruned engine's options that a later slice ports raise, each
+    naming its ROADMAP item; an unknown mode is a plain error."""
+    index = BM25Index.build(["a b c", "b c d", "c d e"], pad_docs_to=8)
+    title = BM25Index.build(["x", "y", "z"], pad_docs_to=8)
+    raw = BM25Index.build(["a b c"], params=BM25Params(quantize_norms=False),
+                          pad_docs_to=8)
+    for kwargs in (dict(mesh=object()), dict(title_index=title),
+                   dict(row_layout="packed32"), dict(deep_terms=2),
+                   dict(deep_cap=1024), dict(topc_recall=0.9),
+                   dict(device=False)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            RetrievalEngine(index, mode="pruned", **{"device": "cpu",
+                                                     **kwargs})
+    with pytest.raises(NotImplementedError, match="packed32"):
+        RetrievalEngine(raw, mode="pruned", device="cpu")  # auto layout
+    with pytest.raises(ValueError, match="quantize_norms"):
+        RetrievalEngine(raw, mode="pruned", row_layout="delta16",
+                        device="cpu")
+    engine = RetrievalEngine(index, mode="pruned", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        engine.search_stream([])
+    for fn in (bm25.bm25_pruned_topk, bm25.gather_pruned_candidates):
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            fn()
     with pytest.raises(ValueError, match="unknown engine mode"):
         RetrievalEngine(index, mode="fast", device="cpu")
 
 
-# -- the kernel wrapper ------------------------------------------------------------
+# -- the kernel wrappers -----------------------------------------------------------
 
-def _operands(dev, Q=3, Lq=4, Ld=5, N=7):
+def _k1_operands(dev, Q=3, Lq=4, Ld=5, N=7):
     return (torch.zeros(Q, Lq, dtype=torch.int32, device=dev),
             torch.zeros(Q, Lq, dtype=torch.float32, device=dev),
             torch.zeros(Ld, N, dtype=torch.int32, device=dev),
             torch.zeros(Ld, N, dtype=torch.float32, device=dev))
 
 
+def _k2_operands(dev, Q=3, W=4, C=7, NR=5, N=9):
+    return (torch.zeros(Q, W, dtype=torch.int32, device=dev),
+            torch.zeros(Q, W, dtype=torch.float32, device=dev),
+            torch.zeros(Q, C, dtype=torch.int32, device=dev),
+            torch.zeros(NR, 128, dtype=torch.int16, device=dev),
+            torch.zeros(N, dtype=torch.int32, device=dev),
+            torch.zeros(N, dtype=torch.int32, device=dev),
+            torch.zeros(N, dtype=torch.uint8, device=dev))
+
+
+K2_SCALARS = (1.2, 0.75, 20.5, 2)  # k1, b, avgdl, r2
+# per kernel: wrapper, plain version, device check, launcher, library
+# symbol, operands, extra arguments, the launch's scalar arguments (after
+# the pointers, stream last), output shape, argtypes, source, TPU kernel
+KERNELS = {
+    "bm25_score": dict(
+        wrapper="bm25_score_block", plain="bm25_score_block_ref",
+        check="_check_device", launcher="_launcher",
+        symbol="bm25_score_block_launch", operands=_k1_operands, extra=(),
+        launch_tail=(3, 4, 5, 7, 7, 1234), n_ptrs=5, out_shape=(3, 7),
+        argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_longlong, ctypes.c_void_p],
+        tpu="kbner_tpu/ops/bm25.py:_bm25_kernel"),
+    "delta16_rescore": dict(
+        wrapper="delta16_rescore", plain="delta16_rescore_ref",
+        check="_check_d16_device", launcher="_d16_launcher",
+        symbol="delta16_rescore_launch", operands=_k2_operands,
+        extra=K2_SCALARS, launch_tail=(3, 4, 7, 2, 1.2, 0.25, 0.75, 20.5,
+                                       1234),
+        n_ptrs=8, out_shape=(3, 7),
+        argtypes=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        + [ctypes.c_float] * 4 + [ctypes.c_void_p],
+        tpu="kbner_tpu/ops/bm25.py:_d16_rescore_kernel"),
+}
+
+
 @pytest.fixture
 def plain_forbidden(monkeypatch):
     def plain(*args):
         raise AssertionError("a device tensor reached the plain version")
-    monkeypatch.setattr(bm25, "bm25_score_block_ref", plain)
+    for spec in KERNELS.values():
+        monkeypatch.setattr(bm25, spec["plain"], plain)
 
 
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
 def test_wrapper_launches_the_kernel_for_device_tensors(plain_forbidden,
-                                                        monkeypatch):
+                                                        monkeypatch, kernel):
+    spec = KERNELS[kernel]
+    wrapper = getattr(bm25, spec["wrapper"])
     calls = []
 
     def launch(*args):
@@ -138,34 +199,38 @@ def test_wrapper_launches_the_kernel_for_device_tensors(plain_forbidden,
     class Stream:
         cuda_stream = 1234
 
-    monkeypatch.setattr(bm25, "_check_device", lambda *ops: None)
-    monkeypatch.setattr(bm25, "_launcher", lambda: launch)
+    monkeypatch.setattr(bm25, spec["check"], lambda *ops: None)
+    monkeypatch.setattr(bm25, spec["launcher"], lambda: launch)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
-    monkeypatch.setattr(bm25.bm25_score_block, "launches", 0)
-    out = bm25.bm25_score_block(*_operands("meta"))
-    assert out.device.type == "meta" and tuple(out.shape) == (3, 7)
+    monkeypatch.setattr(wrapper, "launches", 0)
+    out = wrapper(*spec["operands"]("meta"), *spec["extra"])
+    assert out.device.type == "meta" and tuple(out.shape) == spec["out_shape"]
     assert out.dtype == torch.float32
-    assert bm25.bm25_score_block.launches == 1
+    assert wrapper.launches == 1
     (args,) = calls
-    assert args[5:] == (3, 4, 5, 7, 7, 1234)  # Q, Lq, Ld, N, stride, stream
+    assert args[spec["n_ptrs"]:] == spec["launch_tail"]
 
-    monkeypatch.setattr(bm25, "_launcher", lambda: lambda *a: 700)
+    monkeypatch.setattr(bm25, spec["launcher"], lambda: lambda *a: 700)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        bm25.bm25_score_block(*_operands("meta"))
-    assert bm25.bm25_score_block.launches == 1
+        wrapper(*spec["operands"]("meta"), *spec["extra"])
+    assert wrapper.launches == 1
 
 
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
 def test_wrapper_never_hands_other_devices_to_the_plain_version(
-        plain_forbidden):
-    qt, qw, dt, di = _operands("meta")
-    for ops in ((qt, qw, dt, di),  # not on a CUDA device
-                (qt, qw, torch.zeros(5, 7, dtype=torch.int32), di)):  # mixed
+        plain_forbidden, kernel):
+    spec = KERNELS[kernel]
+    wrapper = getattr(bm25, spec["wrapper"])
+    ops = spec["operands"]("meta")
+    mixed = list(ops)
+    mixed[2] = torch.zeros(mixed[2].shape, dtype=mixed[2].dtype)
+    for case in (ops, tuple(mixed)):  # not on a CUDA device; mixed
         with pytest.raises(ValueError, match="CUDA device"):
-            bm25.bm25_score_block(*ops)
+            wrapper(*case, *spec["extra"])
 
 
 def test_layout_checks():
-    qt, qw, dt, di = _operands("meta")
+    qt, qw, dt, di = _k1_operands("meta")
     bm25._check_layout(qt, qw, dt, di)
     bm25._check_layout(qt, qw, dt[:, 2:], di[:, 2:])  # a doc-axis slice
     with pytest.raises(ValueError, match="must be torch.int32"):
@@ -181,59 +246,105 @@ def test_layout_checks():
                            di.t().contiguous().t())
 
 
-def test_launcher_binds_pointers_as_void_p(monkeypatch):
+def test_delta16_layout_checks():
+    ops = _k2_operands("meta")
+    bm25._check_d16_layout(ops, 1)
+
+    def bad(i, x, match, r2=1):
+        case = list(ops)
+        case[i] = x
+        with pytest.raises(ValueError, match=match):
+            bm25._check_d16_layout(tuple(case), r2)
+
+    bad(0, ops[0].long(), "must be torch.int32")
+    bad(3, ops[3].view(torch.uint16), "must be torch.int16")
+    bad(1, ops[1][:, :2].contiguous(), r"\[Q, W\]")
+    bad(2, ops[2][:2], r"\[Q, C\]")
+    bad(3, torch.zeros(5, 64, dtype=torch.int16, device="meta"), "128")
+    bad(4, ops[4][:4], r"\[N\] each")
+    bad(2, ops[2].t().contiguous().t(), "contiguous")
+    with pytest.raises(ValueError, match="r2"):
+        bm25._check_d16_layout(ops, 0)
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_launcher_binds_pointers_as_void_p(monkeypatch, kernel):
     """ctypes would pass a plain int as 32 bits and cut a device pointer."""
+    spec = KERNELS[kernel]
+
     class Fn:
         argtypes = None
         restype = None
 
-    class Lib:
-        bm25_score_block_launch = Fn()
-
-    monkeypatch.setattr(_kernels, "load", lambda name: Lib())
-    fn = bm25._launcher()
-    p = ctypes.c_void_p
-    assert fn.argtypes == [p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_longlong, p]
+    lib = type("Lib", (), {spec["symbol"]: Fn()})()
+    monkeypatch.setattr(_kernels, "load", lambda name: lib)
+    fn = getattr(bm25, spec["launcher"])()
+    assert fn.argtypes == spec["argtypes"]
     assert fn.restype is ctypes.c_int
 
 
-def test_cpu_tensors_take_the_plain_version():
+def _cpu_operands(kernel):
     rng = np.random.RandomState(0)
-    ops = (torch.from_numpy(rng.randint(0, 5, (2, 3)).astype(np.int32)),
-           torch.from_numpy(rng.rand(2, 3).astype(np.float32)),
-           torch.from_numpy(rng.randint(-1, 5, (4, 9)).astype(np.int32)),
-           torch.from_numpy(rng.rand(4, 9).astype(np.float32)))
-    before = bm25.bm25_score_block.launches
-    assert torch.equal(bm25.bm25_score_block(*ops),
-                       bm25.bm25_score_block_ref(*ops))
-    assert bm25.bm25_score_block.launches == before
+    if kernel == "bm25_score":
+        return (torch.from_numpy(rng.randint(0, 5, (2, 3)).astype(np.int32)),
+                torch.from_numpy(rng.rand(2, 3).astype(np.float32)),
+                torch.from_numpy(rng.randint(-1, 5, (4, 9)).astype(np.int32)),
+                torch.from_numpy(rng.rand(4, 9).astype(np.float32))), ()
+    # slots (gap << 3) | tf with small gaps, so ids stay below 400
+    flat = ((rng.randint(0, 4, (3, 128)) << 3)
+            | rng.randint(0, 8, (3, 128))).astype(np.uint16)
+    return (torch.from_numpy(rng.randint(-1, 100, (2, 6)).astype(np.int32)),
+            torch.from_numpy(rng.rand(2, 6).astype(np.float32)),
+            torch.from_numpy(rng.randint(0, 4, (2, 5)).astype(np.int32)),
+            torch.from_numpy(flat.view(np.int16)),
+            torch.tensor([0, 40, 128, 250], dtype=torch.int32),
+            torch.tensor([40, 88, 100, 6], dtype=torch.int32),
+            torch.tensor([3, 17, 40, 255], dtype=torch.uint8)), K2_SCALARS
 
 
-# -- building the kernel -----------------------------------------------------------
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_cpu_tensors_take_the_plain_version(kernel):
+    spec = KERNELS[kernel]
+    wrapper = getattr(bm25, spec["wrapper"])
+    ops, extra = _cpu_operands(kernel)
+    before = wrapper.launches
+    got = wrapper(*ops, *extra)
+    assert torch.equal(got, getattr(bm25, spec["plain"])(*ops, *extra))
+    assert got.abs().sum() > 0
+    assert wrapper.launches == before
 
-def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
+
+# -- building the kernels ----------------------------------------------------------
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch, kernel):
     monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _kernels.build("bm25_score")
+        _kernels.build(kernel)
     assert not (tmp_path / "build").exists()
 
 
-def test_built_library_is_named_by_source_and_flags(tmp_path, monkeypatch):
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_built_library_is_named_by_source_and_flags(tmp_path, monkeypatch,
+                                                    kernel):
     monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
-    path = _kernels.library_path("bm25_score")
-    assert re.fullmatch(r"libbm25_score-[0-9a-f]{16}\.so", path.name)
+    path = _kernels.library_path(kernel)
+    assert re.fullmatch(rf"lib{kernel}-[0-9a-f]{{16}}\.so", path.name)
     monkeypatch.setattr(_kernels, "NVCC_FLAGS", _kernels.NVCC_FLAGS + ("-G",))
-    assert _kernels.library_path("bm25_score") != path
+    assert _kernels.library_path(kernel) != path
     monkeypatch.setattr(_kernels, "NVCC_FLAGS", _kernels.NVCC_FLAGS[:-1])
     path.write_bytes(b"")
-    assert _kernels.build("bm25_score") == "(already built)"
+    assert _kernels.build(kernel) == "(already built)"
 
 
-def test_kernel_source_targets_hopper_and_names_its_tpu_kernel():
-    src = (PKG / "csrc" / "bm25_score.cu").read_text()
-    assert "kbner_tpu/ops/bm25.py:_bm25_kernel" in src
-    assert 'extern "C" int bm25_score_block_launch' in src
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_kernel_source_targets_hopper_and_names_its_tpu_kernel(kernel):
+    spec = KERNELS[kernel]
+    src = (PKG / "csrc" / f"{kernel}.cu").read_text()
+    assert spec["tpu"] in src
+    assert f'extern "C" int {spec["symbol"]}' in src
     assert "arch=compute_90a,code=sm_90a" in " ".join(_kernels.NVCC_FLAGS)
+    assert sorted(p.stem for p in (PKG / "csrc").glob("*.cu")) == sorted(
+        KERNELS)

@@ -235,7 +235,7 @@ def test_cli_serve_writes_serve_responses(both, kb_path, tmp_path, capsys,
 @pytest.mark.parametrize("argv,err", [
     (["--store", "x.docs"], NotImplementedError),
     (["--index_dir", "kb_dir"], NotImplementedError),
-    (["--engine_mode", "pruned"], NotImplementedError),
+    (["--lang", "zh"], NotImplementedError),  # the zh analyzers
 ])
 def test_cli_serve_refuses_later_slices(both, kb_path, tmp_path, monkeypatch,
                                         argv, err):
