@@ -8,14 +8,18 @@ It builds the port's CUDA kernels from ``kbner_tpu_torch/csrc`` with
 ``nvcc`` (one compiler per source, started together), holds each against
 its plain PyTorch version on the card, and then serves retrieval-augmented
 NER through ``kbner_tpu_torch.serve.serve`` twice over 1M synthetic wiki
-sentences held on the card: with the exhaustive engine (K1,
-``bm25_score.cu``) and with the pruned engine (K2,
-``delta16_rescore.cu``), each followed by context fusion and an
-XLM-R-large + CRF tagger at full width and depth (random weights from a
-seed, bfloat16, a 250002-entry hash vocabulary). The pruned top-10 is held
-against the exhaustive one. It prints what it measured on the lines before
-the last and exits non-zero on any failure. Its last line is one JSON
-object naming the device.
+sentences held on the card, each with a title field as ``cli serve``
+builds it: with the exhaustive engine (K1, ``bm25_score.cu``) and with the
+pruned engine (K2, ``delta16_rescore.cu``), each followed by context
+fusion and an XLM-R-large + CRF tagger at full width and depth (random
+weights from a seed, bfloat16, a 250002-entry hash vocabulary). The pruned
+top-10 is held against the exhaustive one. Then the same queries go
+through entity-boosted retrieval (the title field) in both engines,
+through a pruned engine over packed32 rows, and through the two-operand
+pruned top-k over a two-array field (K3, ``bm25_rescore.cu``), each held
+against exhaustive. It prints what it measured on the lines before the
+last and exits non-zero on any failure. Its last line is one JSON object
+naming the device.
 
 It needs CUDA and the rest of the repository beside it: without either it
 fails before printing a result.
@@ -40,7 +44,8 @@ K = 10                  # retrieved contexts per sentence (cli serve --k)
 MAX_QUERY_TERMS = 64    # Lq of the kernel (encode_queries default)
 HASH_VOCAB = 250002     # XLM-R's vocabulary size
 DEVICE = "cuda"
-KERNELS = ("bm25_score", "delta16_rescore")  # csrc/<name>.cu
+KERNELS = ("bm25_score", "delta16_rescore",
+           "bm25_rescore")  # csrc/<name>.cu
 # the pruned engine's knobs as bench.py tunes them (bench.py:381-389)
 PRUNED_KNOBS = dict(rare_terms=16, posting_budget=6144, n_candidates=1024,
                     tiny_width=384, tiny_pack=False, tiny_df_cap=128,
@@ -56,8 +61,11 @@ SCORE_RTOL = 1e-2       # delta16 saturates tf > 7; f16 tiny sums
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 67e12 / 4
 
-# K1 and K2 against their plain versions: float32 sums in another order
+# K1, K2 and K3 against their plain versions: float32 sums in another
+# order (K3 also expf against torch.exp, each within an ulp)
 RTOL, ATOL = 1e-5, 1e-6
+TITLE_BOOST = 2.0       # ES match(title=entity, boost=2.0)
+WRAPPERS = ("bm25_score_block", "delta16_rescore", "bm25_rescore")
 
 NER_TAGS = [f"{p}-{t}" for t in ("PER", "LOC", "ORG", "MISC")
             for p in ("B", "I", "E", "S")]
@@ -165,6 +173,49 @@ def check_kernel_cases(bm25, device) -> float:
     return worst
 
 
+def check_rescore_cases(bm25, synth_k3_operands, device) -> float:
+    """K3 against its plain version: ragged Q = 5 and C = 300, Ld = 1, 52
+    and 130, Lq = 1 and 64, codes 0 and 65535, candidates at id 0 and
+    N - 1, a repeated query term, -1 pads on both sides under nonzero
+    codes. Returns the largest absolute difference."""
+    import torch
+
+    worst = 0.0
+    for Q, C, Lq, Ld in ((5, 300, 12, 20), (5, 300, 64, 52), (3, 77, 1, 130),
+                         (2, 64, 64, 1), (1, 1, 1, 1), (32, 1024, 64, 52)):
+        qt, qw, cand, dt, codes, lo, step = synth_k3_operands(
+            Q + C + Ld, Q, C, Lq, Ld)
+        ops = [torch.from_numpy(x).to(device)
+               for x in (qt, qw, cand, dt, codes.view(np.int16))]
+        got = bm25.bm25_rescore(*ops, lo, step)
+        want = bm25.bm25_rescore_ref(*ops, lo, step)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        if not bool((want > 0).any()):
+            raise AssertionError("a K3 case matched no query term")
+        worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
+def reset_counts(bm25) -> None:
+    for name in WRAPPERS:
+        getattr(bm25, name).launches = 0
+
+
+def counts(bm25) -> dict:
+    return {name: getattr(bm25, name).launches for name in WRAPPERS}
+
+
+def expect_counts(label, got: dict, want: dict) -> None:
+    """The run launched exactly the kernels ``want`` names (a count, or
+    None for at least one) and no other."""
+    for name, n in got.items():
+        need = want.get(name, 0)
+        if (n < 1) if need is None else (n != need):
+            raise AssertionError(f"{label}: {name} launched {n} times, "
+                                 f"expected {'>= 1' if need is None else need}")
+
+
 def serve_batches(serve, engine, batches, tagger, tokenizer, tag_dict):
     """Serve every micro-batch through ``engine``; returns (responses,
     per-stage ms per batch, ms per batch, peak allocated GB)."""
@@ -258,6 +309,36 @@ def delta16_need(d16) -> tuple:
     return n_bytes, n_slots
 
 
+def sector_bytes(start, n_bytes: int) -> int:
+    """Bytes of the distinct 32-byte sectors that rows of ``n_bytes``
+    starting at byte offsets ``start`` occupy, each sector once."""
+    import torch
+
+    first = start // 32
+    span = (start + n_bytes - 1) // 32 - first + 1
+    step = torch.arange(int(span.max()), device=start.device)
+    sectors = (first[:, None] + step)[step < span[:, None]]
+    return int(torch.unique(sectors).numel()) * 32
+
+
+def rescore_need(args) -> tuple:
+    """What bm25_rescore needs on these arguments, each byte once: (bytes,
+    int32 operations). Bytes are the distinct 32-byte sectors of the
+    distinct candidates' term rows (Ld int32) and code rows (Ld 16-bit
+    codes), the candidate ids, the query block and the output; operations
+    are one lookup of each row slot per candidate in the query's term set
+    (every slot: a -1 pad matches a -1 query pad)."""
+    import torch
+
+    qt, qw, cand, dterms, dcodes = args[:5]
+    Ld = dterms.shape[1]
+    docs = torch.unique(cand.long().flatten())
+    n_bytes = (sector_bytes(docs * Ld * 4, Ld * 4)
+               + sector_bytes(docs * Ld * 2, Ld * 2)
+               + cand.nbytes + qt.nbytes + qw.nbytes + cand.numel() * 4)
+    return n_bytes, cand.numel() * Ld
+
+
 def retrieve_breakdown(engine, index, batch, bm25) -> dict:
     """Where one batch's retrieve stage goes, in ms: query analysis and
     encoding, the engine's host preparation (pruned: rare terms, the tiny
@@ -279,9 +360,9 @@ def retrieve_breakdown(engine, index, batch, bm25) -> dict:
     out = {"encode": enc}
     if engine.mode == "pruned":
         packed, out["host prep"] = wall(lambda: engine._pack_queries(qt, qw))
-        keys, field, (t_doc, t_ex), kw = engine._device_queries(packed)
+        keys, fields, (t_doc, t_ex), kw = engine._device_queries(packed)
         out["device"] = time_cuda_ms(lambda: bm25.bm25_pruned_topk_packed(
-            keys, (field,), n_real_docs=index.n_docs, k=K, tiny_doc=t_doc,
+            keys, fields, n_real_docs=index.n_docs, k=K, tiny_doc=t_doc,
             tiny_ex=t_ex, **kw), iters=20)
     else:
         fields = [(torch.from_numpy(qt).to(engine.device),
@@ -293,6 +374,55 @@ def retrieve_breakdown(engine, index, batch, bm25) -> dict:
         lambda: engine.search_encoded(qt, qw, k=K))
     _, out["render"] = wall(lambda: engine._materialize(scores, ids))
     return out
+
+
+def held_against_exact(label, exact, got, score_rtol=SCORE_RTOL,
+                       why="") -> None:
+    """Print and check recall@K of ``got`` against the exhaustive
+    ``exact`` (one (scores, ids) per batch), and the largest relative
+    score difference of documents in both lists against ``score_rtol``
+    (None: printed with ``why`` there is no bar). Recall counts the
+    queries whose exhaustive top-k has a positive score."""
+    recalls, worst = [], 0.0
+    for (es, ei), (gs, gi) in zip(exact, got):
+        for q in range(ei.shape[0]):
+            want = {int(d): float(x) for d, x in zip(ei[q], es[q]) if x > 0}
+            found = {int(d): float(x) for d, x in zip(gi[q], gs[q])
+                     if d >= 0 and x > 0}
+            if not want:
+                continue
+            both = want.keys() & found.keys()
+            recalls.append(len(both) / len(want))
+            for d in both:
+                worst = max(worst, abs(found[d] - want[d]) / abs(want[d]))
+    recall = float(np.mean(recalls))
+    bar = f"bar {score_rtol}" if score_rtol is not None else f"no bar: {why}"
+    log(f"{label} vs exhaustive on {len(recalls)} queries: recall@{K} "
+        f"{recall:.4f} (bar {MIN_RECALL}); scores of docs in both top-{K} "
+        f"lists differ by at most {worst:.3g} relative ({bar})")
+    if recall < MIN_RECALL:
+        raise AssertionError(f"{label} recall@{K} {recall:.4f} is below "
+                             f"{MIN_RECALL}")
+    if score_rtol is not None and worst > score_rtol:
+        raise AssertionError(f"{label} scores differ from exhaustive by "
+                             f"{worst:.3g} relative")
+
+
+def pruned_device_breakdown(bm25, engine, n_real, packed) -> str:
+    """Device time (CUDA events, 5 runs) of one batch's pruned search on
+    operands prepared from ``packed`` (the output of ``_pack_queries``):
+    pass 1 + pass 2 in all, and each field's pass 2 alone."""
+    keys, fields, (t_doc, t_ex), kw = engine._device_queries(packed)
+    total = time_cuda_ms(lambda: bm25.bm25_pruned_topk_packed(
+        keys, fields, n_real_docs=n_real, k=K, tiny_doc=t_doc, tiny_ex=t_ex,
+        **kw), iters=5)
+    _, _, ops = bm25.pass2_operands(keys, fields, **kw)
+    parts = [f"pass 1 + pass 2 {total:.3f}"]
+    for name, (fn, args) in zip(("text", "title"), ops):
+        ms = time_cuda_ms(lambda: fn(*args), iters=5)
+        parts.append(f"{name} pass 2 ({fn.__name__}, Lq={args[0].shape[1]}) "
+                     f"{ms:.3f}")
+    return ", ".join(parts)
 
 
 class RenderedDocs:
@@ -329,8 +459,9 @@ def main() -> int:
     from kbner_tpu_torch.ops.crf import crf_decode
     from kbner_tpu_torch.retrieval.engine import DocStore, RetrievalEngine
     from kbner_tpu_torch.retrieval.fusion import fuse_contexts
-    from kbner_tpu_torch.retrieval.index import BM25Index
+    from kbner_tpu_torch.retrieval.index import BM25Index, log_quantize
     from kbner_tpu_torch.retrieval.synth import (sentence_queries,
+                                                 synth_k3_operands,
                                                  synth_rescore_operands,
                                                  synth_wiki_docs)
     from kbner_tpu_torch.serve import predict, request_record, serve
@@ -370,6 +501,11 @@ def main() -> int:
     log(f"delta16_rescore vs plain on R2=1 / R2=2 / ragged (Q=5, C=300) / "
         f"id-0 / -1-padded cases with continuation slots: max abs err "
         f"{d16_err_cases:.3g} (rtol {RTOL}, atol {ATOL})")
+    k3_err_cases = check_rescore_cases(bm25, synth_k3_operands, dev)
+    log(f"bm25_rescore vs plain on ragged (Q=5, C=300) / Ld=1, 20, 52, 130 "
+        f"/ Lq=1, 12, 64 / codes 0 and 65535 / ids 0 and N-1 / repeated and "
+        f"-1-padded terms over -1-padded rows: max abs err "
+        f"{k3_err_cases:.3g} (rtol {RTOL}, atol {ATOL})")
 
     # -- 4a. set-up of the main path -----------------------------------------
     t0 = time.perf_counter()
@@ -377,12 +513,20 @@ def main() -> int:
     vocab_size = int(docs.max()) + 1
     vocab = {f"w{i}": i for i in range(vocab_size)}
     index = BM25Index.build_encoded(docs, vocab)
-    engine = RetrievalEngine(index, store=DocStore(RenderedDocs(docs)),
+    # the title field: the first two terms of each doc, as
+    # tests/test_pruned_retrieval.py builds titles
+    title_docs = docs[:, :2]
+    title_index = BM25Index.build_encoded(title_docs, vocab)
+    store = DocStore(RenderedDocs(docs), titles=RenderedDocs(title_docs))
+    engine = RetrievalEngine(index, store=store, title_index=title_index,
                              device=dev)
     dt_t, di_t = engine.fields["text"]
+    tdt_t, tdi_t = engine.fields["title"]
     log(f"KB: {index.n_docs} docs, vocabulary {vocab_size}, index "
         f"[Ld={dt_t.shape[0]}, N={dt_t.shape[1]}] int32+float32 = "
-        f"{(dt_t.nbytes + di_t.nbytes) / 1e9:.3f} GB on the card; built in "
+        f"{(dt_t.nbytes + di_t.nbytes) / 1e9:.3f} GB on the card, title "
+        f"index [Ld={tdt_t.shape[0]}, N={tdt_t.shape[1]}] = "
+        f"{(tdt_t.nbytes + tdi_t.nbytes) / 1e9:.3f} GB; built in "
         f"{time.perf_counter() - t0:.1f} s (set-up)")
 
     q_ids, src = sentence_queries(docs, BATCH * N_BATCHES,
@@ -445,19 +589,14 @@ def main() -> int:
         f" max abs err {err_main:.3g}, top-{K} ids equal within ties")
 
     # -- 4b. the exhaustive path: serve micro-batches ------------------------
-    bm25.bm25_score_block.launches = 0
-    bm25.delta16_rescore.launches = 0
+    reset_counts(bm25)
     responses, stage_ms, batch_ms, peak_gb = serve_batches(
         serve, engine, batches, tagger, tokenizer, tag_dict)
-    launches = bm25.bm25_score_block.launches
-    stray = bm25.delta16_rescore.launches
+    served = counts(bm25)
+    launches = served["bm25_score_block"]
     ex_rate = report_serve("exhaustive", responses, batches, stage_ms,
-                           batch_ms, peak_gb,
-                           f"bm25_score_block launches {launches}", card)
-    if launches < 1 or stray:
-        raise AssertionError(
-            f"the exhaustive path launched bm25_score_block {launches} and "
-            f"delta16_rescore {stray} times")
+                           batch_ms, peak_gb, f"launches {served}", card)
+    expect_counts("the exhaustive path", served, {"bm25_score_block": None})
     check_responses(requests, responses, tag_dict, EOS_MARKER)
     # the fused records of the first batch, made again outside the counted
     # run: at least one sentence carried retrieved context into the tagger
@@ -524,34 +663,34 @@ def main() -> int:
 
     # -- 4c. set-up of the pruned path ----------------------------------------
     t0 = time.perf_counter()
-    pruned = RetrievalEngine(index, store=DocStore(RenderedDocs(docs)),
+    pruned = RetrievalEngine(index, store=store, title_index=title_index,
                              mode="pruned", device=dev, **PRUNED_KNOBS)
     torch.cuda.synchronize()
-    flat, off, lens, normc = pruned.rows
-    csr_off, csr_packed = pruned.csr
+    flat, off, lens, normc = pruned.rows["text"]
+    csr_off, csr_packed = pruned.csr["text"]
+    t_bytes = sum(x.nbytes for x in pruned.rows["title"])
+    tcsr_bytes = sum(x.nbytes for x in pruned.csr["title"])
     log(f"pruned engine: built in {time.perf_counter() - t0:.1f} s from the "
-        f"same index (set-up); R2={pruned.r2}, non-tiny terms "
+        f"same index and title index (set-up); "
+        f"R2={pruned._row_meta['text'][4]}, non-tiny terms "
         f"T'={pruned.n_nontiny} (tiny: df <= {pruned.tiny_cap}), longest "
         f"segment {pruned.max_seg} slots; on the card: delta16 rows "
         f"{tuple(flat.shape)} {flat.nbytes / 1e6:.1f} MB, off/len/normc "
         f"{(off.nbytes + lens.nbytes + normc.nbytes) / 1e6:.1f} MB, CSR "
         f"{(csr_off.nbytes + csr_packed.nbytes) / 1e6:.1f} MB "
-        f"(window cap {pruned.per_term_cap})")
+        f"(window cap {pruned.per_term_cap}); title packed32 rows "
+        f"{pruned._row_meta['title'][:2]} + off/len {t_bytes / 1e6:.1f} MB, "
+        f"title CSR {tcsr_bytes / 1e6:.1f} MB")
 
     # -- 4d. the pruned path: serve micro-batches ----------------------------
-    bm25.bm25_score_block.launches = 0
-    bm25.delta16_rescore.launches = 0
+    reset_counts(bm25)
     p_responses, p_stage_ms, p_batch_ms, p_peak_gb = serve_batches(
         serve, pruned, batches, tagger, tokenizer, tag_dict)
-    d16_launches = bm25.delta16_rescore.launches
-    stray = bm25.bm25_score_block.launches
+    served = counts(bm25)
+    d16_launches = served["delta16_rescore"]
     p_rate = report_serve("pruned", p_responses, batches, p_stage_ms,
-                          p_batch_ms, p_peak_gb,
-                          f"delta16_rescore launches {d16_launches}", card)
-    if d16_launches < 1 or stray:
-        raise AssertionError(
-            f"the pruned path launched delta16_rescore {d16_launches} and "
-            f"bm25_score_block {stray} times")
+                          p_batch_ms, p_peak_gb, f"launches {served}", card)
+    expect_counts("the pruned path", served, {"delta16_rescore": None})
     check_responses(requests, p_responses, tag_dict, EOS_MARKER)
     log("retrieve stage, ms per batch: exhaustive "
         + ", ".join(f"{v:.1f}" for v in stage_ms["retrieve"])
@@ -562,15 +701,17 @@ def main() -> int:
     # -- 3c. K2 against plain at the main path's shapes ----------------------
     # the arguments the served search hands K2 for the first batch, made
     # after the served run so its never-shrink query widths stay as served
-    keys, field, _, kw = pruned._device_queries(
+    keys, fields, _, kw = pruned._device_queries(
         pruned._pack_queries(qt_np, qw_np))
-    _, cand_valid, (d16,) = bm25.pass2_operands(keys, (field,), **kw)
+    _, cand_valid, ((fn, d16),) = bm25.pass2_operands(keys, fields, **kw)
+    if fn is not bm25.delta16_rescore:
+        raise AssertionError(f"the pruned text field's pass 2 is {fn}")
     got = bm25.delta16_rescore(*d16)
     want = bm25.delta16_rescore_ref(*d16)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     d16_err_main = float((got - want).abs().max())
-    del got, want, keys, field
+    del got, want, keys, fields
     d16_ms = time_cuda_ms(lambda: bm25.delta16_rescore(*d16), iters=200)
     d16_plain_ms = time_cuda_ms(lambda: bm25.delta16_rescore_ref(*d16),
                                 iters=10)
@@ -597,35 +738,154 @@ def main() -> int:
 
     # the pruned top-10 against the exhaustive top-10 on the same queries,
     # outside the counted runs
-    recalls, worst_rel = [], 0.0
-    for batch in batches:
-        qt_b, qw_b = index.encode_queries(
-            [" ".join(r["tokens"]) for r in batch],
-            max_query_terms=MAX_QUERY_TERMS)
-        es, ei = engine.search_encoded(qt_b, qw_b, k=K)
-        ps, pi = pruned.search_encoded(qt_b, qw_b, k=K)
-        for q in range(len(batch)):
-            exact = {int(d): float(x) for d, x in zip(ei[q], es[q]) if x > 0}
-            found = {int(d): float(x) for d, x in zip(pi[q], ps[q])
-                     if d >= 0 and x > 0}
-            if not exact:
-                continue
-            both = exact.keys() & found.keys()
-            recalls.append(len(both) / len(exact))
-            for d in both:
-                worst_rel = max(worst_rel,
-                                abs(found[d] - exact[d]) / abs(exact[d]))
-    recall = float(np.mean(recalls))
-    log(f"pruned vs exhaustive on {len(recalls)} queries: recall@{K} "
-        f"{recall:.4f} (bar {MIN_RECALL}); scores of docs in both top-{K} "
-        f"lists differ by at most {worst_rel:.3g} relative (bar "
-        f"{SCORE_RTOL})")
-    if recall < MIN_RECALL:
-        raise AssertionError(f"pruned recall@{K} {recall:.4f} is below "
-                             f"{MIN_RECALL}")
-    if worst_rel > SCORE_RTOL:
-        raise AssertionError(f"pruned scores differ from exhaustive by "
-                             f"{worst_rel:.3g} relative")
+    encoded = [index.encode_queries([" ".join(r["tokens"]) for r in batch],
+                                    max_query_terms=MAX_QUERY_TERMS)
+               for batch in batches]
+    exact = [engine.search_encoded(qt_b, qw_b, k=K) for qt_b, qw_b in encoded]
+    held_against_exact("pruned", exact,
+                       [pruned.search_encoded(qt_b, qw_b, k=K)
+                        for qt_b, qw_b in encoded])
+
+    # -- 4e. entity-boosted retrieval: the title field -----------------------
+    # each query's entity is the title of its source sentence; exhaustive
+    # (K1 on both fields) against pruned (K2 on text, packed32 title rows in
+    # plain torch, a second rare-term block from the title CSR)
+    ents = [" ".join(f"w{t}" for t in title_docs[s]) for s in src]
+    ent_blocks = [title_index.encode_queries(
+        ents[i:i + BATCH], max_query_terms=MAX_QUERY_TERMS,
+        boosts=[TITLE_BOOST] * len(ents[i:i + BATCH]))
+        for i in range(0, len(ents), BATCH)]
+    boosted, boost_ms = {}, {}
+    for label, eng in (("exhaustive", engine), ("pruned", pruned)):
+        reset_counts(bm25)
+        outs, ms = [], []
+        for (qt_b, qw_b), (tt, tw) in zip(encoded, ent_blocks):
+            t0 = time.perf_counter()
+            outs.append(eng.search_encoded(qt_b, qw_b, k=K, title_terms=tt,
+                                           title_weights=tw))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        boosted[label], boost_ms[label] = outs, ms
+        expect_counts(
+            f"entity-boosted {label} retrieval", counts(bm25),
+            {"bm25_score_block": 2 * len(encoded)} if label == "exhaustive"
+            else {"delta16_rescore": len(encoded)})
+    changed = sum(int(set(a[1][q]) != set(b[1][q]))
+                  for a, b in zip(exact, boosted["exhaustive"])
+                  for q in range(a[1].shape[0]))
+    if changed == 0:
+        raise AssertionError("the title boost changed no exhaustive top-10")
+    log(f"entity-boosted retrieval (title boost {TITLE_BOOST}, entity = the "
+        f"source sentence's title): the boost changed the exhaustive top-"
+        f"{K} of {changed}/{len(ents)} queries; ms per batch of {BATCH} "
+        f"(host clock, search with copies): exhaustive "
+        + ", ".join(f"{v:.2f}" for v in boost_ms["exhaustive"])
+        + "; pruned " + ", ".join(f"{v:.2f}" for v in boost_ms["pruned"])
+        + f" ({card})")
+    log("entity-boosted pruned search, batch 2, device ms: "
+        + pruned_device_breakdown(bm25, pruned, index.n_docs,
+                                  pruned._pack_queries(*encoded[1],
+                                                       *ent_blocks[1]))
+        + f" ({card})")
+    held_against_exact(
+        "entity-boosted pruned", boosted["exhaustive"], boosted["pruned"],
+        score_rtol=None, why=f"tiny_width={pruned.tiny_width} keeps a "
+        "query's largest tiny-term sums only, so a document reached through "
+        "its title can lack its own; the served engine's knobs")
+
+    # -- 4f. packed32 rows, and the two-operand pruned top-k with K3 ---------
+    t0 = time.perf_counter()
+    p32 = RetrievalEngine(index, mode="pruned", device=dev,
+                          row_layout="packed32", compact_rows=False,
+                          **PRUNED_KNOBS)
+    torch.cuda.synchronize()
+    log(f"packed32 engine: built in {time.perf_counter() - t0:.1f} s "
+        f"(set-up); rows {p32._row_meta['text']} (layout, term bits, lo, "
+        f"step, R2), {sum(x.nbytes for x in p32.rows['text']) / 1e6:.1f} "
+        f"MB; CSR {sum(x.nbytes for x in p32.csr['text']) / 1e6:.1f} MB")
+    reset_counts(bm25)
+    p32_out, p32_ms = [], []
+    for qt_b, qw_b in encoded:
+        t0 = time.perf_counter()
+        p32_out.append(p32.search_encoded(qt_b, qw_b, k=K))
+        p32_ms.append((time.perf_counter() - t0) * 1e3)
+    expect_counts("the packed32 engine", counts(bm25), {})
+    log("packed32 engine: ms per batch (host clock) "
+        + ", ".join(f"{v:.2f}" for v in p32_ms) + "; batch 2, device ms: "
+        + pruned_device_breakdown(bm25, p32, index.n_docs,
+                                  p32._pack_queries(*encoded[1]))
+        + f" ({card})")
+    held_against_exact("packed32 pruned", exact, p32_out)
+
+    # a two-array field of the same index: term ids [N_padded, Ld] and
+    # 16-bit log codes, fed from the packed32 engine's CSR and rare terms
+    n_pad = p32.n_padded - index.doc_terms.shape[0]
+    codes16, lo16, step16 = log_quantize(
+        np.pad(index.doc_impacts, ((0, n_pad), (0, 0))), bits=16)
+    dterms = torch.from_numpy(np.pad(index.doc_terms, ((0, n_pad), (0, 0)),
+                                     constant_values=-1)).to(dev)
+    dcodes = torch.from_numpy(codes16.view(np.int16)).to(dev)
+    del codes16
+    csr_lo, csr_step = p32._csr_scale["text"]
+    opts = dict(n_candidates=p32.n_candidates,
+                max_dup_shifts=p32.rare_terms)
+
+    def two_operand_pool(qt_b, qw_b):
+        rare = torch.from_numpy(p32._select_rare_terms(qt_b)).to(dev)
+        cd, ci = bm25.gather_pruned_candidates(
+            rare, *p32.csr["text"], p32.per_term_cap, csr_lo, csr_step)
+        field = (torch.from_numpy(qt_b).to(dev),
+                 torch.from_numpy(qw_b).to(dev), dterms, dcodes, lo16,
+                 step16)
+        return cd, ci, (field,)
+
+    reset_counts(bm25)
+    two_out, two_ms = [], []
+    for qt_b, qw_b in encoded:
+        t0 = time.perf_counter()
+        s_b, i_b = bm25.bm25_pruned_topk(*two_operand_pool(qt_b, qw_b),
+                                         n_real_docs=index.n_docs, k=K,
+                                         **opts)
+        two_out.append((s_b.cpu().numpy(), i_b.cpu().numpy()))
+        two_ms.append((time.perf_counter() - t0) * 1e3)
+    two_counts = counts(bm25)
+    k3_launches = two_counts["bm25_rescore"]
+    expect_counts("the two-operand path", two_counts,
+                  {"bm25_rescore": len(encoded)})
+    log(f"two-operand pruned top-k over a two-array field ([N={dterms.shape[0]}, "
+        f"Ld={dterms.shape[1]}] int32 + 16-bit codes, "
+        f"{(dterms.nbytes + dcodes.nbytes) / 1e6:.1f} MB on the card): "
+        f"launches {two_counts}; ms per batch (host clock) "
+        + ", ".join(f"{v:.2f}" for v in two_ms) + f" ({card})")
+    held_against_exact("two-operand (K3)", exact, two_out)
+
+    # -- 3d. K3 against plain on the operands the two-operand path hands it
+    _, cand_valid, _, ((fn, k3args),) = bm25.pass2_operands_two_operand(
+        *two_operand_pool(*encoded[0]), **opts)
+    if fn is not bm25.bm25_rescore:
+        raise AssertionError(f"the two-array field's pass 2 is {fn}")
+    got = bm25.bm25_rescore(*k3args)
+    want = bm25.bm25_rescore_ref(*k3args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    k3_err_main = float((got - want).abs().max())
+    del got, want
+    k3_ms = time_cuda_ms(lambda: bm25.bm25_rescore(*k3args), iters=200)
+    k3_plain_ms = time_cuda_ms(lambda: bm25.bm25_rescore_ref(*k3args),
+                               iters=10)
+    Q3, Lq3 = k3args[0].shape
+    C3 = k3args[2].shape[1]
+    k3_bytes, k3_ops = rescore_need(k3args)
+    k3_bytes_ms = k3_bytes / PEAK_BYTES_PER_S * 1e3
+    k3_ops_ms = k3_ops / PEAK_INT32_OPS_PER_S * 1e3
+    k3_bound_ms = max(k3_bytes_ms, k3_ops_ms)
+    k3_bound_by = "bytes" if k3_bytes_ms >= k3_ops_ms else "operations"
+    log(f"bm25_rescore on the two-operand path's operands Q={Q3} Lq={Lq3} "
+        f"C={C3} Ld={k3args[3].shape[1]} ({int(cand_valid.sum())} valid "
+        f"candidates, {int(torch.unique(k3args[2]).numel())} distinct) "
+        f"({card}): kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound "
+        f"{k3_bound_ms:.5f} ms by {k3_bound_by} ({k3_bytes / 1e6:.3f} MB = "
+        f"{k3_bytes_ms:.5f} ms; {k3_ops / 1e6:.3f} M int32 lookups = "
+        f"{k3_ops_ms:.5f} ms); max abs err {k3_err_main:.3g}")
 
     # -- 5. kernels ----------------------------------------------------------
     kernels = [{
@@ -651,6 +911,18 @@ def main() -> int:
         "plain_ms": d16_plain_ms,
         "bound_ms": d16_bound_ms,
         "bound_by": d16_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "bm25_rescore",
+        "route": "cuda",
+        "source": "kbner_tpu_torch/csrc/bm25_rescore.cu",
+        "replaces": "kbner_tpu/ops/bm25.py:bm25_rescore_pallas",
+        "launches": k3_launches,
+        "max_abs_err": max(k3_err_cases, k3_err_main),
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound_ms,
+        "bound_by": k3_bound_by,
         "library_ms": None,
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -63,11 +63,10 @@ def cmd_serve(args) -> None:
 
     engine = None
     if args.kb:
-        # serving searches the text field only; the pruned engine takes no
-        # title index yet (ROADMAP A4), so none is built for it
+        # the engine holds the title field in either mode, as the
+        # reference's does; serving itself searches the text field
         text_index, store, title_index = build_kb_from_jsonl(
-            args.kb, lang=args.lang,
-            with_title_index=args.engine_mode != "pruned")
+            args.kb, lang=args.lang)
         engine = RetrievalEngine(text_index, store=store,
                                  title_index=title_index,
                                  mode=args.engine_mode, device=args.device)

@@ -1,6 +1,6 @@
 """BM25 scoring (counterpart of ``kbner_tpu/ops/bm25.py``): exhaustive
 match-and-accumulate with a running top-k, and the two-pass pruned top-k
-over delta16 rows.
+over every pass-2 row layout of the reference.
 
 The index is laid out as dense padded per-document (term id, impact) slots,
 transposed to ``[Ld, N]`` so the document axis is the contiguous one, and
@@ -23,10 +23,15 @@ over fields; :func:`bm25_topk` adds them before the top-k.
 The pruned path (:func:`bm25_pruned_topk_packed`) pools pass-1 candidates
 as int64 sort keys ``(doc << 8) | code8`` (the reference's uint32 keys,
 widened: torch has no ``>>`` for uint32 on the CPU), keeps the top C by
-their summed codes, and rescores them exactly over the engine's delta16
-rows with K2: :func:`delta16_rescore_ref` is its plain version and
-:func:`delta16_rescore` the wrapper of ``csrc/delta16_rescore.cu``, with
-the same rule as K1's wrapper.
+their summed codes, and rescores them over the engine's pass-2 rows: the
+delta16 rows with K2 (:func:`delta16_rescore_ref` is its plain version,
+:func:`delta16_rescore` the wrapper of ``csrc/delta16_rescore.cu``), the
+packed32 rows in plain PyTorch, as the reference leaves them to XLA. The
+two-operand pruned top-k (:func:`bm25_pruned_topk`, fed by
+:func:`gather_pruned_candidates`) pools (doc, impact) pairs instead and
+rescores a two-array field (term ids plus 16-bit log codes) with K3
+(:func:`bm25_rescore_ref`, :func:`bm25_rescore`,
+``csrc/bm25_rescore.cu``). Every wrapper follows K1's rule.
 """
 
 from __future__ import annotations
@@ -220,13 +225,6 @@ def bm25_topk(
 KEY_PAD = 0xFFFFFFFF  # pad of the pass-1 sort keys: sorts after every key
 LANES = 128           # slots per row of the CSR and of the delta16 rows
 
-# One delta16 text field: (q_terms [Q, W] int32 remapped ids (-1 pad),
-#   q_weights [Q, W] float32 with idf folded in, flat [NR, 128] int16 rows
-#   of 16-bit slots, doc_off [N] int32, doc_len [N] int32,
-#   norm_code [N] uint8, k1, b, avgdl)
-Delta16Field = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-                     torch.Tensor, torch.Tensor, float, float, float]
-
 
 def _delta16_norm(code: torch.Tensor, k1: float, b: float,
                   avgdl: float) -> torch.Tensor:
@@ -393,27 +391,271 @@ def delta16_rescore(
 delta16_rescore.launches = 0
 
 
-def _rescore_operands(safe_ids: torch.Tensor,
-                      fields: Sequence[Delta16Field],
+def _f32(x) -> float:
+    """``x`` rounded to float32, as the reference rounds its scales."""
+    return float(torch.tensor(float(x), dtype=torch.float32))
+
+
+def _dequantize(code: torch.Tensor, lo: float, step: float) -> torch.Tensor:
+    """``exp(lo + (code - 1) * step)`` where ``code > 0``, else 0, in
+    float32 in the reference's order (``lo`` and ``step`` rounded to
+    float32 first)."""
+    c = code.to(torch.float32)
+    return torch.where(code > 0,
+                       torch.exp(_f32(lo) + (c - 1.0) * _f32(step)), 0.0)
+
+
+def _match_sum(q_terms: torch.Tensor, q_weights: torch.Tensor,
+               dt_rows: torch.Tensor, di_rows: torch.Tensor) -> torch.Tensor:
+    """``sum_l qw[:, l] * sum_j [dt_rows == qt[:, l]] * di_rows`` over
+    candidate rows ``[Q, C, S]`` -> ``[Q, C]``: the reference's last loop
+    of ``_rescore_candidates``. Ids are compared raw (a -1 query pad
+    matches a -1 row pad, which must carry 0)."""
+    Q, C = dt_rows.shape[:2]
+    total = torch.zeros((Q, C), dtype=torch.float32, device=dt_rows.device)
+    for l in range(q_terms.shape[1]):
+        m = dt_rows == q_terms[:, l].to(dt_rows.dtype)[:, None, None]
+        total = total + q_weights[:, l, None] * torch.where(
+            m, di_rows, 0.0).sum(-1)
+    return total
+
+
+def bm25_rescore_ref(
+    q_terms: torch.Tensor,
+    q_weights: torch.Tensor,
+    cand: torch.Tensor,
+    doc_terms: torch.Tensor,
+    doc_codes: torch.Tensor,
+    lo: float,
+    step: float,
+) -> torch.Tensor:
+    """Plain PyTorch pass-2 BM25 ``[Q, C]`` float32 of each candidate
+    ``cand [Q, C]`` over the two-array layout (counterpart of
+    ``bm25_rescore_pallas`` and of the two-array branch of
+    ``_rescore_candidates``): its doc-major row of term ids ``doc_terms
+    [N, Ld]`` int32 and 16-bit log codes ``doc_codes [N, Ld]`` (int16
+    holding the raw bits, read as unsigned), dequantized as
+    ``exp(lo + (code - 1) * step)``."""
+    ids = cand.long()
+    codes = doc_codes[ids].to(torch.int32) & 0xFFFF
+    return _match_sum(q_terms, q_weights, doc_terms[ids],
+                      _dequantize(codes, lo, step))
+
+
+_K3_NAMES = ("q_terms", "q_weights", "cand", "doc_terms", "doc_codes")
+_K3_TYPES = (torch.int32, torch.float32, torch.int32, torch.int32,
+             torch.int16)
+_K3_MAX_TERMS = 6144  # Lq * 8 bytes of staged query terms in 48 KB
+
+
+def _check_k3_device(ops) -> None:
+    dev = ops[3].device
+    for name, x in zip(_K3_NAMES, ops):
+        if x.device != dev or dev.type != "cuda":
+            raise ValueError(
+                f"bm25_rescore: {name} is on {x.device}; all operands must "
+                "lie on one CUDA device (or all on the CPU)")
+
+
+def _check_k3_layout(ops) -> None:
+    """Shapes, types and strides K3 takes."""
+    for name, x, want in zip(_K3_NAMES, ops, _K3_TYPES):
+        if x.dtype != want:
+            raise ValueError(f"bm25_rescore: {name} must be {want}, got "
+                             f"{x.dtype}")
+        if x.dim() != 2:
+            raise ValueError(f"bm25_rescore: {name} must be 2-D, got shape "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"bm25_rescore: {name} must be contiguous")
+    qt, qw, cand, dt, dc = ops
+    if qt.shape != qw.shape:
+        raise ValueError("bm25_rescore: q_terms and q_weights must be "
+                         f"[Q, Lq], got {tuple(qt.shape)} and "
+                         f"{tuple(qw.shape)}")
+    if cand.shape[0] != qt.shape[0]:
+        raise ValueError(f"bm25_rescore: cand must be [Q, C] with "
+                         f"Q={qt.shape[0]}, got {tuple(cand.shape)}")
+    if dt.shape != dc.shape:
+        raise ValueError("bm25_rescore: doc_terms and doc_codes must be "
+                         f"[N, Ld] each, got {tuple(dt.shape)} and "
+                         f"{tuple(dc.shape)}")
+    if qt.shape[1] > _K3_MAX_TERMS:
+        raise ValueError(f"bm25_rescore: Lq={qt.shape[1]} query terms "
+                         f"exceed {_K3_MAX_TERMS}")
+    if qt.shape[0] >= 65536 or max(cand.shape[1], dt.shape[1]) >= 2**31:
+        raise ValueError(f"bm25_rescore: Q={qt.shape[0]} must be below "
+                         "65536 and C, Ld below 2**31")
+
+
+def _k3_launcher():
+    lib = _kernels.load("bm25_rescore")
+    fn = lib.bm25_rescore_launch
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bm25_rescore(
+    q_terms: torch.Tensor,
+    q_weights: torch.Tensor,
+    cand: torch.Tensor,
+    doc_terms: torch.Tensor,
+    doc_codes: torch.Tensor,
+    lo: float,
+    step: float,
+) -> torch.Tensor:
+    """Pass-2 scores ``[Q, C]`` float32 of :func:`bm25_rescore_ref`. CUDA
+    tensors go through the hand-written kernel (``csrc/bm25_rescore.cu``,
+    which gathers each candidate's rows itself) on the current stream;
+    CPU tensors through the plain version. ``cand`` must hold ids in
+    ``[0, N)``. ``bm25_rescore.launches`` counts kernel launches."""
+    ops = (q_terms, q_weights, cand, doc_terms, doc_codes)
+    if all(x.device.type == "cpu" for x in ops):
+        return bm25_rescore_ref(*ops, lo, step)
+    _check_k3_device(ops)
+    _check_k3_layout(ops)
+    Q, Lq = q_terms.shape
+    C = cand.shape[1]
+    out = torch.empty((Q, C), dtype=torch.float32, device=cand.device)
+    if Q == 0 or C == 0:
+        return out
+    launch = _k3_launcher()
+    stream = torch.cuda.current_stream(cand.device).cuda_stream
+    err = launch(*(x.data_ptr() for x in ops), out.data_ptr(), Q, Lq, C,
+                 doc_terms.shape[1], _f32(lo), _f32(step), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"bm25_rescore: kernel launch failed with CUDA error {err}")
+    bm25_rescore.launches += 1
+    return out
+
+
+bm25_rescore.launches = 0
+
+
+def _rescore_packed32(q_terms, q_weights, cand, flat, doc_off, doc_len,
+                      term_bits: int, lo: float, step: float,
+                      r2: int) -> torch.Tensor:
+    """Pass 2 over ragged packed32 rows (``(code << term_bits) | term``
+    int32 slots, each document a segment ``[off, off + len)`` of the flat
+    ``[NR, lanes]`` rows, read through its ``r2`` covering rows) in plain
+    PyTorch, as the reference leaves it to XLA. Slots outside the segment
+    keep their ids but carry 0. Codes come out of a logical shift."""
+    Q, C = cand.shape
+    lanes = flat.shape[1]
+    ids = cand.long()
+    off = doc_off[ids].long()
+    ln = doc_len[ids].long()
+    rows = (off // lanes)[:, :, None] + torch.arange(r2, device=cand.device)
+    v = flat[torch.clamp(rows, max=flat.shape[0] - 1)]  # [Q, C, r2, lanes]
+    g = rows[..., None] * lanes + torch.arange(lanes, device=cand.device)
+    seg = (g >= off[:, :, None, None]) & (g < (off + ln)[:, :, None, None])
+    dt_rows = (v & ((1 << term_bits) - 1)).reshape(Q, C, -1)
+    code = (v.long() & 0xFFFFFFFF) >> term_bits
+    di_rows = torch.where(seg, _dequantize(code, lo, step), 0.0)
+    return _match_sum(q_terms, q_weights, dt_rows, di_rows.reshape(Q, C, -1))
+
+
+def _rescore_packed_dense(q_terms, q_weights, cand, packed_rows,
+                          term_bits: int, lo: float,
+                          step: float) -> torch.Tensor:
+    """Pass 2 over dense packed rows ``[N, Ld]`` int32 ``(code <<
+    term_bits) | term`` (pad -1) in plain PyTorch: one row gather, codes
+    from a logical shift."""
+    rows = packed_rows[cand.long()]  # [Q, C, Ld]
+    code = (rows.long() & 0xFFFFFFFF) >> term_bits
+    return _match_sum(q_terms, q_weights, rows & ((1 << term_bits) - 1),
+                      _dequantize(code, lo, step))
+
+
+def _rescore_f32(q_terms, q_weights, cand, doc_terms,
+                 doc_impacts) -> torch.Tensor:
+    """Pass 2 over the float32 layout (``doc_terms`` / ``doc_impacts``
+    ``[N, Ld]``) in plain PyTorch."""
+    ids = cand.long()
+    return _match_sum(q_terms, q_weights, doc_terms[ids], doc_impacts[ids])
+
+
+def _clamped(safe_ids: torch.Tensor, per_doc: torch.Tensor) -> torch.Tensor:
+    """Candidate ids as int32, those outside the doc axis of ``per_doc``
+    clamped into it, as an XLA gather clamps them (the pad
+    slots of an aligned CSR window re-encode to a key of doc 0xFFFFFF that
+    pass 1 keeps; its score is masked afterwards)."""
+    return torch.clamp(safe_ids, 0, per_doc.shape[0] - 1).to(
+        torch.int32).contiguous()
+
+
+def _rescore_operands(safe_ids: torch.Tensor, fields: Sequence[tuple],
                       ragged_rows: Sequence[int]) -> List[tuple]:
-    """The :func:`delta16_rescore` arguments of pass 2, one tuple per
-    field (the counterpart of the reference's ``_rescore_candidates``).
-    Ids past the doc axis are clamped to its last document, as an XLA
-    gather clamps them (the pad slots of an aligned CSR window re-encode
-    to a key of doc 0xFFFFFF that pass 1 keeps; its score is masked
-    afterwards)."""
+    """Pass 2 of every field as ``(function, arguments)``, dispatched on
+    the field's layout as the reference's ``_rescore_candidates`` does:
+
+    * 9-tuple delta16 ``(qt, qw, flat, off, len, norm_code, k1, b,
+      avgdl)`` -> K2 (:func:`delta16_rescore`);
+    * 8-tuple ragged packed32 ``(qt, qw, flat, off, len, term_bits, lo,
+      step)`` -> plain PyTorch;
+    * 6-tuple whose 4th entry is a scalar, the dense packed form ``(qt,
+      qw, packed_rows, term_bits, lo, step)`` -> plain PyTorch;
+    * 6-tuple two-array ``(qt, qw, doc_terms, doc_codes, lo, step)`` ->
+      K3 (:func:`bm25_rescore`);
+    * 4-tuple float32 ``(qt, qw, doc_terms, doc_impacts)`` -> plain.
+
+    ``ragged_rows[f]`` is field f's count of covering rows (default 1)."""
     ops = []
     for f, field in enumerate(fields):
-        if len(field) != 9:
-            raise NotImplementedError(
-                "only the delta16 row layout is ported; the packed32 and "
-                "two-array layouts (K3) are ROADMAP A2 and A4")
-        qt, qw, flat, off, ln, nc, k1, b, avgdl = field
         r2 = ragged_rows[f] if f < len(ragged_rows) else 1
-        cand = torch.clamp(safe_ids, max=off.shape[0] - 1).to(
-            torch.int32).contiguous()
-        ops.append((qt, qw, cand, flat, off, ln, nc, k1, b, avgdl, r2))
+        qt, qw = field[:2]
+        if len(field) == 9:
+            flat, off, ln, nc, k1, b, avgdl = field[2:]
+            ops.append((delta16_rescore, (qt, qw, _clamped(safe_ids, off),
+                                          flat, off, ln, nc, k1, b, avgdl,
+                                          r2)))
+        elif len(field) == 8:
+            flat, off, ln, term_bits, lo, step = field[2:]
+            ops.append((_rescore_packed32, (qt, qw, _clamped(safe_ids, off),
+                                            flat, off, ln, term_bits, lo,
+                                            step, r2)))
+        elif len(field) == 6 and not (torch.is_tensor(field[3])
+                                      and field[3].dim() > 0):
+            rows, term_bits, lo, step = field[2:]
+            ops.append((_rescore_packed_dense,
+                        (qt, qw, _clamped(safe_ids, rows), rows,
+                         int(term_bits), lo, step)))
+        elif len(field) == 6:
+            dterms, dcodes, lo, step = field[2:]
+            ops.append((bm25_rescore, (qt, qw, _clamped(safe_ids, dterms),
+                                       dterms, dcodes, lo, step)))
+        elif len(field) == 4:
+            dterms, dimps = field[2:]
+            ops.append((_rescore_f32, (qt, qw, _clamped(safe_ids, dterms),
+                                       dterms, dimps)))
+        else:
+            raise ValueError(f"field {f}: no pass-2 layout has "
+                             f"{len(field)} operands")
     return ops
+
+
+def _sum_pass2(safe_ids: torch.Tensor, rescore: Sequence[tuple]
+               ) -> torch.Tensor:
+    """The sum over fields of the ``(function, arguments)`` pairs of
+    :func:`_rescore_operands`: ``[Q, C]`` float32."""
+    total = torch.zeros(safe_ids.shape, dtype=torch.float32,
+                        device=safe_ids.device)
+    for fn, args in rescore:
+        total = total + fn(*args)
+    return total
+
+
+def _rescore_candidates(safe_ids: torch.Tensor, fields: Sequence[tuple],
+                        ragged_rows: Sequence[int] = ()) -> torch.Tensor:
+    """Pass-2 scores ``[Q, C]`` of the candidates ``safe_ids`` summed over
+    the fields (counterpart of the reference's ``_rescore_candidates``,
+    every layout of :func:`_rescore_operands`)."""
+    return _sum_pass2(safe_ids,
+                      _rescore_operands(safe_ids, fields, ragged_rows))
 
 
 def _top_sorted(x: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -437,16 +679,25 @@ def select_candidates(
     segmented doubling scan sums their decoded codes (``exp(imp_lo +
     (code - 1) * imp_step)``) into a ranking partial at each run start.
     Returns (cand_ids [Q, C] int64, cand_valid [Q, C] bool)."""
-    Q, P = cand_keys.shape
     keys = torch.sort(cand_keys, dim=1).values
     doc = keys >> 8
-    code = (keys & 0xFF).to(torch.float32)
     valid = keys != KEY_PAD
-    imp = torch.where(valid & (code > 0),
-                      torch.exp(imp_lo + (code - 1.0) * imp_step), 0.0)
+    code = keys & 0xFF
+    imp = torch.where(valid, _dequantize(code, imp_lo, imp_step), 0.0)
+    partial = _run_partials(doc, imp, valid, max_dup_shifts)
+    part_scores, pos = _top_sorted(partial, min(n_candidates,
+                                                cand_keys.shape[1]))
+    return torch.gather(doc, 1, pos), torch.isfinite(part_scores)
 
-    # after the step at offset s, summed[i] holds the sum of imp over the
-    # run from i on, up to 2s entries
+
+def _run_partials(doc: torch.Tensor, imp: torch.Tensor, valid: torch.Tensor,
+                  max_dup_shifts: int) -> torch.Tensor:
+    """Ranking partials of doc-sorted pass-1 entries ``[Q, P]``: at each
+    valid run start the sum of its run's ``imp``, -inf elsewhere. A
+    segmented doubling scan: after the step at offset s, summed[i] holds
+    the sum of imp over the run from i on, up to 2s entries, so runs up to
+    ``max_dup_shifts`` long sum fully."""
+    Q, P = doc.shape
     summed = imp
     s = 1
     while s < max_dup_shifts and s < P:
@@ -456,16 +707,14 @@ def select_candidates(
             summed[:, P - s:]], dim=1)
         s *= 2
     run_start = torch.cat([torch.ones((Q, 1), dtype=torch.bool,
-                                      device=keys.device),
+                                      device=doc.device),
                            doc[:, 1:] != doc[:, :-1]], dim=1)
-    partial = torch.where(run_start & valid, summed, float("-inf"))
-    part_scores, pos = _top_sorted(partial, min(n_candidates, P))
-    return torch.gather(doc, 1, pos), torch.isfinite(part_scores)
+    return torch.where(run_start & valid, summed, float("-inf"))
 
 
 def pass2_operands(
     cand_keys: torch.Tensor,
-    fields: Sequence[Delta16Field],
+    fields: Sequence[tuple],
     n_candidates: int = 512,
     max_dup_shifts: int = 16,
     imp_lo: float = 0.0,
@@ -473,9 +722,9 @@ def pass2_operands(
     ragged_rows: Sequence[int] = (),
 ) -> Tuple[torch.Tensor, torch.Tensor, List[tuple]]:
     """Pass 1 of :func:`bm25_pruned_topk_packed` and what it hands pass 2:
-    (cand_ids [Q, C] int64, cand_valid [Q, C] bool, one tuple of
-    :func:`delta16_rescore` arguments per field, invalid candidates at
-    id 0)."""
+    (cand_ids [Q, C] int64, cand_valid [Q, C] bool, one ``(function,
+    arguments)`` per field from :func:`_rescore_operands`, invalid
+    candidates at id 0)."""
     cand_ids, cand_valid = select_candidates(
         cand_keys, n_candidates, max_dup_shifts, imp_lo, imp_step)
     safe_ids = torch.where(cand_valid, cand_ids, 0)
@@ -483,9 +732,24 @@ def pass2_operands(
                                                    ragged_rows)
 
 
+def _final_topk(total: torch.Tensor, cand_ids: torch.Tensor,
+                cand_valid: torch.Tensor, n_real_docs: Optional[int],
+                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top k of the rescored candidates, padding documents (id >=
+    ``n_real_docs``) and invalid candidates dropped; ids -1 where fewer
+    than k score."""
+    if n_real_docs is not None:
+        cand_valid = cand_valid & (cand_ids < n_real_docs)
+    total = torch.where(cand_valid, total, float("-inf"))
+    top_scores, idx = _top_sorted(total, min(k, cand_ids.shape[1]))
+    top_ids = torch.gather(cand_ids, 1, idx)
+    top_ids = torch.where(torch.isfinite(top_scores), top_ids, -1)
+    return top_scores, top_ids
+
+
 def bm25_pruned_topk_packed(
     cand_keys: torch.Tensor,
-    fields: Sequence[Delta16Field],
+    fields: Sequence[tuple],
     n_real_docs: Optional[int] = None,
     k: int = 10,
     n_candidates: int = 512,
@@ -514,23 +778,13 @@ def bm25_pruned_topk_packed(
         ragged_rows)
     safe_ids = torch.where(cand_valid, cand_ids, 0)
 
-    total = torch.zeros(cand_ids.shape, dtype=torch.float32,
-                        device=cand_ids.device)
-    for args in rescore:
-        total = total + delta16_rescore(*args)
+    total = _sum_pass2(safe_ids, rescore)
     if tiny_doc is not None:
         # exact tiny-term sums of the candidates: a [Q, C, T] match
         m = (safe_ids[:, :, None] == tiny_doc[:, None, :]) & (
             tiny_doc[:, None, :] >= 0)
         total = total + torch.where(m, tiny_ex[:, None, :], 0.0).sum(-1)
-
-    if n_real_docs is not None:
-        cand_valid = cand_valid & (cand_ids < n_real_docs)
-    total = torch.where(cand_valid, total, float("-inf"))
-    top_scores, idx = _top_sorted(total, min(k, cand_ids.shape[1]))
-    top_ids = torch.gather(cand_ids, 1, idx)
-    top_ids = torch.where(torch.isfinite(top_scores), top_ids, -1)
-    return top_scores, top_ids
+    return _final_topk(total, cand_ids, cand_valid, n_real_docs, k)
 
 
 def gather_pruned_candidate_keys(
@@ -577,15 +831,115 @@ def gather_pruned_candidate_keys(
     return keys.reshape(Q, M * R * LANES)
 
 
-def bm25_pruned_topk(*args, **kwargs):
-    """The two-operand pruned top-k of the reference is not ported."""
-    raise NotImplementedError(
-        "bm25_pruned_topk (two-operand candidates) is not ported; the "
-        "engine uses bm25_pruned_topk_packed (ROADMAP A4)")
+DOC_SENTINEL = 2**31 - 2  # pad doc of the two-operand pool: sorts last
 
 
-def gather_pruned_candidates(*args, **kwargs):
-    """The two-operand pass-1 gather of the reference is not ported."""
-    raise NotImplementedError(
-        "gather_pruned_candidates (two-operand candidates) is not ported; "
-        "the engine uses gather_pruned_candidate_keys (ROADMAP A4)")
+def select_candidates_two_operand(
+    cand_doc: torch.Tensor,
+    cand_imp: torch.Tensor,
+    n_candidates: int,
+    max_dup_shifts: int = 16,
+    exact_by_sign: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Pass-1 top-C of :func:`bm25_pruned_topk`: the pool ``cand_doc
+    [Q, P]`` (-1 pad) with impacts ``cand_imp [Q, P]`` is sorted by doc
+    with a stable sort carrying the impacts, runs are summed by the
+    segmented doubling scan, and the ``C = min(n_candidates, P)`` largest
+    run sums are kept. With ``exact_by_sign`` negative impacts are exact
+    contributions: their magnitude ranks, and the third result holds each
+    candidate's exact part (the run start's ``max(-imp, 0)``), else None.
+    Returns (cand_ids [Q, C] int64, cand_valid [Q, C] bool, exact)."""
+    doc = torch.where(cand_doc < 0, DOC_SENTINEL, cand_doc.long())
+    doc, order = torch.sort(doc, dim=1, stable=True)
+    enc = torch.gather(cand_imp, 1, order)
+    imp = enc.abs() if exact_by_sign else enc
+    partial = _run_partials(doc, imp, doc != DOC_SENTINEL, max_dup_shifts)
+    part_scores, pos = _top_sorted(partial, min(n_candidates, doc.shape[1]))
+    exact = None
+    if exact_by_sign:
+        # by the ordering contract each run's one exact (negative) entry
+        # sits at the run start, where the top-C positions point
+        exact = torch.gather(torch.clamp(-enc, min=0.0), 1, pos)
+    return torch.gather(doc, 1, pos), torch.isfinite(part_scores), exact
+
+
+def pass2_operands_two_operand(
+    cand_doc: torch.Tensor,
+    cand_imp: torch.Tensor,
+    fields: Sequence[tuple],
+    n_candidates: int = 512,
+    max_dup_shifts: int = 16,
+    ragged_rows: Sequence[int] = (),
+    exact_by_sign: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], List[tuple]]:
+    """Pass 1 of :func:`bm25_pruned_topk` and what it hands pass 2:
+    (cand_ids, cand_valid, exact part or None, one ``(function,
+    arguments)`` per field from :func:`_rescore_operands`, invalid
+    candidates at id 0)."""
+    cand_ids, cand_valid, exact = select_candidates_two_operand(
+        cand_doc, cand_imp, n_candidates, max_dup_shifts, exact_by_sign)
+    safe_ids = torch.where(cand_valid, cand_ids, 0)
+    return cand_ids, cand_valid, exact, _rescore_operands(
+        safe_ids, fields, ragged_rows)
+
+
+def bm25_pruned_topk(
+    cand_doc: torch.Tensor,
+    cand_imp: torch.Tensor,
+    fields: Sequence[tuple],
+    n_real_docs: Optional[int] = None,
+    k: int = 10,
+    n_candidates: int = 512,
+    max_dup_shifts: int = 16,
+    ragged_rows: Sequence[int] = (),
+    exact_by_sign: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-operand two-pass top-k (counterpart of the reference's
+    ``bm25_pruned_topk``): pass 1 pools the gathered (doc, impact) pairs
+    of :func:`gather_pruned_candidates`, pass 2 rescores the top
+    ``n_candidates`` over every field (any layout of
+    :func:`_rescore_operands`; the two-array one goes through K3), plus
+    the exact parts of ``exact_by_sign``; padding documents (id >=
+    ``n_real_docs``) are dropped. Returns (scores [Q, k] float32, ids
+    [Q, k] int64, -1 where fewer than k candidates score)."""
+    cand_ids, cand_valid, exact, rescore = pass2_operands_two_operand(
+        cand_doc, cand_imp, fields, n_candidates, max_dup_shifts,
+        ragged_rows, exact_by_sign)
+    total = _sum_pass2(cand_ids, rescore)
+    if exact is not None:
+        total = total + exact
+    return _final_topk(total, cand_ids, cand_valid, n_real_docs, k)
+
+
+def gather_pruned_candidates(
+    rare_terms: torch.Tensor,
+    offsets: torch.Tensor,
+    packed_rows: torch.Tensor,
+    per_term_cap: int,
+    imp_lo: float,
+    imp_step: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass-1 window gather of the two-operand pool: each of the
+    ``rare_terms [Q, M]`` (-1 pad) contributes its first ``per_term_cap``
+    postings of the packed CSR (``offsets [V+1]`` int32, ``packed_rows
+    [NR, 128]`` int32 ``(code8 << 24) | doc``) as (cand_doc [Q, P] int32
+    with -1 pads, cand_imp [Q, P] float32 dequantized with ``exp(imp_lo
+    + (code - 1) * imp_step)``), P = M * (cap // 128 + 2) * 128. The
+    covering rows are clamped to the CSR's rows, as an XLA gather
+    clamps them."""
+    Q, M = rare_terms.shape
+    cap = per_term_cap
+    R = (cap + LANES - 1) // LANES + 1  # +1 row for any start in a row
+    safe = torch.clamp(rare_terms, min=0).long()
+    o = offsets[safe].long()
+    dfq = offsets[safe + 1].long() - o
+    eff = torch.where(rare_terms >= 0, torch.clamp(dfq, max=cap), 0)
+    rows = (o >> 7)[:, :, None] + torch.arange(R, device=o.device)
+    p_rows = packed_rows[torch.clamp(rows, max=packed_rows.shape[0] - 1)]
+    code = (p_rows.long() & 0xFFFFFFFF) >> 24
+    lane = torch.arange(LANES, device=o.device)
+    g = rows[..., None] * LANES + lane
+    valid = (g >= o[:, :, None, None]) & (g < (o + eff)[:, :, None, None])
+    cand_doc = torch.where(valid, p_rows & 0xFFFFFF, -1)
+    cand_imp = torch.where(valid, _dequantize(code, imp_lo, imp_step), 0.0)
+    return cand_doc.reshape(Q, -1), cand_imp.reshape(Q, -1)

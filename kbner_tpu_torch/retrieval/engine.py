@@ -1,20 +1,22 @@
 """Retrieval engine: device-resident BM25 index, batched top-k
-(counterpart of ``kbner_tpu/retrieval/engine.py``, unsharded, text field
-for the pruned mode).
+(counterpart of ``kbner_tpu/retrieval/engine.py``, unsharded).
 
-Two modes:
+Two modes, each over the text field and an optional title field for
+entity-boosted queries:
 
-* ``exhaustive``: the padded impact arrays of the text field (and an
-  optional title field) live in device memory transposed to ``[Ld, N]``;
-  a query batch is scored against every document by the CUDA kernel
-  behind ``ops.bm25.bm25_topk``.
+* ``exhaustive``: the padded impact arrays of each field live in device
+  memory transposed to ``[Ld, N]``; a query batch is scored against every
+  document by the CUDA kernel behind ``ops.bm25.bm25_topk``.
 * ``pruned``: two-pass MaxScore-style search. Pass 1 reads the capped,
   impact-ordered windows of each query's rarest terms from a packed CSR
-  on the device and pools them with the host-gathered exact sums of the
-  "tiny" terms (df <= ``tiny_cap``, left out of every device array); the
-  top ``n_candidates`` by pooled partial score are rescored exactly over
-  gap-coded 16-bit ("delta16") document rows by the CUDA kernel behind
-  ``ops.bm25.delta16_rescore``.
+  per field on the device and pools them with the host-gathered exact
+  sums of the "tiny" text terms (df <= ``tiny_cap``, left out of every
+  device array); the top ``n_candidates`` by pooled partial score are
+  rescored over each field's document rows: gap-coded 16-bit ("delta16")
+  text rows by the CUDA kernel behind ``ops.bm25.delta16_rescore``, or
+  packed32 rows (``(code << term_bits) | term``, per-term log scale; the
+  title field's always) in plain PyTorch, as the reference leaves them to
+  XLA.
 
 Only the top-k ids and scores come back. Document texts stay on the host
 and are materialized into result records with the reference's
@@ -32,7 +34,7 @@ import torch
 from ..device import resolve_device
 from ..ops.bm25 import (KEY_PAD, bm25_pruned_topk_packed, bm25_topk,
                         gather_pruned_candidate_keys)
-from .index import BM25Index, long_to_int4
+from .index import BM25Index, log_quantize, long_to_int4
 
 _DOC_PAD = 512  # the doc axis is padded to a multiple of this on upload
 
@@ -226,9 +228,120 @@ def _pow2_width(n: int, start: int) -> int:
     return w
 
 
+# -- pass-2 row layout (packed32) ----------------------------------------------
+
+def _quantize_codes(di: np.ndarray, bits: int,
+                    scale: Optional[Tuple[float, float]] = None
+                    ) -> Tuple[np.ndarray, float, float]:
+    """Log-quantized impacts ``(codes, lo, step)``, against a given ``(lo,
+    step)`` when ``scale`` is set (float64 logs)."""
+    if scale is None:
+        return log_quantize(di, bits=bits)
+    lo, step = scale
+    levels = (1 << bits) - 2
+    codes = np.zeros(di.shape, np.uint16 if bits <= 16 else np.uint32)
+    pos = di > 0
+    codes[pos] = np.clip(
+        np.rint((np.log(di[pos].astype(np.float64)) - lo) / step), 0, levels
+    ).astype(codes.dtype) + 1
+    return codes, lo, step
+
+
+def _pack_doc_rows_ragged(
+    dt: np.ndarray,
+    di: np.ndarray,
+    vocab_size: int,
+    lanes: int = 128,
+    scale=None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int, float, float, int]:
+    """Ragged packed32 pass-2 rows from left-packed doc arrays ``dt``/``di``
+    [N, Ld] (pad -1): one int32 ``(code << term_bits) | term`` per real
+    slot, segments placed by :func:`_place_length_groups` (none straddles
+    a row boundary).
+
+    ``scale`` is None (one log scale from the impacts' range), ``(lo,
+    step)``, or ``(term_lo [V], step)``: per-term log bases, so codes
+    store ``ln(imp) - term_lo[t]``, the rows decode with lo = 0 and the
+    base rides the query weight (:meth:`RetrievalEngine._fold_weights`).
+
+    Returns (flat [NR, lanes] int32 with -1 pads, off [N] int32, lens [N]
+    uint8|int32, term_bits, lo, step, r2 covering rows)."""
+    N, Ld = dt.shape
+    term_bits = max(int(np.ceil(np.log2(vocab_size + 2))), 1)
+    code_bits = 32 - term_bits
+    if code_bits < 8:
+        raise ValueError(
+            f"vocab {vocab_size} leaves {code_bits} impact bits; "
+            "shard the vocabulary or use the two-array layout")
+    levels = (1 << code_bits) - 2
+    term_lo = None
+    if scale is not None and np.ndim(scale[0]) == 1:
+        term_lo, step = scale
+        lo = 0.0
+    elif scale is not None:
+        lo, step = scale
+    else:
+        pos = di[di > 0]
+        if len(pos):
+            lo = float(np.log(float(pos.min())))
+            hi = float(np.log(float(pos.max())))
+            step = max((hi - lo) / max(levels, 1), 1e-12)
+        else:
+            lo, step = 0.0, 1.0
+
+    valid = dt >= 0
+    lens = valid.sum(axis=1).astype(np.int64)
+    off, nr = _place_length_groups(lens, lanes, max(Ld, 1))
+    r2 = 1 if Ld <= lanes else (Ld + lanes - 1) // lanes
+    if off.max(initial=0) + Ld >= 2**31:
+        raise ValueError("ragged layout exceeds int32 offsets; shard more")
+
+    flat = np.full(nr * lanes, -1, dtype=np.int32)
+    if term_lo is not None:
+        codes = np.zeros(di.shape, np.uint32)
+        p = valid & (di > 0)
+        base = term_lo[np.maximum(dt, 0)].astype(np.float64)
+        codes[p] = np.clip(
+            np.rint((np.log(di[p].astype(np.float64)) - base[p]) / step),
+            0, levels).astype(np.uint32) + 1
+    else:
+        codes, _, _ = _quantize_codes(di, bits=code_bits, scale=(lo, step))
+    packed = ((codes.astype(np.uint32) << term_bits)
+              | (dt.astype(np.uint32) & ((1 << term_bits) - 1))
+              ).view(np.int32)
+    pos = off[:, None] + np.arange(Ld, dtype=np.int64)[None, :]
+    flat[pos[valid]] = packed[valid]
+    lens_dtype = np.uint8 if Ld < 256 else np.int32
+    return (flat.reshape(nr, lanes), off.astype(np.int32),
+            lens.astype(lens_dtype), term_bits, lo, step, r2)
+
+
+def _term_scale_from_csr(index: BM25Index, code_bits: int
+                         ) -> Tuple[np.ndarray, float]:
+    """Per-term log bases ``term_lo [V]`` float32 and the one step of the
+    per-term row quantization: from the impact-ordered CSR a term's
+    largest impact is its first posting and its smallest its last."""
+    offsets, _, p_imp, df = index.csr
+    V = len(df)
+    term_lo = np.zeros(V, np.float32)
+    levels = (1 << code_bits) - 2
+    if len(p_imp) == 0:
+        return term_lo, 1.0
+    has = df > 0
+    mins = p_imp[np.maximum(offsets[1:] - 1, 0)]
+    maxs = p_imp[np.minimum(offsets[:-1], len(p_imp) - 1)]
+    lnmin = np.zeros(V)
+    lnmax = np.zeros(V)
+    np.log(mins, out=lnmin, where=has & (mins > 0))
+    np.log(maxs, out=lnmax, where=has & (maxs > 0))
+    term_lo[has] = lnmin[has].astype(np.float32)
+    rng = float((lnmax - lnmin).max(initial=0.0))
+    return term_lo, max(rng / max(levels, 1), 1e-12)
+
+
 class RetrievalEngine:
     """BM25 query execution over one language's index (text field, plus an
-    optional title field for entity-boosted queries in exhaustive mode).
+    optional title field for entity-boosted queries).
 
     ``doc_chunk`` (exhaustive) scans the document axis in pieces of that
     size (a multiple of 512) with a running top-k, bounding the score
@@ -242,7 +355,11 @@ class RetrievalEngine:
     (``tiny_pack``), float16 (``tiny_f16``) or float32. The query-block
     widths are powers of two that never shrink below ``tiny_cols_floor``,
     ``d16_width_floor`` or an earlier batch's width; they set P and so C =
-    min(n_candidates, P), as in the reference.
+    min(n_candidates, P), as in the reference. ``row_layout`` picks the
+    text field's pass-2 rows: ``"delta16"``, ``"packed32"``, or
+    ``"auto"`` (delta16 on an index with stored doc lengths and quantized
+    norms, else packed32); ``align_windows`` pads each term's CSR range to
+    whole rows.
     """
 
     def __init__(
@@ -295,6 +412,11 @@ class RetrievalEngine:
         # field name -> device (doc_terms_t [Ld, N] int32,
         # doc_impacts_t [Ld, N] float32), the exhaustive kernel's operands
         self.fields = {}
+        # pruned, per field name: device pass-2 rows, their layout
+        # (_row_meta), the per-term log bases of packed32 rows (_term_lo),
+        # the device CSR (offsets, packed rows) and its log scale
+        self.rows, self._row_meta, self._term_lo = {}, {}, {}
+        self.csr, self._csr_scale = {}, {}
         self._upload()
 
     def _init_pruned(self, rare_terms, posting_budget, df_cap, n_candidates,
@@ -305,10 +427,6 @@ class RetrievalEngine:
         """The pruned knobs and the values derived from them, as the
         reference derives them; what a later slice ports raises here."""
         idx = self.text_index
-        if self.title_index is not None:
-            raise NotImplementedError(
-                "a title index in pruned mode (packed32 title rows and a "
-                "title CSR) is not ported yet (ROADMAP A4)")
         if deep_terms or deep_cap:
             raise NotImplementedError(
                 "deep_terms/deep_cap are not ported yet (ROADMAP A4)")
@@ -323,11 +441,10 @@ class RetrievalEngine:
             raise ValueError(
                 "row_layout='delta16' needs an index built with stored "
                 "doc lengths and quantize_norms=True")
-        if row_layout == "packed32" or not d16_ok:
-            raise NotImplementedError(
-                "packed32 pass-2 rows (row_layout='packed32', or 'auto' on "
-                "an index without stored doc lengths and quantized norms) "
-                "are not ported yet (ROADMAP A4)")
+        # the text field's pass-2 rows: delta16 where the index allows it
+        # and the caller did not ask for packed32; the title field's are
+        # always packed32
+        self._row_d16 = row_layout != "packed32" and d16_ok
         self.rare_terms = rare_terms
         self.posting_budget = posting_budget
         self.df_cap = df_cap if df_cap is not None else max(
@@ -357,76 +474,99 @@ class RetrievalEngine:
         n_padded = max(idx.doc_terms.shape[0] for idx in fields.values())
         n_padded = -(-n_padded // _DOC_PAD) * _DOC_PAD
         self.n_padded = n_padded
-        if self.mode == "pruned":
-            self._upload_pruned()
-            return
         for name, idx in fields.items():
             n = idx.doc_terms.shape[0]
             dt = np.pad(idx.doc_terms, ((0, n_padded - n), (0, 0)),
                         constant_values=-1)
             di = np.pad(idx.doc_impacts, ((0, n_padded - n), (0, 0)))
+            if self.mode == "pruned":
+                self._upload_pruned(name, idx, dt, di)
+                continue
             self.fields[name] = (
                 torch.from_numpy(np.ascontiguousarray(dt.T)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(di.T)).to(self.device))
 
-    def _upload_pruned(self) -> None:
-        """Delta16 pass-2 rows (int16 slots, int32 offsets and lengths,
-        uint8 norm codes) and the capped packed CSR of the text field."""
-        idx = self.text_index
+    def _put(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _upload_pruned(self, name: str, idx: BM25Index, dt: np.ndarray,
+                       di: np.ndarray) -> None:
+        """One field's pass-2 rows and capped packed CSR, from its doc
+        arrays ``dt``/``di`` padded to ``n_padded`` docs. The text field
+        takes delta16 rows (int16 slots, int32 offsets and lengths, uint8
+        norm codes) where ``_row_d16`` allows, else packed32 rows (int32
+        slots, offsets, lengths) on a per-term log scale, without its tiny
+        slots under compact rows; the title field always takes full
+        packed32 rows. ``_row_meta[name]`` is the reference's
+        ``("d16", k1, b, avgdl, r2)`` or ``("p32", term_bits, lo, step,
+        r2)``."""
         n_padded = self.n_padded
-        if self.compact_rows and self._want_tiny_pack:
+        if name == "text" and self.compact_rows and self._want_tiny_pack:
             # one int32 per tiny entry, (code << docbits) | doc, when the
             # doc id leaves at least 9 code bits
             docbits = max(int(np.ceil(np.log2(max(n_padded, 2)))), 1)
             if 32 - docbits >= 9:
                 self._tiny_pack = (docbits,)
-        n = idx.doc_terms.shape[0]
-        dt = np.pad(idx.doc_terms, ((0, n_padded - n), (0, 0)),
-                    constant_values=-1)
-        di = np.pad(idx.doc_impacts, ((0, n_padded - n), (0, 0)))
         df = idx.csr[3]
-        if self.compact_rows:
+        text = name == "text"
+        if text and self.compact_rows:
             dt, di = _drop_tiny_slots(dt, di, df, self.tiny_cap)
-        remap, self.n_nontiny = _nontiny_remap(df, self.tiny_cap)
-        self._d16_remap = remap
-        p = idx.params
-        dl = np.zeros(n_padded, np.int64)
-        dl[: len(idx.doc_dl)] = idx.doc_dl
-        norm = (p.k1 * (1.0 - p.b + p.b * dl / idx.avgdl)).astype(np.float32)
-        lut_max = int(dl.max(initial=0)) + 1
-        lut = np.fromiter((long_to_int4(i) for i in range(lut_max)),
-                          np.uint8, count=lut_max)
-        flat, off, lens, r2 = _pack_doc_rows_delta16(dt, di, remap, idx.idf,
-                                                      norm)
-        self.r2 = r2
-        self.max_seg = int(lens.max(initial=0))
-        self._row_meta = (float(p.k1), float(p.b), float(idx.avgdl))
-
-        def put(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
-        # the rows are stored as int16 and read as uint16: the kernel takes
-        # the raw 16 bits, the plain version widens with & 0xFFFF
-        self.rows = (put(flat.view(np.int16)), put(off),
-                     put(lens.astype(np.int32)), put(lut[dl]))
+        put = self._put
+        if text and self._row_d16:
+            remap, self.n_nontiny = _nontiny_remap(df, self.tiny_cap)
+            self._d16_remap = remap
+            p = idx.params
+            dl = np.zeros(n_padded, np.int64)
+            dl[: len(idx.doc_dl)] = idx.doc_dl
+            norm = (p.k1 * (1.0 - p.b + p.b * dl / idx.avgdl)).astype(
+                np.float32)
+            lut_max = int(dl.max(initial=0)) + 1
+            lut = np.fromiter((long_to_int4(i) for i in range(lut_max)),
+                              np.uint8, count=lut_max)
+            flat, off, lens, r2 = _pack_doc_rows_delta16(dt, di, remap,
+                                                          idx.idf, norm)
+            self._row_meta[name] = ("d16", float(p.k1), float(p.b),
+                                    float(idx.avgdl), r2)
+            # the rows are stored as int16 and read as uint16: the kernel
+            # takes the raw 16 bits, the plain version widens with & 0xFFFF
+            self.rows[name] = (put(flat.view(np.int16)), put(off),
+                               put(lens.astype(np.int32)), put(lut[dl]))
+        else:
+            code_bits = 32 - max(int(np.ceil(np.log2(len(idx.vocab) + 2))),
+                                 1)
+            term_lo, t_step = _term_scale_from_csr(idx, code_bits)
+            self._term_lo[name] = term_lo
+            flat, off, lens, tb, lo, step, r2 = _pack_doc_rows_ragged(
+                dt, di, len(idx.vocab), scale=(term_lo, t_step))
+            self._row_meta[name] = ("p32", tb, lo, step, r2)
+            self.rows[name] = (put(flat), put(off),
+                               put(lens.astype(np.int32)))
+        if text:
+            self.max_seg = int(lens.max(initial=0))
+        # the device never looks up a tiny text term, so its postings leave
+        # the text CSR; the title CSR keeps every term
         off32, packed, clo, cstep = idx.csr_rows_packed(
-            cap=self.per_term_cap, min_df=self.tiny_cap,
+            cap=self.per_term_cap, min_df=self.tiny_cap if text else 0,
             align_windows=self._csr_aligned)
-        self._csr_scale = (clo, cstep)
-        self.csr = (put(off32), put(packed))
+        self._csr_scale[name] = (clo, cstep)
+        self.csr[name] = (put(off32), put(packed))
 
     # -- host query preparation (pruned) --------------------------------------
 
     def _select_rare_terms(self, q_terms: np.ndarray,
+                           index: Optional[BM25Index] = None,
+                           df_cap: Optional[int] = None,
                            df_floor: int = 0) -> np.ndarray:
-        """Per query: the ``rare_terms`` lowest-df in-vocab terms with
-        df_floor < df <= df_cap (pass-1 term selection). With compact rows
-        ``df_floor`` leaves out the tiny terms, whose exact sums arrive in
-        the host block."""
-        df = self.text_index.csr[3]
+        """Per query: the ``rare_terms`` lowest-df in-vocab terms of
+        ``index`` (the text index by default) with df_floor < df <=
+        ``df_cap`` (the engine's by default): pass-1 term selection. With
+        compact rows ``df_floor`` leaves out the tiny terms, whose exact
+        sums arrive in the host block."""
+        df = (index or self.text_index).csr[3]
+        cap = df_cap if df_cap is not None else self.df_cap
         big = np.iinfo(np.int64).max
         term_df = np.where(q_terms >= 0, df[np.maximum(q_terms, 0)], big)
-        term_df = np.where((term_df <= self.df_cap) & (term_df > df_floor),
+        term_df = np.where((term_df <= cap) & (term_df > df_floor),
                            term_df, big)
         order = np.argsort(term_df, axis=1, kind="stable")[:, :self.rare_terms]
         rare = np.take_along_axis(q_terms, order, axis=1).astype(np.int32)
@@ -511,15 +651,54 @@ class RetrievalEngine:
         out_w[rows, pos] = w2[valid]
         return out_t, out_w
 
-    def _pack_queries(self, q_terms: np.ndarray, q_weights: np.ndarray):
-        """Host half of a pruned search: the rare-term block, the tiny
+    def _text_query_block(self, qt: np.ndarray, qw: np.ndarray
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """The text field's pass-2 query block in the layout of its rows:
+        remapped and left-packed for delta16 rows, the raw ids with the
+        per-term bases folded into the weights for packed32 rows."""
+        if self._row_d16:
+            return self._remap_queries_d16(qt, qw)
+        return (np.ascontiguousarray(qt, np.int32),
+                self._fold_weights(qt, qw, "text"))
+
+    def _fold_weights(self, qt: np.ndarray, qw: np.ndarray,
+                      field: str) -> np.ndarray:
+        """Query weights with the per-term row base folded in: a matched
+        packed32 slot decodes as ``exp((code - 1) * step)``, so the
+        contribution ``w * imp`` is ``(w * exp(term_lo[t])) * exp((code -
+        1) * step)``. Negative ids never match a slot, so their weight is
+        irrelevant."""
+        tl = self._term_lo.get(field)
+        if tl is None:
+            return np.ascontiguousarray(qw, np.float32)
+        return np.ascontiguousarray(qw * np.exp(tl[np.maximum(qt, 0)]),
+                                    np.float32)
+
+    def _pack_queries(self, q_terms: np.ndarray, q_weights: np.ndarray,
+                      title_terms: Optional[np.ndarray] = None,
+                      title_weights: Optional[np.ndarray] = None):
+        """Host half of a pruned search: the rare-term blocks, the tiny
         exact block in its wire encoding (power-of-two width, never
-        shrinking), and the text query block. Separate arrays, not the
-        reference's single upload. Returns (rare, tiny, (qt2, qw2)) where
-        ``tiny`` is None, ``("pack", enc int64, lo, step)``, ``("f16",
-        doc, ex float16)`` or ``("f32", doc, ex float32)``."""
+        shrinking), and one query block per field. Separate arrays, not
+        the reference's single upload.
+
+        With title terms a second rare block, selected from the title
+        index with its own df cap (title rows are never compacted), drives
+        candidate generation from the title CSR: ES ``bool.should`` finds
+        a document through either field. Returns (rares, tiny, blocks):
+        ``rares`` one [Q, M] block per CSR, ``tiny`` None, ``("pack", enc
+        int64, lo, step)``, ``("f16", doc, ex float16)`` or ``("f32", doc,
+        ex float32)``, ``blocks`` one (terms, weights) per field."""
         df_floor = self.tiny_cap if self.compact_rows else 0
-        rare = self._select_rare_terms(q_terms, df_floor=df_floor)
+        rares = [self._select_rare_terms(q_terms, df_floor=df_floor)]
+        blocks = [self._text_query_block(q_terms, q_weights)]
+        if title_terms is not None:
+            tcap = max(256, self.title_index.n_docs // 20)
+            rares.append(self._select_rare_terms(
+                title_terms, index=self.title_index, df_cap=tcap))
+            blocks.append((np.ascontiguousarray(title_terms, np.int32),
+                           self._fold_weights(title_terms, title_weights,
+                                              "title")))
         tiny = None
         if self.compact_rows:
             t_doc, t_ex = self._tiny_block(q_terms, q_weights)
@@ -536,7 +715,7 @@ class RetrievalEngine:
                     tiny = ("f16", t_doc, t_ex.astype(np.float16))
                 else:
                     tiny = ("f32", t_doc, t_ex)
-        return rare, tiny, self._remap_queries_d16(q_terms, q_weights)
+        return rares, tiny, blocks
 
     def _encode_tiny_pack(self, t_doc: np.ndarray, t_ex: np.ndarray):
         """One 32-bit word per tiny entry, ``(log_code << docbits) | doc``,
@@ -580,24 +759,37 @@ class RetrievalEngine:
         return (torch.from_numpy(t_doc).to(self.device).long(),
                 torch.from_numpy(t_ex).to(self.device).to(torch.float32))
 
+    def _field(self, name: str, terms: np.ndarray,
+               weights: np.ndarray) -> tuple:
+        """One field's pass-2 operands: the query block on the device, the
+        field's rows and the scalars of its layout (the 9-tuple delta16 or
+        the 8-tuple packed32 form of ``ops.bm25._rescore_operands``)."""
+        meta = self._row_meta[name]
+        return (self._put(terms), self._put(weights), *self.rows[name],
+                *meta[1:4])
+
     def _device_queries(self, packed):
         """One batch's pruned-search operands on the device, from the
         output of :meth:`_pack_queries`: the pooled pass-1 keys [Q, P]
-        int64 (rare-term windows, then the tiny block's keys), the delta16
-        text field, the decoded tiny block (or None, None) and the pass-1
-        keyword arguments of ``bm25_pruned_topk_packed`` (those
-        ``pass2_operands`` takes too)."""
-        rare, tiny, (qt2, qw2) = packed
-        csr_lo, csr_step = self._csr_scale
-        # one ranking scale for every key: the CSR's, with ln(64) of
-        # headroom so summed tiny contributions do not clip to code 255
-        rank_lo = csr_lo
+        int64 (the text windows, the title windows, then the tiny block's
+        keys), the pass-2 fields (text, then title), the decoded tiny block
+        (or None, None) and the pass-1 keyword arguments of
+        ``bm25_pruned_topk_packed`` (those ``pass2_operands`` takes
+        too)."""
+        rares, tiny, blocks = packed
+        names = ("text", "title")[:len(blocks)]
+        # one ranking scale for every key: the text CSR's, with ln(64) of
+        # headroom so summed tiny contributions do not clip to code 255;
+        # the title windows are re-encoded onto it
+        rank_lo, csr_step = self._csr_scale["text"]
         rank_step = csr_step + float(np.log(64.0)) / 254.0
-        key_blocks = [gather_pruned_candidate_keys(
-            torch.from_numpy(rare).to(self.device), *self.csr,
-            self.per_term_cap, reencode=True, lo_src=csr_lo,
-            step_src=csr_step, lo_dst=rank_lo, step_dst=rank_step,
-            aligned=self._csr_aligned)]
+        key_blocks = []
+        for name, rare in zip(names, rares):
+            lo, step = self._csr_scale[name]
+            key_blocks.append(gather_pruned_candidate_keys(
+                self._put(rare), *self.csr[name], self.per_term_cap,
+                reencode=True, lo_src=lo, step_src=step, lo_dst=rank_lo,
+                step_dst=rank_step, aligned=self._csr_aligned))
         t_doc = t_ex = None
         if tiny is not None:
             t_doc, t_ex = self._unpack_tiny(tiny)
@@ -606,23 +798,29 @@ class RetrievalEngine:
                 / rank_step) + 1.0, 1.0, 255.0).long()
             ok = (t_doc >= 0) & (t_ex > 0)
             key_blocks.append(torch.where(ok, (t_doc << 8) | code, KEY_PAD))
-        field = (torch.from_numpy(qt2).to(self.device),
-                 torch.from_numpy(qw2).to(self.device), *self.rows,
-                 *self._row_meta)
+        fields = tuple(self._field(name, *block)
+                       for name, block in zip(names, blocks))
+        # a doc enters the pool at most once per window of each rare block
+        # and once from the host-deduplicated tiny block
         kwargs = dict(n_candidates=self.n_candidates,
-                      max_dup_shifts=self.rare_terms + (tiny is not None),
+                      max_dup_shifts=(self.rare_terms * len(rares)
+                                      + (tiny is not None)),
                       imp_lo=rank_lo, imp_step=rank_step,
-                      ragged_rows=(self.r2,))
-        return torch.cat(key_blocks, dim=1), field, (t_doc, t_ex), kwargs
+                      ragged_rows=tuple(self._row_meta[n][4] for n in names))
+        return torch.cat(key_blocks, dim=1), fields, (t_doc, t_ex), kwargs
 
     def _search_pruned(self, q_terms: np.ndarray, q_weights: np.ndarray,
-                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                       k: int, title_terms: Optional[np.ndarray] = None,
+                       title_weights: Optional[np.ndarray] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Pooled pass 1 and pass 2 of one batch on the device: scores
-        [Q, k] float32 and ids [Q, k] int64 (-1 where fewer score)."""
-        keys, field, (t_doc, t_ex), kwargs = self._device_queries(
-            self._pack_queries(q_terms, q_weights))
+        [Q, k] float32 and ids [Q, k] int64 (-1 where fewer score). Without
+        title terms the text field is searched alone."""
+        keys, fields, (t_doc, t_ex), kwargs = self._device_queries(
+            self._pack_queries(q_terms, q_weights, title_terms,
+                               title_weights))
         return bm25_pruned_topk_packed(
-            keys, (field,), n_real_docs=self.text_index.n_docs, k=k,
+            keys, fields, n_real_docs=self.text_index.n_docs, k=k,
             tiny_doc=t_doc, tiny_ex=t_ex, **kwargs)
 
     def search_encoded(
@@ -636,9 +834,13 @@ class RetrievalEngine:
         """Top-k over pre-encoded queries. Returns (scores, ids) [Q, k]."""
         if self.mode == "pruned":
             if title_terms is not None:
-                raise ValueError("engine built without a title index")
+                if self.title_index is None:
+                    raise ValueError("engine built without a title index")
+                title_terms = np.asarray(title_terms)
+                title_weights = np.asarray(title_weights)
             scores, ids = self._search_pruned(
-                np.asarray(q_terms), np.asarray(q_weights), k)
+                np.asarray(q_terms), np.asarray(q_weights), k, title_terms,
+                title_weights)
             return scores.cpu().numpy(), ids.cpu().numpy()
 
         def put(x, dtype):

@@ -161,3 +161,33 @@ def synth_rescore_operands(seed: int, Q: int, C: int, long_doc: int = 0,
     qw = rng.uniform(0.5, 8.0, size=(Q, W)).astype(np.float32)
     return (qt, qw, cand, flat, off, lens.astype(np.int32), code, 1.2, 0.75,
             avgdl, r2)
+
+
+def synth_k3_operands(seed: int, Q: int, C: int, Lq: int, Ld: int,
+                      n_docs: int = 0, vocab: int = 40):
+    """A two-array rescore batch for edge cases of the K3 kernel, as numpy
+    arrays: (q_terms [Q, Lq] int32, q_weights [Q, Lq] float32, cand [Q, C]
+    int32, doc_terms [N, Ld] int32, doc_codes [N, Ld] uint16, lo, step).
+    Term ids are drawn from [-1, vocab) on both sides, so -1 query pads
+    meet -1 doc pads, and codes are random 16-bit values under every slot
+    (pads included), with doc 1 all code 0 and doc N - 1 all code 65535;
+    candidates include ids 0, 1 and N - 1 (N - 1 last); the first query
+    term is doc N - 1's first and the second repeats it. ``lo`` and
+    ``step`` are the 16-bit log scale of the reference's kernel test."""
+    rng = np.random.RandomState(seed)
+    n = n_docs or max(2 * C, 8)
+    dt = rng.randint(-1, vocab, size=(n, Ld)).astype(np.int32)
+    codes = rng.randint(0, 1 << 16, size=(n, Ld)).astype(np.uint16)
+    codes[1] = 0
+    codes[n - 1] = 65535
+    cand = rng.randint(0, n, size=(Q, C)).astype(np.int32)
+    cand[:, C // 2] = 1
+    cand[:, 0] = 0
+    cand[:, -1] = n - 1
+    qt = rng.randint(-1, vocab, size=(Q, Lq)).astype(np.int32)
+    qt[:, 0] = dt[n - 1, 0]  # a sure match, at code 65535
+    if Lq > 1:
+        qt[:, 1] = qt[:, 0]
+        qt[:, -1] = -1
+    qw = rng.uniform(0.5, 8.0, size=(Q, Lq)).astype(np.float32)
+    return qt, qw, cand, dt, codes, -2.0, 1e-4

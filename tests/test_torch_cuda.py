@@ -1,6 +1,7 @@
 """kbner_tpu_torch on the card: the CUDA kernels against their plain
-versions, and retrieval (exhaustive and pruned) and tagging on the card
-against the same on the CPU.
+versions, and retrieval (exhaustive, pruned, entity-boosted and the
+two-operand pruned top-k) and tagging on the card against the same on the
+CPU.
 
 These tests need an NVIDIA GPU and skip without one. The machine with the
 card has no JAX, so run them there without the suite's conftest:
@@ -22,6 +23,7 @@ from kbner_tpu_torch.retrieval.engine import DocStore, RetrievalEngine
 from kbner_tpu_torch.retrieval.index import BM25Index
 from kbner_tpu_torch.retrieval.fusion import fuse_contexts
 from kbner_tpu_torch.retrieval.synth import (sentence_queries,
+                                             synth_k3_operands,
                                              synth_rescore_operands,
                                              synth_wiki_docs)
 from kbner_tpu_torch.serve import predict, request_record
@@ -158,6 +160,89 @@ def test_pruned_engine_on_card_matches_cpu(card):
     assert bm25.delta16_rescore.launches == before + 1
     cs, ci = cpu.search_encoded(qt, qw, k=10)
     _assert_same_topk(gs, gi, cs, ci)
+
+
+@pytest.mark.parametrize("Q,C,Lq,Ld", [
+    (5, 300, 12, 20),     # ragged Q and C
+    (3, 77, 1, 52),       # one query term
+    (2, 64, 64, 130),     # a row longer than a warp's 4 passes
+    (32, 1024, 64, 52),   # the serve shape
+    (1, 1, 1, 1),
+])
+def test_rescore_kernel_matches_plain(card, Q, C, Lq, Ld):
+    """K3 against its plain version: codes 0 and 65535, candidates at id 0
+    and N - 1, a repeated query term, and -1 pads on both sides under
+    nonzero codes (they match, as in the reference)."""
+    qt, qw, cand, dt, codes, lo, step = synth_k3_operands(Q + C, Q, C, Lq,
+                                                          Ld)
+    ops = [torch.from_numpy(x).to(card)
+           for x in (qt, qw, cand, dt, codes.view(np.int16))]
+    before = bm25.bm25_rescore.launches
+    got = bm25.bm25_rescore(*ops, lo, step)
+    torch.cuda.synchronize()
+    assert bm25.bm25_rescore.launches == before + 1
+    want = bm25.bm25_rescore_ref(*ops, lo, step)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert (want > 0).any()
+
+
+def _title_engine(device, **kw):
+    docs = synth_wiki_docs(3000, vocab=4000, n_topics=40, seed=5)
+    vocab = {f"w{i}": i for i in range(4000)}
+    index = BM25Index.build_encoded(docs, vocab)
+    titles = BM25Index.build_encoded(docs[:, :2], vocab)
+    return docs, RetrievalEngine(
+        index, title_index=titles, mode="pruned", device=device,
+        rare_terms=16, posting_budget=6144, n_candidates=1024, **kw)
+
+
+@pytest.mark.parametrize("row_layout", ["auto", "packed32"])
+def test_entity_boosted_pruned_engine_on_card_matches_cpu(card, row_layout):
+    """The title field's packed32 rows and CSR on the card: entity-boosted
+    search equals the CPU's."""
+    docs, gpu = _title_engine(card, row_layout=row_layout)
+    _, cpu = _title_engine("cpu", row_layout=row_layout)
+    q, src = sentence_queries(docs, 32, 64, seed=3)
+    qt, qw = gpu.text_index.encode_queries(
+        [" ".join(f"w{t}" for t in r[r >= 0]) for r in q])
+    tt, tw = gpu.title_index.encode_queries(
+        [" ".join(f"w{t}" for t in docs[s, :2]) for s in src],
+        boosts=[2.0] * len(src))
+    kw = dict(k=10, title_terms=tt, title_weights=tw)
+    _assert_same_topk(*gpu.search_encoded(qt, qw, **kw),
+                      *cpu.search_encoded(qt, qw, **kw))
+
+
+def test_two_operand_topk_on_card_matches_cpu(card):
+    """The path K3 serves: the packed32 engine's pass-1 windows as a
+    two-operand pool, rescored over a two-array field, on the card (one K3
+    launch) and on the CPU."""
+    from kbner_tpu_torch.retrieval.index import log_quantize
+
+    docs, eng = _title_engine("cpu", row_layout="packed32",
+                              compact_rows=False)
+    idx = eng.text_index
+    q, _ = sentence_queries(docs, 32, 64, seed=3)
+    qt, qw = idx.encode_queries(
+        [" ".join(f"w{t}" for t in r[r >= 0]) for r in q])
+    codes, lo, step = log_quantize(idx.doc_impacts, bits=16)
+    arrays = (qt, qw, idx.doc_terms, codes.view(np.int16))
+    rare = torch.from_numpy(eng._select_rare_terms(qt))
+    out = []
+    for dev in (card, torch.device("cpu")):
+        off, pk = (x.to(dev) for x in eng.csr["text"])
+        cd, ci = bm25.gather_pruned_candidates(
+            rare.to(dev), off, pk, eng.per_term_cap,
+            *eng._csr_scale["text"])
+        field = tuple(torch.from_numpy(x).to(dev) for x in arrays) + (lo,
+                                                                      step)
+        before = bm25.bm25_rescore.launches
+        s, i = bm25.bm25_pruned_topk(cd, ci, (field,), n_real_docs=idx.n_docs,
+                                     k=10, n_candidates=1024,
+                                     max_dup_shifts=16)
+        assert bm25.bm25_rescore.launches == before + (dev.type == "cuda")
+        out.append((s.cpu().numpy(), i.cpu().numpy()))
+    _assert_same_topk(*out[0], *out[1])
 
 
 def test_tagging_on_card_matches_cpu(card):

@@ -105,29 +105,27 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path, monkeypatch):
 
 def test_engine_modes_of_later_slices_raise():
     """The pruned engine's options that a later slice ports raise, each
-    naming its ROADMAP item; an unknown mode is a plain error."""
+    naming its ROADMAP item; an unknown mode or row layout is a plain
+    error. (The title field, packed32 rows and the two-operand top-k are
+    ported: tests/test_torch_rescore.py.)"""
     index = BM25Index.build(["a b c", "b c d", "c d e"], pad_docs_to=8)
-    title = BM25Index.build(["x", "y", "z"], pad_docs_to=8)
     raw = BM25Index.build(["a b c"], params=BM25Params(quantize_norms=False),
                           pad_docs_to=8)
-    for kwargs in (dict(mesh=object()), dict(title_index=title),
-                   dict(row_layout="packed32"), dict(deep_terms=2),
+    for kwargs in (dict(mesh=object()), dict(deep_terms=2),
                    dict(deep_cap=1024), dict(topc_recall=0.9),
                    dict(device=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP A4"):
             RetrievalEngine(index, mode="pruned", **{"device": "cpu",
                                                      **kwargs})
-    with pytest.raises(NotImplementedError, match="packed32"):
-        RetrievalEngine(raw, mode="pruned", device="cpu")  # auto layout
     with pytest.raises(ValueError, match="quantize_norms"):
         RetrievalEngine(raw, mode="pruned", row_layout="delta16",
+                        device="cpu")
+    with pytest.raises(ValueError, match="unknown row_layout"):
+        RetrievalEngine(index, mode="pruned", row_layout="dense",
                         device="cpu")
     engine = RetrievalEngine(index, mode="pruned", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         engine.search_stream([])
-    for fn in (bm25.bm25_pruned_topk, bm25.gather_pruned_candidates):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            fn()
     with pytest.raises(ValueError, match="unknown engine mode"):
         RetrievalEngine(index, mode="fast", device="cpu")
 
@@ -151,7 +149,16 @@ def _k2_operands(dev, Q=3, W=4, C=7, NR=5, N=9):
             torch.zeros(N, dtype=torch.uint8, device=dev))
 
 
+def _k3_operands(dev, Q=3, Lq=4, C=7, N=9, Ld=5):
+    return (torch.zeros(Q, Lq, dtype=torch.int32, device=dev),
+            torch.zeros(Q, Lq, dtype=torch.float32, device=dev),
+            torch.zeros(Q, C, dtype=torch.int32, device=dev),
+            torch.zeros(N, Ld, dtype=torch.int32, device=dev),
+            torch.zeros(N, Ld, dtype=torch.int16, device=dev))
+
+
 K2_SCALARS = (1.2, 0.75, 20.5, 2)  # k1, b, avgdl, r2
+K3_SCALARS = (-2.0, 0.1)  # lo, step; the launch takes them as float32
 # per kernel: wrapper, plain version, device check, launcher, library
 # symbol, operands, extra arguments, the launch's scalar arguments (after
 # the pointers, stream last), output shape, argtypes, source, TPU kernel
@@ -174,6 +181,16 @@ KERNELS = {
         argtypes=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
         + [ctypes.c_float] * 4 + [ctypes.c_void_p],
         tpu="kbner_tpu/ops/bm25.py:_d16_rescore_kernel"),
+    "bm25_rescore": dict(
+        wrapper="bm25_rescore", plain="bm25_rescore_ref",
+        check="_check_k3_device", launcher="_k3_launcher",
+        symbol="bm25_rescore_launch", operands=_k3_operands,
+        extra=K3_SCALARS,
+        launch_tail=(3, 4, 7, 5, -2.0, float(np.float32(0.1)), 1234),
+        n_ptrs=6, out_shape=(3, 7),
+        argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+        tpu="kbner_tpu/ops/bm25.py:_rescore_kernel"),
 }
 
 
@@ -267,6 +284,29 @@ def test_delta16_layout_checks():
         bm25._check_d16_layout(ops, 0)
 
 
+def test_rescore_layout_checks():
+    ops = _k3_operands("meta")
+    bm25._check_k3_layout(ops)
+
+    def bad(i, x, match):
+        case = list(ops)
+        case[i] = x
+        with pytest.raises(ValueError, match=match):
+            bm25._check_k3_layout(tuple(case))
+
+    bad(0, ops[0].long(), "must be torch.int32")
+    bad(4, ops[4].view(torch.uint16), "must be torch.int16")
+    bad(1, ops[1][:, :2].contiguous(), r"\[Q, Lq\]")
+    bad(2, ops[2][:2], r"\[Q, C\]")
+    bad(4, ops[4][:, :3].contiguous(), r"\[N, Ld\] each")
+    bad(3, ops[3][None], "2-D")
+    bad(2, ops[2].t().contiguous().t(), "contiguous")
+    with pytest.raises(ValueError, match="exceed"):
+        bm25._check_k3_layout((
+            torch.zeros(3, 7000, dtype=torch.int32, device="meta"),
+            torch.zeros(3, 7000, device="meta"), *ops[2:]))
+
+
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
 def test_launcher_binds_pointers_as_void_p(monkeypatch, kernel):
     """ctypes would pass a plain int as 32 bits and cut a device pointer."""
@@ -290,6 +330,14 @@ def _cpu_operands(kernel):
                 torch.from_numpy(rng.rand(2, 3).astype(np.float32)),
                 torch.from_numpy(rng.randint(-1, 5, (4, 9)).astype(np.int32)),
                 torch.from_numpy(rng.rand(4, 9).astype(np.float32))), ()
+    if kernel == "bm25_rescore":
+        # -1 ids on both sides under random 16-bit codes
+        codes = rng.randint(0, 1 << 16, (9, 5)).astype(np.uint16)
+        return (torch.from_numpy(rng.randint(-1, 6, (2, 4)).astype(np.int32)),
+                torch.from_numpy(rng.rand(2, 4).astype(np.float32)),
+                torch.from_numpy(rng.randint(0, 9, (2, 7)).astype(np.int32)),
+                torch.from_numpy(rng.randint(-1, 6, (9, 5)).astype(np.int32)),
+                torch.from_numpy(codes.view(np.int16))), (-2.0, 1e-4)
     # slots (gap << 3) | tf with small gaps, so ids stay below 400
     flat = ((rng.randint(0, 4, (3, 128)) << 3)
             | rng.randint(0, 8, (3, 128))).astype(np.uint16)

@@ -238,18 +238,17 @@ def test_engine_construction_matches_jax(corpus, config):
     for name in ("per_term_cap", "tiny_cap", "df_cap", "n_padded",
                  "_tiny_pack"):
         assert getattr(te, name) == getattr(je, name), name
-    flat, off, lens, normc = (x.numpy() for x in te.rows)
+    flat, off, lens, normc = (x.numpy() for x in te.rows["text"])
     jflat, joff, jlens, jnormc = (np.asarray(x)
                                   for x in je._device_rows["text"])
     np.testing.assert_array_equal(flat.view(np.uint16), jflat)
     np.testing.assert_array_equal(off, joff)
     np.testing.assert_array_equal(lens, jlens)
     np.testing.assert_array_equal(normc, jnormc)
-    assert te.r2 == je._row_meta["text"][4]
-    assert te._row_meta == je._row_meta["text"][1:4]
-    for a, b in zip(te.csr, je._device_csr):
+    assert te._row_meta == je._row_meta
+    for a, b in zip(te.csr["text"], je._device_csr):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert te._csr_scale == je._csr_scale
+    assert te._csr_scale["text"] == je._csr_scale
 
 
 @pytest.mark.parametrize("config", ["defaults", "bench", "full_rows"])
@@ -320,7 +319,7 @@ def test_query_blocks_and_tiny_encodings_match_jax(corpus, config,
     monkeypatch.setattr(jnative, "gather_tiny_exact", lambda *a, **k: None)
     te, je, qt, qw = _engines(corpus, **ENGINE_CONFIGS[config])
     for _ in range(2):  # the second batch meets the raised width floors
-        rare, tiny, (qt2, qw2) = te._pack_queries(qt, qw)
+        (rare,), tiny, [(qt2, qw2)] = te._pack_queries(qt, qw)
         packed, lqs, t_cols, _ = je._pack_queries(qt, qw, [])
         want = _parse_jax_packed(je, packed, t_cols, lqs[0])
         np.testing.assert_array_equal(rare, want[0])
@@ -433,7 +432,7 @@ def test_bm25_pruned_topk_packed_matches_jax(corpus, config, use_pallas):
     equal (both take the lower position first among ties) and scores
     within float32 reordering."""
     te, _, qt, qw = _engines(corpus, **ENGINE_CONFIGS[config])
-    keys, field, (t_doc, t_ex), kw = te._device_queries(
+    keys, (field,), (t_doc, t_ex), kw = te._device_queries(
         te._pack_queries(qt, qw))
     kw["n_real_docs"] = te.text_index.n_docs
     ts, ti = tbm25.bm25_pruned_topk_packed(keys, (field,), k=10,
@@ -488,10 +487,12 @@ def test_pass2_operands_are_what_the_search_rescores(corpus, monkeypatch):
     monkeypatch.setattr(tbm25, "delta16_rescore",
                         lambda *a: served.append(a) or rescore(*a))
     te.search_encoded(qt, qw, k=10)
-    keys, field, _, kw = te._device_queries(te._pack_queries(qt, qw))
-    _, valid, ops = tbm25.pass2_operands(keys, (field,), **kw)
+    keys, fields, _, kw = te._device_queries(te._pack_queries(qt, qw))
+    _, valid, ops = tbm25.pass2_operands(keys, fields, **kw)
     assert len(served) == len(ops) == 1 and valid.any()
-    for got, want in zip(served[0], ops[0]):
+    fn, args = ops[0]
+    assert fn is tbm25.delta16_rescore
+    for got, want in zip(served[0], args):
         if isinstance(want, torch.Tensor):
             torch.testing.assert_close(got, want, rtol=0, atol=0)
         else:
@@ -585,10 +586,19 @@ def test_cli_serve_pruned_answers(kb_path, tmp_path, capsys, monkeypatch):
         "target_dir": str(target)}))
     monkeypatch.setattr("sys.stdin", io.StringIO(
         "\n".join(json.dumps(r) for r in REQUESTS) + "\n"))
+    built = []
+    monkeypatch.setattr(cli, "RetrievalEngine",
+                        lambda *a, **kw: built.append(
+                            RetrievalEngine(*a, **kw)) or built[-1])
     cli.main(["serve", "--config", str(cfg), "--kb", str(kb_path),
               "--engine_mode", "pruned", "--device", "cpu", "--k", "3"])
     out = [json.loads(line)
            for line in capsys.readouterr().out.strip().splitlines()]
+    # the served engine holds the title field, as the reference's serve
+    # builds it (kbner_tpu/cli.py _open_kb)
+    (served,) = built
+    assert served.mode == "pruned" and served.title_index is not None
+    assert set(served.rows) == {"text", "title"}
 
     tagger = SequenceTagger(TaggerConfig.for_tag_dictionary(
         XLMRConfig.tiny(vocab_size=997), tags), device="cpu").eval()
