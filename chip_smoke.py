@@ -146,29 +146,54 @@ def check_delta16_cases(bm25, synth_rescore_operands, device) -> float:
     return worst
 
 
-def check_kernel_cases(bm25, device) -> float:
-    """K1 against its plain version on ragged edges (Q, N not multiples of
-    the block), several query-term tiles, a doc-axis slice, and -1 pads in
-    both operands with nonzero impacts under the doc pads (a -1 must never
-    match). Returns the largest absolute difference."""
+# K1's edge cases: (Q, Lq, Ld, N, doc-axis offset into a wider array, kind
+# of operands: "random" puts weights and impacts under -1 pads on both
+# sides, every other kind is one of synth_k1_operands')
+K1_CASES = (
+    (5, 7, 9, 1000, 0, "random"),       # ragged in both block dimensions
+    (33, 70, 52, 4099, 0, "random"),    # two query tiles, two term tiles
+    (1, 1, 1, 1, 0, "random"),
+    (64, 64, 3, 257, 131, "random"),    # a doc-axis slice
+    (4, 64, 52, 3000, 0, "big_ids"),    # ids near 2^31 - 1
+    (32, 64, 52, 3000, 0, "collide"),   # ids on one hash slot / low bits
+    (32, 64, 52, 3000, 0, "shared"),    # one term in every query slot
+    (32, 64, 52, 3000, 0, "repeat"),    # a term repeated within a query
+    (32, 130, 52, 3000, 0, "index"),    # Lq = 130: three term tiles
+    (33, 64, 52, 3000, 0, "index"),     # Q = 33: two query tiles
+    (32, 64, 52, 4099, 1, "index"),     # slices unaligned for 16-byte
+    (32, 64, 52, 4099, 2, "repeat"),    # copies, N not a multiple of 4
+    (32, 64, 52, 4099, 3, "index"),
+    (32, 64, 52, 100, 0, "index"),      # N smaller than one doc tile
+    (32, 64, 2, 5000, 0, "index"),      # the title field's Ld
+)
+
+
+def check_kernel_cases(bm25, synth_k1_operands, device) -> float:
+    """K1 against its plain version on :data:`K1_CASES`. Returns the
+    largest absolute difference."""
     import torch
 
     rng = np.random.RandomState(0)
     worst = 0.0
-    # (Q, Lq, Ld, N, doc-axis offset into a wider array)
-    for Q, Lq, Ld, N, off in ((5, 7, 9, 1000, 0), (33, 70, 52, 4099, 0),
-                              (1, 1, 1, 1, 0), (64, 64, 3, 257, 131)):
-        qt = rng.randint(-2, 40, size=(Q, Lq)).astype(np.int32)
-        qt[:, -1] = -1
-        qw = rng.rand(Q, Lq).astype(np.float32)
-        dt = rng.randint(-1, 40, size=(Ld, N + off)).astype(np.int32)
-        di = rng.rand(Ld, N + off).astype(np.float32)
+    for Q, Lq, Ld, N, off, kind in K1_CASES:
+        if kind == "random":
+            qt = rng.randint(-2, 40, size=(Q, Lq)).astype(np.int32)
+            qt[:, -1] = -1
+            qw = rng.rand(Q, Lq).astype(np.float32)
+            dt = rng.randint(-1, 40, size=(Ld, N + off)).astype(np.int32)
+            di = rng.rand(Ld, N + off).astype(np.float32)
+        else:
+            qt, qw, dt, di = synth_k1_operands(Q + N + off, Q, Lq, Ld,
+                                               N + off, kind)
         ops = [torch.from_numpy(x).to(device) for x in (qt, qw, dt, di)]
         ops[2], ops[3] = ops[2][:, off:], ops[3][:, off:]
         got = bm25.bm25_score_block(*ops)
         want = bm25.bm25_score_block_ref(*ops)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        if kind != "random" and not bool((want > 0).any()):
+            raise AssertionError(f"K1 case {(Q, Lq, Ld, N, off, kind)} "
+                                 "matched no query term")
         worst = max(worst, float((got - want).abs().max()))
     return worst
 
@@ -195,6 +220,37 @@ def check_rescore_cases(bm25, synth_k3_operands, device) -> float:
             raise AssertionError("a K3 case matched no query term")
         worst = max(worst, float((got - want).abs().max()))
     return worst
+
+
+def measure_k1(bm25, qt, qw, dt, di) -> dict:
+    """K1 against its plain version on these operands (scores within the
+    tolerance, top-K ids equal within ties), its time and the plain one's
+    (CUDA events), and its bound: the larger of the bytes the function
+    must move (each operand read once, the [Q, N] scores written once) at
+    the HBM rate, and one int32 lookup of each non-pad doc slot per query
+    at the int32 rate."""
+    import torch
+
+    got = bm25.bm25_score_block(qt, qw, dt, di)
+    want = bm25.bm25_score_block_ref(qt, qw, dt, di)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    err = float((got - want).abs().max())
+    assert_same_topk(got, want, K)
+    del got, want
+    ms = time_cuda_ms(lambda: bm25.bm25_score_block(qt, qw, dt, di),
+                      iters=20)
+    plain_ms = time_cuda_ms(lambda: bm25.bm25_score_block_ref(qt, qw, dt, di),
+                            iters=3)
+    Q, N = qt.shape[0], dt.shape[1]
+    n_bytes = qt.nbytes + qw.nbytes + dt.nbytes + di.nbytes + Q * N * 4
+    n_ops = Q * int((dt >= 0).sum())
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_INT32_OPS_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bytes=n_bytes, ops=n_ops,
+                bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def reset_counts(bm25) -> None:
@@ -461,6 +517,7 @@ def main() -> int:
     from kbner_tpu_torch.retrieval.fusion import fuse_contexts
     from kbner_tpu_torch.retrieval.index import BM25Index, log_quantize
     from kbner_tpu_torch.retrieval.synth import (sentence_queries,
+                                                 synth_k1_operands,
                                                  synth_k3_operands,
                                                  synth_rescore_operands,
                                                  synth_wiki_docs)
@@ -493,10 +550,12 @@ def main() -> int:
                 log(f"  ptxas: {line.strip()}")
 
     # -- 3a. K1 against plain on edge shapes ---------------------------------
-    err_cases = check_kernel_cases(bm25, dev)
-    log(f"bm25_score_block vs plain on ragged / multi-tile / sliced / "
-        f"-1-padded shapes: max abs err {err_cases:.3g} "
-        f"(rtol {RTOL}, atol {ATOL})")
+    err_cases = check_kernel_cases(bm25, synth_k1_operands, dev)
+    log(f"bm25_score_block vs plain on {len(K1_CASES)} cases (ragged Q and "
+        f"N, Q=33, Lq=70 and 130, doc-axis slices at offsets 1, 2, 3 and "
+        f"131, N below a tile, Ld=2, -1-padded, ids near 2^31-1, hash "
+        f"collisions, one term in every query slot, repeated terms): max "
+        f"abs err {err_cases:.3g} (rtol {RTOL}, atol {ATOL})")
     d16_err_cases = check_delta16_cases(bm25, synth_rescore_operands, dev)
     log(f"delta16_rescore vs plain on R2=1 / R2=2 / ragged (Q=5, C=300) / "
         f"id-0 / -1-padded cases with continuation slots: max abs err "
@@ -559,34 +618,40 @@ def main() -> int:
         max_query_terms=MAX_QUERY_TERMS)
     qt = torch.from_numpy(qt_np).to(dev)
     qw = torch.from_numpy(qw_np).to(dev)
-    got = bm25.bm25_score_block(qt, qw, dt_t, di_t)
-    want = bm25.bm25_score_block_ref(qt, qw, dt_t, di_t)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-    err_main = float((got - want).abs().max())
-    assert_same_topk(got, want, K)
-    del got, want
-    kernel_ms = time_cuda_ms(
-        lambda: bm25.bm25_score_block(qt, qw, dt_t, di_t), iters=20)
-    plain_ms = time_cuda_ms(
-        lambda: bm25.bm25_score_block_ref(qt, qw, dt_t, di_t), iters=3)
+    k1 = measure_k1(bm25, qt, qw, dt_t, di_t)
     Q, Lq = qt.shape
     Ld, N = dt_t.shape
-    n_bytes = (qt.nbytes + qw.nbytes + dt_t.nbytes + di_t.nbytes + Q * N * 4)
-    # operations the function needs on this run's data: one lookup of each
-    # non-pad doc slot in each query's term set (the kernel does more: it
-    # compares the slot with every real term of the query)
-    n_ops = Q * int((dt_t >= 0).sum())
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_INT32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     log(f"bm25_score_block at the serve shape Q={Q} Lq={Lq} Ld={Ld} N={N} "
-        f"({card}): kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB = "
-        f"{bytes_ms:.3f} ms; {n_ops / 1e9:.3f} G int32 lookups = "
-        f"{ops_ms:.3f} ms);"
-        f" max abs err {err_main:.3g}, top-{K} ids equal within ties")
+        f"({card}): kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.3f} "
+        f"ms, bound {k1['bound_ms']:.4f} ms by {k1['bound_by']} "
+        f"({k1['bytes'] / 1e6:.1f} MB = {k1['bytes_ms']:.4f} ms; "
+        f"{k1['ops'] / 1e9:.3f} G int32 lookups = {k1['ops_ms']:.4f} ms), "
+        f"{k1['bound_ms'] / k1['ms']:.1%} of the bound; max abs err "
+        f"{k1['err']:.3g}, top-{K} ids equal within ties")
+    # the adds the kernel does on this data: one per (slot, query) match
+    n_match = sum(int(torch.isin(dt_t, qt[q][qt[q] >= 0]).sum())
+                  for q in range(Q))
+    scores = bm25.bm25_score_block(qt, qw, dt_t, di_t)
+    topk_ms = time_cuda_ms(lambda: torch.topk(scores, K, dim=1), iters=20)
+    del scores
+    log(f"bm25_score_block's work on this data: {n_match} (slot, query) "
+        f"matches = {n_match / k1['ops']:.2%} of the {k1['ops']} (non-pad "
+        f"slot, query) pairs; torch.topk(scores, {K}) over the [{Q}, {N}] "
+        f"scores {topk_ms:.4f} ms ({card})")
+    # the title field: each query's entity is its source sentence's title
+    tt_np, tw_np = title_index.encode_queries(
+        [" ".join(f"w{t}" for t in title_docs[s]) for s in src[:BATCH]],
+        max_query_terms=MAX_QUERY_TERMS, boosts=[TITLE_BOOST] * BATCH)
+    k1_title = measure_k1(bm25, torch.from_numpy(tt_np).to(dev),
+                          torch.from_numpy(tw_np).to(dev), tdt_t, tdi_t)
+    log(f"bm25_score_block on the title field Q={BATCH} "
+        f"Lq={MAX_QUERY_TERMS} Ld={tdt_t.shape[0]} N={tdt_t.shape[1]} "
+        f"({card}): kernel {k1_title['ms']:.4f} ms, plain "
+        f"{k1_title['plain_ms']:.3f} ms, bound {k1_title['bound_ms']:.4f} ms "
+        f"by {k1_title['bound_by']} ({k1_title['bytes'] / 1e6:.1f} MB; "
+        f"{k1_title['ops'] / 1e6:.1f} M lookups), "
+        f"{k1_title['bound_ms'] / k1_title['ms']:.1%} of the bound; max abs "
+        f"err {k1_title['err']:.3g}")
 
     # -- 4b. the exhaustive path: serve micro-batches ------------------------
     reset_counts(bm25)
@@ -894,11 +959,11 @@ def main() -> int:
         "source": "kbner_tpu_torch/csrc/bm25_score.cu",
         "replaces": "kbner_tpu/ops/bm25.py:bm25_score_block_pallas",
         "launches": launches,
-        "max_abs_err": max(err_cases, err_main),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "max_abs_err": max(err_cases, k1["err"], k1_title["err"]),
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
         "library_ms": None,
     }, {
         "name": "delta16_rescore",

@@ -191,3 +191,67 @@ def synth_k3_operands(seed: int, Q: int, C: int, Lq: int, Ld: int,
         qt[:, -1] = -1
     qw = rng.uniform(0.5, 8.0, size=(Q, Lq)).astype(np.float32)
     return qt, qw, cand, dt, codes, -2.0, 1e-4
+
+
+K1_KINDS = ("index", "big_ids", "collide", "shared", "repeat")
+_HASH_MUL = 2654435761  # the K1 kernel's multiplicative term hash
+
+
+def _colliding_ids(rng: np.random.RandomState, n: int) -> np.ndarray:
+    """``n`` distinct non-negative int32 ids whose products with
+    :data:`_HASH_MUL` (mod 2^32) share their top 13 bits, so they fall on
+    one slot of a multiplicative hash table of any size up to 8192."""
+    cand = np.unique(rng.randint(0, 2**31 - 1, size=1 << 23).astype(np.int64))
+    top = ((cand * _HASH_MUL) & 0xFFFFFFFF) >> 19
+    counts = np.bincount(top, minlength=1 << 13)
+    return cand[top == np.argmax(counts)][:n]
+
+
+def synth_k1_operands(seed: int, Q: int, Lq: int, Ld: int, N: int,
+                      kind: str = "index"):
+    """Exhaustive-scoring operands for edge cases of the K1 kernel, laid
+    out as the index writes them, as numpy arrays: (q_terms [Q, Lq] int32,
+    q_weights [Q, Lq] float32, doc_terms_t [Ld, N] int32, doc_impacts_t
+    [Ld, N] float32). About 30% of the query slots are pads -2 with weight
+    0 and 30% of the doc slots pads -1 with impact 0; real ids come from a
+    set of 40, so queries repeat terms. ``kind`` picks the set and the
+    query pattern:
+
+    * ``index``: ids 0 .. 39;
+    * ``big_ids``: ids just below 2^31 - 1 (and 2^31 - 1 itself);
+    * ``collide``: half the ids share one slot of the kernel's hash at
+      every table size up to 8192, half share their low 16 bits;
+    * ``shared``: every slot of every query holds one term, which lies in
+      about a third of the doc slots (the longest run of queries);
+    * ``repeat``: each query holds its first term three times.
+    """
+    if kind not in K1_KINDS:
+        raise ValueError(f"kind must be one of {K1_KINDS}, got {kind!r}")
+    rng = np.random.RandomState(seed)
+    vocab = 40
+    if kind == "big_ids":
+        ids = (2**31 - 1) - np.arange(vocab, dtype=np.int64)
+    elif kind == "collide":
+        low = (np.arange(vocab - vocab // 2, dtype=np.int64) << 16) | 0x1234
+        ids = np.concatenate([_colliding_ids(rng, vocab // 2), low])
+    else:
+        ids = np.arange(vocab, dtype=np.int64)
+    ids = ids.astype(np.int32)
+    qt = ids[rng.randint(0, len(ids), size=(Q, Lq))]
+    qw = rng.uniform(0.5, 4.0, size=(Q, Lq)).astype(np.float32)
+    dt = ids[rng.randint(0, len(ids), size=(Ld, N))]
+    di = rng.rand(Ld, N).astype(np.float32)
+    if kind == "shared":
+        qt[:] = ids[0]
+        dt[rng.rand(Ld, N) < 0.3] = ids[0]
+    else:
+        qpad = rng.rand(Q, Lq) < 0.3
+        if kind == "repeat" and Lq >= 4:
+            qpad[:, :4] = False
+            qt[:, 1] = qt[:, 3] = qt[:, 0]
+        qt[qpad] = -2
+        qw[qpad] = 0.0
+    dpad = rng.rand(Ld, N) < 0.3
+    dt[dpad] = -1
+    di[dpad] = 0.0
+    return qt, qw, dt, di

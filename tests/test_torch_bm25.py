@@ -25,7 +25,9 @@ from kbner_tpu_torch.ops import bm25 as tbm25
 from kbner_tpu_torch.retrieval.analyzer import standard_analyze as t_analyze
 from kbner_tpu_torch.retrieval.engine import DocStore, RetrievalEngine
 from kbner_tpu_torch.retrieval.index import BM25Index, BM25Params
-from kbner_tpu_torch.retrieval.synth import sentence_queries, synth_wiki_docs
+from kbner_tpu_torch.retrieval.synth import (sentence_queries,
+                                             synth_k1_operands,
+                                             synth_wiki_docs)
 
 DOCS = [
     "Anthology is a compilation album by New Zealand singer Bic Runga",
@@ -200,6 +202,37 @@ def test_score_block_ref_matches_pallas_and_xla(shape):
     assert (xla > 0).any()
     np.testing.assert_allclose(got.numpy(), xla, rtol=RTOL)
     np.testing.assert_allclose(got.numpy(), pallas, rtol=RTOL)
+
+
+# the K1 kernel's traps (tests/test_torch_cuda.py holds the kernel to the
+# plain twin on the same kinds of operands): (kind, Q, Lq, Ld, D, doc-axis
+# offset into a wider array)
+K1_TRAPS = {
+    "ids-near-2^31": ("big_ids", 4, 8, 6, 128, 0),
+    "hash-collisions": ("collide", 8, 16, 6, 256, 0),
+    "one-term-in-every-slot": ("shared", 32, 64, 5, 128, 0),
+    "repeated-term": ("repeat", 6, 9, 7, 128, 0),
+    "Lq=130": ("index", 32, 130, 6, 128, 0),
+    "Q=33": ("index", 33, 10, 4, 128, 0),
+    "offset-1": ("index", 5, 7, 5, 128, 1),
+    "offset-2": ("repeat", 5, 7, 5, 128, 2),
+    "offset-3": ("index", 5, 7, 5, 128, 3),
+    "N-below-a-tile": ("index", 5, 7, 9, 100, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K1_TRAPS))
+def test_score_block_ref_matches_pallas_and_xla_on_kernel_traps(case):
+    kind, Q, Lq, Ld, D, off = K1_TRAPS[case]
+    qt, qw, dt, di = synth_k1_operands(Q + Lq + D, Q, Lq, Ld, D + off, kind)
+    dt, di = dt[:, off:], di[:, off:]
+    got = tbm25.bm25_score_block_ref(*map(torch.from_numpy, (qt, qw, dt, di)))
+    jops = [jnp.asarray(x) for x in (qt, qw, dt, di)]
+    xla = np.asarray(jbm25.bm25_score_block_xla(*jops))
+    pallas = np.asarray(jbm25.bm25_score_block_pallas(*jops))  # interpret
+    assert tuple(got.shape) == (Q, D) and (xla > 0).any()
+    np.testing.assert_allclose(got.numpy(), xla, rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=RTOL, atol=1e-6)
 
 
 def test_score_block_ref_negative_ids_never_match():

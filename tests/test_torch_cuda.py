@@ -23,6 +23,7 @@ from kbner_tpu_torch.retrieval.engine import DocStore, RetrievalEngine
 from kbner_tpu_torch.retrieval.index import BM25Index
 from kbner_tpu_torch.retrieval.fusion import fuse_contexts
 from kbner_tpu_torch.retrieval.synth import (sentence_queries,
+                                             synth_k1_operands,
                                              synth_k3_operands,
                                              synth_rescore_operands,
                                              synth_wiki_docs)
@@ -48,26 +49,43 @@ def card():
         saved
 
 
-@pytest.mark.parametrize("Q,Lq,Ld,N,off", [
-    (5, 7, 9, 1000, 0),       # ragged in both block dimensions
-    (33, 70, 52, 4099, 0),    # two query tiles, two query-term tiles
-    (1, 1, 1, 1, 0),
-    (64, 64, 3, 257, 131),    # a doc-axis slice of a wider array
+@pytest.mark.parametrize("Q,Lq,Ld,N,off,kind", [
+    (5, 7, 9, 1000, 0, "random"),       # ragged in both block dimensions
+    (33, 70, 52, 4099, 0, "random"),    # two query tiles, two term tiles
+    (1, 1, 1, 1, 0, "random"),
+    (64, 64, 3, 257, 131, "random"),    # a doc-axis slice of a wider array
+    (4, 64, 52, 3000, 0, "big_ids"),    # ids near 2^31 - 1
+    (32, 64, 52, 3000, 0, "collide"),   # ids on one hash slot / low bits
+    (32, 64, 52, 3000, 0, "shared"),    # one term in every query slot
+    (32, 64, 52, 3000, 0, "repeat"),    # a term repeated within a query
+    (32, 130, 52, 3000, 0, "index"),    # Lq = 130: three term tiles
+    (33, 64, 52, 3000, 0, "index"),     # Q = 33: two query tiles
+    (32, 64, 52, 4099, 1, "index"),     # slices unaligned for 16-byte
+    (32, 64, 52, 4099, 2, "repeat"),    # copies, N not a multiple of 4
+    (32, 64, 52, 4099, 3, "index"),
+    (32, 64, 52, 100, 0, "index"),      # N smaller than one doc tile
+    (32, 64, 2, 5000, 0, "index"),      # the title field's Ld
 ])
-def test_kernel_matches_plain(card, Q, Lq, Ld, N, off):
-    rng = np.random.RandomState(Q + N)
-    qt = rng.randint(-2, 40, size=(Q, Lq)).astype(np.int32)
-    qw = rng.rand(Q, Lq).astype(np.float32)
-    dt = rng.randint(-1, 40, size=(Ld, N + off)).astype(np.int32)
-    di = rng.rand(Ld, N + off).astype(np.float32)
+def test_kernel_matches_plain(card, Q, Lq, Ld, N, off, kind):
+    if kind == "random":  # -1 pads in both operands carry weights/impacts
+        rng = np.random.RandomState(Q + N)
+        qt = rng.randint(-2, 40, size=(Q, Lq)).astype(np.int32)
+        qw = rng.rand(Q, Lq).astype(np.float32)
+        dt = rng.randint(-1, 40, size=(Ld, N + off)).astype(np.int32)
+        di = rng.rand(Ld, N + off).astype(np.float32)
+    else:
+        qt, qw, dt, di = synth_k1_operands(Q + N + off, Q, Lq, Ld, N + off,
+                                           kind)
     qt, qw, dt, di = (torch.from_numpy(x).to(card) for x in (qt, qw, dt, di))
     dt, di = dt[:, off:], di[:, off:]
     before = bm25.bm25_score_block.launches
     got = bm25.bm25_score_block(qt, qw, dt, di)
     torch.cuda.synchronize()
     assert bm25.bm25_score_block.launches == before + 1
-    torch.testing.assert_close(got, bm25.bm25_score_block_ref(qt, qw, dt, di),
-                               rtol=RTOL, atol=ATOL)
+    want = bm25.bm25_score_block_ref(qt, qw, dt, di)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    if kind != "random":  # index-shaped operands always match somewhere
+        assert (want > 0).any()
 
 
 def test_kernel_negative_ids_never_match(card):
