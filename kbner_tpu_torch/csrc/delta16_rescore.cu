@@ -17,47 +17,116 @@
 // from the document's 1-byte Lucene norm code as (bits | 8) << shift.
 // Negative query terms (the -1 pad) never match: every valid id is >= 0.
 //
-// Design. One warp per candidate; a block takes one query and kCandPerBlock
-// candidates, kWarps at a time, after staging the query's W terms and
-// weights in shared memory (every later read is a broadcast). A lane reads
-// 4 consecutive slots (8 bytes) of a row, so a warp reads one 256-byte row
-// in one coalesced transaction. The lane takes its local prefix of the 4
-// gaps, the warp adds the lane totals with __shfl_up_sync, and the warp
-// total is carried into the next covering row. Each valid slot is compared
-// with the W staged terms; a warp reduction writes out[q, c]. Rows past the
-// segment's end are not read, so any r2 costs only the rows a document
-// really covers. Ragged Q and C need no padding. The norm is computed with
-// round-to-nearest intrinsics in the reference's order, so it carries no
-// contraction into fma.
-//
 // Bound on this card. The function needs each candidate's segment, not its
 // whole rows: the 32-byte sectors that slots [off, off + len) occupy, each
 // distinct sector once (a segment of 12-38 slots is one to three sectors),
 // each distinct candidate's offset, length and norm code (9 B), the
 // candidate ids (4 B each), the query block, and 4 B out per candidate; and
 // one lookup of each segment slot in the query's term set, integer work on
-// the CUDA cores. At the serve shape (Q = 32, C = 1024) that is a few MB,
+// the CUDA cores. At the serve shape (Q = 32, C = 1024) that is about 2 MB,
 // under a microsecond at 3.35 TB/s, against well under a microsecond of
 // lookups at 16.75 T int32 operations/s: it is bound by bytes, and at this
-// size by launch and latency (chip_smoke.py prints the count for the
-// served candidates). This kernel reads more than that: a whole 256-byte
-// row per covering row of each candidate (Q * C * R2 * 256 B at most), and
-// it compares each valid slot with all W terms; several candidates per
-// warp, cp.async row prefetch and a binary search in sorted query terms
-// are later work.
+// size by launch and by the latency of three dependent loads (the candidate
+// id, its segment's place, the segment), which no design removes
+// (chip_smoke.py prints the bound and an empty kernel's time on this grid).
+//
+// Design.
+//  * Candidates in flight. A block takes one query and kCandPerBlock
+//    candidates. Each candidate gets a group of kGroup lanes, and each lane
+//    holds kCandPerGroup candidates, so a warp has 8 in flight and the
+//    serve shape's 32,768 (q, c) pairs fit on the card in one wave. Every
+//    lane issues its candidates' id loads, then their offset, length and
+//    norm loads, then their segment loads, before it uses any of them.
+//  * Only the segment. A group reads slots from the 32-byte sector that
+//    holds off, kSlotsPerLane per lane (16 bytes as two 8-byte loads: the
+//    wrapper passes 8-byte aligned rows), so one pass covers 64 slots: a
+//    segment of up to 49 slots in one pass, a longer one in more
+//    (a segment that runs into the next row is just the next slots of
+//    flat). A lane loads only a chunk that meets [off, off + len).
+//  * Prefix sums in the group. A lane sums its chunk's gaps (those at or
+//    after off), the group scans the lane totals with shuffles, and the
+//    group total carries into the next pass.
+//  * A hashed term table. One extra warp per block builds the query's term
+//    table in shared memory (term_table.cuh: negative terms dropped,
+//    repeated terms' weights summed in slot order) while the other warps'
+//    loads are in flight; a slot then costs one probe as a rule, and
+//    tf / (tf + norm) is computed only on a hit. norm is computed once per
+//    candidate with round-to-nearest intrinsics in the reference's order,
+//    so it carries no contraction into fma.
+//  Ragged Q and C need no padding: a candidate past C loads nothing and
+//  writes nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "term_table.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;        // slots per row
-constexpr int kSlotsPerLane = 4;   // 8 bytes per lane, 32 lanes per row
-constexpr int kWarps = 8;          // candidates in flight per block
-constexpr int kCandPerBlock = 64;  // candidates per block
+constexpr int kRowSlots = 128;      // slots per row of flat
+constexpr int kSectorSlots = 16;    // 2-byte slots in a 32-byte sector
+constexpr int kGroup = 8;           // lanes per candidate
+constexpr int kSlotsPerLane = 8;    // 16 bytes per lane
+constexpr int kPassSlots = kGroup * kSlotsPerLane;  // 64 slots per pass
+constexpr int kCandWarps = 8;       // warps that rescore; one more builds
+constexpr int kThreads = (kCandWarps + 1) * 32;
+constexpr int kGroups = kCandWarps * 32 / kGroup;  // 32
+constexpr int kCandPerGroup = 2;
+constexpr int kCandPerBlock = kGroups * kCandPerGroup;  // 64
+constexpr int kMinBlocks = 4;       // per SM: the serve shape in one wave
 constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kWarps * 32)
+// The lane's kSlotsPerLane slots from slot `first`, where they meet the
+// segment [off, end); zero elsewhere. first is a multiple of 8 slots and
+// flat is 8-byte aligned, so the chunk is two 8-byte loads.
+__device__ __forceinline__ uint4 load_chunk(const uint16_t* __restrict__ flat,
+                                            int first, int off, int end) {
+  if (first >= end || first + kSlotsPerLane <= off) {
+    return make_uint4(0u, 0u, 0u, 0u);
+  }
+  const uint2 a = *reinterpret_cast<const uint2*>(flat + first);
+  const uint2 b = *reinterpret_cast<const uint2*>(flat + first + 4);
+  return make_uint4(a.x, a.y, b.x, b.y);
+}
+
+// One pass of a group over slots [pass, pass + kPassSlots): the lane's
+// chunk is v. Adds the pass's matches into acc and its gaps into carry.
+__device__ __forceinline__ void rescore_pass(const term_table::Table& tb,
+                                             uint4 v, int pass, int sub,
+                                             int off, int end, float norm,
+                                             int& carry, float& acc) {
+  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+  const int first = pass + sub * kSlotsPerLane;
+  int pre[kSlotsPerLane];
+  int run = 0;
+#pragma unroll
+  for (int k = 0; k < kSlotsPerLane; ++k) {
+    const uint32_t s = (words[k >> 1] >> (16 * (k & 1))) & 0xffffu;
+    if (first + k >= off) run += (int)(s >> 3);
+    pre[k] = run;
+  }
+  int incl = run;  // inclusive scan of the group's lane totals
+#pragma unroll
+  for (int s = 1; s < kGroup; s <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, s, kGroup);
+    if (sub >= s) incl += t;
+  }
+  const int before = carry + incl - run;
+#pragma unroll
+  for (int k = 0; k < kSlotsPerLane; ++k) {
+    const int g = first + k;
+    const uint32_t tf3 = (words[k >> 1] >> (16 * (k & 1))) & 7u;
+    if (g < off || g >= end || tf3 == 0) continue;
+    float w;
+    if (term_table::lookup(tb, before + pre[k], w)) {
+      const float tf = (float)tf3;
+      acc += w * __fdiv_rn(tf, __fadd_rn(tf, norm));
+    }
+  }
+  carry += __shfl_sync(kFull, incl, kGroup - 1, kGroup);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 delta16_rescore_kernel(const int32_t* __restrict__ qt,
                        const float* __restrict__ qw,
                        const int32_t* __restrict__ cand,
@@ -67,81 +136,79 @@ delta16_rescore_kernel(const int32_t* __restrict__ qt,
                        const uint8_t* __restrict__ norm_code,
                        float* __restrict__ out,
                        int W, int C, int r2,
-                       float k1, float one_minus_b, float b, float avgdl) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_term = smem;
-  float* s_weight = reinterpret_cast<float*>(smem + W);
-
+                       float k1, float one_minus_b, float b, float avgdl,
+                       int log_t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const term_table::Table tb = term_table::carve(smem, log_t);
   const int q = blockIdx.y;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    s_term[w] = qt[(long long)q * W + w];
-    s_weight[w] = qw[(long long)q * W + w];
+  const bool table_warp = (int)(threadIdx.x >> 5) == kCandWarps;
+  const int group = threadIdx.x / kGroup;
+  const int sub = threadIdx.x % kGroup;
+  int c[kCandPerGroup], d[kCandPerGroup];
+  int off[kCandPerGroup], end[kCandPerGroup], code[kCandPerGroup];
+  uint4 raw[kCandPerGroup];
+  if (table_warp) {
+    term_table::build<false>(tb, qt + (long long)q * W,
+                             qw + (long long)q * W, W);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCandPerGroup; ++i) {
+      c[i] = blockIdx.x * kCandPerBlock + i * kGroups + group;
+      d[i] = c[i] < C ? cand[(long long)q * C + c[i]] : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < kCandPerGroup; ++i) {
+      off[i] = end[i] = code[i] = 0;
+      if (d[i] < 0) continue;
+      off[i] = doc_off[d[i]];
+      const int len = doc_len[d[i]];
+      code[i] = norm_code[d[i]];
+      // the r2 rows from off's row cover what the reference reads
+      const long long cover =
+          ((long long)off[i] / kRowSlots + r2) * kRowSlots;
+      end[i] = (int)min((long long)off[i] + len, cover);
+    }
+#pragma unroll
+    for (int i = 0; i < kCandPerGroup; ++i) {
+      const int pass = off[i] & ~(kSectorSlots - 1);
+      raw[i] = load_chunk(flat, pass + sub * kSlotsPerLane, off[i],
+                                  end[i]);
+    }
   }
-  __syncthreads();
+  __syncthreads();  // the term table is built
+  if (table_warp) return;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int c_end = min(C, (int)(blockIdx.x + 1) * kCandPerBlock);
-  for (int c = blockIdx.x * kCandPerBlock + warp; c < c_end; c += kWarps) {
-    const long long qc = (long long)q * C + c;
-    const int d = cand[qc];
-    const long long off = doc_off[d];
-    const long long end = off + doc_len[d];
-    const int code = norm_code[d];
-    const float bits = (float)(code & 7);
-    const int shift = (code >> 3) - 1;
+#pragma unroll
+  for (int i = 0; i < kCandPerGroup; ++i) {
+    const float bits = (float)(code[i] & 7);
+    const int shift = (code[i] >> 3) - 1;
     const float dl = shift < 0 ? bits : ldexpf(bits + 8.0f, shift);
     const float norm = __fmul_rn(
         k1, __fadd_rn(one_minus_b, __fdiv_rn(__fmul_rn(b, dl), avgdl)));
-
     float acc = 0.f;
-    int carry = 0;  // sum of the gaps of the rows before this one
-    for (int rr = 0; rr < r2; ++rr) {
-      const long long base = (off / kLanes + rr) * kLanes;
-      if (base >= end) break;  // warp-uniform: the segment has ended
-      const long long first = base + lane * kSlotsPerLane;
-      const uint2 raw = *reinterpret_cast<const uint2*>(flat + first);
-      const uint32_t v[kSlotsPerLane] = {raw.x & 0xffffu, raw.x >> 16,
-                                         raw.y & 0xffffu, raw.y >> 16};
-      int pre[kSlotsPerLane];
-      int run = 0;
-#pragma unroll
-      for (int j = 0; j < kSlotsPerLane; ++j) {
-        if (first + j >= off) run += (int)(v[j] >> 3);
-        pre[j] = run;
-      }
-      int incl = run;  // inclusive scan of the lane totals
-#pragma unroll
-      for (int s = 1; s < 32; s <<= 1) {
-        const int t = __shfl_up_sync(kFull, incl, s);
-        if (lane >= s) incl += t;
-      }
-      const int before = carry + incl - run;
-#pragma unroll
-      for (int j = 0; j < kSlotsPerLane; ++j) {
-        const long long g = first + j;
-        const uint32_t tf3 = v[j] & 7u;
-        if (g < off || g >= end || tf3 == 0) continue;
-        const int id = before + pre[j];
-        const float tf = (float)tf3;
-        const float tfn = __fdiv_rn(tf, __fadd_rn(tf, norm));
-        for (int w = 0; w < W; ++w) {
-          if (s_term[w] == id) acc += s_weight[w] * tfn;
-        }
-      }
-      carry += __shfl_sync(kFull, incl, 31);
+    int carry = 0;  // sum of the gaps of the passes before this one
+    int pass = off[i] & ~(kSectorSlots - 1);
+    uint4 v = raw[i];
+    for (;;) {  // warp-uniform trip count: the shuffles see every lane
+      rescore_pass(tb, v, pass, sub, off[i], end[i], norm, carry, acc);
+      pass += kPassSlots;
+      if (!__any_sync(kFull, pass < end[i])) break;
+      v = load_chunk(flat, pass + sub * kSlotsPerLane, off[i],
+                             end[i]);
     }
 #pragma unroll
-    for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(kFull, acc, s);
-    if (lane == 0) out[qc] = acc;
+    for (int s = kGroup / 2; s > 0; s >>= 1)
+      acc += __shfl_xor_sync(kFull, acc, s);
+    if (sub == 0 && d[i] >= 0) out[(long long)q * C + c[i]] = acc;
   }
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it allocates and synchronises nothing.
-// flat must be 8-byte aligned; cand must hold ids in [0, N).
+// 0 on success, else the CUDA error (a refused launch included); it
+// allocates and synchronises nothing. flat must be 8-byte aligned; cand
+// must hold ids in [0, N).
 extern "C" int delta16_rescore_launch(const void* qt, const void* qw,
                                       const void* cand, const void* flat,
                                       const void* doc_off,
@@ -150,12 +217,23 @@ extern "C" int delta16_rescore_launch(const void* qt, const void* qw,
                                       int Q, int W, int C, int r2, float k1,
                                       float one_minus_b, float b, float avgdl,
                                       void* stream) {
-  const dim3 grid((C + kCandPerBlock - 1) / kCandPerBlock, Q);
-  const size_t smem = (size_t)W * (sizeof(int32_t) + sizeof(float));
-  delta16_rescore_kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+  const term_table::Launch p = term_table::plan(Q, W, C, kCandPerBlock);
+  const cudaError_t err =
+      term_table::allow_smem(delta16_rescore_kernel, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  delta16_rescore_kernel<<<p.grid, kThreads, p.smem, (cudaStream_t)stream>>>(
       (const int32_t*)qt, (const float*)qw, (const int32_t*)cand,
       (const uint16_t*)flat, (const int32_t*)doc_off,
       (const int32_t*)doc_len, (const uint8_t*)norm_code, (float*)out, W, C,
-      r2, k1, one_minus_b, b, avgdl);
+      r2, k1, one_minus_b, b, avgdl, p.log_t);
   return (int)cudaGetLastError();
+}
+
+// The launch floor of delta16_rescore_launch at these sizes, for timing
+// only: the same grid, block and shared memory, and no work.
+extern "C" int delta16_rescore_floor_launch(int Q, int W, int C,
+                                            void* stream) {
+  return (int)term_table::launch_floor(
+      term_table::plan(Q, W, C, kCandPerBlock), kThreads,
+      (cudaStream_t)stream);
 }

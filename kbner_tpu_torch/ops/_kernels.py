@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
-compiled with ``nvcc`` for ``sm_90a`` into ``kbner_tpu_torch/_build/``
-(listed in ``.gitignore``) and loaded with ``ctypes``. The library's file
-name carries a hash of the source and the flags, so an edited source builds
-anew; a finished build is reused by later processes. Nothing here runs at
-import time: the CPU tests import every module of the package on a machine
-with no ``nvcc``.
+Each ``csrc/<name>.cu`` has a plain C interface; code the kernels share
+lives in ``csrc/*.cuh`` headers. At first use a source is compiled with
+``nvcc`` for ``sm_90a`` into ``kbner_tpu_torch/_build/`` (listed in
+``.gitignore``) and loaded with ``ctypes``. The library's file name carries
+a hash of the source, the headers and the flags, so an edited source or
+header builds anew; a finished build is reused by later processes. Nothing
+here runs at import time: the CPU tests import every module of the package
+on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the built library of ``csrc/<name>.cu`` lives."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -293,7 +293,7 @@ _D16_NAMES = ("q_terms", "q_weights", "cand", "flat", "doc_off", "doc_len",
               "norm_code")
 _D16_TYPES = (torch.int32, torch.float32, torch.int32, torch.int16,
               torch.int32, torch.int32, torch.uint8)
-_D16_MAX_TERMS = 6144  # W * 8 bytes of staged query terms in 48 KB
+_D16_MAX_TERMS = 6144  # a 16384-entry term table: 128 KB of shared memory
 
 
 def _check_d16_device(ops) -> None:
@@ -445,7 +445,7 @@ def bm25_rescore_ref(
 _K3_NAMES = ("q_terms", "q_weights", "cand", "doc_terms", "doc_codes")
 _K3_TYPES = (torch.int32, torch.float32, torch.int32, torch.int32,
              torch.int16)
-_K3_MAX_TERMS = 6144  # Lq * 8 bytes of staged query terms in 48 KB
+_K3_MAX_TERMS = 6144  # a 16384-entry term table: 128 KB of shared memory
 
 
 def _check_k3_device(ops) -> None:

@@ -97,7 +97,7 @@ def sentence_queries(
 
 def synth_delta16_docs(
     seed: int, n_docs: int = 64, max_terms: int = 10, vocab: int = 50_000,
-    long_doc: int = 0,
+    long_doc: int = 0, ids: Optional[np.ndarray] = None,
 ):
     """Inputs of the delta16 row packer (``engine._pack_doc_rows_delta16``)
     for edge cases of the rescore kernel: ``n_docs`` docs of up to
@@ -105,14 +105,19 @@ def synth_delta16_docs(
     keeps its order (every term non-tiny, equal df), so the ids of a doc
     spread over the whole space and gaps overflow the 13-bit field
     (continuation slots); tf 1..6; with ``long_doc``, doc 1 holds that many
-    terms (a segment over 128 slots spans two rows). Norms (k1=1.2,
-    b=0.75) come from Lucene-quantized doc lengths. Returns (dt [N, L] int32, di [N, L]
+    terms (a segment over 128 slots spans two rows). With ``ids``
+    (distinct non-negative term ids), every doc draws its terms from them,
+    the space is ``max(ids) + 1`` terms, and doc 2 holds all of them, so
+    its gaps are those of ``ids``. Norms (k1=1.2, b=0.75) come from
+    Lucene-quantized doc lengths. Returns (dt [N, L] int32, di [N, L]
     float32, remap [V] int64, idf [V] float32, norm [N] float32,
     norm_code [N] uint8, avgdl)."""
     from .index import int4_to_long, long_to_int4
 
     rng = np.random.RandomState(seed)
-    width = max(max_terms, long_doc)
+    if ids is not None:
+        vocab = int(ids.max()) + 1
+    width = max(max_terms, long_doc, 0 if ids is None else len(ids))
     dt = np.full((n_docs, width), -1, np.int32)
     di = np.zeros((n_docs, width), np.float32)
     idf = rng.uniform(0.5, 8.0, vocab).astype(np.float32)
@@ -124,7 +129,13 @@ def synth_delta16_docs(
     for d in range(n_docs):
         n = long_doc if (long_doc and d == 1) else rng.randint(
             0, max_terms + 1)
-        terms = rng.choice(vocab, size=n, replace=False)
+        if ids is None:
+            terms = rng.choice(vocab, size=n, replace=False)
+        elif d == 2:
+            terms = ids
+        else:
+            terms = rng.choice(ids, size=min(n, len(ids)), replace=False)
+        n = len(terms)
         tfs = rng.randint(1, 7, size=n)
         dt[d, :n] = terms
         di[d, :n] = idf[terms] * tfs / (tfs + norm[d])
@@ -147,24 +158,127 @@ def synth_rescore_operands(seed: int, Q: int, C: int, long_doc: int = 0,
         seed, long_doc=long_doc)
     flat, off, lens, r2 = _pack_doc_rows_delta16(dt, di, remap, idf, norm)
     rng = np.random.RandomState(seed)
-    cand = rng.randint(0, dt.shape[0], size=(Q, C)).astype(np.int32)
-    cand[rng.rand(Q, C) < 0.2] = 0
-    if long_doc:
-        cand[:, ::3] = 1
-    qt = np.full((Q, W), -1, np.int32)
-    for q in range(Q):
-        rows = dt[cand[q]]
-        pool = np.unique(remap[rows[rows >= 0]])
-        pick = rng.choice(pool, size=min(len(pool), W - 4), replace=False)
-        qt[q, :len(pick)] = pick
-        qt[q, W - 4] = rng.randint(0, len(remap))
+    cand = _d16_candidates(rng, dt.shape[0], Q, C, long_doc)
+    qt = _d16_queries(rng, dt, remap, cand, W)
     qw = rng.uniform(0.5, 8.0, size=(Q, W)).astype(np.float32)
     return (qt, qw, cand, flat, off, lens.astype(np.int32), code, 1.2, 0.75,
             avgdl, r2)
 
 
+def _d16_candidates(rng: np.random.RandomState, n_docs: int, Q: int, C: int,
+                    long_doc: int) -> np.ndarray:
+    """[Q, C] int32 candidates: a fifth at id 0, every third doc 1 with
+    ``long_doc``."""
+    cand = rng.randint(0, n_docs, size=(Q, C)).astype(np.int32)
+    cand[rng.rand(Q, C) < 0.2] = 0
+    if long_doc:
+        cand[:, ::3] = 1
+    return cand
+
+
+def _d16_queries(rng: np.random.RandomState, dt: np.ndarray,
+                 remap: np.ndarray, cand: np.ndarray, W: int) -> np.ndarray:
+    """[Q, W] int32 query terms: up to W - 4 terms of each query's
+    candidates, one id that matches nothing likely, -1 pads."""
+    qt = np.full((cand.shape[0], W), -1, np.int32)
+    for q in range(cand.shape[0]):
+        rows = dt[cand[q]]
+        pool = np.unique(remap[rows[rows >= 0]])
+        pick = rng.choice(pool, size=min(len(pool), W - 4), replace=False)
+        qt[q, :len(pick)] = pick
+        qt[q, W - 4] = rng.randint(0, len(remap))
+    return qt
+
+
+def _scatter_segments(flat: np.ndarray, off: np.ndarray, lens: np.ndarray
+                      ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """The segments of delta16 rows laid out again, each one to three slots
+    after the one before, so most start at an offset that is not a
+    multiple of 4 and long ones run over row boundaries. Returns (flat,
+    off int32, r2: the most rows a segment covers, counted from the row of
+    its first slot)."""
+    lanes = flat.shape[1]
+    src = flat.reshape(-1)
+    lens = lens.astype(np.int64)
+    new_off = np.zeros(len(off), np.int64)
+    cursor = 0
+    for d in range(len(off)):
+        cursor += 1 + d % 3
+        new_off[d] = cursor
+        cursor += lens[d]
+    last = new_off + np.maximum(lens, 1) - 1
+    r2 = int((last // lanes - new_off // lanes).max()) + 1
+    out = np.zeros(((cursor + lanes - 1) // lanes + r2) * lanes, np.uint16)
+    for d in range(len(off)):
+        out[new_off[d]:new_off[d] + lens[d]] = \
+            src[off[d]:off[d] + lens[d]]
+    return out.reshape(-1, lanes), new_off.astype(np.int32), r2
+
+
+K2_KINDS = ("collide", "repeat", "wide", "max_terms", "unaligned", "max_gap")
+# ids whose successive gaps sit at and around the 13-bit gap field's top:
+# 8191 is one continuation slot and a real slot of gap 0, 8190 the largest
+# real gap, 16382 two continuations
+_MAX_GAP_IDS = np.cumsum([8191, 8190, 8191, 8192, 16382, 16383, 1, 3 * 8191])
+
+
+def synth_k2_operands(seed: int, Q: int, C: int, kind: str):
+    """A rescore batch for edge cases of the K2 kernel, in the form of
+    :func:`synth_rescore_operands`. ``kind`` picks the trap:
+
+    * ``collide``: docs and queries over 48 ids below 2^21 that fall on one
+      slot of the kernels' term hash at every table size up to 8192 (8 of
+      them in no doc);
+    * ``repeat``: each query holds its first term in slots 0, 1, 3 and 40
+      (two 32-slot chunks of the table build), W = 48;
+    * ``wide``: W = 256;
+    * ``max_terms``: W = 6144, the wrapper's limit, every slot a term;
+    * ``unaligned``: the segments laid out again one to three slots apart,
+      doc 1 of 300 slots running into a second and a third row (r2 = 3);
+    * ``max_gap``: docs over ids whose gaps are 8191, 8190, 8192, 16382 and
+      more (continuation slots, real slots of gap 0 and the largest gap),
+      half the candidates doc 2, which holds them all.
+    """
+    if kind not in K2_KINDS:
+        raise ValueError(f"kind must be one of {K2_KINDS}, got {kind!r}")
+    from .engine import _pack_doc_rows_delta16
+
+    rng = np.random.RandomState(seed)
+    W = {"repeat": 48, "wide": 256, "max_terms": 6144}.get(kind, 16)
+    long_doc = 300 if kind == "unaligned" else 0
+    ids = misses = None
+    if kind == "collide":
+        ids = _colliding_ids(rng, 48, hi=1 << 21)
+        ids, misses = ids[:40], ids[40:]
+    elif kind == "max_gap":
+        ids = _MAX_GAP_IDS
+    dt, di, remap, idf, norm, code, avgdl = synth_delta16_docs(
+        seed, long_doc=long_doc, ids=ids)
+    flat, off, lens, r2 = _pack_doc_rows_delta16(dt, di, remap, idf, norm)
+    if kind == "unaligned":
+        flat, off, r2 = _scatter_segments(flat, off, lens)
+    cand = _d16_candidates(rng, dt.shape[0], Q, C, long_doc)
+    if kind == "max_gap":
+        cand[:, ::2] = 2
+    qt = _d16_queries(rng, dt, remap, cand, W)
+    if kind == "collide":  # the id that matches nothing collides too
+        qt[:, W - 4] = misses[np.arange(Q) % len(misses)]
+    if kind == "max_terms":  # fill the pads with ids that mostly miss
+        pad = qt == -1
+        qt[pad] = rng.randint(0, len(remap), size=int(pad.sum()))
+    if kind == "repeat":
+        for j in (1, 3, 40):
+            qt[:, j] = qt[:, 0]
+    qw = rng.uniform(0.5, 8.0, size=(Q, W)).astype(np.float32)
+    return (qt, qw, cand, flat, off, lens.astype(np.int32), code, 1.2, 0.75,
+            avgdl, r2)
+
+
+K3_KINDS = ("random", "collide", "pads")
+
+
 def synth_k3_operands(seed: int, Q: int, C: int, Lq: int, Ld: int,
-                      n_docs: int = 0, vocab: int = 40):
+                      n_docs: int = 0, vocab: int = 40, kind: str = "random"):
     """A two-array rescore batch for edge cases of the K3 kernel, as numpy
     arrays: (q_terms [Q, Lq] int32, q_weights [Q, Lq] float32, cand [Q, C]
     int32, doc_terms [N, Ld] int32, doc_codes [N, Ld] uint16, lo, step).
@@ -173,18 +287,38 @@ def synth_k3_operands(seed: int, Q: int, C: int, Lq: int, Ld: int,
     (pads included), with doc 1 all code 0 and doc N - 1 all code 65535;
     candidates include ids 0, 1 and N - 1 (N - 1 last); the first query
     term is doc N - 1's first and the second repeats it. ``lo`` and
-    ``step`` are the 16-bit log scale of the reference's kernel test."""
+    ``step`` are the 16-bit log scale of the reference's kernel test.
+    ``kind`` ``collide`` draws the ``vocab`` real ids (and -1) from ids on
+    one slot of the kernels' term hash at every table size up to 8192;
+    ``pads`` also puts -1 in every third query slot and in the last third
+    of every row, under nonzero codes."""
+    if kind not in K3_KINDS:
+        raise ValueError(f"kind must be one of {K3_KINDS}, got {kind!r}")
     rng = np.random.RandomState(seed)
     n = n_docs or max(2 * C, 8)
-    dt = rng.randint(-1, vocab, size=(n, Ld)).astype(np.int32)
+    pool = None
+    if kind == "collide":
+        pool = np.concatenate([[-1], _colliding_ids(rng, vocab)])
+        pool = pool.astype(np.int32)
+        dt = pool[rng.randint(0, len(pool), size=(n, Ld))]
+    else:
+        dt = rng.randint(-1, vocab, size=(n, Ld)).astype(np.int32)
     codes = rng.randint(0, 1 << 16, size=(n, Ld)).astype(np.uint16)
+    if kind == "pads":
+        dt[:, Ld - Ld // 3:] = -1
+        codes[:, Ld - Ld // 3:] |= 1
     codes[1] = 0
     codes[n - 1] = 65535
     cand = rng.randint(0, n, size=(Q, C)).astype(np.int32)
     cand[:, C // 2] = 1
     cand[:, 0] = 0
     cand[:, -1] = n - 1
-    qt = rng.randint(-1, vocab, size=(Q, Lq)).astype(np.int32)
+    if pool is None:
+        qt = rng.randint(-1, vocab, size=(Q, Lq)).astype(np.int32)
+    else:
+        qt = pool[rng.randint(0, len(pool), size=(Q, Lq))]
+    if kind == "pads":
+        qt[:, 2::3] = -1
     qt[:, 0] = dt[n - 1, 0]  # a sure match, at code 65535
     if Lq > 1:
         qt[:, 1] = qt[:, 0]
@@ -194,14 +328,15 @@ def synth_k3_operands(seed: int, Q: int, C: int, Lq: int, Ld: int,
 
 
 K1_KINDS = ("index", "big_ids", "collide", "shared", "repeat")
-_HASH_MUL = 2654435761  # the K1 kernel's multiplicative term hash
+_HASH_MUL = 2654435761  # the kernels' multiplicative term hash
 
 
-def _colliding_ids(rng: np.random.RandomState, n: int) -> np.ndarray:
-    """``n`` distinct non-negative int32 ids whose products with
+def _colliding_ids(rng: np.random.RandomState, n: int,
+                   hi: int = 2**31 - 1) -> np.ndarray:
+    """``n`` distinct ids in ``[0, hi)`` whose products with
     :data:`_HASH_MUL` (mod 2^32) share their top 13 bits, so they fall on
     one slot of a multiplicative hash table of any size up to 8192."""
-    cand = np.unique(rng.randint(0, 2**31 - 1, size=1 << 23).astype(np.int64))
+    cand = np.unique(rng.randint(0, hi, size=1 << 23).astype(np.int64))
     top = ((cand * _HASH_MUL) & 0xFFFFFFFF) >> 19
     counts = np.bincount(top, minlength=1 << 13)
     return cand[top == np.argmax(counts)][:n]

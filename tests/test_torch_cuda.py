@@ -24,6 +24,7 @@ from kbner_tpu_torch.retrieval.index import BM25Index
 from kbner_tpu_torch.retrieval.fusion import fuse_contexts
 from kbner_tpu_torch.retrieval.synth import (sentence_queries,
                                              synth_k1_operands,
+                                             synth_k2_operands,
                                              synth_k3_operands,
                                              synth_rescore_operands,
                                              synth_wiki_docs)
@@ -156,6 +157,51 @@ def test_delta16_kernel_matches_plain(card, Q, C, long_doc):
     assert (want > 0).any()
 
 
+def _k2_on_card(card, ops, flat=None):
+    """K2 and its plain version on these synth operands (``flat`` in place
+    of the operands' rows if given); asserts one launch."""
+    qt, qw, cand, flat_np, off, lens, nc, k1, b, avgdl, r2 = ops
+    t = [torch.from_numpy(x).to(card)
+         for x in (qt, qw, cand, flat_np.view(np.int16), off, lens, nc)]
+    if flat is not None:
+        t[3] = flat
+    before = bm25.delta16_rescore.launches
+    got = bm25.delta16_rescore(*t, k1, b, avgdl, r2)
+    torch.cuda.synchronize()
+    assert bm25.delta16_rescore.launches == before + 1
+    return got, bm25.delta16_rescore_ref(*t, k1, b, avgdl, r2)
+
+
+@pytest.mark.parametrize("Q,C,kind", [
+    (32, 1024, "collide"),    # ids on one hash slot
+    (32, 1024, "repeat"),     # a term in 4 query slots, two build chunks
+    (8, 128, "wide"),         # W = 256
+    (2, 64, "max_terms"),     # W = 6144: over 48 KB of shared memory
+    (5, 300, "unaligned"),    # segments at odd offsets, R2 = 3
+    (32, 1024, "max_gap"),    # gaps of 8190, 8191, 8192, 16382, ...
+])
+def test_delta16_kernel_matches_plain_on_traps(card, Q, C, kind):
+    ops = synth_k2_operands(Q + C, Q, C, kind)
+    assert ops[-1] == (3 if kind == "unaligned" else 1)
+    got, want = _k2_on_card(card, ops)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert (want > 0).any()
+
+
+def test_delta16_kernel_on_8_byte_aligned_rows(card):
+    """Rows that start 8 bytes past a 16-byte boundary: the wrapper takes
+    8-byte aligned rows, and the kernel reads them 8 bytes at a time."""
+    ops = synth_rescore_operands(7, 32, 1024, long_doc=140)
+    flat = torch.from_numpy(ops[3].view(np.int16)).to(card)
+    buf = torch.zeros(flat.numel() + 4, dtype=torch.int16, device=card)
+    buf[4:] = flat.reshape(-1)
+    shifted = buf[4:].view(flat.shape)
+    assert shifted.data_ptr() % 16 == 8
+    got, want = _k2_on_card(card, ops, flat=shifted)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert (want > 0).any()
+
+
 def _pruned_engine(device):
     docs = synth_wiki_docs(3000, vocab=4000, n_topics=40, seed=5)
     vocab = {f"w{i}": i for i in range(4000)}
@@ -199,6 +245,44 @@ def test_rescore_kernel_matches_plain(card, Q, C, Lq, Ld):
     got = bm25.bm25_rescore(*ops, lo, step)
     torch.cuda.synchronize()
     assert bm25.bm25_rescore.launches == before + 1
+    want = bm25.bm25_rescore_ref(*ops, lo, step)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert (want > 0).any()
+
+
+@pytest.mark.parametrize("Q,C,Lq,Ld,kind,vocab", [
+    (32, 1024, 64, 52, "collide", 40),   # ids on one hash slot
+    (32, 1024, 64, 52, "pads", 40),      # -1 query slots meet coded pads
+    (5, 300, 12, 13, "pads", 40),        # Ld = 13: rows not 16-byte wide
+    (2, 64, 6144, 52, "random", 20000),  # Lq = 6144: over 48 KB shared
+])
+def test_rescore_kernel_matches_plain_on_traps(card, Q, C, Lq, Ld, kind,
+                                               vocab):
+    qt, qw, cand, dt, codes, lo, step = synth_k3_operands(
+        Q + C + Ld, Q, C, Lq, Ld, vocab=vocab, kind=kind)
+    ops = [torch.from_numpy(x).to(card)
+           for x in (qt, qw, cand, dt, codes.view(np.int16))]
+    got = bm25.bm25_rescore(*ops, lo, step)
+    want = bm25.bm25_rescore_ref(*ops, lo, step)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert (want > 0).any()
+
+
+def test_rescore_kernel_on_unaligned_rows(card):
+    """Ld = 52 rows whose arrays start 4 bytes (terms) and 2 bytes (codes)
+    past an aligned address: the kernel takes rows at any alignment their
+    types allow."""
+    qt, qw, cand, dt, codes, lo, step = synth_k3_operands(9, 32, 1024, 64,
+                                                          52)
+    ops = [torch.from_numpy(x).to(card)
+           for x in (qt, qw, cand, dt, codes.view(np.int16))]
+    for i in (3, 4):
+        buf = torch.zeros(ops[i].numel() + 1, dtype=ops[i].dtype,
+                          device=card)
+        buf[1:] = ops[i].reshape(-1)
+        ops[i] = buf[1:].view(ops[i].shape)
+    assert ops[3].data_ptr() % 16 == 4 and ops[4].data_ptr() % 8 == 2
+    got = bm25.bm25_rescore(*ops, lo, step)
     want = bm25.bm25_rescore_ref(*ops, lo, step)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     assert (want > 0).any()

@@ -37,7 +37,8 @@ from kbner_tpu_torch.retrieval.fusion import fuse_contexts
 from kbner_tpu_torch.retrieval.index import (BM25Index, BM25Params,
                                              long_to_int4, int4_to_long)
 from kbner_tpu_torch.retrieval.pipeline import build_kb_from_jsonl
-from kbner_tpu_torch.retrieval.synth import (synth_delta16_docs,
+from kbner_tpu_torch.retrieval.synth import (K2_KINDS, synth_delta16_docs,
+                                             synth_k2_operands,
                                              synth_rescore_operands)
 from kbner_tpu_torch.serve import request_record, serve
 
@@ -411,6 +412,31 @@ def test_delta16_rescore_ref_matches_xla(Q, C, long_doc):
                                atol=K2_ATOL)
     if long_doc:  # the two-row segment scores
         assert (got[:, ::3] > 0).any()
+
+
+@pytest.mark.parametrize("kind", K2_KINDS)
+def test_delta16_rescore_ref_matches_xla_on_kernel_traps(kind):
+    """The K2 kernel's trap operands (ids on one hash slot, repeated
+    terms, W = 256 and 6144, segments at odd offsets over three rows, gaps
+    at the 13-bit field's top) at ragged shapes: kbner_tpu takes the XLA
+    form of the rescore there."""
+    Q, C = (2, 64) if kind == "max_terms" else (5, 300)
+    ops = synth_k2_operands(Q + C, Q, C, kind)
+    assert ops[-1] == (3 if kind == "unaligned" else 1)
+    got = _k2_port(ops)
+    assert (got > 0).mean() > 0.05
+    np.testing.assert_allclose(got, _k2_jax(ops, False), rtol=K2_RTOL,
+                               atol=K2_ATOL)
+
+
+@pytest.mark.parametrize("kind", ["collide", "repeat", "max_gap"])
+def test_delta16_rescore_ref_matches_pallas_on_kernel_traps(kind):
+    """The same traps at Q = 8, C = 128, where kbner_tpu takes the Pallas
+    kernel (interpret mode here)."""
+    ops = synth_k2_operands(17, 8, 128, kind)
+    assert ops[-1] == 1
+    np.testing.assert_allclose(_k2_port(ops), _k2_jax(ops, True),
+                               rtol=K2_RTOL, atol=K2_ATOL)
 
 
 def test_delta16_norm_decodes_lucene_codes():

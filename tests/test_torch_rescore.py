@@ -24,6 +24,9 @@ from kbner_tpu_torch.ops import bm25 as tbm25
 from kbner_tpu_torch.retrieval import engine as tengine
 from kbner_tpu_torch.retrieval.engine import RetrievalEngine
 from kbner_tpu_torch.retrieval.index import BM25Index, BM25Params, log_quantize
+from kbner_tpu_torch.retrieval.synth import (_HASH_MUL, synth_k1_operands,
+                                             synth_k2_operands,
+                                             synth_k3_operands)
 
 # K3 against bm25_rescore_pallas: test_rescore_pallas_matches_xla's own
 K3_RTOL, K3_ATOL = 2e-5, 1e-5
@@ -148,6 +151,74 @@ def test_k3_plain_matches_xla_on_ragged_shapes(Q, C, Lq, Ld):
     want = jbm25._rescore_candidates(jnp.asarray(cand), (field,), (), True)
     np.testing.assert_allclose(k3_port(qt, qw, cand, dt, codes),
                                np.asarray(want), rtol=K3_RTOL, atol=K3_ATOL)
+
+
+@pytest.mark.parametrize("Q,C,Lq,Ld,kind,vocab", [
+    (5, 300, 64, 52, "collide", 40),    # ids on one hash slot
+    (8, 128, 64, 52, "collide", 40),    # (the Pallas kernel's tiling)
+    (5, 300, 64, 52, "pads", 40),       # -1 query slots meet coded pads
+    (8, 128, 64, 52, "pads", 40),
+    (5, 300, 12, 13, "pads", 40),       # Ld = 13, not a multiple of 4
+    (2, 64, 6144, 52, "random", 20000),  # Lq = 6144, the wrapper's limit
+])
+def test_k3_plain_matches_reference_on_kernel_traps(Q, C, Lq, Ld, kind,
+                                                    vocab):
+    """The K3 kernel's trap operands (synth_k3_operands) through
+    kbner_tpu's ``_rescore_candidates``: the Pallas kernel in interpret
+    mode where Q % 8 == 0 and C % 128 == 0, its XLA form elsewhere."""
+    qt, qw, cand, dt, codes, lo, step = synth_k3_operands(
+        Q + C + Ld, Q, C, Lq, Ld, vocab=vocab, kind=kind)
+    field = (jnp.asarray(qt), jnp.asarray(qw), jnp.asarray(dt),
+             jnp.asarray(codes), lo, step)
+    want = jbm25._rescore_candidates(jnp.asarray(cand), (field,), (), True)
+    got = tbm25.bm25_rescore_ref(t_(qt), t_(qw), t_(cand), t_(dt),
+                                 t_(codes.view(np.int16)), lo, step).numpy()
+    assert (got > 0).mean() > 0.5
+    np.testing.assert_allclose(got, np.asarray(want), rtol=K3_RTOL,
+                               atol=K3_ATOL)
+    if kind == "pads":  # -1 query slots meet -1 doc slots with codes
+        assert ((qt == -1).any(1)[:, None, None] & (dt[cand] == -1)
+                & (codes[cand] > 0)).any()
+
+
+def _d16_ids(flat, off, lens):
+    """Every term id that delta16 rows decode to: the prefix sums of each
+    segment's gaps at its slots with tf > 0."""
+    slots = flat.reshape(-1).astype(np.int64)
+    out = []
+    for o, n in zip(off, lens):
+        seg = slots[o:o + n]
+        out.append(np.cumsum(seg >> 3)[(seg & 7) > 0])
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_collide_kinds_fall_on_one_hash_slot(kernel):
+    """The "collide" trap operands put their ids on one slot of the
+    kernels' term hash (term_table.cuh, bm25_score.cu: the top log_t bits
+    of id * 2654435761 mod 2^32) at every table size from 32 to 8192
+    entries. K1's set is half such ids and half ids sharing their low 16
+    bits; K2's and K3's are all such ids."""
+    if kernel == "K1":
+        qt, _, dt, _ = synth_k1_operands(0, 32, 64, 52, 300, "collide")
+        ids = np.concatenate([qt.ravel(), dt.ravel()])
+    elif kernel == "K2":
+        qt, _, _, flat, off, lens = synth_k2_operands(0, 8, 128,
+                                                      "collide")[:6]
+        ids = np.concatenate([qt.ravel(), _d16_ids(flat, off, lens)])
+    else:
+        qt, _, _, dt = synth_k3_operands(0, 8, 128, 64, 52,
+                                         kind="collide")[:4]
+        ids = np.concatenate([qt.ravel(), dt.ravel()])
+    ids = np.unique(ids[ids >= 0]).astype(np.int64)
+    assert len(ids) >= 40
+    prod = (ids * _HASH_MUL) & 0xFFFFFFFF
+    for log_t in range(5, 14):
+        n_slots = len(np.unique(prod >> (32 - log_t)))
+        if kernel == "K1":
+            assert np.bincount(prod >> (32 - log_t)).max() >= 20
+        else:
+            assert n_slots == 1, (log_t, n_slots)
 
 
 # -- _rescore_candidates over every layout ---------------------------------------
