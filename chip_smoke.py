@@ -22,8 +22,14 @@ twice: eager (back-to-back wrapper calls between CUDA events, which can
 read the host's enqueue rate) and on the device (the calls captured in a
 CUDA graph and replayed between CUDA events, with their operands warm in
 L2); K2 and K3 also one call at a time after the L2 cache is cleared, and
-beside an empty kernel on their grid (the launch floor). It prints what it
-measured on the lines before the last and exits non-zero on any failure.
+beside an empty kernel on their grid (the launch floor). Last comes the
+training path: XLM-R large + CRF (float32 master parameters, bfloat16
+compute) fine-tuned through ``FinetuneTrainer.train`` on quality-corpus
+sentences fused with the exhaustive engine's contexts, once with the
+recipe's batch 1 and accumulation 4 and once at batch 16 for three epochs;
+the best checkpoint is then served through the serve path in bfloat16 and
+held to the trainer's own prediction. It prints what it measured on the
+lines before the last and exits non-zero on any failure.
 Its last line is one JSON object naming the device.
 
 It needs CUDA and the rest of the repository beside it: without either it
@@ -605,6 +611,340 @@ def pruned_device_breakdown(bm25, engine, n_real, packed) -> str:
     return ", ".join(parts)
 
 
+# the training phase: XLM-R large + CRF fine-tuned on context-fused
+# quality-corpus sentences, with the recipe's optimizer settings
+# (configs/en_v3_preretrieved.yaml)
+RECIPE = dict(learning_rate=5e-6, lr_rate=10000.0, warmup_fraction=0.1)
+N_RECIPE = 32           # (a): batch 1, accumulation 4 -> 8 optimizer steps
+N_WIDE = 64             # (b): batch 16, three epochs
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
+
+
+def training_records(engine, requests, n, seed):
+    """``n`` quality-corpus sentences (gold BIOES tags), each fused with
+    the top-K contexts the engine retrieves for one served query (the
+    corpus's words are not in the synthetic KB), context tagged S-X as
+    a BIOES column file reads it."""
+    from kbner_tpu_torch.data.conll import SentenceRecord
+    from kbner_tpu_torch.data.quality_fixture import make_quality_corpus
+    from kbner_tpu_torch.data.subword import HashTokenizer
+    from kbner_tpu_torch.retrieval.fusion import fuse_contexts
+
+    corpus = make_quality_corpus(n_train=n, n_dev=0, n_test=BATCH,
+                                 seed=seed)
+    queries = [requests[i % len(requests)] for i in range(n)]
+    results = engine.search([" ".join(q["tokens"]) for q in queries], k=K)
+    fused = fuse_contexts(corpus.train, results,
+                          HashTokenizer(vocab_size=HASH_VOCAB))
+    out = [SentenceRecord(tokens=r.tokens, tags={"ner": [
+        "S-X" if t == "B-X" else t for t in r.tags["ner"]]}) for r in fused]
+    return out, corpus.test_list[0]
+
+
+def run_training(trainer, config, base_path, sync):
+    """``trainer.train`` with each step timed on the host clock between
+    device syncs; returns (result, [(ms, subtokens, loss) per step])."""
+    steps = []
+    inner = trainer.train_step
+
+    def timed(item, opt, cfg, rng, freeze=False):
+        sync()
+        t0 = time.perf_counter()
+        loss = inner(item, opt, cfg, rng, freeze)
+        sync()
+        steps.append(((time.perf_counter() - t0) * 1e3,
+                      int(item.attention_mask.sum()), float(loss)))
+        return loss
+
+    trainer.train_step = timed
+    try:
+        result = trainer.train(base_path, config)
+    finally:
+        del trainer.train_step
+    return result, steps
+
+
+def optimizer_steps(steps, k):
+    """(ms, subtokens) per optimizer step from micro-steps, k per step."""
+    return [(sum(s[0] for s in steps[i:i + k]),
+             sum(s[1] for s in steps[i:i + k]))
+            for i in range(0, len(steps) - k + 1, k)]
+
+
+def stage_split(trainer, batch, config, time_ms):
+    """One step of ``batch`` split into the encoder's forward (with the
+    word features and the emission head), the CRF's forward + backward
+    (the NLL on detached emissions), the encoder's backward, and the
+    optimizer update, each timed by ``time_ms`` after one warm-up pass of
+    all four; and the whole ``train_step`` on the same batch."""
+    import torch
+
+    from kbner_tpu_torch.ops.crf import crf_neg_log_likelihood
+
+    model = trainer.model
+    cfg = model.config
+    arrays = trainer._to_device(batch)
+    rng = torch.Generator().manual_seed(1)
+    opt = trainer.make_optimizer(config)
+    trans = model._batch_transitions(arrays)
+    out = {}
+
+    def encoder_forward():
+        out["em"] = model.emissions(arrays, rng)
+
+    def crf():
+        em = out["em"].detach().requires_grad_()
+        nll = crf_neg_log_likelihood(em, arrays["tag_ids"],
+                                     arrays["crf_mask"], trans.detach(),
+                                     cfg.start_idx, cfg.stop_idx)
+        nll.mean().backward()
+        out["grad"] = em.grad
+
+    def encoder_backward():
+        out["em"].backward(out["grad"])
+
+    stages = {"encoder forward": encoder_forward,
+              "CRF forward + backward": crf,
+              "encoder backward": encoder_backward,
+              "optimizer update": opt.step}
+    for fn in stages.values():  # warm-up: gradients and moments allocated
+        fn()
+    ms = {name: time_ms(fn) for name, fn in stages.items()}
+    ms["whole step (train_step)"] = time_ms(
+        lambda: trainer.train_step(batch, opt, config, rng))
+    model.zero_grad(set_to_none=True)
+    del opt, out
+    return ms
+
+
+def profile_step(trainer, batch, config, sync, n_top: int = 6):
+    """One ``train_step`` of ``batch`` under ``torch.profiler``: (wall ms
+    under the profiler, the device time of its kernels in ms, [(kernel,
+    ms, launches)] of the ``n_top`` largest). The kernel time is None when
+    the trace holds no device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    opt = trainer.make_optimizer(config)
+    rng = torch.Generator().manual_seed(2)
+    trainer.train_step(batch, opt, config, rng)  # warm-up
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, opt, config, rng)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del opt
+    # the kernels themselves: an operator's entry repeats its kernels' time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return wall_ms, None, []
+
+    def ms(e):
+        return e.self_device_time_total / 1e3
+
+    top = sorted(kernels, key=ms, reverse=True)[:n_top]
+    return (wall_ms, sum(ms(e) for e in kernels),
+            [(e.key.replace("void ", "").replace("at::native::", ""),
+              ms(e), e.count) for e in top])
+
+
+def event_ms(fn) -> float:
+    """One call of ``fn`` between CUDA events, in ms."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def training_phase(engine, requests, bm25, dev, card, tokenizer,
+                   enc_config) -> None:
+    """Train XLM-R large + CRF through ``FinetuneTrainer.train`` on fused
+    records ((a) the recipe's batch 1 with accumulation 4, (b) batch 16
+    for three epochs), then serve (b)'s best-model.msgpack through the
+    port's serve path and hold its tags to the trainer's own prediction
+    in the serving dtype."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from kbner_tpu_torch.cli import serving_tagger
+    from kbner_tpu_torch.config import ServeConfig
+    from kbner_tpu_torch.data.conll import ListCorpus, Corpus
+    from kbner_tpu_torch.eval.metrics import evaluate_spans
+    from kbner_tpu_torch.models.tagger import SequenceTagger, TaggerConfig
+    from kbner_tpu_torch.serve import request_record, serve
+    from kbner_tpu_torch.train import FinetuneTrainer, TrainConfig
+
+    def sync():
+        torch.cuda.synchronize()
+
+    reset_counts(bm25)
+    t0 = time.perf_counter()
+    recipe_recs, _ = training_records(engine, requests, N_RECIPE, seed=7)
+    wide_recs, test = training_records(engine, requests, N_WIDE, seed=8)
+    expect_counts("the training records' retrieval", counts(bm25),
+                  {"bm25_score_block": None})
+    n_ctx = sum("<EOS>" in r.tokens for r in wide_recs)
+    log(f"training records: {N_RECIPE} + {N_WIDE} quality-corpus sentences "
+        f"fused with the exhaustive engine's top {K} contexts "
+        f"({n_ctx}/{N_WIDE} carry context; launches {counts(bm25)}); made "
+        f"in {time.perf_counter() - t0:.1f} s (set-up)")
+
+    tag_dict = ListCorpus([Corpus(wide_recs, [], [])]).make_tag_dictionary(
+        "ner")
+    # the recipe's tagger: word dropout 0.1, no locked dropout, and no
+    # embedding2nn re-projection (the reference config that
+    # configs/en_v3_preretrieved.yaml translates is a "norelearn" run)
+    tcfg = TaggerConfig.for_tag_dictionary(
+        enc_config, tag_dict, locked_dropout=0.0, word_dropout=0.1,
+        relearn_embeddings=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = (("a", recipe_recs, dict(batch_size=1, accumulation_steps=4,
+                                        max_epochs=1)),
+                ("b", wide_recs, dict(batch_size=16, max_epochs=3)))
+        for label, recs, kw in runs:
+            t0 = time.perf_counter()
+            model = SequenceTagger(tcfg, device=dev, seed=0)
+            trainer = FinetuneTrainer(model, ListCorpus([Corpus(
+                recs, [], [], name="FUSED")]), tokenizer, tag_dict,
+                device=dev)
+            config = TrainConfig(**RECIPE, **kw)
+            sync()
+            setup_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result, steps = run_training(trainer, config, f"{tmp}/{label}",
+                                         sync)
+            total_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            losses = [s[2] for s in steps]
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"training ({label}): a loss is not "
+                                     f"finite: {losses}")
+            opt_steps = optimizer_steps(steps, kw.get("accumulation_steps",
+                                                      1))
+            step_ms = float(np.median([ms for ms, _ in opt_steps[2:]]))
+            tok_s = (sum(t for _, t in opt_steps[2:])
+                     / (sum(ms for ms, _ in opt_steps[2:]) / 1e3))
+            history = result["history"]["train_loss"]
+            B = kw["batch_size"]
+            log(f"training ({label}): XLM-R ({enc_config.num_layers} layers, "
+                f"hidden {enc_config.hidden_size}, vocab "
+                f"{enc_config.vocab_size}, {enc_config.dtype} compute over "
+                f"{enc_config.param_dtype} parameters), batch {B}, accumulation "
+                f"{kw.get('accumulation_steps', 1)}, {len(recs)} fused "
+                f"records, {kw['max_epochs']} epoch(s), "
+                f"{len(opt_steps)} optimizer steps ({len(steps)} micro-"
+                f"steps): {step_ms:.1f} ms per optimizer step (median after "
+                f"the first two), {tok_s:.0f} subtokens/s, peak allocated "
+                f"{peak_gb:.2f} GB; epoch mean losses "
+                + ", ".join(f"{v:.4f}" for v in history)
+                + f"; first and last step losses {losses[0]:.4f}, "
+                f"{losses[-1]:.4f}; train() {total_s:.1f} s with the "
+                f"checkpoint writes, model set-up {setup_s:.1f} s ({card})")
+            if label == "a":
+                del model, trainer
+                continue
+            if not history[-1] < history[0]:
+                raise AssertionError(f"training (b): the last epoch's mean "
+                                     f"loss {history[-1]:.4f} is not below "
+                                     f"the first's {history[0]:.4f}")
+            # one step of (b), split by stage with CUDA events
+            torch.cuda.empty_cache()
+            batch = trainer._make_train_batches(recs, config, 0)[0]
+            split = stage_split(trainer, batch, config, event_ms)
+            n_tok = int(batch.attention_mask.sum())
+            Bb, Sb = batch.input_ids.shape
+            enc = enc_config
+            n_matmul = sum(p.numel() for n, p in model.named_parameters()
+                           if "embeddings" not in n)
+            flops = (6 * n_matmul * Bb * Sb
+                     + 12 * enc.num_layers * Bb * Sb * Sb * enc.hidden_size)
+            mfu = flops / (step_ms / 1e3) / PEAK_BF16_FLOPS
+            log(f"training (b), one step of batch 16 (B={Bb}, S={Sb}, "
+                f"{n_tok} real subtokens, W={batch.word_mask.shape[1]} words,"
+                f" {int(batch.crf_mask.sum(1).max())} in the CRF at most), "
+                "ms by CUDA events: "
+                + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+                + f" ({card})")
+            wall_ms, dev_ms, top = profile_step(trainer, batch, config, sync)
+            step_ev = split["whole step (train_step)"]
+            if dev_ms is None:
+                log(f"training (b), one step under torch.profiler: "
+                    f"{wall_ms:.1f} ms; the trace holds no device kernels, "
+                    f"so the device's busy share is not measured ({card})")
+            else:
+                log(f"training (b), one step under torch.profiler "
+                    f"({wall_ms:.1f} ms with the profiler's own cost): its "
+                    f"kernels take {dev_ms:.1f} ms on the device, "
+                    f"{dev_ms / step_ev:.1%} of the {step_ev:.1f} ms step "
+                    f"without the profiler (idle "
+                    f"{max(0.0, 1 - dev_ms / step_ev):.1%}); largest: "
+                    + "; ".join(f"{name[:70]} {ms:.1f} ms x{n}"
+                                for name, ms, n in top) + f" ({card})")
+            log(f"training (b): model FLOPs per step = 6*N*B*S + 12*L*B*S^2*H"
+                f" = 6*{n_matmul / 1e6:.1f}M*{Bb}*{Sb} + 12*{enc.num_layers}"
+                f"*{Bb}*{Sb}^2*{enc.hidden_size} = {flops:.3e} (N: the "
+                f"parameters outside the embedding tables); at "
+                f"{step_ms:.1f} ms per step that is {mfu:.1%} of the "
+                f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak "
+                f"({card})")
+
+            # serve the best model: ServeConfig -> bf16 tagger
+            served_cfg = ServeConfig(
+                name="trained", tokenizer={"type": "hash",
+                                           "vocab_size": HASH_VOCAB},
+                model={"encoder": "large"}, target_dir=f"{tmp}/{label}")
+            tagger = serving_tagger(served_cfg, tag_dict, dev)
+            if any(p.dtype != enc.dtype for p in tagger.encoder.parameters()):
+                raise AssertionError("the served encoder is not stored in "
+                                     f"{enc.dtype}")
+            reqs = [{"id": i, "tokens": r.tokens} for i, r in enumerate(test)]
+            responses = serve(reqs, engine, tagger, tokenizer, tag_dict,
+                              k=K, batch_size=BATCH)
+            # the trainer's prediction with its model cast to bf16
+            cast = SequenceTagger(dataclasses.replace(
+                tcfg, encoder=served_cfg.make_encoder_config(tokenizer)),
+                device=dev)
+            trainer.load(f"{tmp}/{label}/best-model.msgpack")
+            cast.load_state_dict(trainer.model.state_dict())
+            fused = fuse_served(engine, tokenizer,
+                                [request_record(r) for r in reqs])
+            want = FinetuneTrainer(cast, trainer.corpus, tokenizer, tag_dict,
+                                   device=dev).predict(fused, BATCH)
+            got = [r["tags"] for r in responses]
+            if got != [w[:len(r["tokens"])] for w, r in zip(want, reqs)]:
+                raise AssertionError("served tags differ from "
+                                     "FinetuneTrainer.predict in bf16")
+            f1 = evaluate_spans([r.tags["ner"] for r in test],
+                                got).micro_avg_f_score()
+            log(f"served best-model.msgpack (bf16 storage) for {len(reqs)} "
+                f"held-out quality sentences through serve() with the "
+                f"exhaustive engine: tags equal FinetuneTrainer.predict with "
+                f"the model cast to bf16; span F1 against gold {f1:.4f} "
+                f"after {len(opt_steps)} steps from random weights ({card})")
+            del model, trainer, tagger, cast
+    torch.cuda.empty_cache()
+
+
+def fuse_served(engine, tokenizer, records):
+    """The records ``serve`` fuses: each searched with its own tokens."""
+    from kbner_tpu_torch.retrieval.fusion import fuse_contexts
+
+    results = engine.search([" ".join(r.tokens) for r in records], k=K)
+    return fuse_contexts(records, results, tokenizer)
+
+
 class RenderedDocs:
     """Document texts rendered on demand from term ids as ``w<id>``
     words, so 1M sentences need no host strings until retrieved."""
@@ -1096,6 +1436,13 @@ def main() -> int:
         f"{k3_bound_ms:.5f} ms by {k3_bound_by} ({k3_bytes / 1e6:.3f} MB = "
         f"{k3_bytes_ms:.5f} ms; {k3_ops / 1e6:.3f} M int32 lookups = "
         f"{k3_ops_ms:.5f} ms); max abs err {k3_err_main:.3g}")
+
+    # -- 4g. the training path ------------------------------------------------
+    del tagger, pruned, p32, dterms, dcodes
+    torch.cuda.empty_cache()
+    training_phase(engine, requests, bm25, dev, card, tokenizer,
+                   XLMRConfig.large(vocab_size=HASH_VOCAB,
+                                    param_dtype=torch.float32))
 
     # -- 5. kernels ----------------------------------------------------------
     kernels = [{

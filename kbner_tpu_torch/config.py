@@ -1,19 +1,31 @@
-"""The slice of the experiment YAML that serving reads (counterpart of
-``kbner_tpu/config.py``, which imports the JAX trainer).
+"""The experiment YAML (counterpart of ``kbner_tpu/config.py``).
 
-It reads the same files as the JAX package and uses only the keys serving
-needs: ``name``, ``tag_layer``, ``targets``, ``tokenizer``, ``model`` and
-``target_dir``. Other keys (corpora, train, ...) are left to the trainer.
+:class:`ServeConfig` is what serving reads: ``name``, ``tag_layer``,
+``targets``, ``tokenizer``, ``model`` and ``target_dir``, other keys
+ignored. :class:`ExperimentConfig` adds what ``cli train``/``test``/``parse``
+read: the column-format ``corpora``, ``train`` (a :class:`TrainConfig`;
+unknown keys raise), ``trainer`` (``ModelFinetuner``/``FinetuneTrainer``)
+and ``data``; unknown top-level keys raise, as the JAX package's do.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
+import torch
+
+from .data.conll import ListCorpus, load_column_corpus
 from .data.subword import HashTokenizer
 from .models.xlmr import XLMRConfig
+from .train.trainer import TrainConfig
+
+
+def _read_yaml(path: str | Path) -> Dict[str, Any]:
+    import yaml  # only the CLI reads YAML; the package imports without it
+
+    return yaml.safe_load(Path(path).read_text()) or {}
 
 
 @dataclasses.dataclass
@@ -28,11 +40,9 @@ class ServeConfig:
 
     @classmethod
     def from_file(cls, path: str | Path) -> "ServeConfig":
-        import yaml  # only the CLI reads YAML; the package imports without it
-
-        raw = yaml.safe_load(Path(path).read_text()) or {}
-        fields = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in raw.items() if k in fields})
+        raw = _read_yaml(path)
+        fields = {f.name for f in dataclasses.fields(ServeConfig)}
+        return ServeConfig(**{k: v for k, v in raw.items() if k in fields})
 
     def make_tokenizer(self) -> HashTokenizer:
         t = dict(self.tokenizer)
@@ -45,9 +55,12 @@ class ServeConfig:
                 "files; use tokenizer: {type: hash, vocab_size: 250002}")
         raise ValueError(f"unknown tokenizer type {kind!r}")
 
-    def make_encoder_config(self, tokenizer: HashTokenizer) -> XLMRConfig:
+    def make_encoder_config(self, tokenizer: HashTokenizer,
+                            **overrides) -> XLMRConfig:
         """The named encoder size, its vocabulary cut to the hash
-        tokenizer's (``vocab_size: 250002`` keeps XLM-R's full table)."""
+        tokenizer's (``vocab_size: 250002`` keeps XLM-R's full table), with
+        ``model.remat``/``model.remat_policy`` and ``overrides`` (for
+        example ``param_dtype=torch.float32`` for training)."""
         enc = self.model.get("encoder", self.model.get("size", "base"))
         sizes = {"tiny": XLMRConfig.tiny, "base": XLMRConfig.base,
                  "large": XLMRConfig.large}
@@ -56,7 +69,124 @@ class ServeConfig:
                 f"encoder {enc!r}: loading a checkpoint directory waits "
                 "until the repository holds XLM-R weights; use tiny, base "
                 "or large")
-        return sizes[enc](vocab_size=tokenizer.vocab_size)
+        kw: Dict[str, Any] = {"vocab_size": tokenizer.vocab_size}
+        if "remat" in self.model:
+            kw["remat"] = bool(self.model["remat"])
+        if self.model.get("remat_policy"):
+            kw["remat_policy"] = str(self.model["remat_policy"])
+        kw.update(overrides)
+        return sizes[enc](**kw)
 
     def resolve_target_dir(self) -> Path:
         return Path(self.target_dir or f"resources/taggers/{self.name}")
+
+
+@dataclasses.dataclass
+class CorpusSpec:
+    name: str
+    data_folder: str
+    column_format: Dict[int, str]
+    comment_symbol: Optional[str] = None
+    train_file: str = "train.txt"
+    dev_file: str = "dev.txt"
+    test_file: str = "test.txt"
+    tag_to_bioes: Optional[str] = "ner"
+
+
+# trainer: key -> kind; the JAX package's reference class names are
+# accepted as aliases
+TRAINERS: Dict[str, str] = {
+    "FinetuneTrainer": "finetune",
+    "ModelFinetuner": "finetune",
+    "ModelTrainer": "finetune",
+    "DistillationTrainer": "distill",
+    "ModelDistiller": "distill",
+    "ReinforcementTrainer": "ace",
+    "SWAFTrainer": "swaf",
+    "LanguageModelTrainer": "lm",
+}
+
+_KNOWN_TOP_KEYS = {
+    "name", "corpora", "tag_layer", "tokenizer", "model", "train", "data",
+    "target_dir", "trainer", "targets", "teachers", "ace", "systems",
+}
+
+
+@dataclasses.dataclass
+class ExperimentConfig(ServeConfig):
+    corpora: List[CorpusSpec] = dataclasses.field(default_factory=list)
+    train: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    data: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    trainer: str = "FinetuneTrainer"
+
+    @classmethod
+    def from_file(cls, path: str | Path) -> "ExperimentConfig":
+        return cls.from_dict(_read_yaml(path))
+
+    @classmethod
+    def from_dict(cls, raw: Dict[str, Any]) -> "ExperimentConfig":
+        unknown = set(raw) - _KNOWN_TOP_KEYS
+        if unknown:
+            raise ValueError(f"unknown config keys: {sorted(unknown)}; "
+                             f"known: {sorted(_KNOWN_TOP_KEYS)}")
+        trainer = raw.get("trainer", "FinetuneTrainer")
+        if trainer not in TRAINERS:
+            raise ValueError(
+                f"unknown trainer: {trainer!r}; one of {sorted(TRAINERS)}")
+        corpora = []
+        for c in raw.get("corpora") or []:
+            if c.get("format") in ("fasttext", "conllu") or \
+                    "column_format" not in c:
+                raise NotImplementedError(
+                    f"corpus {c.get('name')!r}: kbner_tpu_torch reads "
+                    "column files with a column_format; conllu, fastText "
+                    "and named corpora wait for ROADMAP A6")
+            corpora.append(CorpusSpec(
+                name=c["name"], data_folder=c["data_folder"],
+                column_format={int(k): v
+                               for k, v in c["column_format"].items()},
+                comment_symbol=c.get("comment_symbol"),
+                train_file=c.get("train_file", "train.txt"),
+                dev_file=c.get("dev_file", "dev.txt"),
+                test_file=c.get("test_file", "test.txt"),
+                tag_to_bioes=c.get("tag_to_bioes", "ner")))
+        serve = {f.name: raw[f.name] for f in dataclasses.fields(ServeConfig)
+                 if f.name in raw}
+        return cls(**serve, corpora=corpora, train=raw.get("train") or {},
+                   data=raw.get("data") or {}, trainer=trainer)
+
+    @property
+    def trainer_kind(self) -> str:
+        return TRAINERS[self.trainer]
+
+    def load_corpus(self) -> ListCorpus:
+        return ListCorpus([load_column_corpus(
+            s.data_folder, s.column_format, train_file=s.train_file,
+            dev_file=s.dev_file, test_file=s.test_file,
+            comment_symbol=s.comment_symbol, tag_to_bioes=s.tag_to_bioes,
+            name=s.name) for s in self.corpora])
+
+    def prepare_corpus(self, corpus: ListCorpus, tokenizer) -> ListCorpus:
+        """The config's data-encoding policies; ``doc_context`` windows
+        are not ported yet."""
+        if self.data.get("doc_context", False):
+            raise NotImplementedError(
+                "data.doc_context (document windows, data/doc_context.py) "
+                "waits for ROADMAP A6 in kbner_tpu_torch")
+        return corpus
+
+    def make_train_config(self) -> TrainConfig:
+        """The trainer's config; unknown ``train:`` keys raise."""
+        known = {f.name for f in dataclasses.fields(TrainConfig)}
+        unknown = set(self.train) - known
+        if unknown:
+            raise ValueError(
+                f"unknown train keys for {self.trainer}: {sorted(unknown)}; "
+                f"known: {sorted(known)}")
+        return TrainConfig(**self.train)
+
+    def make_train_encoder_config(self, tokenizer: HashTokenizer
+                                  ) -> XLMRConfig:
+        """The encoder config to train: float32 master parameters."""
+        return self.make_encoder_config(tokenizer,
+                                        param_dtype=torch.float32)

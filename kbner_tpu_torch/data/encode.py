@@ -1,11 +1,11 @@
 """Sentence records -> padded integer arrays (counterpart of
-``kbner_tpu/data/encode.py``; only the prediction path, ``tag_dict=None``).
+``kbner_tpu/data/encode.py``, without the classic-embedding features).
 
   input_ids [B, S]       subtoken ids incl CLS/SEP
   attention_mask [B, S]  1 for real subtokens
   word_starts [B, W]     subtoken index of each word's first subtoken
   word_mask [B, W]       1 for real words
-  tag_ids [B, W]         gold tag indices: all 0 here (no gold tags)
+  tag_ids [B, W]         gold tag indices (0 without a tag dictionary)
   crf_mask [B, W]        word_mask minus retrieved-context (X) positions
   lang_ids [B]           source-corpus id
 
@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from .conll import EOS_MARKER, SentenceRecord
+from .dictionary import Dictionary
 from .subword import HashTokenizer, subtoken_length
 
 
@@ -54,14 +55,19 @@ def round_up(x: int, multiple: int) -> int:
 def encode_batch(
     records: Sequence[SentenceRecord],
     tokenizer: HashTokenizer,
+    tag_dict: Optional[Dictionary] = None,
     tag_layer: str = "ner",
     max_subtokens: int = 512,
     subtoken_bucket: int = 16,
     word_bucket: int = 8,
     x_tag: str = "S-X",
+    keep_records: bool = True,
 ) -> EncodedBatch:
     """Encode a list of sentences into one padded batch. Sequences longer
-    than ``max_subtokens`` are truncated at a word boundary."""
+    than ``max_subtokens`` are truncated at a word boundary. With a tag
+    dictionary, ``tag_ids`` holds each word's gold tag; a context position
+    whose tag is missing from the dictionary gets 0 (it never reaches the
+    loss), any other missing tag raises."""
     B = len(records)
     per_sentence = []
     for rec in records:
@@ -107,6 +113,9 @@ def encode_batch(
             is_x = (tags is not None and w < len(tags) and tags[w] == x_tag) \
                 or (eos >= 0 and w >= eos)
             crf_mask[b, w] = 0 if is_x else 1
+            if tag_dict is not None and tags is not None and w < len(tags):
+                tag_ids[b, w] = (tag_dict.item2idx.get(tags[w], 0) if is_x
+                                 else tag_dict.get_idx_for_item(tags[w]))
 
     return EncodedBatch(
         input_ids=input_ids,
@@ -116,26 +125,107 @@ def encode_batch(
         tag_ids=tag_ids,
         crf_mask=crf_mask,
         lang_ids=lang_ids,
-        records=list(records),
+        records=list(records) if keep_records else None,
     )
+
+
+def kmeans(x: Sequence[int], k: int, seed: int = 0):
+    """Frequency-weighted 1-D k-means over sentence lengths: Lloyd
+    iterations on the distinct values weighted by their counts, an empty
+    cluster reseeded with the farthest point of the biggest one. Returns
+    ``(centroids, clusters)``, ``clusters[i]`` the indices assigned to
+    centroid i; empty clusters are dropped."""
+    x = np.asarray(x, dtype=np.float64)
+    d, indices, f = np.unique(x, return_inverse=True, return_counts=True)
+    if len(d) < k:
+        raise ValueError(
+            f"unable to assign {len(d)} datapoints to {k} clusters")
+    total = d * f
+    rng = np.random.RandomState(seed)
+    c = d[rng.permutation(len(d))[:k]]
+    old = None
+    dists = np.abs(d[:, None] - c[None, :])
+    y = dists.argmin(axis=1)
+    dmin = dists.min(axis=1)
+    while old is None or not np.array_equal(c, old):
+        for i in range(k):
+            if not np.any(y == i):
+                mask = y[None, :] == np.arange(k)[:, None]
+                biggest = np.nonzero(mask[mask.sum(axis=1).argmax()])[0]
+                farthest = dmin[biggest].argmax()
+                y[biggest[farthest]] = i
+        mask = y[None, :] == np.arange(k)[:, None]  # [k, |d|]
+        old = c
+        c = (total[None, :] * mask).sum(axis=1) / (f[None, :] * mask).sum(
+            axis=1)
+        dists = np.abs(d[:, None] - c[None, :])
+        y = dists.argmin(axis=1)
+        dmin = dists.min(axis=1)
+    y = y[indices]
+    assigned = np.unique(y)
+    centroids = c[assigned].tolist()
+    clusters = [np.nonzero(y == i)[0].tolist() for i in assigned]
+    return centroids, clusters
+
+
+def _budget_chunks(order, lengths, batch_size: int, token_budget: int):
+    """Consecutive runs of ``order``: a run closes at ``batch_size``
+    sentences, or (with a ``token_budget``) before the summed subtokens,
+    each sentence's plus CLS and SEP, would pass the budget."""
+    chunks, cur, cur_tokens = [], [], 0
+    for i in order:
+        n = lengths[i] + 2
+        if cur and (len(cur) >= batch_size or (
+                token_budget and cur_tokens + n > token_budget)):
+            chunks.append(cur)
+            cur, cur_tokens = [], 0
+        cur.append(i)
+        cur_tokens += n
+    if cur:
+        chunks.append(cur)
+    return chunks
 
 
 def make_batches(
     records: Sequence[SentenceRecord],
     tokenizer: HashTokenizer,
+    tag_dict: Optional[Dictionary],
     batch_size: int,
+    shuffle: bool = False,
+    seed: int = 0,
     sort_by_length: bool = True,
+    token_budget: int = 0,
+    n_buckets: int = 0,
     **encode_kwargs,
 ) -> List[EncodedBatch]:
-    """Fixed-size batches, sorted by subtoken length so that pad waste
-    stays low within a batch."""
+    """Batches of sentences sorted by subtoken length, so that pad waste
+    stays low within a batch. ``token_budget`` closes a batch before its
+    summed subtokens pass the budget (instead of at ``batch_size``);
+    ``n_buckets`` draws batches within k-means length buckets (each capped
+    at ``batch_size`` and the budget). ``shuffle`` permutes whole batches
+    with ``RandomState(seed)``."""
     order = list(range(len(records)))
-    if sort_by_length:
+    lengths = None
+    if sort_by_length or token_budget or n_buckets:
         lengths = [subtoken_length(tokenizer, r.tokens) for r in records]
-        order.sort(key=lambda i: lengths[i])
-    chunks = [order[i:i + batch_size]
-              for i in range(0, len(order), batch_size)]
+    if n_buckets:
+        _, clusters = kmeans(lengths, min(n_buckets, len(set(lengths))),
+                             seed=seed)
+        chunks = [c for cluster in clusters for c in _budget_chunks(
+            cluster, lengths, batch_size, token_budget)]
+    else:
+        if sort_by_length:
+            order.sort(key=lambda i: lengths[i])
+        if token_budget:
+            chunks = _budget_chunks(order, lengths, len(order) or 1,
+                                    token_budget)
+        else:
+            chunks = [order[i:i + batch_size]
+                      for i in range(0, len(order), batch_size)]
+    if shuffle:
+        np.random.RandomState(seed).shuffle(chunks)
     return [
-        encode_batch([records[i] for i in chunk], tokenizer, **encode_kwargs)
+        encode_batch([records[i] for i in chunk], tokenizer, tag_dict,
+                     **encode_kwargs)
         for chunk in chunks
     ]

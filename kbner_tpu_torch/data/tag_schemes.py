@@ -1,11 +1,66 @@
-"""Span extraction from BIOES/BIO tag sequences (counterpart of
-``get_spans`` in ``kbner_tpu/data/tag_schemes.py``)."""
+"""Tag-scheme conversions (IOB1 -> IOB2 -> BIOES, BIOES -> BIO) and span
+extraction (counterpart of ``kbner_tpu/data/tag_schemes.py``)."""
 
 from __future__ import annotations
 
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
+
+
+def iob2(tags: List[str]) -> Optional[List[str]]:
+    """Validate IOB and convert IOB1 to IOB2. Returns None if invalid."""
+    out = list(tags)
+    for i, tag in enumerate(out):
+        if tag == "O":
+            continue
+        split = tag.split("-")
+        if len(split) < 2 or split[0] not in ("I", "B"):
+            return None
+        if split[0] == "B":
+            continue
+        if i == 0 or out[i - 1] == "O":
+            out[i] = "B" + tag[1:]
+        elif out[i - 1][1:] != tag[1:]:
+            out[i] = "B" + tag[1:]
+    return out
+
+
+def iob_iobes(tags: List[str]) -> List[str]:
+    """IOB2 -> BIOES."""
+    new_tags: List[str] = []
+    for i, tag in enumerate(tags):
+        nxt_inside = i + 1 < len(tags) and tags[i + 1].startswith("I-")
+        if tag == "O":
+            new_tags.append(tag)
+        elif tag.startswith("B-"):
+            new_tags.append(tag if nxt_inside else "S-" + tag[2:])
+        elif tag.startswith("I-"):
+            new_tags.append(tag if nxt_inside else "E-" + tag[2:])
+        else:
+            raise ValueError(f"Invalid IOB tag: {tag!r}")
+    return new_tags
+
+
+def to_bioes(tags: List[str]) -> List[str]:
+    """IOB1/IOB2 -> BIOES; raises on malformed input."""
+    converted = iob2(tags)
+    if converted is None:
+        raise ValueError(f"Tags are not in valid IOB format: {tags}")
+    return iob_iobes(converted)
+
+
+def bioes_to_bio(tags: List[str]) -> List[str]:
+    """BIOES -> BIO (S->B, E->I)."""
+    out = []
+    for tag in tags:
+        if tag.startswith("S-"):
+            out.append("B-" + tag[2:])
+        elif tag.startswith("E-"):
+            out.append("I-" + tag[2:])
+        else:
+            out.append(tag)
+    return out
 
 
 @dataclass(frozen=True)
@@ -14,6 +69,10 @@ class TagSpan:
     end: int  # exclusive token index
     label: str
     score: float = 1.0
+
+    @property
+    def positions(self) -> Tuple[int, ...]:
+        return tuple(range(self.start, self.end))
 
 
 def get_spans(

@@ -1,0 +1,4 @@
+from .conlleval import ConllEval, conll_evaluate
+from .metrics import Metric, evaluate_spans
+
+__all__ = ["ConllEval", "conll_evaluate", "Metric", "evaluate_spans"]

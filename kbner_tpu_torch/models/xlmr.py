@@ -1,26 +1,53 @@
 """XLM-RoBERTa encoder as a PyTorch module (counterpart of
-``kbner_tpu/models/xlmr.py``, inference semantics).
+``kbner_tpu/models/xlmr.py``).
 
 The same computation as the Flax encoder:
   - RoBERTa position ids ``cumsum(mask) * mask + pad_token_id``;
   - an additive ``-1e9`` attention mask;
   - attention written as two matmuls and a softmax taken in float32;
-  - exact (erf) GELU; post-LayerNorm with ``layer_norm_eps``;
-  - parameters and activations in the config's dtype (bfloat16 for
-    ``large``, float32 for ``tiny``).
+  - exact (erf) GELU; post-LayerNorm with ``layer_norm_eps``, its
+    statistics in float32 and its output in the compute dtype, as Flax's
+    ``LayerNorm(dtype=...)`` computes it;
+  - dropout where Flax puts it: after the embedding LayerNorm, on the
+    softmaxed attention probabilities, and on the attention and MLP
+    outputs before their residual LayerNorms.
 
-Dropout is not carried: the port decodes only. Loading HF checkpoints
-waits until the repository holds one.
+Two dtypes: ``dtype`` is the compute dtype of every matmul and activation
+(bfloat16 for ``base``/``large``, float32 for ``tiny``), ``param_dtype``
+the dtype the parameters are stored in. Serving stores them in the compute
+dtype (``param_dtype=None``); training keeps float32 master parameters and
+casts each one to the compute dtype where it is used, Dense by Dense, as
+Flax's ``Dense(dtype=bfloat16)`` does with its float32 parameters, so that
+the optimizer's small updates are not lost to bfloat16's 8 mantissa bits.
+
+Dropout draws from ``torch.Generator``s: a forward pass given a host
+generator (``rng``) takes one seed from it per dropout site group (the
+embeddings, then each layer) and draws that group's masks on the device
+from a generator seeded with it. A layer under ``remat`` recomputes its
+masks from the same seed in the backward pass. Without ``rng`` the pass
+is deterministic.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+_aten = torch.ops.aten
+_SAVED_DOTS = {
+    "dots_saveable": (_aten.mm.default, _aten.addmm.default,
+                      _aten.bmm.default),
+    "dots_with_no_batch_dims_saveable": (_aten.mm.default,
+                                         _aten.addmm.default),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +61,22 @@ class XLMRConfig:
     type_vocab_size: int = 1
     pad_token_id: int = 1
     layer_norm_eps: float = 1e-5
-    dtype: torch.dtype = torch.bfloat16  # parameter and activation dtype
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    dtype: torch.dtype = torch.bfloat16  # compute (activation) dtype
+    param_dtype: Optional[torch.dtype] = None  # None: the compute dtype
+    # recompute each layer's activations in the backward pass
+    # (torch.utils.checkpoint per layer): less memory for more FLOPs
+    remat: bool = False
+    # None recomputes everything; "dots_saveable" keeps every matmul's
+    # output and "dots_with_no_batch_dims_saveable" the unbatched ones
+    # (the Dense layers), recomputing the rest, as the jax.checkpoint
+    # policies of those names do
+    remat_policy: Optional[str] = None
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        return self.param_dtype or self.dtype
 
     @classmethod
     def base(cls, **kw) -> "XLMRConfig":
@@ -47,16 +89,84 @@ class XLMRConfig:
 
     @classmethod
     def tiny(cls, **kw) -> "XLMRConfig":
-        """Tiny config for tests (float32, CPU-sized)."""
+        """Tiny config for tests (float32, CPU-sized, no dropout)."""
         defaults = dict(vocab_size=1000, hidden_size=64, num_layers=2,
                         num_heads=4, intermediate_size=128,
-                        max_position_embeddings=130, dtype=torch.float32)
+                        max_position_embeddings=130, dtype=torch.float32,
+                        hidden_dropout=0.0, attention_dropout=0.0)
         defaults.update(kw)
         return cls(**defaults)
 
 
-def _linear(n_in: int, n_out: int, cfg: XLMRConfig, device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, device=device, dtype=cfg.dtype)
+def _remat_context(policy: Optional[str]):
+    """``context_fn`` of ``torch.utils.checkpoint`` for a named policy."""
+    if policy is None:
+        return None
+    if policy not in _SAVED_DOTS:
+        raise ValueError(f"remat_policy {policy!r}: one of "
+                         f"{sorted(_SAVED_DOTS)} or None")
+    saved = _SAVED_DOTS[policy]
+
+    def choose(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, choose)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as Flax's ``nn.Dropout``: each element is kept
+    with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``. The
+    mask comes from ``gen`` (on ``x``'s device); no generator or a zero
+    rate is the identity."""
+    if gen is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def device_generator(rng: Optional[torch.Generator], device
+                     ) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded with one draw from the host
+    generator ``rng`` (None without one)."""
+    if rng is None:
+        return None
+    seed = int(torch.randint(0, 2**62, (1,), generator=rng))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose weight and bias are cast to the input's dtype
+    (the compute dtype) where they are used."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computed in float32 and returned in ``dtype``, as
+    Flax's ``LayerNorm(dtype=dtype)`` computes it."""
+
+    def __init__(self, n: int, eps: float, out_dtype: torch.dtype,
+                 device=None, dtype=None):
+        super().__init__(n, eps=eps, device=device, dtype=dtype)
+        self.out_dtype = out_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(self.out_dtype)
+
+
+def _linear(n_in: int, n_out: int, cfg: XLMRConfig, device) -> Linear:
+    return Linear(n_in, n_out, device=device, dtype=cfg.storage_dtype)
+
+
+def _norm(cfg: XLMRConfig, device) -> LayerNorm:
+    return LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype,
+                     device=device, dtype=cfg.storage_dtype)
 
 
 class SelfAttention(nn.Module):
@@ -64,13 +174,14 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
+        self.attention_dropout = cfg.attention_dropout
         self.query = _linear(cfg.hidden_size, cfg.hidden_size, cfg, device)
         self.key = _linear(cfg.hidden_size, cfg.hidden_size, cfg, device)
         self.value = _linear(cfg.hidden_size, cfg.hidden_size, cfg, device)
         self.out = _linear(cfg.hidden_size, cfg.hidden_size, cfg, device)
 
-    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         B, S, H = hidden.shape
 
         def heads(x):  # [B, S, H] -> [B, heads, S, head_dim]
@@ -83,6 +194,7 @@ class SelfAttention(nn.Module):
             self.head_dim)
         scores = scores + attn_bias  # [B, 1, 1, S] additive mask
         probs = torch.softmax(scores.float(), dim=-1).to(hidden.dtype)
+        probs = dropout(probs, self.attention_dropout, gen)
         ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, H)
         return self.out(ctx)
 
@@ -90,54 +202,73 @@ class SelfAttention(nn.Module):
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: XLMRConfig, device=None):
         super().__init__()
-        eps, H = cfg.layer_norm_eps, cfg.hidden_size
+        H = cfg.hidden_size
+        self.hidden_dropout = cfg.hidden_dropout
         self.attention = SelfAttention(cfg, device)
-        self.attention_ln = nn.LayerNorm(H, eps=eps, device=device,
-                                         dtype=cfg.dtype)
+        self.attention_ln = _norm(cfg, device)
         self.intermediate = _linear(H, cfg.intermediate_size, cfg, device)
         self.output = _linear(cfg.intermediate_size, H, cfg, device)
-        self.output_ln = nn.LayerNorm(H, eps=eps, device=device,
-                                      dtype=cfg.dtype)
+        self.output_ln = _norm(cfg, device)
 
-    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor
-                ) -> torch.Tensor:
-        hidden = self.attention_ln(hidden + self.attention(hidden, attn_bias))
+    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
+                seed: Optional[int] = None) -> torch.Tensor:
+        gen = (None if seed is None else
+               torch.Generator(device=hidden.device).manual_seed(seed))
+        attn = dropout(self.attention(hidden, attn_bias, gen),
+                       self.hidden_dropout, gen)
+        hidden = self.attention_ln(hidden + attn)
         mlp = self.output(F.gelu(self.intermediate(hidden)))
+        mlp = dropout(mlp, self.hidden_dropout, gen)
         return self.output_ln(hidden + mlp)
 
 
 class XLMREncoder(nn.Module):
     """RoBERTa-style encoder; ``forward`` returns the last hidden state
-    ``[B, S, H]`` in the config's dtype."""
+    ``[B, S, H]`` in the compute dtype."""
 
     def __init__(self, cfg: XLMRConfig, device=None):
         super().__init__()
         self.config = cfg
         H = cfg.hidden_size
+        store = cfg.storage_dtype
         self.word_embeddings = nn.Embedding(cfg.vocab_size, H, device=device,
-                                            dtype=cfg.dtype)
+                                            dtype=store)
         self.position_embeddings = nn.Embedding(
-            cfg.max_position_embeddings, H, device=device, dtype=cfg.dtype)
+            cfg.max_position_embeddings, H, device=device, dtype=store)
         self.token_type_embeddings = nn.Embedding(
-            cfg.type_vocab_size, H, device=device, dtype=cfg.dtype)
-        self.embeddings_ln = nn.LayerNorm(H, eps=cfg.layer_norm_eps,
-                                          device=device, dtype=cfg.dtype)
+            cfg.type_vocab_size, H, device=device, dtype=store)
+        self.embeddings_ln = _norm(cfg, device)
         self.layers = nn.ModuleList(
             EncoderLayer(cfg, device) for _ in range(cfg.num_layers))
+        self._remat_context = _remat_context(cfg.remat_policy)
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
         mask = attention_mask.long()
         # RoBERTa position ids: pads get pad_token_id, real tokens count up
         # from pad_token_id + 1 (fairseq/HF convention)
         position_ids = torch.cumsum(mask, dim=1) * mask + cfg.pad_token_id
-        hidden = (self.word_embeddings(input_ids)
-                  + self.position_embeddings(position_ids)
-                  + self.token_type_embeddings(torch.zeros_like(input_ids)))
+        hidden = (self.word_embeddings(input_ids).to(cfg.dtype)
+                  + self.position_embeddings(position_ids).to(cfg.dtype)
+                  + self.token_type_embeddings(
+                      torch.zeros_like(input_ids)).to(cfg.dtype))
         hidden = self.embeddings_ln(hidden)
+        hidden = dropout(hidden, cfg.hidden_dropout,
+                         device_generator(rng, hidden.device))
         attn_bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).to(
             cfg.dtype)
         for layer in self.layers:
-            hidden = layer(hidden, attn_bias)
+            seed = (None if rng is None else
+                    int(torch.randint(0, 2**62, (1,), generator=rng)))
+            if cfg.remat and torch.is_grad_enabled():
+                # the layer's dropout masks come from its seed, so the
+                # global RNG state need not be kept for the recompute
+                kw = ({"context_fn": self._remat_context}
+                      if self._remat_context else {})
+                hidden = checkpoint(layer, hidden, attn_bias, seed,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False, **kw)
+            else:
+                hidden = layer(hidden, attn_bias, seed)
         return hidden

@@ -37,6 +37,7 @@ def predict(
     tag_dict: Dictionary,
     batch_size: int = 32,
     tag_layer: str = "ner",
+    sort_by_length: bool = True,
 ) -> List[List[str]]:
     """Predicted BIOES tag strings per sentence, in input order.
 
@@ -46,7 +47,8 @@ def predict(
     """
     results: List[Optional[List[str]]] = [None] * len(records)
     rec_index = {id(r): i for i, r in enumerate(records)}
-    for eb in make_batches(records, tokenizer, batch_size,
+    for eb in make_batches(records, tokenizer, None, batch_size,
+                           sort_by_length=sort_by_length,
                            tag_layer=tag_layer):
         batch = {k: torch.from_numpy(v).to(tagger.device)
                  for k, v in eb.arrays().items()}

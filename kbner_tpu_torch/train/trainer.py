@@ -1,0 +1,402 @@
+"""Fine-tuning trainer (counterpart of ``kbner_tpu/train/trainer.py``).
+
+  - two parameter groups (encoder at ``lr``, head at ``lr * lr_rate``),
+    AdamW with warmup, global-norm clipping and gradient accumulation
+    (:mod:`.optim`, optax's bookkeeping);
+  - the schedule's horizon from the realised epoch size (micro-batches
+    per epoch times epochs);
+  - first-epoch encoder freezing by multiplying the encoder's gradients
+    by 0, so the optimizer's update count and moments run on as optax's;
+  - per-epoch dev evaluation, a dataset-level macro average over the
+    corpora's dev sets (the negated train loss without dev sets);
+  - ``best-model.msgpack``/``final-model.msgpack`` (and
+    ``finetuned-encoder.msgpack``) in the Flax tree layout the JAX
+    package's trainer writes, so either package reads the other's;
+  - ``loss.tsv``, ``history.json``, a final save on ``KeyboardInterrupt``;
+  - ``checkpoint``/``resume`` through the port's own ``checkpoint.pt``
+    (parameters, optimizer state, epoch, best score and history).
+
+Randomness comes from ``torch.Generator``s seeded with ``TrainConfig.seed``:
+the model's init (the caller's), every dropout mask (one host generator
+per ``train`` call) and batch shuffling (numpy ``RandomState(seed +
+epoch)``, as the reference shuffles).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import math
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import weights
+from ..data import corpus_ops
+from ..data.conll import X_LABEL, Corpus, ListCorpus, SentenceRecord
+from ..data.dictionary import Dictionary
+from ..data.encode import EncodedBatch, encode_batch, make_batches
+from ..data.subword import HashTokenizer
+from ..device import resolve_device
+from ..eval.metrics import Metric, evaluate_spans
+from ..models.tagger import SequenceTagger
+from ..serve import predict as predict_tags
+from .optim import FinetuneOptimizer, is_encoder_param, make_finetune_optimizer
+
+log = logging.getLogger("kbner_tpu_torch")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    learning_rate: float = 5e-6
+    lr_rate: float = 10000.0  # head lr multiplier
+    batch_size: int = 16
+    max_epochs: int = 10
+    warmup_fraction: float = 0.1
+    accumulation_steps: int = 1
+    weight_decay: float = 0.0
+    grad_clip: float = 5.0
+    use_inverse_sqrt: bool = False
+    adam_mu_bf16: bool = False  # Adam's first moment stored in bfloat16
+    # the JAX package's dropout PRNG implementation; no torch generator
+    # reproduces any of JAX's bit streams, so every value means the
+    # trainer's torch.Generator seeded with ``seed``
+    rng_impl: Optional[str] = "unsafe_rbg"
+    seed: int = 0
+    max_subtokens: int = 512
+    eval_batch_size: int = 32
+    save_finetuned_encoder: bool = False
+    monitor_test: bool = False
+    # corpus surgery
+    resample_smooth: Optional[float] = None
+    direct_upsample_rate: Optional[int] = None
+    direct_upsample_max_size: Optional[int] = None
+    down_sample_amount: Optional[int] = None
+    clip_long_sentences: bool = False
+    # multi-view cooperative training
+    multi_view: bool = False
+    mv_agreement_weight: float = 1.0
+    mv_l2_weight: float = 0.0
+    mv_kind: str = "kl"
+    freeze_first_epoch: bool = False
+    checkpoint: bool = False
+    resume: bool = False
+    # a torch.profiler trace of the first epoch's steps [profile_start,
+    # profile_start + profile_steps) into <target_dir>/profile
+    profile_steps: int = 0
+    profile_start: int = 2
+
+
+class FinetuneTrainer:
+    """Trains ``model`` (a :class:`SequenceTagger` with float32 master
+    parameters) on ``corpus`` on ``device`` (the card by default; the
+    model is moved there)."""
+
+    def __init__(
+        self,
+        model: SequenceTagger,
+        corpus: ListCorpus | Corpus,
+        tokenizer: HashTokenizer,
+        tag_dict: Dictionary,
+        mesh=None,
+        tag_layer: str = "ner",
+        stride_windows: bool = False,
+        device="cuda",
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh waits for sharded training over "
+                "torch.distributed in kbner_tpu_torch (ROADMAP A6)")
+        if stride_windows:
+            raise NotImplementedError(
+                "stride_windows (data/windows.py) waits for a later slice "
+                "of kbner_tpu_torch (ROADMAP A6)")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        if isinstance(corpus, Corpus):
+            corpus = ListCorpus([corpus])
+        self.corpus = corpus
+        self.tokenizer = tokenizer
+        self.tag_dict = tag_dict
+        self.tag_layer = tag_layer
+
+    # -- one step ---------------------------------------------------------------
+
+    def _to_device(self, eb: EncodedBatch) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in eb.arrays().items()}
+
+    def _loss(self, item, config: TrainConfig,
+              rng: Optional[torch.Generator]) -> torch.Tensor:
+        if config.multi_view:
+            eb, orig = item
+            return self.model.multi_view_loss(
+                self._to_device(eb), self._to_device(orig), rng=rng,
+                agreement_weight=config.mv_agreement_weight,
+                l2_weight=config.mv_l2_weight, kind=config.mv_kind)
+        return self.model.loss(self._to_device(item), rng=rng)
+
+    def train_step(self, item, opt: FinetuneOptimizer, config: TrainConfig,
+                   rng: Optional[torch.Generator], freeze: bool = False
+                   ) -> torch.Tensor:
+        """Loss, gradients and one optimizer call on one batch (an
+        ``EncodedBatch``, or a (context, orig) pair in multi-view mode).
+        Returns the loss, still on the device."""
+        loss = self._loss(item, config, rng)
+        loss.backward()
+        if freeze:
+            grads = [p.grad for n, p in self.model.named_parameters()
+                     if is_encoder_param(n) and p.grad is not None]
+            torch._foreach_mul_(grads, 0.0)
+        opt.step()
+        self.model.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    # -- training ---------------------------------------------------------------
+
+    def _apply_corpus_surgery(self, config: TrainConfig) -> None:
+        if config.clip_long_sentences:
+            removed = corpus_ops.clip_sentences(
+                self.corpus, self.tokenizer, config.max_subtokens - 2)
+            if removed:
+                log.info("clipped %d over-budget train sentences", removed)
+        if config.down_sample_amount:
+            corpus_ops.down_sample(self.corpus, config.down_sample_amount,
+                                   seed=config.seed)
+        if config.direct_upsample_rate:
+            corpus_ops.direct_upsample(self.corpus,
+                                       config.direct_upsample_rate,
+                                       config.direct_upsample_max_size)
+
+    def _epoch_records(self, config: TrainConfig, epoch: int):
+        if config.resample_smooth:
+            return corpus_ops.resample_corpora(
+                self.corpus, smooth=config.resample_smooth,
+                seed=config.seed + epoch)
+        return self.corpus.train
+
+    def _make_train_batches(self, records, config: TrainConfig, epoch: int):
+        """Encoded batches, shuffled with ``RandomState(seed + epoch)``;
+        multi-view mode pairs each with the ``<EOS>``-truncated view of
+        the same sentences."""
+        batches = make_batches(
+            records, self.tokenizer, self.tag_dict, config.batch_size,
+            shuffle=True, seed=config.seed + epoch, tag_layer=self.tag_layer,
+            max_subtokens=config.max_subtokens)
+        if not config.multi_view:
+            return batches
+        return [(eb, encode_batch(
+            [corpus_ops.make_orig_view(r, self.tag_layer) for r in eb.records],
+            self.tokenizer, self.tag_dict, tag_layer=self.tag_layer,
+            max_subtokens=config.max_subtokens)) for eb in batches]
+
+    def make_optimizer(self, config: TrainConfig) -> FinetuneOptimizer:
+        """The optimizer of :meth:`train`, its horizon from the epoch size
+        of ``config``'s epoch 0."""
+        steps_per_epoch = max(1, math.ceil(
+            len(self._epoch_records(config, 0)) / config.batch_size))
+        total_steps = steps_per_epoch * config.max_epochs
+        return make_finetune_optimizer(
+            self.model.named_parameters(), lr=config.learning_rate,
+            lr_rate=config.lr_rate,
+            warmup_steps=int(total_steps * config.warmup_fraction),
+            total_steps=total_steps, weight_decay=config.weight_decay,
+            grad_clip=config.grad_clip,
+            accumulation_steps=config.accumulation_steps,
+            use_inverse_sqrt=config.use_inverse_sqrt,
+            mu_dtype=torch.bfloat16 if config.adam_mu_bf16 else None)
+
+    def train(self, base_path: str | Path, config: TrainConfig
+              ) -> Dict[str, Any]:
+        base_path = Path(base_path)
+        base_path.mkdir(parents=True, exist_ok=True)
+        self.tag_dict.save(base_path / "tag_dictionary.json")
+        self._apply_corpus_surgery(config)
+        opt = self.make_optimizer(config)
+        rng = torch.Generator().manual_seed(config.seed)
+        best_score = -np.inf
+        history: Dict[str, List[float]] = {"train_loss": [], "dev_score": []}
+
+        start_epoch = 0
+        ckpt_path = base_path / "checkpoint.pt"
+        if config.resume and ckpt_path.exists():
+            meta = self._load_checkpoint(ckpt_path, opt)
+            start_epoch = meta["epoch"] + 1
+            best_score, history = meta["best_score"], meta["history"]
+            log.info("resumed from checkpoint at epoch %d", start_epoch)
+
+        loss_tsv = base_path / "loss.tsv"
+        if start_epoch == 0:
+            loss_tsv.write_text("EPOCH\tTIMESTAMP\tTRAIN_LOSS\tDEV_SCORE\n")
+
+        try:
+            for epoch in range(start_epoch, config.max_epochs):
+                t0 = time.time()
+                batches = self._make_train_batches(
+                    self._epoch_records(config, epoch), config, epoch)
+                freeze = config.freeze_first_epoch and epoch == 0
+                losses = []
+                prof = None
+                for i, item in enumerate(batches):
+                    if (config.profile_steps and epoch == start_epoch
+                            and i == config.profile_start):
+                        prof = self._start_profile()
+                    losses.append(self.train_step(item, opt, config, rng,
+                                                  freeze))
+                    if prof is not None and i + 1 == (
+                            config.profile_start + config.profile_steps):
+                        self._stop_profile(prof, base_path)
+                        prof = None
+                if prof is not None:  # epoch shorter than the window
+                    self._stop_profile(prof, base_path)
+                # one host pull per epoch
+                train_loss = (float(np.mean(torch.stack(losses).cpu().numpy(
+                ).astype(np.float64))) if losses else 0.0)
+                history["train_loss"].append(train_loss)
+
+                dev_scores = [
+                    self.evaluate(dev, config.eval_batch_size)[0]
+                    .micro_avg_f_score()
+                    for dev in self.corpus.dev_list if dev]
+                # without dev sets, select on the negated train loss
+                dev_score = (float(np.mean(dev_scores)) if dev_scores
+                             else -train_loss)
+                history["dev_score"].append(dev_score)
+                log.info("epoch %d  loss %.4f  dev %.4f  (%.1fs)",
+                         epoch + 1, train_loss, dev_score, time.time() - t0)
+                with open(loss_tsv, "a") as f:
+                    f.write(f"{epoch + 1}\t{time.strftime('%H:%M:%S')}\t"
+                            f"{train_loss:.6f}\t{dev_score:.6f}\n")
+                if dev_score >= best_score:
+                    best_score = dev_score
+                    self.save(base_path / "best-model.msgpack")
+                    if config.save_finetuned_encoder:
+                        self.save_encoder(
+                            base_path / "finetuned-encoder.msgpack")
+                if config.checkpoint:
+                    self._save_checkpoint(ckpt_path, opt, epoch, best_score,
+                                          history)
+        except KeyboardInterrupt:
+            log.info("interrupted — saving final-model")
+            self.save(base_path / "final-model.msgpack")
+            raise
+
+        self.save(base_path / "final-model.msgpack")
+        (base_path / "history.json").write_text(json.dumps(history))
+        return {"best_dev_score": best_score, "history": history}
+
+    def _start_profile(self) -> torch.profiler.profile:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, base_path: Path) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = base_path / "profile"
+        out.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(out / "trace.json"))
+        log.info("wrote profiler trace to %s", out)
+
+    # -- checkpoint/resume --------------------------------------------------------
+
+    def _save_checkpoint(self, path, opt: FinetuneOptimizer, epoch: int,
+                         best_score: float, history) -> None:
+        torch.save({"model": self.model.state_dict(),
+                    "optimizer": opt.state_dict(),
+                    "meta": {"epoch": epoch, "best_score": best_score,
+                             "history": history}}, path)
+
+    def _load_checkpoint(self, path, opt: FinetuneOptimizer
+                         ) -> Dict[str, Any]:
+        blob = torch.load(path, map_location=self.device, weights_only=True)
+        self.model.load_state_dict(blob["model"])
+        opt.load_state_dict(blob["optimizer"])
+        return blob["meta"]
+
+    # -- evaluation -----------------------------------------------------------------
+
+    def predict(self, records: Sequence[SentenceRecord], batch_size: int = 32,
+                sort_by_length: bool = True) -> List[List[str]]:
+        """Predicted BIOES tag strings per sentence, in input order;
+        context positions get ``S-X`` and words past the subtoken budget
+        ``O``."""
+        return predict_tags(records, self.model, self.tokenizer,
+                            self.tag_dict, batch_size=batch_size,
+                            tag_layer=self.tag_layer,
+                            sort_by_length=sort_by_length)
+
+    def evaluate_speed(self, records: Sequence[SentenceRecord],
+                       batch_size: int = 32) -> float:
+        """Decode throughput in sentences/s, after one warm-up batch."""
+        self.predict(records[:min(len(records), batch_size)], batch_size)
+        t0 = time.time()
+        self.predict(records, batch_size)
+        return len(records) / max(time.time() - t0, 1e-9)
+
+    def evaluate(self, records: Sequence[SentenceRecord],
+                 batch_size: int = 32, out_path: Optional[Path] = None
+                 ) -> Tuple[Metric, List[List[str]]]:
+        """Span metric of the predictions against the gold tags (X, _ and
+        NE spans ignored); with ``out_path``, 'token gold pred' lines."""
+        preds = self.predict(records, batch_size)
+        gold = [r.tags[self.tag_layer] for r in records]
+        metric = evaluate_spans(gold, preds,
+                                ignore_labels=(X_LABEL, "_", "NE"))
+        if out_path is not None:
+            with open(out_path, "w", encoding="utf-8") as f:
+                for rec, pred in zip(records, preds):
+                    for tok, g, p in zip(rec.tokens,
+                                         rec.tags[self.tag_layer], pred):
+                        f.write(f"{tok} {g} {p}\n")
+                    f.write("\n")
+        return metric, preds
+
+    def final_test(self, base_path: str | Path, batch_size: int = 32):
+        """Reload the best model and evaluate each test set; writes
+        ``test.<name>.tsv`` and ``test_results.json``."""
+        base_path = Path(base_path)
+        best = base_path / "best-model.msgpack"
+        if best.exists():
+            self.load(best)
+        results = {}
+        for name, test_set in zip(self.corpus.targets, self.corpus.test_list):
+            if not test_set:
+                continue
+            metric, _ = self.evaluate(
+                test_set, batch_size, out_path=base_path / f"test.{name}.tsv")
+            results[name] = {"micro_f1": metric.micro_avg_f_score(),
+                             "macro_f1": metric.macro_avg_f_score()}
+            log.info("TEST %s: %s", name, results[name])
+        (base_path / "test_results.json").write_text(json.dumps(results))
+        return results
+
+    # -- persistence ----------------------------------------------------------------
+
+    def save(self, path: str | Path) -> None:
+        weights.save_params(self.model.state_dict(), self.model.config, path)
+
+    def load(self, path: str | Path) -> None:
+        self.model.load_state_dict(
+            weights.load_params(path, self.model.config))
+
+    def save_encoder(self, path: str | Path) -> None:
+        """Only the tuned encoder's tree (``params.encoder``)."""
+        tree = weights.to_jax_params(self.model.state_dict(),
+                                     self.model.config)
+        weights.checkpoint.dump(tree["params"]["encoder"], path)
+
+    def load_encoder(self, path: str | Path) -> None:
+        tree = weights.to_jax_params(self.model.state_dict(),
+                                     self.model.config)
+        tree["params"]["encoder"] = weights.checkpoint.load(path)
+        self.model.load_state_dict(
+            weights.from_jax_params(tree, self.model.config))

@@ -367,3 +367,58 @@ def test_tagging_on_card_matches_cpu(card):
     assert any(EOS_MARKER in r.tokens for r in fused)
     assert predict(fused, gpu_tagger, tok, tags, batch_size=8) == \
         predict(fused, cpu_tagger, tok, tags, batch_size=8)
+
+
+def _training_pair(card, **enc):
+    """The same tiny tagger (same weights) and quality-corpus batch on the
+    card and on the CPU, with their trainers and optimizers."""
+    from kbner_tpu_torch.data.quality_fixture import make_quality_corpus
+    from kbner_tpu_torch.train import FinetuneTrainer, TrainConfig
+
+    corpus = make_quality_corpus(16, 2, 2, seed=5)
+    tags = corpus.make_tag_dictionary("ner")
+    cfg = TaggerConfig.for_tag_dictionary(
+        XLMRConfig.tiny(vocab_size=1000, **enc), tags, locked_dropout=0.0,
+        word_dropout=0.0)
+    config = TrainConfig(learning_rate=1e-4, lr_rate=10.0, batch_size=8,
+                         use_inverse_sqrt=True)
+    out = []
+    cpu_state = SequenceTagger(cfg, device="cpu", seed=0).state_dict()
+    for dev in ("cpu", card):
+        # the card's generator draws another init: same weights by copy
+        tagger = SequenceTagger(cfg, device=dev, seed=0)
+        tagger.load_state_dict(cpu_state)
+        trainer = FinetuneTrainer(tagger, corpus, HashTokenizer(1000), tags,
+                                  device=dev)
+        batch = trainer._make_train_batches(corpus.train, config, 0)[0]
+        out.append((trainer, trainer.make_optimizer(config), batch))
+    return out, config
+
+
+def test_training_step_on_card_matches_cpu(card):
+    """One float32 optimizer step (lr > 0 from the first update) on the
+    card equals the same step on the CPU: loss rtol 1e-5, parameters rtol
+    1e-4, atol 1e-6 (float32 gradients summed in another order, through
+    Adam's normalisation)."""
+    (cpu, gpu), config = _training_pair(card)
+    losses = [t.train_step(b, opt, config, None) for t, opt, b in (cpu, gpu)]
+    torch.testing.assert_close(losses[1].cpu(), losses[0], rtol=1e-5,
+                               atol=0)
+    want = dict(cpu[0].model.named_parameters())
+    for name, p in gpu[0].model.named_parameters():
+        torch.testing.assert_close(p.detach().cpu(), want[name].detach(),
+                                   rtol=1e-4, atol=1e-6, msg=name)
+
+
+def test_bfloat16_training_step_keeps_float32_masters_on_card(card):
+    (_, (trainer, opt, batch)), config = _training_pair(
+        card, dtype=torch.bfloat16, param_dtype=torch.float32)
+    before = {n: p.detach().clone()
+              for n, p in trainer.model.named_parameters()}
+    loss = trainer.train_step(batch, opt, config, None)
+    assert bool(torch.isfinite(loss))
+    for name, p in trainer.model.named_parameters():
+        assert p.dtype == torch.float32 and p.device.type == "cuda", name
+    w = "encoder.layers.0.intermediate.weight"
+    moved = dict(trainer.model.named_parameters())[w].detach() != before[w]
+    assert float(moved.float().mean()) > 0.5

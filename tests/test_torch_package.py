@@ -17,15 +17,20 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import yaml
 
 import kbner_tpu_torch
 from kbner_tpu_torch import cli, device
+from kbner_tpu_torch.data.conll import write_column_file
 from kbner_tpu_torch.data.dictionary import make_tag_dictionary
+from kbner_tpu_torch.data.quality_fixture import make_quality_corpus
+from kbner_tpu_torch.data.subword import HashTokenizer
 from kbner_tpu_torch.models.tagger import SequenceTagger, TaggerConfig
 from kbner_tpu_torch.models.xlmr import XLMRConfig
 from kbner_tpu_torch.ops import _kernels, bm25
 from kbner_tpu_torch.retrieval.engine import RetrievalEngine
 from kbner_tpu_torch.retrieval.index import BM25Index, BM25Params
+from kbner_tpu_torch.train import FinetuneTrainer
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "kbner_tpu_torch"
@@ -49,8 +54,9 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "kbner_tpu_torch.ops.bm25" in mods and len(mods) >= 20
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m in ('jax', 'flax', "
-            "'kbner_tpu') or m.startswith(('jax.', 'flax.', 'kbner_tpu.'))]\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
+            "'msgpack', 'kbner_tpu') or m.startswith(('jax.', 'flax.', "
+            "'optax.', 'msgpack.', 'kbner_tpu.'))]\n"
             "print(bad)\n"
             "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -59,7 +65,8 @@ def test_importing_every_module_pulls_in_no_jax():
 
 
 def test_no_source_line_imports_jax_or_kbner_tpu():
-    pattern = re.compile(r"^\s*(from|import) (jax|flax|kbner_tpu)(\.|\s|$)")
+    pattern = re.compile(
+        r"^\s*(from|import) (jax|flax|optax|msgpack|kbner_tpu)(\.|\s|$)")
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -101,6 +108,29 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path, monkeypatch):
     monkeypatch.setattr("sys.stdin", iter(()))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["serve", "--config", str(cfg)])
+
+    # the trainer and the training CLI
+    corpus = make_quality_corpus(8, 2, 2)
+    tags = corpus.make_tag_dictionary("ner")
+    tagger = SequenceTagger(TaggerConfig.for_tag_dictionary(
+        XLMRConfig.tiny(), tags), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FinetuneTrainer(tagger, corpus, HashTokenizer(1000), tags)
+    assert FinetuneTrainer(tagger, corpus, HashTokenizer(1000), tags,
+                           device="cpu").device.type == "cpu"
+    data = tmp_path / "data"
+    write_column_file(data / "train.txt", corpus.train)
+    cfg.write_text(yaml.safe_dump({
+        "name": "t", "tokenizer": {"type": "hash", "vocab_size": 1000},
+        "model": {"encoder": "tiny"}, "target_dir": str(target),
+        "corpora": [{"name": "Q", "data_folder": str(data),
+                     "column_format": {0: "text", 1: "ner"},
+                     "tag_to_bioes": None}]}))
+    for command in ("train", "test"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main([command, "--config", str(cfg)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["parse", "--config", str(cfg), "--target_dir", str(data)])
 
 
 def test_engine_modes_of_later_slices_raise():

@@ -102,7 +102,7 @@ def test_encoded_batches_match_jax():
         assert got.keys() == want.keys()
         for key in got:
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    got = make_batches(_records(SentenceRecord), tok, 2)
+    got = make_batches(_records(SentenceRecord), tok, None, 2)
     want = j_make_batches(_records(JRecord), j_tok, None, 2)
     assert [[r.tokens for r in b.records] for b in got] == \
         [[r.tokens for r in b.records] for b in want]
@@ -218,19 +218,159 @@ def test_crf_decode_masking_equals_compaction():
 
 
 def test_unported_decode_options_raise():
+    """What stays unported raises, naming its ROADMAP item: transition
+    attention and the distillation losses (the decode options that used
+    to raise here are held to the Flax tagger below)."""
     tags = make_tag_dictionary([TAGS])
     enc = XLMRConfig.tiny(vocab_size=VOCAB)
-    with pytest.raises(NotImplementedError):
-        SequenceTagger(TaggerConfig.for_tag_dictionary(enc, tags,
-                                                       use_crf=False),
-                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        SequenceTagger(TaggerConfig.for_tag_dictionary(enc, tags,
-                                                       num_languages=2),
-                       device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        SequenceTagger(TaggerConfig.for_tag_dictionary(
+            enc, tags, num_languages=2, transition_attention=True),
+            device="cpu")
     tagger = SequenceTagger(TaggerConfig.for_tag_dictionary(enc, tags),
                             device="cpu")
     arrays = _torch_batch(encode_batch(_records(SentenceRecord),
                                        HashTokenizer(VOCAB)).arrays())
-    with pytest.raises(NotImplementedError):
-        tagger.decode(arrays, posterior=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        tagger.distill_loss(arrays, torch.zeros(1))
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        tagger.kbest_distill_loss(arrays, torch.zeros(1), torch.zeros(1))
+
+
+# -- the training side and the decode options, against the Flax tagger --------
+
+def _tagged_records(cls):
+    """The test sentences with gold tags from the tag set (S-X on the
+    context words) and two languages."""
+    rng = np.random.RandomState(5)
+    out = []
+    for i, (tokens, tags) in enumerate(SENTENCES):
+        gold = [TAGS[rng.randint(len(TAGS))] for _ in tokens]
+        eos = tokens.index("<EOS>") if "<EOS>" in tokens else len(tokens)
+        gold = [g if w < eos and (tags is None or tags[w] != "S-X")
+                else "S-X" for w, g in enumerate(gold)]
+        out.append(cls(tokens=list(tokens), tags={"ner": gold},
+                       lang_id=i % 2))
+    return out
+
+
+def _pair(**kw):
+    """A Flax tagger with perturbed parameters and the port's tagger with
+    the same weights, for tagger options ``kw``; dropout off."""
+    j_tags = j_tag_dict([TAGS + ["S-X"]])
+    j_cfg = JTaggerConfig.for_tag_dictionary(
+        JXLMRConfig.tiny(vocab_size=VOCAB), j_tags, locked_dropout=0.0,
+        word_dropout=0.0, **kw)
+    batch = j_encode(_tagged_records(JRecord), JTokenizer(vocab_size=VOCAB),
+                     j_tags)
+    model, params = init_tagger(
+        j_cfg, jax.random.PRNGKey(1),
+        {k: jnp.asarray(v) for k, v in batch.arrays().items()})
+    rng = np.random.RandomState(1)
+    np_params = jax.tree_util.tree_map(
+        lambda x: (np.asarray(x) + 0.05 * rng.standard_normal(x.shape)
+                   ).astype(np.float32), params)
+    tags = make_tag_dictionary([TAGS + ["S-X"]])
+    cfg = TaggerConfig.for_tag_dictionary(
+        XLMRConfig.tiny(vocab_size=VOCAB), tags, locked_dropout=0.0,
+        word_dropout=0.0, **kw)
+    tagger = SequenceTagger(cfg, device="cpu", seed=3)
+    tagger.load_state_dict(from_jax_params(np_params, cfg), strict=True)
+    arrays = encode_batch(_tagged_records(SentenceRecord),
+                          HashTokenizer(vocab_size=VOCAB), tags).arrays()
+    np.testing.assert_array_equal(arrays["tag_ids"], batch.tag_ids)
+    return model, jax.tree_util.tree_map(jnp.asarray, np_params), tagger, \
+        arrays
+
+
+HEADS = [dict(), dict(use_crf=False), dict(num_languages=2),
+         dict(relearn_embeddings=False)]
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+
+
+@pytest.mark.parametrize("kw", HEADS)
+def test_loss_and_every_gradient_match_flax(kw):
+    """The mean CRF NLL (or masked token cross-entropy), and the gradient
+    of every parameter carried back through ``from_jax_params``."""
+    model, params, tagger, arrays = _pair(**kw)
+    jb = {k: jnp.asarray(v) for k, v in arrays.items()}
+    want, j_grads = jax.value_and_grad(lambda p: model.apply(
+        p, jb, deterministic=True, method=model.loss))(params)
+    got = tagger.loss(_torch_batch(arrays))
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    want_grads = from_jax_params(jax.tree_util.tree_map(np.asarray, j_grads),
+                                 tagger.config)
+    for name, p in tagger.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("kw", HEADS[:3])
+def test_decode_options_match_flax(kw):
+    """Viterbi (per-language transitions included), posterior decode and
+    the softmax head's argmax: tags and scores; and the marginals."""
+    model, params, tagger, arrays = _pair(**kw)
+    jb = {k: jnp.asarray(v) for k, v in arrays.items()}
+    for posterior in (False, True):
+        want_tags, want_scores = model.apply(
+            params, jb, method=lambda m, b: m.decode(b, pad_tag=1,
+                                                     posterior=posterior))
+        got_tags, got_scores = tagger.decode(_torch_batch(arrays), pad_tag=1,
+                                             posterior=posterior)
+        np.testing.assert_array_equal(got_tags.numpy(),
+                                      np.asarray(want_tags))
+        np.testing.assert_allclose(got_scores.numpy(),
+                                   np.asarray(want_scores), rtol=1e-5)
+    want = model.apply(params, jb, method=lambda m, b: m.marginals(b))
+    got = tagger.marginals(_torch_batch(arrays))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_per_language_transitions_match_flax():
+    model, params, tagger, arrays = _pair(num_languages=2)
+    lang = torch.from_numpy(arrays["lang_ids"])
+    assert set(lang.tolist()) == {0, 1}
+    for ids in (None, lang, lang + 5):  # clipped into the languages
+        want = model.apply(params, method=lambda m: m.transition_matrix(
+            None if ids is None else jnp.asarray(ids.numpy())))
+        np.testing.assert_array_equal(
+            tagger.transition_matrix(ids).detach().numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(use_crf=False)])
+def test_multi_view_loss_and_gradients_match_flax(kw):
+    """The context view's loss plus the agreement of the context-free view
+    (the sentences cut at <EOS>) with its detached marginals, and an L2
+    feature term."""
+    from kbner_tpu.data.corpus_ops import make_orig_view as j_orig
+    from kbner_tpu_torch.data.corpus_ops import make_orig_view
+
+    model, params, tagger, arrays = _pair(**kw)
+    tags = make_tag_dictionary([TAGS + ["S-X"]])
+    orig = encode_batch([make_orig_view(r) for r in
+                         _tagged_records(SentenceRecord)],
+                        HashTokenizer(VOCAB), tags).arrays()
+    j_orig_arrays = j_encode([j_orig(r) for r in _tagged_records(JRecord)],
+                             JTokenizer(VOCAB),
+                             j_tag_dict([TAGS + ["S-X"]])).arrays()
+    for key in orig:
+        np.testing.assert_array_equal(orig[key], j_orig_arrays[key])
+    mv = dict(agreement_weight=0.7, l2_weight=0.3, kind="kl")
+    jb = {k: jnp.asarray(v) for k, v in arrays.items()}
+    jo = {k: jnp.asarray(v) for k, v in orig.items()}
+    want, j_grads = jax.value_and_grad(lambda p: model.apply(
+        p, jb, jo, deterministic=True, method=model.multi_view_loss,
+        **mv))(params)
+    got = tagger.multi_view_loss(_torch_batch(arrays), _torch_batch(orig),
+                                 **mv)
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    want_grads = from_jax_params(jax.tree_util.tree_map(np.asarray, j_grads),
+                                 tagger.config)
+    for name, p in tagger.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=name)
