@@ -41,6 +41,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -369,6 +370,7 @@ def measure_k1(bm25, qt, qw, dt, di) -> dict:
                       iters=20)
     dev_ms = time_device_ms(lambda: bm25.bm25_score_block(qt, qw, dt, di),
                             iters=20)
+    cold_ms = time_cold_ms(lambda: bm25.bm25_score_block(qt, qw, dt, di))
     plain_ms = time_cuda_ms(lambda: bm25.bm25_score_block_ref(qt, qw, dt, di),
                             iters=3)
     Q, N = qt.shape[0], dt.shape[1]
@@ -376,7 +378,7 @@ def measure_k1(bm25, qt, qw, dt, di) -> dict:
     n_ops = Q * int((dt >= 0).sum())
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = n_ops / PEAK_INT32_OPS_PER_S * 1e3
-    return dict(ms=ms, dev_ms=dev_ms, plain_ms=plain_ms,
+    return dict(ms=ms, dev_ms=dev_ms, cold_ms=cold_ms, plain_ms=plain_ms,
                 err=err, bytes=n_bytes, ops=n_ops,
                 bytes_ms=bytes_ms, ops_ms=ops_ms,
                 bound_ms=max(bytes_ms, ops_ms),
@@ -766,14 +768,13 @@ def event_ms(fn) -> float:
 
 
 def training_phase(engine, requests, bm25, dev, card, tokenizer,
-                   enc_config) -> None:
+                   enc_config, tmp) -> None:
     """Train XLM-R large + CRF through ``FinetuneTrainer.train`` on fused
     records ((a) the recipe's batch 1 with accumulation 4, (b) batch 16
-    for three epochs), then serve (b)'s best-model.msgpack through the
-    port's serve path and hold its tags to the trainer's own prediction
-    in the serving dtype."""
+    for three epochs) under ``tmp/a`` and ``tmp/b``, then serve (b)'s
+    best-model.msgpack through the port's serve path and hold its tags to
+    the trainer's own prediction in the serving dtype."""
     import dataclasses
-    import tempfile
 
     import torch
 
@@ -808,133 +809,746 @@ def training_phase(engine, requests, bm25, dev, card, tokenizer,
     tcfg = TaggerConfig.for_tag_dictionary(
         enc_config, tag_dict, locked_dropout=0.0, word_dropout=0.1,
         relearn_embeddings=False)
-    with tempfile.TemporaryDirectory() as tmp:
-        runs = (("a", recipe_recs, dict(batch_size=1, accumulation_steps=4,
-                                        max_epochs=1)),
-                ("b", wide_recs, dict(batch_size=16, max_epochs=3)))
-        for label, recs, kw in runs:
-            t0 = time.perf_counter()
-            model = SequenceTagger(tcfg, device=dev, seed=0)
-            trainer = FinetuneTrainer(model, ListCorpus([Corpus(
-                recs, [], [], name="FUSED")]), tokenizer, tag_dict,
-                device=dev)
-            config = TrainConfig(**RECIPE, **kw)
-            sync()
-            setup_s = time.perf_counter() - t0
+    runs = (("a", recipe_recs, dict(batch_size=1, accumulation_steps=4,
+                                    max_epochs=1)),
+            ("b", wide_recs, dict(batch_size=16, max_epochs=3)))
+    for label, recs, kw in runs:
+        t0 = time.perf_counter()
+        model = SequenceTagger(tcfg, device=dev, seed=0)
+        trainer = FinetuneTrainer(model, ListCorpus([Corpus(
+            recs, [], [], name="FUSED")]), tokenizer, tag_dict,
+            device=dev)
+        config = TrainConfig(**RECIPE, **kw)
+        sync()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result, steps = run_training(trainer, config, f"{tmp}/{label}",
+                                     sync)
+        total_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [s[2] for s in steps]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"training ({label}): a loss is not "
+                                 f"finite: {losses}")
+        opt_steps = optimizer_steps(steps, kw.get("accumulation_steps",
+                                                  1))
+        step_ms = float(np.median([ms for ms, _ in opt_steps[2:]]))
+        tok_s = (sum(t for _, t in opt_steps[2:])
+                 / (sum(ms for ms, _ in opt_steps[2:]) / 1e3))
+        history = result["history"]["train_loss"]
+        B = kw["batch_size"]
+        log(f"training ({label}): XLM-R ({enc_config.num_layers} layers, "
+            f"hidden {enc_config.hidden_size}, vocab "
+            f"{enc_config.vocab_size}, {enc_config.dtype} compute over "
+            f"{enc_config.param_dtype} parameters), batch {B}, accumulation "
+            f"{kw.get('accumulation_steps', 1)}, {len(recs)} fused "
+            f"records, {kw['max_epochs']} epoch(s), "
+            f"{len(opt_steps)} optimizer steps ({len(steps)} micro-"
+            f"steps): {step_ms:.1f} ms per optimizer step (median after "
+            f"the first two), {tok_s:.0f} subtokens/s, peak allocated "
+            f"{peak_gb:.2f} GB; epoch mean losses "
+            + ", ".join(f"{v:.4f}" for v in history)
+            + f"; first and last step losses {losses[0]:.4f}, "
+            f"{losses[-1]:.4f}; train() {total_s:.1f} s with the "
+            f"checkpoint writes, model set-up {setup_s:.1f} s ({card})")
+        if label == "a":
+            del model, trainer
+            continue
+        if not history[-1] < history[0]:
+            raise AssertionError(f"training (b): the last epoch's mean "
+                                 f"loss {history[-1]:.4f} is not below "
+                                 f"the first's {history[0]:.4f}")
+        # one step of (b), split by stage with CUDA events
+        torch.cuda.empty_cache()
+        batch = trainer._make_train_batches(recs, config, 0)[0]
+        split = stage_split(trainer, batch, config, event_ms)
+        n_tok = int(batch.attention_mask.sum())
+        Bb, Sb = batch.input_ids.shape
+        enc = enc_config
+        n_matmul = sum(p.numel() for n, p in model.named_parameters()
+                       if "embeddings" not in n)
+        flops = (6 * n_matmul * Bb * Sb
+                 + 12 * enc.num_layers * Bb * Sb * Sb * enc.hidden_size)
+        mfu = flops / (step_ms / 1e3) / PEAK_BF16_FLOPS
+        log(f"training (b), one step of batch 16 (B={Bb}, S={Sb}, "
+            f"{n_tok} real subtokens, W={batch.word_mask.shape[1]} words,"
+            f" {int(batch.crf_mask.sum(1).max())} in the CRF at most), "
+            "ms by CUDA events: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+            + f" ({card})")
+        wall_ms, dev_ms, top = profile_step(trainer, batch, config, sync)
+        step_ev = split["whole step (train_step)"]
+        if dev_ms is None:
+            log(f"training (b), one step under torch.profiler: "
+                f"{wall_ms:.1f} ms; the trace holds no device kernels, "
+                f"so the device's busy share is not measured ({card})")
+        else:
+            log(f"training (b), one step under torch.profiler "
+                f"({wall_ms:.1f} ms with the profiler's own cost): its "
+                f"kernels take {dev_ms:.1f} ms on the device, "
+                f"{dev_ms / step_ev:.1%} of the {step_ev:.1f} ms step "
+                f"without the profiler (idle "
+                f"{max(0.0, 1 - dev_ms / step_ev):.1%}); largest: "
+                + "; ".join(f"{name[:70]} {ms:.1f} ms x{n}"
+                            for name, ms, n in top) + f" ({card})")
+        log(f"training (b): model FLOPs per step = 6*N*B*S + 12*L*B*S^2*H"
+            f" = 6*{n_matmul / 1e6:.1f}M*{Bb}*{Sb} + 12*{enc.num_layers}"
+            f"*{Bb}*{Sb}^2*{enc.hidden_size} = {flops:.3e} (N: the "
+            f"parameters outside the embedding tables); at "
+            f"{step_ms:.1f} ms per step that is {mfu:.1%} of the "
+            f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak "
+            f"({card})")
+
+        # serve the best model: ServeConfig -> bf16 tagger
+        served_cfg = ServeConfig(
+            name="trained", tokenizer={"type": "hash",
+                                       "vocab_size": HASH_VOCAB},
+            model={"encoder": "large"}, target_dir=f"{tmp}/{label}")
+        tagger = serving_tagger(served_cfg, tag_dict, dev)
+        if any(p.dtype != enc.dtype for p in tagger.encoder.parameters()):
+            raise AssertionError("the served encoder is not stored in "
+                                 f"{enc.dtype}")
+        reqs = [{"id": i, "tokens": r.tokens} for i, r in enumerate(test)]
+        responses = serve(reqs, engine, tagger, tokenizer, tag_dict,
+                          k=K, batch_size=BATCH)
+        # the trainer's prediction with its model cast to bf16
+        cast = SequenceTagger(dataclasses.replace(
+            tcfg, encoder=served_cfg.make_encoder_config(tokenizer)),
+            device=dev)
+        trainer.load(f"{tmp}/{label}/best-model.msgpack")
+        cast.load_state_dict(trainer.model.state_dict())
+        fused = fuse_served(engine, tokenizer,
+                            [request_record(r) for r in reqs])
+        want = FinetuneTrainer(cast, trainer.corpus, tokenizer, tag_dict,
+                               device=dev).predict(fused, BATCH)
+        got = [r["tags"] for r in responses]
+        if got != [w[:len(r["tokens"])] for w, r in zip(want, reqs)]:
+            raise AssertionError("served tags differ from "
+                                 "FinetuneTrainer.predict in bf16")
+        f1 = evaluate_spans([r.tags["ner"] for r in test],
+                            got).micro_avg_f_score()
+        log(f"served best-model.msgpack (bf16 storage) for {len(reqs)} "
+            f"held-out quality sentences through serve() with the "
+            f"exhaustive engine: tags equal FinetuneTrainer.predict with "
+            f"the model cast to bf16; span F1 against gold {f1:.4f} "
+            f"after {len(opt_steps)} steps from random weights ({card})")
+        del model, trainer, tagger, cast
+    torch.cuda.empty_cache()
+
+
+# the offline KB stage: cli ingest-dump -> cli index -> a saved 1M-doc KB
+# -> cli retrieve into fused CoNLL files -> cli serve --index_dir
+N_DUMP_PAGES = 2000
+N_INDEX_DOCS = 50_000   # cli index from JSONL: analyzed in Python (A5)
+# MultiCoNER EN's train and dev sizes; its test (217,818) is cut
+SPLITS = {"train": 15_300, "dev": 800, "test": 2_000}
+RETRIEVE_BATCH = 1024   # retrieve_for_records' queries per search
+RETRIEVE_RUNS = (("exhaustive", []), ("pruned", ["--engine_mode", "pruned"]),
+                 ("exhaustive + entities", ["--with_entity"]),
+                 ("pruned + entities", ["--engine_mode", "pruned",
+                                        "--with_entity"]))
+
+
+def synth_dump(path, n_pages: int, seed: int) -> int:
+    """A bz2 MediaWiki export of ``n_pages`` pages: articles with links
+    (plain, piped, to redirects, to files and categories), templates,
+    references, headings, lists and tables, and one redirect page for
+    every tenth article. Returns the number of redirects."""
+    import bz2
+    from xml.sax.saxutils import escape
+
+    rng = np.random.RandomState(seed)
+    words = [f"word{i}" for i in range(500)]
+
+    def sentence():
+        w = [words[i] for i in rng.randint(0, len(words),
+                                           rng.randint(5, 14))]
+        return " ".join(w).capitalize()
+
+    n_red = 0
+    pages = []
+    for i in range(n_pages):
+        a, b, c = rng.randint(0, n_pages, 3)
+        text = (f"{{{{Infobox thing|name=Page {i}|see=[[Page {a}]]}}}}\n"
+                f"'''Page {i}''' is a [[Page {a}]] of [[Page {b}|the "
+                f"{words[b % 500]}]]. {sentence()} [[Redirect {c // 10}]]."
+                f"<ref>A cite {i}</ref> {sentence()}.\n"
+                f"== Section ==\n* {sentence()} [[Page {c}]] here.\n"
+                f"{{| class=\"wikitable\"\n| cell || cell\n|}}\n"
+                f"{sentence()}! {sentence()}? [[File:F{i}.jpg|thumb|x]]"
+                f"[[Category:C{i % 7}]]")
+        pages.append((f"Page {i}", text, None))
+        if i % 10 == 0:
+            pages.append((f"Redirect {i // 10}", f"#REDIRECT [[Page {i}]]",
+                          f"Page {i}"))
+            n_red += 1
+    xml = ['<mediawiki xmlns="http://www.mediawiki.org/xml/export-0.10/" '
+           'xml:lang="en">']
+    for title, text, red in pages:
+        r = f'<redirect title="{escape(red)}" />' if red else ""
+        xml.append(f"<page><title>{escape(title)}</title><ns>0</ns>{r}"
+                   f"<id>1</id><revision><id>2</id><text xml:space="
+                   f'"preserve">{escape(text)}</text></revision></page>')
+    xml.append("</mediawiki>")
+    with bz2.open(path, "wt", encoding="utf-8") as f:
+        f.write("".join(xml))
+    return n_red
+
+
+def kb_rows(docs, title_docs, lo: int, hi: int):
+    """Parsed-wiki records of docs [lo, hi), as (sentence, paragraph,
+    title, url): the rendered sentence (also the paragraph), its first two
+    words as the title, a URL per doc."""
+    words = [f"w{t}" for t in range(int(docs.max()) + 1)]
+    out = []
+    for i, (row, title) in enumerate(zip(docs[lo:hi].tolist(),
+                                         title_docs[lo:hi].tolist()), lo):
+        sentence = " ".join([words[t] for t in row if t >= 0])
+        out.append((sentence, sentence, " ".join([words[t] for t in title]),
+                    f"https://en.wikipedia.org/wiki/Doc_{i}"))
+    return out
+
+
+def assert_same_results(label, want, got, rtol=RTOL, atol=ATOL) -> None:
+    """Two engines' (scores, ids) per batch agree: scores within the
+    tolerance (the kernels' by default), ids equal above each row's last
+    score."""
+    if len(want) != len(got):
+        raise AssertionError(f"{label}: {len(got)} batches, not "
+                             f"{len(want)}")
+    for (ws, wi), (gs, gi) in zip(want, got):
+        np.testing.assert_allclose(gs, ws, rtol=rtol, atol=atol,
+                                   err_msg=label)
+        for q in range(ws.shape[0]):
+            cut = min(ws[q, -1], gs[q, -1])
+            # a row with fewer than K hits ends in -inf: every hit counts
+            if np.isfinite(cut):
+                cut += atol + rtol * abs(cut)
+            if set(wi[q][ws[q] > cut]) != set(gi[q][gs[q] > cut]):
+                raise AssertionError(f"{label}: query {q}'s top-{K} ids "
+                                     "differ")
+
+
+def retrieval_recall(exact_path, got_path) -> float:
+    """Recall@K of a retrieval file against another, by document URL,
+    over the queries whose exact list is not empty."""
+    from kbner_tpu_torch.retrieval.pipeline import read_retrieval_file
+
+    exact = read_retrieval_file(exact_path)
+    got = read_retrieval_file(got_path)
+    recalls = [len({d.url for d in docs} & {d.url for d in got[q]})
+               / len(docs) for q, docs in exact.items() if docs]
+    return float(np.mean(recalls))
+
+
+def query_blocks(path):
+    """A retrieval file as its query blocks, each a (query, sorted context
+    lines) pair."""
+    blocks = []
+    for block in path.read_text(encoding="utf-8").split("\n\n"):
+        if block.strip():
+            query, *lines = block.split("\n")
+            blocks.append((query, sorted(lines)))
+    return blocks
+
+
+def k1_at_retrieve_shape(bm25, engine, queries, entities, dev,
+                         per_tile: int = 2, seed: int = 0) -> str:
+    """K1 at one ``cli retrieve`` batch (the queries and entity clauses of
+    ``retrieve_for_records``) on ``engine``'s text and title fields. The
+    kernel scores every row; the plain version scores ``per_tile`` random
+    rows of each 32-query tile of the kernel, over the whole doc axis,
+    held at RTOL/ATOL with top-K ids equal within ties. Returns the
+    report: error, time (CUDA events) and bound per field."""
+    import torch
+
+    Q = len(queries)
+    qt, qw = engine.text_index.encode_queries(
+        list(queries), max_query_terms=MAX_QUERY_TERMS)
+    tt, tw = engine.title_index.encode_queries(
+        [" ".join(e) for e in entities], max_query_terms=MAX_QUERY_TERMS,
+        boosts=[TITLE_BOOST] * Q)
+    rng = np.random.RandomState(seed)
+    rows = sorted({min(t + o, Q - 1) for t in range(0, Q, 32)
+                   for o in rng.randint(0, 32, per_tile)})
+    rows = torch.tensor(rows, device=dev)
+    parts = []
+    for name, (q_t, q_w) in (("text", (qt, qw)), ("title", (tt, tw))):
+        dt, di = engine.fields[name]
+        q_t = torch.as_tensor(np.asarray(q_t, np.int32), device=dev)
+        q_w = torch.as_tensor(np.asarray(q_w, np.float32), device=dev)
+        got = bm25.bm25_score_block(q_t, q_w, dt, di)[rows]
+        want = torch.cat([bm25.bm25_score_block_ref(q_t[r], q_w[r], dt, di)
+                          for r in rows.split(32)])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        assert_same_topk(got, want, K)
+        if not bool((want > 0).any()):
+            raise AssertionError(f"K1 at the retrieve shape ({name}) matched "
+                                 "no query term")
+        err = float((got - want).abs().max())
+        del got, want
+        ms = time_cuda_ms(lambda: bm25.bm25_score_block(q_t, q_w, dt, di),
+                          iters=5)
+        N = dt.shape[1]
+        n_bytes = (q_t.nbytes + q_w.nbytes + dt.nbytes + di.nbytes
+                   + q_t.shape[0] * N * 4)
+        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = (q_t.shape[0] * int((dt >= 0).sum())
+                  / PEAK_INT32_OPS_PER_S * 1e3)
+        parts.append(
+            f"{name} (Q={q_t.shape[0]} Lq={q_t.shape[1]} Ld={dt.shape[0]} "
+            f"N={N}): {rows.numel()} rows from all {-(-Q // 32)} query "
+            f"tiles equal the plain version (max abs err {err:.3g}), top-{K} "
+            f"ids equal within ties; kernel {ms:.3f} ms (CUDA events, 5 "
+            f"calls), bound {max(bytes_ms, ops_ms):.3f} ms by "
+            f"{'bytes' if bytes_ms >= ops_ms else 'operations'}")
+    return "; ".join(parts)
+
+
+def k2_at_retrieve_shape(bm25, engine, queries) -> str:
+    """K2 on the pass-2 operands that ``search_stream`` packs for one
+    ``cli retrieve`` batch of sentence queries on the pruned ``engine``,
+    held to its plain version at RTOL/ATOL with top-K ids equal within
+    ties. Returns the report: error, time (CUDA events) and bound."""
+    import torch
+
+    qt, qw = engine.text_index.encode_queries(
+        list(queries), max_query_terms=MAX_QUERY_TERMS)
+    keys, fields, _, kw = engine._device_queries(engine._pack_queries(qt,
+                                                                      qw))
+    _, _, ops = bm25.pass2_operands(keys, fields, **kw)
+    fn, args = ops[0]
+    if fn is not bm25.delta16_rescore:
+        raise AssertionError(f"the text field's pass 2 is {fn.__name__}, "
+                             "not delta16_rescore")
+    got = fn(*args)
+    want = bm25.delta16_rescore_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert_same_topk(got, want, K)
+    err = float((got - want).abs().max())
+    ms = time_cuda_ms(lambda: fn(*args), iters=20)
+    n_bytes, n_ops = delta16_need(args)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_INT32_OPS_PER_S * 1e3
+    Q, C = args[2].shape
+    return (f"Q={Q} W={args[0].shape[1]} C={C} R2={args[-1]}: equals the "
+            f"plain version (max abs err {err:.3g}), top-{K} ids equal "
+            f"within ties; kernel {ms:.4f} ms (CUDA events, 20 calls, "
+            f"eager), bound {max(bytes_ms, ops_ms):.5f} ms by "
+            f"{'bytes' if bytes_ms >= ops_ms else 'operations'}")
+
+
+def stream_against_per_batch(engine, queries):
+    """``queries`` in ``cli retrieve``'s 1024-query batches through the
+    pruned ``engine``'s ``search_stream`` and through a per-batch loop
+    (encode, ``search_encoded``), timed in turns: per-batch, stream,
+    per-batch, stream, after one per-batch pass that grows the engine's
+    never-shrink query widths to this traffic's, so every run packs
+    alike. Every run's scores must equal the first's exactly, with ids
+    equal within ties. Returns (per-batch seconds, stream seconds)."""
+    import torch
+
+    batches = [list(queries[i:i + RETRIEVE_BATCH])
+               for i in range(0, len(queries), RETRIEVE_BATCH)]
+
+    def per_batch():
+        return [engine.search_encoded(*engine.text_index.encode_queries(
+            b, max_query_terms=MAX_QUERY_TERMS), k=K) for b in batches]
+
+    def stream():
+        return list(engine.search_stream(batches, k=K,
+                                         max_query_terms=MAX_QUERY_TERMS))
+
+    per_batch()
+    secs = {per_batch: [], stream: []}
+    runs = []
+    for fn in (per_batch, stream, per_batch, stream):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(fn())
+        secs[fn].append(time.perf_counter() - t0)
+    for got in runs[1:]:
+        for (ws, _), (gs, _) in zip(runs[0], got):
+            if not np.array_equal(ws, gs):
+                raise AssertionError("search_stream and per-batch search "
+                                     "give different scores")
+        assert_same_results("search_stream against per-batch search",
+                            runs[0], got, rtol=0.0, atol=0.0)
+    return secs[per_batch], secs[stream]
+
+
+def run_cli(cli, argv, stdin=None):
+    """``cli.main(argv)`` with ``stdin`` (a string) as its standard input
+    and its standard output captured: (return value, output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    saved = sys.stdin
+    sys.stdin = io.StringIO(stdin or "")
+    try:
+        with contextlib.redirect_stdout(out):
+            ret = cli.main(argv)
+    finally:
+        sys.stdin = saved
+    return ret, out.getvalue()
+
+
+def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
+                   dev, card, tmp, model_dir, encoder="large",
+                   n_index_docs=N_INDEX_DOCS, splits=None,
+                   n_dump_pages=N_DUMP_PAGES) -> None:
+    """The recipe's first stage through the port's CLI: (a) ``cli
+    ingest-dump`` on a synthetic dump and ``cli index`` on a JSONL of
+    ``n_index_docs`` KB sentences, reopened and held to an in-memory
+    build; (b) the main path's KB (``engine``'s indices and rendered
+    docs) saved with ``save_kb``, reopened with ``load_kb`` and held to
+    ``engine``; (c) ``cli retrieve --index_dir`` over CoNLL splits of KB
+    sentences in four engine settings; (d) ``cli retrieve`` with the
+    trained model in ``model_dir`` predicting the entity seeds, and with
+    BERTScore reranking; (e) ``cli serve --index_dir`` and ``--kb
+    --store`` held to the in-memory engine."""
+    import json
+    from pathlib import Path
+
+    import torch
+
+    import kbner_tpu_torch.cli as cli
+    from kbner_tpu_torch.cli import serving_tagger
+    from kbner_tpu_torch.config import ServeConfig
+    from kbner_tpu_torch.data.conll import (SentenceRecord, read_column_file,
+                                            write_column_file)
+    from kbner_tpu_torch.data.dictionary import Dictionary
+    from kbner_tpu_torch.data.subword import HashTokenizer, subtoken_length
+    from kbner_tpu_torch.retrieval.docstore import PackedDocStore
+    from kbner_tpu_torch.retrieval.engine import RetrievalEngine
+    from kbner_tpu_torch.retrieval.fusion import extract_entities
+    from kbner_tpu_torch.retrieval.pipeline import (build_kb_from_jsonl,
+                                                    load_kb, save_kb,
+                                                    sentence_query)
+    from kbner_tpu_torch.retrieval.synth import sentence_queries
+    from kbner_tpu_torch.serve import serve
+    from kbner_tpu_torch.train import FinetuneTrainer
+
+    splits = splits or SPLITS
+    tmp = Path(tmp)
+    index, title_index = engine.text_index, engine.title_index
+    device = ["--device", str(dev)]
+
+    # -- (a) cli ingest-dump, cli index -------------------------------------
+    t0 = time.perf_counter()
+    n_red = synth_dump(tmp / "dump.xml.bz2", n_dump_pages, seed=11)
+    dump_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli(cli, ["ingest-dump", "--dump", str(tmp / "dump.xml.bz2"),
+                  "--out", str(tmp / "wiki.jsonl")])
+    ingest_s = time.perf_counter() - t0
+    recs = [json.loads(line) for line in
+            (tmp / "wiki.jsonl").read_text(encoding="utf-8").splitlines()]
+    titles = {r["title"] for r in recs}
+    anchored = sum("<e:Page " in r["paragraph"] for r in recs)
+    if (len(titles) != n_dump_pages or anchored == 0
+            or any("<e:Redirect " in r["paragraph"] for r in recs)
+            or any("{{" in r["sentence"] or "<ref" in r["sentence"]
+                   for r in recs)):
+        raise AssertionError("cli ingest-dump: the JSONL misses pages, "
+                             "anchors, or kept markup or an unresolved "
+                             "redirect")
+    log(f"cli ingest-dump: {n_dump_pages} articles and {n_red} redirects "
+        f"(bz2, written in {dump_s:.1f} s, set-up) -> {len(recs)} sentence "
+        f"records in {ingest_s:.2f} s ({len(recs) / ingest_s:.0f} records/s"
+        f"), {anchored} with link anchors, every link through a redirect "
+        "resolved")
+
+    with open(tmp / "kb50k.jsonl", "w", encoding="utf-8") as f:
+        for r in kb_rows(docs, title_docs, 0, n_index_docs):
+            f.write(json.dumps(dict(zip(("sentence", "paragraph", "title",
+                                         "url"), r))) + "\n")
+    t0 = time.perf_counter()
+    run_cli(cli, ["index", "--kb", str(tmp / "kb50k.jsonl"), "--out",
+                  str(tmp / "kb50k")])
+    index_s = time.perf_counter() - t0
+    small_q, _ = sentence_queries(docs[:n_index_docs], 4 * BATCH,
+                                  q_len=MAX_QUERY_TERMS, seed=5)
+    small_texts = [" ".join(f"w{t}" for t in r[r >= 0]) for r in small_q]
+    t0 = time.perf_counter()
+    text50, store50, title50, _ = load_kb(tmp / "kb50k")
+    open_s = time.perf_counter() - t0
+    saved = RetrievalEngine(text50, store=store50, title_index=title50,
+                            device=dev)
+    text_b, store_b, title_b = build_kb_from_jsonl(tmp / "kb50k.jsonl")
+    built = RetrievalEngine(text_b, store=store_b, title_index=title_b,
+                            device=dev)
+    enc = [text50.encode_queries(small_texts[i:i + BATCH])
+           for i in range(0, len(small_texts), BATCH)]
+    assert_same_results("cli index (50k)",
+                        [built.search_encoded(*e, k=K) for e in enc],
+                        [saved.search_encoded(*e, k=K) for e in enc])
+    log(f"cli index: {n_index_docs} docs from JSONL in {index_s:.2f} s "
+        f"({n_index_docs / index_s:.0f} docs/s; text and title BM25, "
+        f"packed doc store), reopened with load_kb in {open_s:.2f} s; its "
+        f"top-{K} for {len(small_texts)} queries equals an in-memory build's")
+    del saved, built
+    store50.close()
+
+    # -- (b) the full-size saved KB ----------------------------------------
+    kb_dir = tmp / "kb1m"
+    t0 = time.perf_counter()
+    rows = kb_rows(docs, title_docs, 0, index.n_docs)
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = PackedDocStore.build(kb_dir / "kb.docs", rows)
+    save_kb(kb_dir, index, store, title_index)
+    store.close()
+    save_s = time.perf_counter() - t0
+    del rows
+    t0 = time.perf_counter()
+    text1m, store1m, title1m, _ = load_kb(kb_dir)
+    open_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reopened = RetrievalEngine(text1m, store=store1m, title_index=title1m,
+                               device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    assert_same_results("the saved 1M KB", exact,
+                        [reopened.search_encoded(*e, k=K) for e in encoded])
+    hits = [(int(d), float(x)) for s_b, i_b in exact
+            for d, x in zip(i_b.ravel(), s_b.ravel()) if x > 0]
+    t0 = time.perf_counter()
+    for d, x in hits:
+        store1m.materialize(d, x)
+    mat_us = (time.perf_counter() - t0) / len(hits) * 1e6
+    sizes = {p.name: p.stat().st_size for p in kb_dir.iterdir()}
+    log(f"saved KB: {index.n_docs} docs rendered in {render_s:.1f} s "
+        f"(set-up); PackedDocStore.build and save_kb in {save_s:.1f} s "
+        f"({sizes['kb.docs'] / 1e6:.1f} "
+        f"MB kb.docs, {sizes['text.idx'] / 1e6:.1f} MB text.idx, "
+        f"{sizes['title.idx'] / 1e6:.1f} MB title.idx); load_kb "
+        f"{open_s:.2f} s, upload to the card {upload_s:.2f} s; its top-{K} "
+        f"for the {sum(e[0].shape[0] for e in encoded)} served queries equals "
+        f"the in-memory engine's; materialize {mat_us:.2f} us per hit over "
+        f"{len(hits)} hits (host clock, page cache warm)")
+
+    # -- (c) cli retrieve --index_dir -----------------------------------------
+    data = tmp / "conll"
+    seed = 20
+    for split, n in splits.items():
+        rows, _ = sentence_queries(docs, n, q_len=MAX_QUERY_TERMS, seed=seed)
+        seed += 1
+        write_column_file(data / f"{split}.txt", [SentenceRecord(
+            tokens=[f"w{t}" for t in r[r >= 0]],
+            tags={"ner": ["B-PER", "I-PER"] + ["O"] * (int((r >= 0).sum())
+                                                      - 2)},
+            comment=f"# id {split}-{i}") for i, r in enumerate(rows)])
+    # K1 and K2 at the retrieve shape, on one batch of the train split
+    train_recs = read_column_file(data / "train.txt", {0: "text", 1: "ner"},
+                                  comment_symbol="# id")
+    queries = [sentence_query(r) for r in train_recs]
+    first = train_recs[:RETRIEVE_BATCH]
+    log("bm25_score_block at one cli retrieve batch of the train split, "
+        "the saved KB's fields, entity clauses from gold seeds: "
+        + k1_at_retrieve_shape(bm25, reopened, queries[:RETRIEVE_BATCH],
+                               [extract_entities(r) for r in first], dev)
+        + f" ({card})")
+    del reopened
+    # one pruned engine, built as cli retrieve builds it, serves both
+    # pruned cli runs below
+    t0 = time.perf_counter()
+    pruned = RetrievalEngine(text1m, store=store1m, title_index=title1m,
+                             mode="pruned", device=dev)
+    torch.cuda.synchronize()
+    pruned_s = time.perf_counter() - t0
+    log(f"delta16_rescore on search_stream's operands for one cli retrieve "
+        f"batch of the train split (the pruned engine over the saved KB, "
+        f"built in {pruned_s:.1f} s): "
+        + k2_at_retrieve_shape(bm25, pruned, queries[:RETRIEVE_BATCH])
+        + f" ({card})")
+    loop_s, stream_s = stream_against_per_batch(pruned, queries)
+    log(f"search_stream against a per-batch loop (encode, search_encoded) "
+        f"over the train split's {len(queries)} sentence queries in "
+        f"{RETRIEVE_BATCH}-query batches on that engine, timed in turns "
+        f"(host clock): per-batch {loop_s[0]:.3f}, {loop_s[1]:.3f} s; "
+        f"stream {stream_s[0]:.3f}, {stream_s[1]:.3f} s; every run's scores "
+        f"equal the first's exactly, ids within ties ({card})")
+    model_cfg = tmp / "model.yaml"
+    model_cfg.write_text(json.dumps({
+        "name": "kb-stage", "tokenizer": {"type": "hash",
+                                          "vocab_size": HASH_VOCAB},
+        "model": {"encoder": encoder}, "target_dir": str(model_dir)}))
+    tokenizer = HashTokenizer(vocab_size=HASH_VOCAB)
+    common = ["retrieve", "--index_dir", str(kb_dir), "--tokenizer_config",
+              str(model_cfg), *device]
+    outs = {}
+    engine_class = cli.RetrievalEngine
+
+    def shared_pruned(*args, mode="exhaustive", **kwargs):
+        if mode == "pruned":
+            return pruned
+        return engine_class(*args, mode=mode, **kwargs)
+
+    cli.RetrievalEngine = shared_pruned
+    try:
+        for label, extra in RETRIEVE_RUNS:
+            out = tmp / f"fused-{len(outs)}"
+            outs[label] = out
+            reset_counts(bm25)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            result, steps = run_training(trainer, config, f"{tmp}/{label}",
-                                         sync)
-            total_s = time.perf_counter() - t0
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            losses = [s[2] for s in steps]
-            if not all(np.isfinite(losses)):
-                raise AssertionError(f"training ({label}): a loss is not "
-                                     f"finite: {losses}")
-            opt_steps = optimizer_steps(steps, kw.get("accumulation_steps",
-                                                      1))
-            step_ms = float(np.median([ms for ms, _ in opt_steps[2:]]))
-            tok_s = (sum(t for _, t in opt_steps[2:])
-                     / (sum(ms for ms, _ in opt_steps[2:]) / 1e3))
-            history = result["history"]["train_loss"]
-            B = kw["batch_size"]
-            log(f"training ({label}): XLM-R ({enc_config.num_layers} layers, "
-                f"hidden {enc_config.hidden_size}, vocab "
-                f"{enc_config.vocab_size}, {enc_config.dtype} compute over "
-                f"{enc_config.param_dtype} parameters), batch {B}, accumulation "
-                f"{kw.get('accumulation_steps', 1)}, {len(recs)} fused "
-                f"records, {kw['max_epochs']} epoch(s), "
-                f"{len(opt_steps)} optimizer steps ({len(steps)} micro-"
-                f"steps): {step_ms:.1f} ms per optimizer step (median after "
-                f"the first two), {tok_s:.0f} subtokens/s, peak allocated "
-                f"{peak_gb:.2f} GB; epoch mean losses "
-                + ", ".join(f"{v:.4f}" for v in history)
-                + f"; first and last step losses {losses[0]:.4f}, "
-                f"{losses[-1]:.4f}; train() {total_s:.1f} s with the "
-                f"checkpoint writes, model set-up {setup_s:.1f} s ({card})")
-            if label == "a":
-                del model, trainer
-                continue
-            if not history[-1] < history[0]:
-                raise AssertionError(f"training (b): the last epoch's mean "
-                                     f"loss {history[-1]:.4f} is not below "
-                                     f"the first's {history[0]:.4f}")
-            # one step of (b), split by stage with CUDA events
-            torch.cuda.empty_cache()
-            batch = trainer._make_train_batches(recs, config, 0)[0]
-            split = stage_split(trainer, batch, config, event_ms)
-            n_tok = int(batch.attention_mask.sum())
-            Bb, Sb = batch.input_ids.shape
-            enc = enc_config
-            n_matmul = sum(p.numel() for n, p in model.named_parameters()
-                           if "embeddings" not in n)
-            flops = (6 * n_matmul * Bb * Sb
-                     + 12 * enc.num_layers * Bb * Sb * Sb * enc.hidden_size)
-            mfu = flops / (step_ms / 1e3) / PEAK_BF16_FLOPS
-            log(f"training (b), one step of batch 16 (B={Bb}, S={Sb}, "
-                f"{n_tok} real subtokens, W={batch.word_mask.shape[1]} words,"
-                f" {int(batch.crf_mask.sum(1).max())} in the CRF at most), "
-                "ms by CUDA events: "
-                + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
-                + f" ({card})")
-            wall_ms, dev_ms, top = profile_step(trainer, batch, config, sync)
-            step_ev = split["whole step (train_step)"]
-            if dev_ms is None:
-                log(f"training (b), one step under torch.profiler: "
-                    f"{wall_ms:.1f} ms; the trace holds no device kernels, "
-                    f"so the device's busy share is not measured ({card})")
-            else:
-                log(f"training (b), one step under torch.profiler "
-                    f"({wall_ms:.1f} ms with the profiler's own cost): its "
-                    f"kernels take {dev_ms:.1f} ms on the device, "
-                    f"{dev_ms / step_ev:.1%} of the {step_ev:.1f} ms step "
-                    f"without the profiler (idle "
-                    f"{max(0.0, 1 - dev_ms / step_ev):.1%}); largest: "
-                    + "; ".join(f"{name[:70]} {ms:.1f} ms x{n}"
-                                for name, ms, n in top) + f" ({card})")
-            log(f"training (b): model FLOPs per step = 6*N*B*S + 12*L*B*S^2*H"
-                f" = 6*{n_matmul / 1e6:.1f}M*{Bb}*{Sb} + 12*{enc.num_layers}"
-                f"*{Bb}*{Sb}^2*{enc.hidden_size} = {flops:.3e} (N: the "
-                f"parameters outside the embedding tables); at "
-                f"{step_ms:.1f} ms per step that is {mfu:.1%} of the "
-                f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak "
-                f"({card})")
+            stats, _ = run_cli(cli, [*common, "--data_folder", str(data),
+                                     "--out", str(out), *extra])
+            wall = time.perf_counter() - t0
+            got = counts(bm25)
+            is_pruned = "--engine_mode" in extra
+            expect_counts(f"cli retrieve ({label})", got,
+                          {"delta16_rescore": None} if is_pruned
+                          else {"bm25_score_block": None})
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            for split in splits:
+                fused = read_column_file(out / f"{split}.txt",
+                                         {0: "text", 1: "ner"},
+                                         comment_symbol="# id")
+                # the fusion budget's count: <EOS> is one subtoken
+                longest = max(subtoken_length(tokenizer, [
+                    w for w in r.tokens if w != "<EOS>"])
+                    + ("<EOS>" in r.tokens) for r in fused)
+                n_ctx = sum("<EOS>" in r.tokens for r in fused)
+                if (len(fused) != splits[split] or longest > 510
+                        or n_ctx == 0):
+                    raise AssertionError(
+                        f"cli retrieve ({label}) {split}: {len(fused)} "
+                        f"fused sentences, {n_ctx} with context, longest "
+                        f"{longest} subtokens")
+            split_s = {split: sum(v for k, v in t.items()
+                                  if k != "sentences")
+                       for split, t in stats.items()}
+            log(f"cli retrieve --index_dir ({label}): {wall:.1f} s, of "
+                f"which {wall - sum(split_s.values()):.1f} s opening the KB "
+                + ("and handing over the shared pruned engine" if is_pruned
+                   else "and building the engine")
+                + f"; launches {got}; peak allocated "
+                f"{peak:.2f} GB; per split: " + "; ".join(
+                    f"{split} {t['sentences']} sentences "
+                    f"{t['sentences'] / split_s[split]:.0f}/s (retrieve "
+                    f"{t['retrieve']:.2f} s, write {t['write']:.2f} s, "
+                    f"fuse {t['fuse']:.2f} s, read {t['read']:.2f} s)"
+                    for split, t in stats.items())
+                + f"; every fused file parses, every sentence within 510 "
+                f"subtokens ({card})")
+    finally:
+        cli.RetrievalEngine = engine_class
+    del pruned
+    store1m.close()
+    for ex_label, pr_label in (("exhaustive", "pruned"),
+                               ("exhaustive + entities",
+                                "pruned + entities")):
+        recall = min(retrieval_recall(outs[ex_label] / f"{s}.retrieval.tsv",
+                                      outs[pr_label] / f"{s}.retrieval.tsv")
+                     for s in splits)
+        log(f"cli retrieve: {pr_label} against {ex_label}, recall@{K} "
+            f"{recall:.4f} in the worst split (bar {MIN_RECALL})")
+        if recall < MIN_RECALL:
+            raise AssertionError(f"cli retrieve ({pr_label}) recall@{K} "
+                                 f"{recall:.4f} is below {MIN_RECALL}")
 
-            # serve the best model: ServeConfig -> bf16 tagger
-            served_cfg = ServeConfig(
-                name="trained", tokenizer={"type": "hash",
-                                           "vocab_size": HASH_VOCAB},
-                model={"encoder": "large"}, target_dir=f"{tmp}/{label}")
-            tagger = serving_tagger(served_cfg, tag_dict, dev)
-            if any(p.dtype != enc.dtype for p in tagger.encoder.parameters()):
-                raise AssertionError("the served encoder is not stored in "
-                                     f"{enc.dtype}")
-            reqs = [{"id": i, "tokens": r.tokens} for i, r in enumerate(test)]
-            responses = serve(reqs, engine, tagger, tokenizer, tag_dict,
-                              k=K, batch_size=BATCH)
-            # the trainer's prediction with its model cast to bf16
-            cast = SequenceTagger(dataclasses.replace(
-                tcfg, encoder=served_cfg.make_encoder_config(tokenizer)),
-                device=dev)
-            trainer.load(f"{tmp}/{label}/best-model.msgpack")
-            cast.load_state_dict(trainer.model.state_dict())
-            fused = fuse_served(engine, tokenizer,
-                                [request_record(r) for r in reqs])
-            want = FinetuneTrainer(cast, trainer.corpus, tokenizer, tag_dict,
-                                   device=dev).predict(fused, BATCH)
-            got = [r["tags"] for r in responses]
-            if got != [w[:len(r["tokens"])] for w, r in zip(want, reqs)]:
-                raise AssertionError("served tags differ from "
-                                     "FinetuneTrainer.predict in bf16")
-            f1 = evaluate_spans([r.tags["ner"] for r in test],
-                                got).micro_avg_f_score()
-            log(f"served best-model.msgpack (bf16 storage) for {len(reqs)} "
-                f"held-out quality sentences through serve() with the "
-                f"exhaustive engine: tags equal FinetuneTrainer.predict with "
-                f"the model cast to bf16; span F1 against gold {f1:.4f} "
-                f"after {len(opt_steps)} steps from random weights ({card})")
-            del model, trainer, tagger, cast
-    torch.cuda.empty_cache()
+    # -- (d) the trained model's seeds, and BERTScore reranking -------------
+    held = tmp / "conll-held"
+    for split in ("dev", "test"):
+        write_column_file(held / f"{split}.txt",
+                          read_column_file(data / f"{split}.txt",
+                                           {0: "text", 1: "ner"},
+                                           comment_symbol="# id"))
+    reset_counts(bm25)
+    t0 = time.perf_counter()
+    stats, _ = run_cli(cli, [*common, "--data_folder", str(held), "--out",
+                             str(tmp / "seeded"), "--with_entity",
+                             "--model_config", str(model_cfg)])
+    seeded_s = time.perf_counter() - t0
+    got = counts(bm25)
+    expect_counts("cli retrieve --model_config", got,
+                  {"bm25_score_block": None})
+    log(f"cli retrieve --with_entity --model_config (XLM-R large from "
+        f"phase 4g's best-model.msgpack predicts the entity seeds of dev "
+        f"and test): {seeded_s:.1f} s with the checkpoint load; seeds "
+        + ", ".join(f"{s} {t['seeds']:.2f} s" for s, t in stats.items())
+        + f"; launches {got} ({card})")
+    dev_only = tmp / "conll-dev"
+    write_column_file(dev_only / "dev.txt", read_column_file(
+        data / "dev.txt", {0: "text", 1: "ner"}, comment_symbol="# id"))
+    embed_ms = []
+    inner = FinetuneTrainer.embed_texts
+
+    def timed_embed(self, texts, batch_size=64):
+        out = {}
+        embed_ms.append(event_ms(lambda: out.setdefault(
+            "v", inner(self, texts, batch_size))))
+        return out["v"]
+
+    FinetuneTrainer.embed_texts = timed_embed
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        stats, _ = run_cli(cli, [*common, "--data_folder", str(dev_only),
+                                 "--out", str(tmp / "reranked"), "--rerank",
+                                 "bertscore", "--model_config",
+                                 str(model_cfg)])
+    finally:
+        FinetuneTrainer.embed_texts = inner
+    before = query_blocks(outs["exhaustive"] / "dev.retrieval.tsv")
+    after = query_blocks(tmp / "reranked" / "dev.retrieval.tsv")
+    if before != after:
+        raise AssertionError("a BERTScore-reranked list is not a "
+                             "permutation of the exhaustive one")
+    moved = sum(a != b for a, b in zip(
+        (tmp / "reranked" / "dev.retrieval.tsv").read_text().split("\n\n"),
+        (outs["exhaustive"] / "dev.retrieval.tsv").read_text().split(
+            "\n\n")))
+    n_texts = sum(1 + len(lines) for _, lines in before)
+    log(f"cli retrieve --rerank bertscore (dev, {len(before)} sentences): "
+        f"every reranked list is a permutation of the exhaustive one, "
+        f"{moved} reordered; the encoder embeds {n_texts} texts in "
+        f"{sum(embed_ms):.1f} ms on the card (CUDA events) in "
+        f"{len(embed_ms)} call(s) of up to 1024 queries with their "
+        f"contexts, rerank stage {stats['dev']['rerank']:.2f} s, peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB with "
+        f"the model and the 1M-doc engines resident ({card})")
+
+    # -- (e) cli serve --index_dir, and --kb --store --------------------------
+    batch = requests[:BATCH]
+    stdin = "\n".join(json.dumps(r) for r in batch) + "\n"
+    reset_counts(bm25)
+    t0 = time.perf_counter()
+    _, out = run_cli(cli, ["serve", "--config", str(model_cfg),
+                           "--index_dir", str(kb_dir), *device], stdin)
+    serve_s = time.perf_counter() - t0
+    served = counts(bm25)
+    expect_counts("cli serve --index_dir", served,
+                  {"bm25_score_block": None})
+    got = [json.loads(line) for line in out.splitlines()]
+    config = ServeConfig.from_file(model_cfg)
+    tag_dict = Dictionary.load(Path(model_dir) / "tag_dictionary.json")
+    tagger = serving_tagger(config, tag_dict, dev)
+    want = serve(batch, engine, tagger, config.make_tokenizer(), tag_dict,
+                 k=K, batch_size=BATCH)
+    if got != json.loads(json.dumps(want)):
+        raise AssertionError("cli serve --index_dir answers differ from "
+                             "the in-memory engine's")
+    small = [{"id": i, "tokens": t.split()}
+             for i, t in enumerate(small_texts[:BATCH])]
+    stdin_small = "\n".join(json.dumps(r) for r in small) + "\n"
+    answers = [run_cli(cli, ["serve", "--config", str(model_cfg), "--kb",
+                             str(tmp / "kb50k.jsonl"), *opt, *device],
+                       stdin_small)[1]
+               for opt in ([], ["--store", str(tmp / "serve.docs")])]
+    if answers[0] != answers[1] or not answers[0]:
+        raise AssertionError("cli serve --kb --store answers differ from "
+                             "--kb's")
+    log(f"cli serve --index_dir (the saved 1M KB, the trained checkpoint in "
+        f"bf16): {len(got)} requests in {serve_s:.1f} s with the KB open and "
+        f"the checkpoint load, launches {served}; responses equal serve() "
+        f"on the in-memory engine with the same tagger; --kb --store over "
+        f"the 50k JSONL answers as --kb does ({card})")
 
 
 def fuse_served(engine, tokenizer, records):
@@ -1088,9 +1702,11 @@ def main() -> int:
     k1 = measure_k1(bm25, qt, qw, dt_t, di_t)
     Q, Lq = qt.shape
     Ld, N = dt_t.shape
+    k1_floor_ms = floor_ms(_kernels, "bm25_score", (Q, Lq, N))
     log(f"bm25_score_block at the serve shape Q={Q} Lq={Lq} Ld={Ld} N={N} "
         f"({card}): kernel {k1['dev_ms']:.4f} ms on the device "
-        f"(CUDA graph), {k1['ms']:.4f} ms eager, plain "
+        f"(CUDA graph), {k1['cold_ms']:.4f} ms after an L2 flush, "
+        f"launch floor {k1_floor_ms:.5f} ms, {k1['ms']:.4f} ms eager, plain "
         f"{k1['plain_ms']:.3f} ms, bound {k1['bound_ms']:.4f} ms by "
         f"{k1['bound_by']} ({k1['bytes'] / 1e6:.1f} MB = "
         f"{k1['bytes_ms']:.4f} ms; {k1['ops'] / 1e9:.3f} G int32 lookups = "
@@ -1440,20 +2056,27 @@ def main() -> int:
     # -- 4g. the training path ------------------------------------------------
     del tagger, pruned, p32, dterms, dcodes
     torch.cuda.empty_cache()
-    training_phase(engine, requests, bm25, dev, card, tokenizer,
-                   XLMRConfig.large(vocab_size=HASH_VOCAB,
-                                    param_dtype=torch.float32))
+    with tempfile.TemporaryDirectory() as tmp:
+        training_phase(engine, requests, bm25, dev, card, tokenizer,
+                       XLMRConfig.large(vocab_size=HASH_VOCAB,
+                                        param_dtype=torch.float32), tmp)
+        torch.cuda.empty_cache()
+        # -- 4h. the offline KB stage, with 4g's trained model -------------
+        kb_stage_phase(engine, docs, title_docs, encoded, exact, requests,
+                       bm25, dev, card, tmp, f"{tmp}/b")
 
     # -- 5. kernels ----------------------------------------------------------
     kernels = [{
         "name": "bm25_score_block",
         "route": "cuda",
         "source": "kbner_tpu_torch/csrc/bm25_score.cu",
-        "replaces": "kbner_tpu/ops/bm25.py:bm25_score_block_pallas",
+        "replaces": "kbner_tpu/ops/bm25.py:84",
         "launches": launches,
         "max_abs_err": max(err_cases, k1["err"], k1_title["err"]),
         "ms": k1["dev_ms"],
+        "cold_ms": k1["cold_ms"],
         "eager_ms": k1["ms"],
+        "launch_floor_ms": k1_floor_ms,
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
@@ -1462,7 +2085,7 @@ def main() -> int:
         "name": "delta16_rescore",
         "route": "cuda",
         "source": "kbner_tpu_torch/csrc/delta16_rescore.cu",
-        "replaces": "kbner_tpu/ops/bm25.py:delta16_rescore_pallas",
+        "replaces": "kbner_tpu/ops/bm25.py:248",
         "launches": d16_launches,
         "max_abs_err": max(d16_err_cases, d16_err_main),
         "ms": d16_ms,
@@ -1477,7 +2100,7 @@ def main() -> int:
         "name": "bm25_rescore",
         "route": "cuda",
         "source": "kbner_tpu_torch/csrc/bm25_rescore.cu",
-        "replaces": "kbner_tpu/ops/bm25.py:bm25_rescore_pallas",
+        "replaces": "kbner_tpu/ops/bm25.py:157",
         "launches": k3_launches,
         "max_abs_err": max(k3_err_cases, k3_err_main),
         "ms": k3_ms,

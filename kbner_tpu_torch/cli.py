@@ -1,21 +1,33 @@
 """Command line of the PyTorch port (counterpart of ``kbner_tpu/cli.py``):
 
+    python -m kbner_tpu_torch.cli ingest-dump --dump DUMP.xml.bz2 \
+        --out KB.jsonl
+    python -m kbner_tpu_torch.cli index --kb KB.jsonl --out KB_DIR
+    python -m kbner_tpu_torch.cli retrieve --index_dir KB_DIR \
+        --data_folder CONLL --out FUSED
     python -m kbner_tpu_torch.cli train --config CONFIG.yaml
     python -m kbner_tpu_torch.cli test  --config CONFIG.yaml
     python -m kbner_tpu_torch.cli parse --config CONFIG.yaml --target_dir D
-    python -m kbner_tpu_torch.cli serve --config CONFIG.yaml --kb KB.jsonl
+    python -m kbner_tpu_torch.cli serve --config CONFIG.yaml --index_dir KB_DIR
 
-``train`` fine-tunes the NER tagger on the config's column corpora
-(``FinetuneTrainer``; the other trainers and the parser targets wait for
-ROADMAP A6) and tests the best model; ``test`` evaluates the best (else
-final) model on the test sets; ``parse`` tags every ``*.txt`` column file
-of a folder (or one file) into ``<stem>.conllu`` with a ``pred`` column.
-``serve`` reads JSONL requests on stdin and writes JSONL responses on
-stdout, one micro-batch of ``--batch_size`` requests at a time, with the
-request and response schema of ``kbner_tpu.cli serve`` (see :mod:`.serve`),
-from the trained ``best-model.msgpack`` (else ``final-model.msgpack``) that
-either package wrote, or from random weights when there is none. Every
-command runs on the card unless ``--device cpu`` is given.
+``ingest-dump`` turns a MediaWiki XML dump into parsed-wiki JSONL and
+``index`` saves a KB built from that JSONL (text and title BM25 indices, a
+packed doc store); both run on the host. ``retrieve`` searches every
+sentence of a CoNLL folder's ``train/dev/test.txt`` in a KB (``--index_dir``
+or ``--kb``) and writes each split's retrieval file and its context-fused
+column file, what ``train`` reads. ``train`` fine-tunes the NER tagger on
+the config's column corpora (``FinetuneTrainer``; the other trainers and
+the parser targets wait for ROADMAP A6) and tests the best model; ``test``
+evaluates the best (else final) model on the test sets; ``parse`` tags
+every ``*.txt`` column file of a folder (or one file) into
+``<stem>.conllu`` with a ``pred`` column. ``serve`` reads JSONL requests on
+stdin and writes JSONL responses on stdout, one micro-batch of
+``--batch_size`` requests at a time, with the request and response schema
+of ``kbner_tpu.cli serve`` (see :mod:`.serve`), from the trained
+``best-model.msgpack`` (else ``final-model.msgpack``) that either package
+wrote, or from random weights when there is none. Every command but
+``ingest-dump`` and ``index`` runs on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -24,16 +36,20 @@ import argparse
 import json
 import logging
 import sys
+import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
+
+import numpy as np
 
 from . import checkpoint, weights
 from .config import ExperimentConfig, ServeConfig
-from .data.conll import read_column_file, write_column_file
+from .data.conll import ListCorpus, read_column_file, write_column_file
 from .data.dictionary import Dictionary
+from .data.subword import HashTokenizer
 from .models.tagger import SequenceTagger, TaggerConfig
 from .retrieval.engine import RetrievalEngine
-from .retrieval.pipeline import build_kb_from_jsonl
+from .retrieval.pipeline import build_kb_from_jsonl, load_kb, save_kb
 from .serve import serve
 from .train.trainer import FinetuneTrainer
 
@@ -145,6 +161,221 @@ def cmd_parse(args) -> None:
         log.info("wrote %s", out)
 
 
+def _first(v):
+    """The first of an option given once or repeated (or None)."""
+    return v[0] if isinstance(v, list) else v
+
+
+def _open_kb(args):
+    """(text index, doc store, title index) from ``--index_dir`` (a saved
+    KB, mmap open) or ``--kb`` (parsed-wiki JSONL built in this process,
+    its payloads in a packed store at ``--store`` if given)."""
+    index_dir = _first(args.index_dir)
+    if index_dir:
+        text_index, store, title_index, lang = load_kb(index_dir)
+        if args.lang and args.lang != lang:
+            log.warning("--lang %s differs from the saved index language "
+                        "%s; using the index's analyzer", args.lang, lang)
+        return text_index, store, title_index
+    kb = _first(args.kb)
+    if not kb:
+        raise SystemExit("provide --kb JSONL or --index_dir")
+    return build_kb_from_jsonl(
+        kb, lang=args.lang, store_path=args.store,
+        fail_path=getattr(args, "kb_fail_file", None))
+
+
+def cmd_ingest_dump(args) -> None:
+    """MediaWiki XML dump -> parsed-wiki JSONL (the reference's
+    ``dumps/`` and ``parse_text.py`` stages), on the host."""
+    from .retrieval.dump import dump_to_jsonl
+
+    n = dump_to_jsonl(args.dump, args.out, lang=args.lang,
+                      paragraph_mode=args.paragraph,
+                      max_pages=args.max_pages)
+    log.info("wrote %d records to %s", n, args.out)
+
+
+def cmd_index(args) -> None:
+    """Build a KB from parsed-wiki JSONL and save it (text and title BM25
+    indices, the packed doc store, meta.json), on the host."""
+    if args.ik_dict or args.ik_smart:
+        raise NotImplementedError(
+            "--ik_dict/--ik_smart (the zh IK analyzer) are not ported to "
+            "kbner_tpu_torch yet (ROADMAP A6)")
+    _setup_logging(None)
+    out = Path(args.out)
+    text_index, store, title_index = build_kb_from_jsonl(
+        args.kb, lang=args.lang, store_path=out / "kb.docs",
+        fail_path=args.kb_fail_file)
+    save_kb(out, text_index, store, title_index, args.lang)
+    store.close()
+    log.info("saved %d-doc %s index to %s", text_index.n_docs, args.lang,
+             out)
+
+
+def _predictor(config_path: str, device: str) -> FinetuneTrainer:
+    """A trained tagger for ``cli retrieve``'s predicted entity seeds and
+    BERTScore embeddings: the config's tokenizer and
+    ``target_dir/tag_dictionary.json``, and its best (else final)
+    checkpoint, loaded as ``cli serve`` loads it."""
+    config = ServeConfig.from_file(config_path)
+    target_dir = config.resolve_target_dir()
+    if _trained_checkpoint(target_dir) is None:
+        raise ValueError(f"no best-model.msgpack or final-model.msgpack "
+                         f"under {target_dir}")
+    tag_dict = Dictionary.load(target_dir / "tag_dictionary.json")
+    tagger = serving_tagger(config, tag_dict, device)
+    return FinetuneTrainer(tagger, ListCorpus([]), config.make_tokenizer(),
+                           tag_dict, tag_layer=config.tag_layer,
+                           device=device)
+
+
+def _rerank_bertscore(predictor, queries, results, chunk: int = 1024):
+    """Each query's contexts ordered by BERTScore F1 against it (stable).
+    The queries and their contexts are embedded ``chunk`` queries at a
+    time (the reference embeds the whole split in one call), so the
+    embeddings on the device stay at one chunk's whatever the split's
+    size."""
+    from .retrieval.rerank import bertscore_f1
+
+    out = []
+    for c in range(0, len(queries), chunk):
+        texts: List[str] = []
+        spans = []
+        for q, docs in zip(queries[c:c + chunk], results[c:c + chunk]):
+            spans.append((len(texts), len(docs)))
+            texts.append(q)
+            texts.extend(d.sentence for d in docs)
+        emb, mask = predictor.embed_texts(texts)
+        for (start, n), docs in zip(spans, results[c:c + chunk]):
+            if not n:
+                out.append(list(docs))
+                continue
+            ctx = slice(start + 1, start + 1 + n)
+            f1 = bertscore_f1(emb[start], mask[start], emb[ctx],
+                              mask[ctx]).cpu().numpy()
+            out.append([docs[i] for i in np.argsort(-f1, kind="stable")])
+        del emb, mask
+    return out
+
+
+def cmd_retrieve(args) -> Dict[str, Dict[str, float]]:
+    """Search every sentence of ``--data_folder``'s train/dev/test.txt in
+    the KB and write, per split, ``<split>.retrieval.tsv`` and the
+    context-fused ``<split>.txt`` under ``--out``. Returns per split the
+    sentence count and the seconds of its stages (read, seeds, retrieve,
+    rerank, write, fuse)."""
+    from .data.conll import SentenceRecord
+    from .retrieval.fusion import extract_entities, fuse_contexts
+    from .retrieval.pipeline import (retrieve_for_records, sentence_query,
+                                     write_retrieval_file)
+    from .retrieval.rerank import rerank_by_edit_distance
+
+    _setup_logging(None)
+    if args.route == "mix":
+        raise NotImplementedError(
+            "--route mix (MixEngine, one query fanned out to every language "
+            "KB) is not ported to kbner_tpu_torch yet (ROADMAP A6)")
+    if args.hf_tokenizer:
+        raise NotImplementedError(
+            "--hf_tokenizer: HF tokenizers wait until the repository holds "
+            "tokenizer files (ROADMAP A6); use --tokenizer_config")
+    if args.rerank == "bertscore" and not args.model_config:
+        raise SystemExit("--rerank bertscore needs --model_config (the "
+                         "encoder supplying the token embeddings)")
+    text_index, store, title_index = _open_kb(args)
+    engine = RetrievalEngine(text_index, store=store,
+                             title_index=title_index, mode=args.engine_mode,
+                             device=args.device)
+    # the fusion budget is measured with the training tokenizer
+    if args.tokenizer_config:
+        tokenizer = ServeConfig.from_file(
+            args.tokenizer_config).make_tokenizer()
+    else:
+        log.warning("no --tokenizer_config: the fusion budget uses a "
+                    "250002-entry hash tokenizer")
+        tokenizer = HashTokenizer(vocab_size=250002)
+    # a trained model predicts the entity seeds of dev and test (train
+    # keeps its gold entities) and embeds for BERTScore
+    predictor = None
+    if args.model_config and (args.with_entity
+                              or args.rerank == "bertscore"):
+        predictor = _predictor(args.model_config, args.device)
+
+    data_dir, out_dir = Path(args.data_folder), Path(args.out)
+    stats: Dict[str, Dict[str, float]] = {}
+    for split in ("train", "dev", "test"):
+        f = data_dir / f"{split}.txt"
+        if not f.exists():
+            continue
+        t = {}
+        clock = time.perf_counter()
+
+        def lap(name):
+            nonlocal clock
+            now = time.perf_counter()
+            t[name] = now - clock
+            clock = now
+
+        records = read_column_file(f, {0: "text", 1: "ner"},
+                                   comment_symbol=args.comment_symbol)
+        lap("read")
+        entities = None
+        if args.with_entity:
+            if predictor is not None and split != "train":
+                preds = predictor.predict(records)
+                entities = [extract_entities(SentenceRecord(
+                    tokens=r.tokens, tags={"ner": p}))
+                    for r, p in zip(records, preds)]
+                log.info("%s: predicted entity seeds for %d sentences",
+                         split, len(records))
+            else:
+                entities = [extract_entities(r) for r in records]
+        lap("seeds")
+        results = retrieve_for_records(
+            engine, records, k=args.k, lang=args.lang,
+            with_entity=args.with_entity, entities=entities)
+        lap("retrieve")
+        if args.rerank == "edit":
+            results = [rerank_by_edit_distance(sentence_query(r, args.lang),
+                                               docs)
+                       for r, docs in zip(records, results)]
+        elif args.rerank == "bertscore":
+            results = _rerank_bertscore(
+                predictor, [sentence_query(r, args.lang) for r in records],
+                results)
+        if args.rerank:
+            log.info("%s: reranked contexts by %s", split, args.rerank)
+        lap("rerank")
+        write_retrieval_file(out_dir / f"{split}.retrieval.tsv", records,
+                             results, args.lang, entities=entities)
+        if args.distant_out and split == "train":
+            from .retrieval.distant import distant_supervision
+
+            silver = distant_supervision(records, results)
+            write_column_file(Path(args.distant_out), silver,
+                              layers=("ner",))
+            log.info("distant supervision: %d silver sentences -> %s",
+                     len(silver), args.distant_out)
+        lap("write")
+        fused = fuse_contexts(records, results, tokenizer, mode=args.mode,
+                              drop_over_budget_train=(split == "train"))
+        write_column_file(out_dir / f"{split}.txt", fused, layers=("ner",))
+        lap("fuse")
+        stats[split] = {"sentences": len(records), **t}
+        log.info("%s: %d sentences fused; seconds %s", split, len(fused),
+                 ", ".join(f"{k} {v:.2f}" for k, v in t.items()))
+    return stats
+
+
+def cmd_multistage(args) -> None:
+    raise NotImplementedError(
+        "cli multistage (retrieval/iterative.py, staged training that "
+        "hands each stage's encoder to the next) is not ported to "
+        "kbner_tpu_torch yet (ROADMAP A6)")
+
+
 def serving_tagger(config: ServeConfig, tag_dict: Dictionary,
                    device: str) -> SequenceTagger:
     """The tagger ``cli serve`` runs: the encoder stored in its compute
@@ -176,10 +407,6 @@ def serving_tagger(config: ServeConfig, tag_dict: Dictionary,
 def cmd_serve(args) -> None:
     """Serve retrieval-augmented NER from config + tag_dictionary.json
     (+ a trained checkpoint); the training corpus is not read."""
-    if args.index_dir or args.store:
-        raise NotImplementedError(
-            "--index_dir and --store wait for a later slice of "
-            "kbner_tpu_torch; build the KB in memory with --kb")
     config = ServeConfig.from_file(args.config)
     if config.targets != "ner":
         raise ValueError("cli serve serves the NER tagger; "
@@ -194,11 +421,10 @@ def cmd_serve(args) -> None:
     tagger = serving_tagger(config, tag_dict, args.device)
 
     engine = None
-    if args.kb:
+    if args.kb or args.index_dir:
         # the engine holds the title field in either mode, as the
         # reference's does; serving itself searches the text field
-        text_index, store, title_index = build_kb_from_jsonl(
-            args.kb, lang=args.lang)
+        text_index, store, title_index = _open_kb(args)
         engine = RetrievalEngine(text_index, store=store,
                                  title_index=title_index,
                                  mode=args.engine_mode, device=args.device)
@@ -245,22 +471,86 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--save_embedding", action="store_true")
     sp = add("serve", cmd_serve)
     sp.add_argument("--batch_size", type=int, default=32)
-    sp.add_argument("--kb")
-    sp.add_argument("--index_dir")
-    sp.add_argument("--store")
+    sp.add_argument("--kb", help="parsed-wiki JSONL, built at start")
+    sp.add_argument("--index_dir", help="a saved KB from `index`")
+    sp.add_argument("--store", help="with --kb: keep the payloads in a "
+                    "packed doc store at this path")
     sp.add_argument("--lang", default="en")
     sp.add_argument("--k", type=int, default=10)
     sp.add_argument("--mode", default="sentence_link")
     sp.add_argument("--engine_mode", default="exhaustive",
                     help="exhaustive (default) or pruned")
+
+    sp = sub.add_parser("multistage")
+    sp.add_argument("configs", nargs="+")
+    sp.set_defaults(fn=cmd_multistage)
+
+    sp = sub.add_parser("index")
+    sp.add_argument("--kb", required=True, help="parsed-wiki JSONL")
+    sp.add_argument("--out", required=True, help="KB directory to write")
+    sp.add_argument("--lang", default="en")
+    sp.add_argument("--kb_fail_file", default=None,
+                    help="append unparseable KB lines here and go on")
+    sp.add_argument("--ik_dict", default=None, help="zh only (not ported)")
+    sp.add_argument("--ik_smart", action="store_true",
+                    help="zh only (not ported)")
+    sp.set_defaults(fn=cmd_index)
+
+    sp = sub.add_parser("ingest-dump")
+    sp.add_argument("--dump", required=True,
+                    help="MediaWiki pages-articles.xml[.bz2] export")
+    sp.add_argument("--out", required=True, help="output JSONL path")
+    sp.add_argument("--lang", default="en")
+    sp.add_argument("--paragraph", default="all", choices=["all", "first"])
+    sp.add_argument("--max_pages", type=int, default=None)
+    sp.set_defaults(fn=cmd_ingest_dump)
+
+    sp = sub.add_parser("retrieve")
+    sp.add_argument("--kb", action="append", help="parsed-wiki JSONL")
+    sp.add_argument("--index_dir", action="append",
+                    help="a saved KB from `index`")
+    sp.add_argument("--route", default="single", choices=("single", "mix"),
+                    help="mix is not ported (ROADMAP A6)")
+    sp.add_argument("--data_folder", required=True,
+                    help="folder of train/dev/test.txt column files")
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--lang", default="en")
+    sp.add_argument("--k", type=int, default=10)
+    sp.add_argument("--mode", default="sentence_link",
+                    choices=["paragraph", "sentence_link", "sentence"])
+    sp.add_argument("--with_entity", action="store_true",
+                    help="add the sentence's entities as title-boosted "
+                         "clauses (gold on train; predicted on dev/test "
+                         "with --model_config)")
+    sp.add_argument("--model_config",
+                    help="a trained model's config: predicts the entity "
+                         "seeds of dev/test and embeds for bertscore")
+    sp.add_argument("--engine_mode", default="exhaustive",
+                    choices=["exhaustive", "pruned"])
+    sp.add_argument("--comment_symbol", default="# id")
+    sp.add_argument("--tokenizer_config",
+                    help="experiment config whose tokenizer measures the "
+                         "fusion budget")
+    sp.add_argument("--distant_out", default=None,
+                    help="also write silver sentences: the train split's "
+                         "gold entity spans projected onto its contexts")
+    sp.add_argument("--rerank", default=None, choices=("edit", "bertscore"))
+    sp.add_argument("--store", default=None,
+                    help="with --kb: keep the payloads in a packed doc "
+                         "store at this path")
+    sp.add_argument("--kb_fail_file", default=None,
+                    help="append unparseable KB lines here and go on")
+    sp.add_argument("--hf_tokenizer", help="not ported (ROADMAP A6)")
+    sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_retrieve)
     return parser
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def main(argv: Optional[List[str]] = None):
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

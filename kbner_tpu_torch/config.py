@@ -11,6 +11,7 @@ and ``data``; unknown top-level keys raise, as the JAX package's do.
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
@@ -23,9 +24,12 @@ from .train.trainer import TrainConfig
 
 
 def _read_yaml(path: str | Path) -> Dict[str, Any]:
-    import yaml  # only the CLI reads YAML; the package imports without it
-
-    return yaml.safe_load(Path(path).read_text()) or {}
+    text = Path(path).read_text()
+    try:
+        import yaml  # only the CLI reads YAML; the package imports without it
+    except ImportError:  # a config written as JSON reads without PyYAML
+        return json.loads(text) if text.strip() else {}
+    return yaml.safe_load(text) or {}
 
 
 @dataclasses.dataclass

@@ -428,6 +428,44 @@ bm25_score_kernel(const int32_t* __restrict__ qt,
   }
 }
 
+// The launch of a call: term tiles, hash table size, shared memory and the
+// persistent grid (one block per SM in all, split among the query tiles).
+struct Plan {
+  int term_tile, n_term_tiles, log_t;
+  size_t smem;
+  dim3 grid;
+};
+
+cudaError_t plan(int Q, int Lq, int N, const void* kernel, Plan* p) {
+  p->n_term_tiles = std::max(1, (Lq + kMaxTermTile - 1) / kMaxTermTile);
+  p->term_tile = std::max(1, (Lq + p->n_term_tiles - 1) / p->n_term_tiles);
+  const int E = kQueries * p->term_tile;
+  p->log_t = 1;
+  while ((1 << p->log_t) < 2 * E) ++p->log_t;  // the table at most half full
+  p->smem = smem_bytes(1 << p->log_t, E);
+
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)p->smem);
+  if (err != cudaSuccess) return err;
+
+  const long long n_tiles = ((long long)N + kTile - 1) / kTile;
+  const int n_qtiles = (Q + kQueries - 1) / kQueries;
+  if (n_qtiles > 65535) return cudaErrorInvalidConfiguration;
+  const long long per_qtile = std::max(1, sms / n_qtiles);
+  p->grid = dim3((unsigned)std::min(n_tiles, per_qtile), n_qtiles);
+  return cudaSuccess;
+}
+
+// An empty kernel: launched on bm25_score_kernel's grid, block and shared
+// memory, its time is the least a launch of that kernel can take.
+__global__ void floor_kernel() {}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Launches on `stream` and returns
@@ -438,37 +476,25 @@ extern "C" int bm25_score_block_launch(const void* qt, const void* qw,
                                        void* out, int Q, int Lq, int Ld,
                                        int N, long long doc_stride,
                                        void* stream) {
-  const int n_term_tiles =
-      std::max(1, (Lq + kMaxTermTile - 1) / kMaxTermTile);
-  const int term_tile = std::max(1, (Lq + n_term_tiles - 1) / n_term_tiles);
-  const int E = kQueries * term_tile;
-  int log_t = 1;
-  while ((1 << log_t) < 2 * E) ++log_t;  // the table at most half full
-  const size_t smem = smem_bytes(1 << log_t, E);
-
   const bool vec16 = ((uintptr_t)dt % 16 == 0) && ((uintptr_t)di % 16 == 0) &&
                      doc_stride % 4 == 0;
   auto kernel = vec16 ? bm25_score_kernel<true> : bm25_score_kernel<false>;
-
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+  Plan p;
+  const cudaError_t err = plan(Q, Lq, N, (const void*)kernel, &p);
   if (err != cudaSuccess) return (int)err;
-
-  const long long n_tiles = ((long long)N + kTile - 1) / kTile;
-  const int n_qtiles = (Q + kQueries - 1) / kQueries;
-  if (n_qtiles > 65535) return (int)cudaErrorInvalidConfiguration;
-  // one block per SM in all, split among the query tiles
-  const long long per_qtile = std::max(1, sms / n_qtiles);
-  const dim3 grid((unsigned)std::min(n_tiles, per_qtile), n_qtiles);
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<p.grid, kThreads, p.smem, (cudaStream_t)stream>>>(
       (const int32_t*)qt, (const float*)qw, (const int32_t*)dt,
-      (const float*)di, (float*)out, Q, Lq, Ld, N, doc_stride, term_tile,
-      n_term_tiles, log_t);
+      (const float*)di, (float*)out, Q, Lq, Ld, N, doc_stride, p.term_tile,
+      p.n_term_tiles, p.log_t);
+  return (int)cudaGetLastError();
+}
+
+// The launch floor at these sizes: floor_kernel on the grid, block and
+// shared memory bm25_score_block_launch would use. For measurement only.
+extern "C" int bm25_score_floor_launch(int Q, int Lq, int N, void* stream) {
+  Plan p;
+  cudaError_t err = plan(Q, Lq, N, (const void*)floor_kernel, &p);
+  if (err != cudaSuccess) return (int)err;
+  floor_kernel<<<p.grid, kThreads, p.smem, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -41,6 +41,11 @@ class SentenceRecord:
         except ValueError:
             return -1
 
+    def original_tokens(self) -> List[str]:
+        """Tokens of the original sentence (context stripped at <EOS>)."""
+        eos = self.eos_index
+        return self.tokens[:eos] if eos >= 0 else self.tokens
+
 
 def read_column_file(
     path: Union[str, Path],
@@ -127,9 +132,11 @@ def write_column_file(
         for rec in sentences:
             if rec.comment:
                 f.write(rec.comment + "\n")
-            for i, tok in enumerate(rec.tokens):
-                cols = [tok] + [rec.tags[l][i] for l in layers if l in rec.tags]
-                f.write(" ".join(cols) + "\n")
+            n = len(rec.tokens)
+            cols = [rec.tokens] + [rec.tags[l][:n] for l in layers
+                                   if l in rec.tags]
+            f.write("".join(" ".join(line) + "\n"
+                            for line in zip(*cols, strict=True)))
             f.write("\n")
 
 

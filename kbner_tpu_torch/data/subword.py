@@ -35,7 +35,11 @@ class HashTokenizer:
         pieces = pieces[: self.max_pieces] or [word]
         return [self._hash(p) for p in pieces]
 
+    def word_length(self, word: str) -> int:
+        """``len(encode_word(word))``, without hashing the pieces."""
+        return max(1, min(-(-len(word) // 4), self.max_pieces))
+
 
 def subtoken_length(tokenizer: HashTokenizer, words: Sequence[str]) -> int:
     """Total subtokens for a word sequence."""
-    return sum(len(tokenizer.encode_word(w)) for w in words)
+    return sum(map(tokenizer.word_length, words))

@@ -131,6 +131,17 @@ class SequenceTagger(nn.Module):
 
     # -- features -------------------------------------------------------------
 
+    def _extract_features(self, batch: Batch,
+                          rng: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+        """Raw word features ``[B, W, H]``: the encoder's hidden state at
+        each word's first subtoken (positions clipped into the sequence)."""
+        hidden = self.encoder(batch["input_ids"], batch["attention_mask"],
+                              rng=rng)
+        starts = batch["word_starts"].long().clamp(0, hidden.shape[1] - 1)
+        return torch.gather(
+            hidden, 1, starts.unsqueeze(-1).expand(-1, -1, hidden.shape[2]))
+
     def _word_features(self, batch: Batch,
                        rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """Word features ``[B, W, H]`` in the compute dtype: first-subtoken
@@ -138,11 +149,7 @@ class SequenceTagger(nn.Module):
         rescaled), ``embedding2nn``, locked dropout (one mask per sentence
         and channel over all words, rescaled by 1 / keep)."""
         cfg = self.config
-        hidden = self.encoder(batch["input_ids"], batch["attention_mask"],
-                              rng=rng)
-        starts = batch["word_starts"].long().clamp(0, hidden.shape[1] - 1)
-        feats = torch.gather(
-            hidden, 1, starts.unsqueeze(-1).expand(-1, -1, hidden.shape[2]))
+        feats = self._extract_features(batch, rng)
         feats = feats * batch["word_mask"].unsqueeze(-1).to(feats.dtype)
         gen = device_generator(rng, feats.device)
         B, W, H = feats.shape

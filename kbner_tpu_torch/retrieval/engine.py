@@ -26,6 +26,7 @@ retrieval-file fields (sentence/paragraph/title/score/url).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -486,7 +487,10 @@ class RetrievalEngine:
                 torch.from_numpy(np.ascontiguousarray(dt.T)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(di.T)).to(self.device))
 
-    def _put(self, x: np.ndarray) -> torch.Tensor:
+    def _put(self, x) -> torch.Tensor:
+        """A host array on the engine's device (a tensor passes as is)."""
+        if isinstance(x, torch.Tensor):
+            return x
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def _upload_pruned(self, name: str, idx: BM25Index, dt: np.ndarray,
@@ -748,7 +752,7 @@ class RetrievalEngine:
         kind = tiny[0]
         if kind == "pack":
             _, enc, t_lo, t_step = tiny
-            enc = torch.from_numpy(enc).to(self.device)
+            enc = self._put(enc)
             docbits = self._tiny_pack[0]
             d = enc & ((1 << docbits) - 1)
             code = (enc >> docbits).to(torch.float32)
@@ -756,8 +760,7 @@ class RetrievalEngine:
                              torch.exp(t_lo + (code - 1.0) * t_step), 0.0)
             return torch.where(ex > 0, d, -1), ex
         _, t_doc, t_ex = tiny
-        return (torch.from_numpy(t_doc).to(self.device).long(),
-                torch.from_numpy(t_ex).to(self.device).to(torch.float32))
+        return (self._put(t_doc).long(), self._put(t_ex).to(torch.float32))
 
     def _field(self, name: str, terms: np.ndarray,
                weights: np.ndarray) -> tuple:
@@ -858,11 +861,132 @@ class RetrievalEngine:
         scores, ids = bm25_topk(fields, k=k, doc_chunk=self.doc_chunk)
         return scores.cpu().numpy(), ids.cpu().numpy()
 
-    def search_stream(self, batches, k: int = 10, **kwargs):
-        """The reference's pipelined stream of batches is not ported."""
-        raise NotImplementedError(
-            "search_stream (the pipelined pruned stream) is not ported yet "
-            "(ROADMAP A4); call search_encoded per batch")
+    def search_stream(self, batches, k: int = 10, workers: int = 3,
+                      depth: int = 2, max_query_terms: int = 64):
+        """Pipelined search over an iterable of batches, yielding
+        ``(scores, ids)`` numpy arrays per batch, in order.
+
+        A batch is ``(q_terms, q_weights)`` or a list of raw query strings.
+        In pruned mode three stages overlap: ``workers`` prep threads
+        analyze and encode batch i+1, pack it on the host (in batch order,
+        so the never-shrink query widths grow as per-batch calls grow
+        them) and start its upload, from pinned buffers on a side stream,
+        while the card runs batch i; the results come back through pinned
+        buffers, each pulled by its own thread after a CUDA event, with at
+        most ``depth`` batches dispatched and not yet yielded. Every kernel
+        launches on the caller's thread, on its current stream, which
+        waits for each batch's upload event. Exhaustive mode searches each
+        batch with :meth:`search_encoded`.
+        """
+        def encode(b):
+            if b and isinstance(b[0], str):
+                b = self.text_index.encode_queries(
+                    list(b), max_query_terms=max_query_terms)
+            return b
+
+        if self.mode != "pruned":
+            for b in batches:
+                qt, qw = encode(b)
+                yield self.search_encoded(qt, qw, k=k)
+            return
+
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
+        cuda = self.device.type == "cuda"
+        side = torch.cuda.Stream(self.device) if cuda else None
+        packed_to = threading.Condition()
+        n_packed = [0]
+
+        def prep(i, b):
+            err = None
+            try:
+                qt, qw = (np.asarray(x) for x in encode(b))
+            except BaseException as e:  # noqa: BLE001 (re-raised below)
+                err = e
+            with packed_to:  # batch i packs after batch i - 1
+                packed_to.wait_for(lambda: n_packed[0] == i)
+                try:
+                    if err is None:
+                        packed = self._pack_queries(qt, qw)
+                finally:
+                    n_packed[0] += 1
+                    packed_to.notify_all()
+            if err is not None:
+                raise err
+            if not cuda:
+                return packed, None, []
+            return self._upload_packed(packed, side)
+
+        def pull(done, host):
+            done.synchronize()
+            return tuple(h.numpy() for h in host)
+
+        with ThreadPoolExecutor(max_workers=max(workers, 1)) as ex, \
+                ThreadPoolExecutor(max_workers=max(depth, 1) + 1) as pulls:
+            preps: deque = deque()
+            pending: deque = deque()
+
+            def dispatch():
+                packed, uploaded, on_side = preps.popleft().result()
+                if cuda:
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(uploaded)
+                    for t in on_side:  # allocated on the side stream
+                        t.record_stream(cur)
+                keys, fields, (t_doc, t_ex), kw = self._device_queries(
+                    packed)
+                out = bm25_pruned_topk_packed(
+                    keys, fields, n_real_docs=self.text_index.n_docs, k=k,
+                    tiny_doc=t_doc, tiny_ex=t_ex, **kw)
+                if not cuda:
+                    pending.append(pulls.submit(
+                        lambda: tuple(t.numpy() for t in out)))
+                    return
+                host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True) for t in out)
+                for h, t in zip(host, out):
+                    h.copy_(t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(cur)
+                pending.append(pulls.submit(pull, done, host))
+
+            for i, b in enumerate(batches):
+                preps.append(ex.submit(prep, i, b))
+                if len(preps) > max(workers, 1):
+                    dispatch()
+                    if len(pending) > depth:
+                        yield pending.popleft().result()
+            while preps:
+                dispatch()
+                if len(pending) > depth:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()
+
+    def _upload_packed(self, packed, stream):
+        """Start the upload of :meth:`_pack_queries`' host arrays on
+        ``stream`` from pinned buffers. Returns (the same structure over
+        device tensors, the event recorded after the copies, the device
+        tensors)."""
+        on_side = []
+
+        def put(x):
+            if not isinstance(x, np.ndarray):
+                return x
+            t = torch.from_numpy(np.ascontiguousarray(x)).pin_memory().to(
+                self.device, non_blocking=True)
+            on_side.append(t)
+            return t
+
+        rares, tiny, blocks = packed
+        with torch.cuda.stream(stream):
+            packed = ([put(r) for r in rares],
+                      None if tiny is None else tuple(put(x) for x in tiny),
+                      [tuple(put(x) for x in blk) for blk in blocks])
+            uploaded = torch.cuda.Event()
+            uploaded.record(stream)
+        return packed, uploaded, on_side
 
     def search(
         self,
@@ -911,3 +1035,18 @@ class RetrievalEngine:
                     row.append(RetrievedDoc(doc_id=d, score=s))
             results.append(row)
         return results
+
+    def search_texts_stream(self, queries: Sequence[str], k: int = 10,
+                            batch_size: int = 1024,
+                            max_query_terms: int = 64,
+                            ) -> List[List[RetrievedDoc]]:
+        """Text queries through :meth:`search_stream` in chunks of
+        ``batch_size`` raw strings, which its prep threads analyze and
+        encode while the card searches the previous chunk."""
+        batches = [list(queries[i:i + batch_size])
+                   for i in range(0, len(queries), batch_size)]
+        out: List[List[RetrievedDoc]] = []
+        for scores, ids in self.search_stream(
+                batches, k=k, max_query_terms=max_query_terms):
+            out.extend(self._materialize(scores, ids))
+        return out

@@ -86,19 +86,23 @@ def fuse_contexts(
     mode: ContextMode = "sentence_link",
     budget: int = 510,
     max_contexts: int = 10,
+    drop_over_budget_train: bool = False,
 ) -> List[SentenceRecord]:
     """Build context-augmented sentence records.
 
     Contexts are consumed in retrieval rank order; each is added only if the
     running subtoken total stays within ``budget``. Sentences with no
     accepted context get no <EOS> marker, and sentences already over the
-    budget are passed through unchanged.
+    budget are passed through unchanged, or left out with
+    ``drop_over_budget_train`` (``cli retrieve`` sets it on the train
+    split).
     """
     out: List[SentenceRecord] = []
     for rec, docs in zip(records, results):
         base_len = subtoken_length(tokenizer, rec.tokens)
         if base_len > budget:
-            out.append(rec)
+            if not drop_over_budget_train:
+                out.append(rec)
             continue
 
         new_tokens = list(rec.tokens)
@@ -132,3 +136,29 @@ def fuse_contexts(
             comment=rec.comment,
         ))
     return out
+
+
+def extract_entities(record: SentenceRecord,
+                     tag_layer: str = "ner") -> List[str]:
+    """Entity surface forms from B-/I- (or BIOES) tags, up to ``<EOS>``:
+    the query seeds of entity-boosted retrieval."""
+    tags = record.tags.get(tag_layer, [])
+    entities: List[str] = []
+    current: List[str] = []
+    for tok, tag in zip(record.tokens, tags):
+        if tok == EOS_MARKER:
+            break
+        prefix = tag[:2]
+        if prefix in ("B-", "S-") and tag[2:] != "X":
+            if current:
+                entities.append(" ".join(current))
+            current = [tok]
+        elif prefix in ("I-", "E-") and tag[2:] != "X" and current:
+            current.append(tok)
+        else:
+            if current:
+                entities.append(" ".join(current))
+            current = []
+    if current:
+        entities.append(" ".join(current))
+    return entities

@@ -142,7 +142,9 @@ class BM25Index:
         self.params = params
         self.doc_dl = doc_dl  # per-doc (quantized) length in the norm
         self._csr = None  # lazy (offsets, postings_doc, postings_imp, df)
-        self._vocab_keys = None  # lazy sorted key array for batch lookup
+        # lazy (sorted key array, their ids) for batch lookup, set in one
+        # assignment: encode_queries runs on several threads at once
+        self._vocab_sorted = None
 
     # -- term-major postings (pass 1 of the pruned engine) --------------------
 
@@ -377,14 +379,13 @@ class BM25Index:
         OOV tokens map to ``OOV_TERM``."""
         if len(self.vocab) == 0 or len(tokens) == 0:
             return np.full(len(tokens), OOV_TERM, np.int64)
-        if self._vocab_keys is None:
+        if self._vocab_sorted is None:
             keys = np.array(list(self.vocab.keys()))
             ids = np.fromiter(self.vocab.values(), np.int64,
                               count=len(self.vocab))
             order = np.argsort(keys)
-            self._vocab_keys = keys[order]
-            self._vocab_ids = ids[order]
-        keys = self._vocab_keys
+            self._vocab_sorted = (keys[order], ids[order])
+        keys, key_ids = self._vocab_sorted
         # the fixed-width cast of the reference: a token longer than every
         # key is cut to the key width, so it can match a key it begins with
         try:
@@ -397,7 +398,7 @@ class BM25Index:
                 count=len(tokens))
         pos_c = np.minimum(pos, len(keys) - 1)
         hit = keys[pos_c] == toks
-        return np.where(hit, self._vocab_ids[pos_c], OOV_TERM)
+        return np.where(hit, key_ids[pos_c], OOV_TERM)
 
     def encode_queries(
         self,

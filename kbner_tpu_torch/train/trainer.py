@@ -334,6 +334,40 @@ class FinetuneTrainer:
                             tag_layer=self.tag_layer,
                             sort_by_length=sort_by_length)
 
+    @torch.no_grad()
+    def embed_texts(self, texts: Sequence[str], batch_size: int = 64
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Word-level encoder features of whitespace-tokenized texts, in
+        input order, on the trainer's device: ``(emb [B, W, H] float32,
+        mask [B, W] int32)``, zero past each text's words. The embeddings
+        of BERTScore reranking (``retrieval/rerank.py``)."""
+        if not texts:
+            return (torch.zeros((0, 0, 0), device=self.device),
+                    torch.zeros((0, 0), dtype=torch.int32,
+                                device=self.device))
+        recs = [SentenceRecord(tokens=t.split() or ["."]) for t in texts]
+        for r in recs:
+            r.tags[self.tag_layer] = ["O"] * len(r.tokens)
+        rec_index = {id(r): i for i, r in enumerate(recs)}
+        batches = make_batches(recs, self.tokenizer, None, batch_size,
+                               sort_by_length=True, tag_layer=self.tag_layer)
+        # each batch's rows go straight into the output, so only one
+        # batch's features are alive beside it
+        W = max(int(eb.word_mask.sum(1).max()) for eb in batches)
+        H = self.model.config.encoder.hidden_size
+        emb = torch.zeros((len(recs), W, H), device=self.device)
+        mask = torch.zeros((len(recs), W), dtype=torch.int32,
+                           device=self.device)
+        for eb in batches:
+            arrays = self._to_device(eb)
+            feats = self.model._extract_features(arrays).float()
+            for b, rec in enumerate(eb.records):
+                i, n = rec_index[id(rec)], int(eb.word_mask[b].sum())
+                emb[i, :n] = feats[b, :n]
+                mask[i, :n] = arrays["word_mask"][b, :n]
+            del arrays, feats
+        return emb, mask
+
     def evaluate_speed(self, records: Sequence[SentenceRecord],
                        batch_size: int = 32) -> float:
         """Decode throughput in sentences/s, after one warm-up batch."""

@@ -38,7 +38,8 @@ from kbner_tpu_torch.models.tagger import SequenceTagger, TaggerConfig
 from kbner_tpu_torch.models.xlmr import XLMRConfig
 from kbner_tpu_torch.retrieval.engine import RetrievalEngine
 from kbner_tpu_torch.retrieval.fusion import fuse_contexts
-from kbner_tpu_torch.retrieval.pipeline import build_kb_from_jsonl
+from kbner_tpu_torch.retrieval.pipeline import (build_kb_from_jsonl,
+                                                save_kb)
 from kbner_tpu_torch.serve import predict, request_record, serve
 from kbner_tpu_torch.weights import from_jax_params
 
@@ -233,7 +234,9 @@ def test_cli_serve_writes_serve_responses(both, kb_path, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--store", "x.docs"], NotImplementedError),
+    # the zh analyzers, with the payloads in a packed store
+    (["--store", "x.docs", "--lang", "zh"], NotImplementedError),
+    # a KB saved with the zh analyzer
     (["--index_dir", "kb_dir"], NotImplementedError),
     (["--lang", "zh"], NotImplementedError),  # the zh analyzers
 ])
@@ -243,6 +246,11 @@ def test_cli_serve_refuses_later_slices(both, kb_path, tmp_path, monkeypatch,
     target = tmp_path / "run"
     tags.save(target / "tag_dictionary.json")
     cfg = _write_config(tmp_path, target)
+    text, store, title = build_kb_from_jsonl(kb_path)
+    save_kb(tmp_path / "kb_dir", text, store, title)
+    (tmp_path / "kb_dir" / "meta.json").write_text('{"lang": "zh"}')
+    argv = [str(tmp_path / a) if a in ("x.docs", "kb_dir") else a
+            for a in argv]
     monkeypatch.setattr("sys.stdin", io.StringIO(""))
     with pytest.raises(err):
         cli.main(["serve", "--config", str(cfg), "--kb", str(kb_path),
