@@ -28,8 +28,18 @@ compute) fine-tuned through ``FinetuneTrainer.train`` on quality-corpus
 sentences fused with the exhaustive engine's contexts, once with the
 recipe's batch 1 and accumulation 4 and once at batch 16 for three epochs;
 the best checkpoint is then served through the serve path in bfloat16 and
-held to the trainer's own prediction. It prints what it measured on the
-lines before the last and exits non-zero on any failure.
+held to the trainer's own prediction. Then the offline KB stage runs
+through the CLI: a dump ingested, every KB sentence indexed from JSONL
+and held to the in-memory index, the KB saved and reopened, the native
+host runtime (``kbner_tpu_torch/native``, built with g++) held to its
+numpy twins at full size and the pruned engine built both ways, four
+``cli retrieve`` runs over CoNLL splits, the native analyzer held to the
+Python one on 100,000 multilingual sentences, a 100,000-doc zh KB indexed
+with IK and searched both ways, deep pass-1 windows held against the
+plain pruned engine, retrieval with the trained model's seeds and
+BERTScore reranking, and ``cli serve`` from the saved KB. It prints what
+it measured on the lines before the last and exits non-zero on any
+failure.
 Its last line is one JSON object naming the device.
 
 It needs CUDA and the rest of the repository beside it: without either it
@@ -94,6 +104,33 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def host_line() -> str:
+    """The host CPU as /proc/cpuinfo names it (model name, vendor,
+    family/model/stepping, MHz) and its core count: the host-clock
+    figures of phase 4h are the host's. The model name alone can read
+    "unknown" in a virtual machine; the other fields still tell hosts
+    apart."""
+    import os
+
+    keys = ("model name", "vendor_id", "cpu family", "model", "stepping",
+            "cpu MHz", "bogomips")
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if key in keys and key not in info:
+                    info[key] = value.strip()
+                if not line.strip() and info:
+                    break
+    except OSError:
+        pass
+    return (f"{info.get('model name', 'unknown')} ("
+            + ", ".join(f"{k} {info[k]}" for k in keys[1:] if k in info)
+            + f"), {os.cpu_count()} cores")
 
 
 def time_cuda_ms(fn, iters: int) -> float:
@@ -940,7 +977,7 @@ def training_phase(engine, requests, bm25, dev, card, tokenizer,
 # the offline KB stage: cli ingest-dump -> cli index -> a saved 1M-doc KB
 # -> cli retrieve into fused CoNLL files -> cli serve --index_dir
 N_DUMP_PAGES = 2000
-N_INDEX_DOCS = 50_000   # cli index from JSONL: analyzed in Python (A5)
+N_SERVE_KB_DOCS = 50_000  # cli serve --kb [--store] builds its KB at start
 # MultiCoNER EN's train and dev sizes; its test (217,818) is cut
 SPLITS = {"train": 15_300, "dev": 800, "test": 2_000}
 RETRIEVE_BATCH = 1024   # retrieve_for_records' queries per search
@@ -1180,6 +1217,41 @@ def stream_against_per_batch(engine, queries):
     return secs[per_batch], secs[stream]
 
 
+def stream_native_against_twin(engine, queries, native):
+    """``search_stream`` over ``queries`` in ``cli retrieve``'s batches on
+    the pruned ``engine``, with the native tiny gather and with its numpy
+    twin swapped in, timed in turns: native, twin, native, twin. Each
+    side's runs agree exactly; native against twin within SCORE_RTOL
+    (float64 sums against float32 in posting order, then packed as the
+    engine packs tiny sums), ids within ties.
+    Returns (native seconds, twin seconds)."""
+    import torch
+
+    batches = [list(queries[i:i + RETRIEVE_BATCH])
+               for i in range(0, len(queries), RETRIEVE_BATCH)]
+    secs = {"native": [], "twin": []}
+    runs = {"native": [], "twin": []}
+    for which in ("native", "twin", "native", "twin"):
+        saved = native.gather_tiny_exact
+        if which == "twin":
+            native.gather_tiny_exact = native.gather_tiny_exact_ref
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[which].append(list(engine.search_stream(
+                batches, k=K, max_query_terms=MAX_QUERY_TERMS)))
+            secs[which].append(time.perf_counter() - t0)
+        finally:
+            native.gather_tiny_exact = saved
+    for which, (a, b) in runs.items():
+        assert_same_results(f"search_stream ({which} tiny gather) run to "
+                            "run", a, b, rtol=0.0, atol=0.0)
+    assert_same_results("search_stream, native tiny gather against its "
+                        "twin", runs["native"][0], runs["twin"][0],
+                        rtol=SCORE_RTOL)
+    return secs["native"], secs["twin"]
+
+
 def run_cli(cli, argv, stdin=None):
     """``cli.main(argv)`` with ``stdin`` (a string) as its standard input
     and its standard output captured: (return value, output)."""
@@ -1197,20 +1269,396 @@ def run_cli(cli, argv, stdin=None):
     return ret, out.getvalue()
 
 
+# the host runtime's checks in phase 4h: the analyzer's multilingual
+# corpus, the zh KB indexed with IK over the builtin lexicon, and the deep
+# windows of the pruned engine (4096 postings for the 4 rarest terms)
+N_ML_SENTENCES = 100_000
+N_ZH_DOCS = 100_000
+ZH_SPLITS = {"train": 3_000, "dev": 500, "test": 500}
+DEEP = dict(deep_terms=4, deep_cap=4096)
+N_DEEP_QUERIES = 2 * RETRIEVE_BATCH
+TINY_RTOL = 1e-6        # float32 tiny sums in posting order vs float64
+ML_WORDS = (
+    # Latin with diacritics and the UAX#29 joins
+    "café naïve résumé Zürich Ångström façade São Kraków Düsseldorf "
+    "jalapeño Straße don't U.S.A. 3.14 1,000 foo_bar e-mail example.com "
+    # Cyrillic, Greek (capital sigma lowers by context), Turkish dotted İ
+    "Москва Санкт-Петербург Пушкин объём ЖУРНАЛ ёлка Київ ΟΔΥΣΣΕΥΣ "
+    "Σίσυφος ΑΘΗΝΑΣ λόγος ΣΟΦΟΣ Ελλάς İstanbul DİYARBAKIR İzmir ılık "
+    # Arabic (with its digits), Han, Kana, Hangul
+    "القاهرة مكتبة العربية ٣٫١٤ محمد 北京大学 中文分词 東京 人工智能 研究生 "
+    "カタカナ ひらがな テキスト 東京タワー すし 한국어 텍스트 "
+    "the of and in city river").split()
+ML_PUNCT = [" ", " ", " ", ", ", ". ", " — ", " (", ") ", "; ", "'", "·"]
+
+
+def multilingual_sentences(n: int, seed: int):
+    """``n`` seeded sentences of 6-17 words over Latin with diacritics,
+    Cyrillic, Greek, Arabic, Han, Kana and Hangul words, dotted İ and
+    final sigma, with punctuation and combining marks between them."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        k = rng.randint(6, 18)
+        w = rng.randint(0, len(ML_WORDS), k)
+        p = rng.randint(0, len(ML_PUNCT), k)
+        parts = []
+        for i in range(k):
+            word = ML_WORDS[w[i]]
+            if rng.rand() < 0.05:
+                word += "́"  # a combining acute accent (WB4)
+            parts.append(word + ML_PUNCT[p[i]])
+        out.append("".join(parts))
+    return out
+
+
+def zh_word_rows(n: int, seed: int):
+    """``n`` seeded zh sentences as word lists: 6-14 words of the builtin
+    lexicon, a third of them with a Latin word or a number among them."""
+    from kbner_tpu_torch.retrieval.analyzer import builtin_zh_lexicon
+
+    words = [w.strip() for w in builtin_zh_lexicon().read_text(
+        encoding="utf-8").splitlines()
+        if w.strip() and not w.startswith("#")]
+    latin = ["Google", "ACL", "2022", "U.S.A", "Wikipedia", "3.14"]
+    rng = np.random.RandomState(seed)
+    rows = []
+    for _ in range(n):
+        k = rng.randint(6, 15)
+        row = [words[i] for i in rng.randint(0, len(words), k)]
+        if rng.rand() < 0.33:
+            row.insert(rng.randint(0, k), latin[rng.randint(len(latin))])
+        rows.append(row)
+    return rows
+
+
+def timed(fn):
+    """(result of ``fn()``, its seconds on the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def numpy_twins(native):
+    """A context in which the engine's and the index's host-side code
+    (the build, and the tiny gather of every pruned batch) calls the
+    numpy twins of the native runtime (``<entry point>_ref``)."""
+    import contextlib
+
+    names = ("build_csr", "csr_cap", "compact_tiny", "pack_ragged",
+             "delta16_rows", "gather_tiny_exact")
+
+    @contextlib.contextmanager
+    def swap():
+        saved = {n: getattr(native, n) for n in names}
+        for n in names:
+            setattr(native, n, getattr(native, f"{n}_ref"))
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(native, n, fn)
+
+    return swap()
+
+
+def same_arrays(label, got, want) -> None:
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{label}: the native result differs from "
+                                 "its numpy twin")
+
+
+def native_against_twins(index, queries, cap: int, tiny_cap: int,
+                         card: str) -> None:
+    """Phase 4h (b): each postings helper of the native runtime on the 1M
+    KB's arrays beside its numpy twin, once each, native first: equal
+    arrays (the tiny gather within TINY_RTOL of its float64 twin)."""
+    from kbner_tpu_torch import native
+    from kbner_tpu_torch.retrieval import engine as eng
+
+    dt, di, V = index.doc_terms, index.doc_impacts, len(index.vocab)
+    times = {}
+
+    def pair(name, fn, twin):
+        got, t_native = timed(fn)
+        want, t_twin = timed(twin)
+        times[name] = (t_native, t_twin)
+        return got, want
+
+    csr, want = pair("build_csr", lambda: native.build_csr(dt, di, V),
+                     lambda: native.build_csr_ref(dt, di, V))
+    same_arrays("build_csr", csr, want)
+    del want
+    got, want = pair("csr_cap",
+                     lambda: native.csr_cap(*csr, cap, tiny_cap),
+                     lambda: native.csr_cap_ref(*csr, cap, tiny_cap))
+    same_arrays("csr_cap", got, want)
+    df = csr[3]
+    rows, want = pair("compact_tiny",
+                      lambda: native.compact_tiny(dt, di, df, tiny_cap),
+                      lambda: native.compact_tiny_ref(dt, di, df, tiny_cap))
+    same_arrays("compact_tiny", rows, want)
+    del got, want
+    dt2, di2 = rows
+    # delta16 rows as the engine builds them: remap, norms, placement
+    remap, _ = eng._nontiny_remap(df, tiny_cap)
+    remap = remap.astype(np.int32)
+    p = index.params
+    dl = np.zeros(dt2.shape[0], np.int64)
+    dl[:len(index.doc_dl)] = index.doc_dl
+    norm = (p.k1 * (1.0 - p.b + p.b * dl / index.avgdl)).astype(np.float32)
+    (lens, emit), t_lens = timed(
+        lambda: native.delta16_rows(dt2, di2, remap, index.idf, norm))
+    fields, t_fields = timed(lambda: native.delta16_fields_ref(
+        dt2, di2, remap, index.idf, norm))
+    if not np.array_equal(lens[:dt2.shape[0]], fields[4]):
+        raise AssertionError("delta16_rows: slot counts differ from the "
+                             "numpy twin's")
+    off, nr = eng._place_length_groups(fields[4], 128,
+                                       int(fields[4].max()))
+    flats = [np.zeros(nr * 128, np.uint16) for _ in range(3)]
+    _, t_emit = timed(lambda: emit(off, flats[0]))
+    _, t_pack = timed(lambda: native.pack_delta16(*fields[:4], off,
+                                                  flats[1]))
+    _, t_pack_ref = timed(lambda: native.pack_delta16_ref(*fields[:4], off,
+                                                          flats[2]))
+    same_arrays("delta16_rows / pack_delta16", flats[:2], flats[1:])
+    times["delta16_rows (counts + emit)"] = (t_lens + t_emit,
+                                             t_fields + t_pack_ref)
+    times["pack_delta16"] = (t_pack, t_pack_ref)
+    del flats, fields
+    code_bits = 32 - max(int(np.ceil(np.log2(V + 2))), 1)
+    term_lo, step = eng._term_scale_from_csr(index, code_bits)
+    lens2 = (dt2 >= 0).sum(axis=1)
+    off2, nr2 = eng._place_length_groups(lens2, 128, dt2.shape[1])
+    args = (dt2, di2, off2, 32 - code_bits, 0.0, step, (1 << code_bits) - 2)
+    flats = [np.full(nr2 * 128, -1, np.int32) for _ in range(2)]
+    pair("pack_ragged",
+         lambda: native.pack_ragged(*args, flats[0], term_lo=term_lo),
+         lambda: native.pack_ragged_ref(*args, flats[1], term_lo=term_lo))
+    same_arrays("pack_ragged", flats[:1], flats[1:])
+    del flats, rows, dt2, di2
+    qt, qw = index.encode_queries(queries, max_query_terms=MAX_QUERY_TERMS)
+    is_tiny = (qt >= 0) & (df[np.maximum(qt, 0)] <= tiny_cap)
+    got, want = pair(
+        "tiny_exact",
+        lambda: native.gather_tiny_exact(*csr[:3], qt, qw, is_tiny),
+        lambda: native.gather_tiny_exact_ref(*csr[:3], qt, qw, is_tiny))
+    n_entries, worst = 0, 0.0
+    for q in range(qt.shape[0]):
+        order = np.argsort(got[0][q])
+        real = got[0][q][order] >= 0
+        if not np.array_equal(got[0][q][order][real],
+                              want[0][q][want[0][q] >= 0]):
+            raise AssertionError("tiny_exact: docs differ from the twin's")
+        for i in (1, 2):
+            a = got[i][q][order][real].astype(np.float64)
+            b = want[i][q][want[0][q] >= 0].astype(np.float64)
+            worst = max(worst, float((np.abs(a - b) / np.abs(b)).max(
+                initial=0.0)))
+        n_entries += int(real.sum())
+    if worst > TINY_RTOL:
+        raise AssertionError(f"tiny_exact: {worst:.3g} relative from its "
+                             f"float64 twin (bar {TINY_RTOL})")
+    log(f"native runtime against its numpy twins on the 1M KB ({dt.shape[0]}"
+        f" x {dt.shape[1]} doc rows, {len(csr[1])} postings; cap {cap}, tiny "
+        f"df <= {tiny_cap}; tiny_exact over {len(queries)} cli retrieve "
+        f"queries, {n_entries} (query, doc) sums, largest relative gap "
+        f"{worst:.3g}, bar {TINY_RTOL}), every other result array_equal; "
+        "seconds native / numpy (host clock, one call each): "
+        + "; ".join(f"{k} {a:.3f} / {b:.3f} ({b / max(a, 1e-9):.1f}x)"
+                    for k, (a, b) in times.items()) + f" ({card})")
+
+
+def analyzer_against_python(card: str, ascii_texts,
+                            n: int = N_ML_SENTENCES) -> None:
+    """Phase 4h (c), first half: the native batch analyzer on ``n``
+    seeded multilingual sentences, and on the ASCII KB sentences
+    ``ascii_texts``, in both modes against the Python analyzers, token
+    for token, each timed once."""
+    from kbner_tpu_torch import native
+    from kbner_tpu_torch.retrieval.analyzer import (cjk_analyze,
+                                                    standard_analyze)
+
+    corpora = {"multilingual": multilingual_sentences(n, seed=31),
+               "ASCII": list(ascii_texts)}
+    (_, t_tables) = timed(native.analyzer_tables)
+    parts = []
+    for name, texts in corpora.items():
+        for mode, python in (("standard", standard_analyze),
+                             ("cjk", cjk_analyze)):
+            want, t_py = timed(lambda: [python(t) for t in texts])
+            got, t_nat = timed(lambda: native.analyze_docs(texts, mode=mode))
+            if got != want:
+                bad = next(i for i, (a, b) in enumerate(zip(got, want))
+                           if a != b)
+                raise AssertionError(
+                    f"analyze_docs ({mode}) differs from the Python "
+                    f"analyzer on {texts[bad]!r}")
+            n_tok = sum(map(len, want))
+            parts.append(f"{name} {mode}: {n_tok} tokens, Python "
+                         f"{t_py:.2f} s, native {t_nat:.2f} s "
+                         f"({t_py / t_nat:.1f}x)")
+    n_ascii = sum(t.isascii() for t in corpora["multilingual"])
+    log(f"analyze_docs on {n} multilingual sentences ({n_ascii} of them "
+        f"ASCII; Latin with diacritics, Cyrillic, Greek, Arabic, Han, Kana, "
+        f"Hangul, dotted I, final sigma, combining marks) and on "
+        f"{len(ascii_texts)} ASCII KB sentences: tokens equal the Python "
+        f"analyzers' in both modes; " + "; ".join(parts)
+        + f"; Unicode tables ready in {t_tables:.2f} s (host clock) ({card})")
+
+
+def zh_stage(cli, bm25, tmp, model_cfg, device, dev, card,
+             n_docs: int = N_ZH_DOCS, splits=None) -> None:
+    """Phase 4h (c), second half: ``cli index --lang zh --ik_dict
+    builtin`` over ``n_docs`` seeded zh documents, then ``cli retrieve
+    --lang zh`` of CoNLL splits of zh KB sentences against it, exhaustive
+    and pruned: sentences/s, launches, pruned recall@K against
+    exhaustive. Then K1 and K2 at this path's shapes, each held to its
+    plain version: K1 on the zh KB's text and title fields for one
+    ``cli retrieve`` batch of the train split with its gold entity
+    clauses, K2 on the pruned engine's pass-2 operands for that batch."""
+    import json
+
+    from kbner_tpu_torch.data.conll import (SentenceRecord, read_column_file,
+                                            write_column_file)
+    from kbner_tpu_torch.retrieval.engine import RetrievalEngine
+    from kbner_tpu_torch.retrieval.fusion import extract_entities
+    from kbner_tpu_torch.retrieval.pipeline import load_kb, sentence_query
+
+    splits = splits or ZH_SPLITS
+    rows = zh_word_rows(n_docs, seed=41)
+    with open(tmp / "zh.jsonl", "w", encoding="utf-8") as f:
+        for i, row in enumerate(rows):
+            text = "".join(row)
+            f.write(json.dumps({"title": row[0], "sentence": text,
+                                "paragraph": text,
+                                "url": f"https://zh.wikipedia.org/wiki/{i}"},
+                               ensure_ascii=False) + "\n")
+    (stats, _), index_s = timed(lambda: run_cli(cli, [
+        "index", "--kb", str(tmp / "zh.jsonl"), "--out", str(tmp / "zhkb"),
+        "--lang", "zh", "--ik_dict", "builtin"]))
+    meta = json.loads((tmp / "zhkb" / "meta.json").read_text())
+    if meta != {"lang": "zh", "ik_dict": "ik.dic", "ik_smart": False}:
+        raise AssertionError(f"cli index --lang zh: meta.json {meta}")
+    log(f"cli index --lang zh --ik_dict builtin: {n_docs} zh docs from "
+        f"JSONL in {index_s:.1f} s ({n_docs / index_s:.0f} docs/s; IK "
+        "segmentation in Python) split " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in stats.items() if k != "docs")
+        + f" ({card})")
+    rng = np.random.RandomState(42)
+    data = tmp / "zh-conll"
+    for split, n in splits.items():
+        recs = []
+        for i, d in enumerate(rng.randint(0, n_docs, n)):
+            toks = rows[d][:8]
+            recs.append(SentenceRecord(
+                tokens=toks, tags={"ner": ["B-PER"] + ["O"] * (len(toks) - 1)},
+                comment=f"# id {split}-{i}"))
+        write_column_file(data / f"{split}.txt", recs)
+    outs, parts = {}, []
+    for mode in ("exhaustive", "pruned"):
+        reset_counts(bm25)
+        (st, _), wall = timed(lambda: run_cli(cli, [
+            "retrieve", "--index_dir", str(tmp / "zhkb"), "--lang", "zh",
+            "--data_folder", str(data), "--out", str(tmp / f"zh-{mode}"),
+            "--engine_mode", mode, "--tokenizer_config", str(model_cfg),
+            *device]))
+        got = counts(bm25)
+        expect_counts(f"cli retrieve --lang zh ({mode})", got,
+                      {"delta16_rescore": None} if mode == "pruned"
+                      else {"bm25_score_block": None})
+        outs[mode] = tmp / f"zh-{mode}"
+        n_sent = sum(t["sentences"] for t in st.values())
+        secs = sum(v for t in st.values() for k, v in t.items()
+                   if k != "sentences")
+        parts.append(f"{mode}: {n_sent} sentences in {wall:.1f} s with the "
+                     f"KB open and the engine build ({n_sent / secs:.0f} "
+                     f"sentences/s over the splits' stages), launches {got}")
+    recall = min(retrieval_recall(outs["exhaustive"] / f"{s}.retrieval.tsv",
+                                  outs["pruned"] / f"{s}.retrieval.tsv")
+                 for s in splits)
+    log("cli retrieve --lang zh over the IK-indexed KB: " + "; ".join(parts)
+        + f"; pruned against exhaustive recall@{K} {recall:.4f} in the "
+        f"worst split (bar {MIN_RECALL}) ({card})")
+    if recall < MIN_RECALL:
+        raise AssertionError(f"cli retrieve --lang zh (pruned) recall@{K} "
+                             f"{recall:.4f} is below {MIN_RECALL}")
+    # K1 and K2 at the zh path's shapes, on the engines cli retrieve builds
+    text, store, title, _ = load_kb(tmp / "zhkb")
+    recs = read_column_file(data / "train.txt", {0: "text", 1: "ner"},
+                            comment_symbol="# id")[:RETRIEVE_BATCH]
+    queries = [sentence_query(r, "zh") for r in recs]
+    exhaustive = RetrievalEngine(text, store=store, title_index=title,
+                                 device=dev)
+    k1 = k1_at_retrieve_shape(bm25, exhaustive, queries,
+                              [extract_entities(r) for r in recs], dev)
+    del exhaustive
+    pruned = RetrievalEngine(text, store=store, title_index=title,
+                             mode="pruned", device=dev)
+    k2 = k2_at_retrieve_shape(bm25, pruned, queries)
+    del pruned
+    store.close()
+    log(f"bm25_score_block at one cli retrieve --lang zh batch of the train "
+        f"split, the zh KB's fields, entity clauses from gold seeds: {k1}; "
+        f"delta16_rescore on the zh pruned engine's pass-2 operands for "
+        f"that batch: {k2} ({card})")
+
+
+def recall_at_k(exact, got) -> float:
+    """Mean recall@K of ``got`` against ``exact`` (one (scores, ids) per
+    batch) over the queries whose exact top-k has a positive score."""
+    recalls = []
+    for (es, ei), (gs, gi) in zip(exact, got):
+        for q in range(ei.shape[0]):
+            want = {int(d) for d, x in zip(ei[q], es[q]) if x > 0}
+            if want:
+                found = {int(d) for d, x in zip(gi[q], gs[q])
+                         if d >= 0 and x > 0}
+                recalls.append(len(want & found) / len(want))
+    return float(np.mean(recalls))
+
+
+def batch_results(engine, queries, entities=None):
+    """(scores, ids) of ``engine.search_encoded`` per ``cli retrieve``
+    batch of sentence queries, with title-boosted entity clauses where
+    ``entities`` is given."""
+    out = []
+    for i in range(0, len(queries), RETRIEVE_BATCH):
+        qt, qw = engine.text_index.encode_queries(
+            queries[i:i + RETRIEVE_BATCH], max_query_terms=MAX_QUERY_TERMS)
+        tt = tw = None
+        if entities is not None:
+            ents = [" ".join(e) for e in entities[i:i + RETRIEVE_BATCH]]
+            tt, tw = engine.title_index.encode_queries(
+                ents, max_query_terms=MAX_QUERY_TERMS,
+                boosts=[TITLE_BOOST] * len(ents))
+        out.append(engine.search_encoded(qt, qw, k=K, title_terms=tt,
+                                         title_weights=tw))
+    return out
+
+
 def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
-                   dev, card, tmp, model_dir, encoder="large",
-                   n_index_docs=N_INDEX_DOCS, splits=None,
-                   n_dump_pages=N_DUMP_PAGES) -> None:
+                   dev, card, tmp, model_dir, encoder="large", splits=None,
+                   n_dump_pages=N_DUMP_PAGES, n_serve_kb=N_SERVE_KB_DOCS,
+                   n_ml=N_ML_SENTENCES, n_zh=N_ZH_DOCS, zh_splits=None
+                   ) -> None:
     """The recipe's first stage through the port's CLI: (a) ``cli
     ingest-dump`` on a synthetic dump and ``cli index`` on a JSONL of
-    ``n_index_docs`` KB sentences, reopened and held to an in-memory
-    build; (b) the main path's KB (``engine``'s indices and rendered
-    docs) saved with ``save_kb``, reopened with ``load_kb`` and held to
-    ``engine``; (c) ``cli retrieve --index_dir`` over CoNLL splits of KB
-    sentences in four engine settings; (d) ``cli retrieve`` with the
-    trained model in ``model_dir`` predicting the entity seeds, and with
-    BERTScore reranking; (e) ``cli serve --index_dir`` and ``--kb
-    --store`` held to the in-memory engine."""
+    every KB sentence, reopened and held to ``engine``; the main path's KB
+    (``engine``'s indices and rendered docs) saved with ``save_kb``,
+    reopened with ``load_kb`` and held to ``engine``; (b) the native host
+    runtime against its numpy twins on that KB, and the pruned engine
+    built both ways; ``cli retrieve --index_dir`` over CoNLL splits of KB
+    sentences in four engine settings; (c) the native analyzer against
+    the Python one on ``n_ml`` multilingual sentences, and a zh KB of
+    ``n_zh`` docs through ``cli index`` and ``cli retrieve``; (d) deep
+    pass-1 windows against the plain pruned engine; then ``cli retrieve``
+    with the trained model in ``model_dir`` predicting the entity seeds,
+    and with BERTScore reranking; ``cli serve --index_dir`` and ``--kb
+    --store`` (over the first ``n_serve_kb`` docs) held to the in-memory
+    engine."""
     import json
     from pathlib import Path
 
@@ -1226,9 +1674,9 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
     from kbner_tpu_torch.retrieval.docstore import PackedDocStore
     from kbner_tpu_torch.retrieval.engine import RetrievalEngine
     from kbner_tpu_torch.retrieval.fusion import extract_entities
-    from kbner_tpu_torch.retrieval.pipeline import (build_kb_from_jsonl,
-                                                    load_kb, save_kb,
+    from kbner_tpu_torch.retrieval.pipeline import (load_kb, save_kb,
                                                     sentence_query)
+    from kbner_tpu_torch import native
     from kbner_tpu_torch.retrieval.synth import sentence_queries
     from kbner_tpu_torch.serve import serve
     from kbner_tpu_torch.train import FinetuneTrainer
@@ -1263,47 +1711,51 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
         f"), {anchored} with link anchors, every link through a redirect "
         "resolved")
 
-    with open(tmp / "kb50k.jsonl", "w", encoding="utf-8") as f:
-        for r in kb_rows(docs, title_docs, 0, n_index_docs):
-            f.write(json.dumps(dict(zip(("sentence", "paragraph", "title",
-                                         "url"), r))) + "\n")
+    # cli index over every KB sentence, from JSONL
+    rows, render_s = timed(lambda: kb_rows(docs, title_docs, 0,
+                                           index.n_docs))
     t0 = time.perf_counter()
-    run_cli(cli, ["index", "--kb", str(tmp / "kb50k.jsonl"), "--out",
-                  str(tmp / "kb50k")])
-    index_s = time.perf_counter() - t0
-    small_q, _ = sentence_queries(docs[:n_index_docs], 4 * BATCH,
-                                  q_len=MAX_QUERY_TERMS, seed=5)
-    small_texts = [" ".join(f"w{t}" for t in r[r >= 0]) for r in small_q]
-    t0 = time.perf_counter()
-    text50, store50, title50, _ = load_kb(tmp / "kb50k")
-    open_s = time.perf_counter() - t0
-    saved = RetrievalEngine(text50, store=store50, title_index=title50,
-                            device=dev)
-    text_b, store_b, title_b = build_kb_from_jsonl(tmp / "kb50k.jsonl")
-    built = RetrievalEngine(text_b, store=store_b, title_index=title_b,
-                            device=dev)
-    enc = [text50.encode_queries(small_texts[i:i + BATCH])
-           for i in range(0, len(small_texts), BATCH)]
-    assert_same_results("cli index (50k)",
-                        [built.search_encoded(*e, k=K) for e in enc],
-                        [saved.search_encoded(*e, k=K) for e in enc])
-    log(f"cli index: {n_index_docs} docs from JSONL in {index_s:.2f} s "
-        f"({n_index_docs / index_s:.0f} docs/s; text and title BM25, "
-        f"packed doc store), reopened with load_kb in {open_s:.2f} s; its "
-        f"top-{K} for {len(small_texts)} queries equals an in-memory build's")
-    del saved, built
-    store50.close()
+    keys = ("sentence", "paragraph", "title", "url")
+    with open(tmp / "kb.jsonl", "w", encoding="utf-8") as f:
+        f.writelines(json.dumps(dict(zip(keys, r))) + "\n" for r in rows)
+    with open(tmp / "kb-serve.jsonl", "w", encoding="utf-8") as f:
+        f.writelines(json.dumps(dict(zip(keys, r))) + "\n"
+                     for r in rows[:n_serve_kb])
+    jsonl_s = time.perf_counter() - t0
+    (stats, _), index_s = timed(lambda: run_cli(cli, [
+        "index", "--kb", str(tmp / "kb.jsonl"), "--out",
+        str(tmp / "kb-jsonl")]))
+    (text_j, store_j, title_j, _), open_s = timed(
+        lambda: load_kb(tmp / "kb-jsonl"))
+    from_jsonl = RetrievalEngine(text_j, store=store_j, title_index=title_j,
+                                 device=dev)
+    texts = [" ".join(r["tokens"]) for r in requests]
+    assert_same_results(
+        "cli index from JSONL against build_encoded", exact,
+        [from_jsonl.search_encoded(*text_j.encode_queries(
+            texts[i:i + BATCH], max_query_terms=MAX_QUERY_TERMS), k=K)
+         for i in range(0, len(texts), BATCH)])
+    log(f"cli index: {stats['docs']} docs from JSONL in {index_s:.1f} s "
+        f"({stats['docs'] / index_s:.0f} docs/s; rendered in {render_s:.1f} "
+        f"s and written as JSONL in {jsonl_s:.1f} s, set-up): text index "
+        f"analysis {stats['analysis']:.1f} s (native, standard), "
+        f"vocabulary {stats['vocabulary']:.1f} s (sorted unique tokens), "
+        f"layout {stats['layout']:.1f} s; title index {stats['title']:.1f} "
+        f"s; reading the JSONL and the packed doc store {stats['read']:.1f} "
+        f"s; save {stats['save']:.1f} s; reopened with load_kb in "
+        f"{open_s:.2f} s; the top-{K} of the {len(texts)} served queries "
+        f"equals build_encoded's KB's by doc id within ties ({card})")
+    del from_jsonl, text_j, title_j
+    store_j.close()
 
     # -- (b) the full-size saved KB ----------------------------------------
     kb_dir = tmp / "kb1m"
-    t0 = time.perf_counter()
-    rows = kb_rows(docs, title_docs, 0, index.n_docs)
-    render_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     store = PackedDocStore.build(kb_dir / "kb.docs", rows)
     save_kb(kb_dir, index, store, title_index)
     store.close()
     save_s = time.perf_counter() - t0
+    ascii_texts = [r[0] for r in rows[:n_ml]]
     del rows
     t0 = time.perf_counter()
     text1m, store1m, title1m, _ = load_kb(kb_dir)
@@ -1353,17 +1805,46 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
         + k1_at_retrieve_shape(bm25, reopened, queries[:RETRIEVE_BATCH],
                                [extract_entities(r) for r in first], dev)
         + f" ({card})")
+    # (d)'s exhaustive reference: the first train batches, with and
+    # without their gold entity clauses
+    deep_q = queries[:N_DEEP_QUERIES]
+    deep_e = [extract_entities(r) for r in train_recs[:N_DEEP_QUERIES]]
+    deep_exact = {"served": batch_results(reopened, deep_q),
+                  "with entities": batch_results(reopened, deep_q, deep_e)}
     del reopened
-    # one pruned engine, built as cli retrieve builds it, serves both
-    # pruned cli runs below
-    t0 = time.perf_counter()
-    pruned = RetrievalEngine(text1m, store=store1m, title_index=title1m,
-                             mode="pruned", device=dev)
-    torch.cuda.synchronize()
-    pruned_s = time.perf_counter() - t0
+
+    # -- (b) the native runtime against its numpy twins ----------------------
+    # the pruned engine built as cli retrieve builds it, through the numpy
+    # twins and then natively (each with its own CSR build); the native
+    # one serves both pruned cli runs below
+    def build_pruned():
+        text1m._csr = title1m._csr = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = RetrievalEngine(text1m, store=store1m, title_index=title1m,
+                              mode="pruned", device=dev)
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    with numpy_twins(native):
+        twin, twin_s = build_pruned()
+    pruned, pruned_s = build_pruned()
+    for name in ("text", "title"):
+        for a, b in zip(pruned.rows[name] + pruned.csr[name],
+                        twin.rows[name] + twin.csr[name]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"the pruned engine's {name} arrays "
+                                     "differ between its native and numpy "
+                                     "builds")
+    del twin
+    log(f"pruned engine over the saved 1M KB (cli retrieve's knobs): built "
+        f"in {pruned_s:.1f} s with the native runtime, {twin_s:.1f} s with "
+        f"its numpy twins (host clock, twins first, each with its CSR "
+        f"build); every row and CSR array on the card equal ({card})")
+    native_against_twins(index, queries[:RETRIEVE_BATCH],
+                         pruned.per_term_cap, pruned.tiny_cap, card)
     log(f"delta16_rescore on search_stream's operands for one cli retrieve "
-        f"batch of the train split (the pruned engine over the saved KB, "
-        f"built in {pruned_s:.1f} s): "
+        f"batch of the train split (the pruned engine over the saved KB): "
         + k2_at_retrieve_shape(bm25, pruned, queries[:RETRIEVE_BATCH])
         + f" ({card})")
     loop_s, stream_s = stream_against_per_batch(pruned, queries)
@@ -1373,6 +1854,13 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
         f"(host clock): per-batch {loop_s[0]:.3f}, {loop_s[1]:.3f} s; "
         f"stream {stream_s[0]:.3f}, {stream_s[1]:.3f} s; every run's scores "
         f"equal the first's exactly, ids within ties ({card})")
+    nat_s, twin_s = stream_native_against_twin(pruned, queries, native)
+    log(f"search_stream over the same {len(queries)} queries with the "
+        f"native tiny gather and with its numpy twin, timed in turns (host "
+        f"clock): native {nat_s[0]:.3f}, {nat_s[1]:.3f} s; twin "
+        f"{twin_s[0]:.3f}, {twin_s[1]:.3f} s; scores equal run to run, "
+        f"native against twin within rtol {SCORE_RTOL}, ids within ties "
+        f"({card})")
     model_cfg = tmp / "model.yaml"
     model_cfg.write_text(json.dumps({
         "name": "kb-stage", "tokenizer": {"type": "hash",
@@ -1439,8 +1927,6 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
                 f"subtokens ({card})")
     finally:
         cli.RetrievalEngine = engine_class
-    del pruned
-    store1m.close()
     for ex_label, pr_label in (("exhaustive", "pruned"),
                                ("exhaustive + entities",
                                 "pruned + entities")):
@@ -1452,6 +1938,43 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
         if recall < MIN_RECALL:
             raise AssertionError(f"cli retrieve ({pr_label}) recall@{K} "
                                  f"{recall:.4f} is below {MIN_RECALL}")
+
+    # -- (c) the native analyzer, and a zh KB --------------------------------
+    analyzer_against_python(card, ascii_texts, n_ml)
+    zh_stage(cli, bm25, tmp, model_cfg, device, dev, card, n_zh, zh_splits)
+
+    # -- (d) deep pass-1 windows, beside the shared pruned engine ----------
+    t0 = time.perf_counter()
+    deep = RetrievalEngine(text1m, store=store1m, title_index=title1m,
+                           mode="pruned", device=dev, **DEEP)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    parts = []
+    for label, exact_b in deep_exact.items():
+        ents = deep_e if label == "with entities" else None
+        r_plain = recall_at_k(exact_b, batch_results(pruned, deep_q, ents))
+        reset_counts(bm25)
+        r_deep = recall_at_k(exact_b, batch_results(deep, deep_q, ents))
+        expect_counts(f"deep windows ({label})", counts(bm25),
+                      {"delta16_rescore": len(exact_b)})
+        parts.append(f"{label} {r_deep:.4f} (plain pruned {r_plain:.4f})")
+        if r_deep < MIN_RECALL:
+            raise AssertionError(f"deep windows ({label}) recall@{K} "
+                                 f"{r_deep:.4f} is below {MIN_RECALL}")
+    csr_bytes = [sum(t.nbytes for t in e.csr["text"])
+                 for e in (pruned, deep)]
+    log(f"deep windows (deep_terms={deep.deep_terms}, deep_cap="
+        f"{deep.deep_cap}, per_term_cap={deep.per_term_cap}) on the saved 1M "
+        f"KB, built in {build_s:.1f} s: recall@{K} against "
+        f"exhaustive over the first {len(deep_q)} train queries: "
+        + ", ".join(parts) + f"; text CSR on the card {csr_bytes[1] / 1e6:.1f}"
+        f" MB, {csr_bytes[0] / 1e6:.1f} MB without deep windows ({card})")
+    log("delta16_rescore on the deep engine's pass-2 operands for one cli "
+        "retrieve batch of the train split: "
+        + k2_at_retrieve_shape(bm25, deep, queries[:RETRIEVE_BATCH])
+        + f" ({card})")
+    del pruned, deep
+    store1m.close()
 
     # -- (d) the trained model's seeds, and BERTScore reranking -------------
     held = tmp / "conll-held"
@@ -1535,10 +2058,10 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
         raise AssertionError("cli serve --index_dir answers differ from "
                              "the in-memory engine's")
     small = [{"id": i, "tokens": t.split()}
-             for i, t in enumerate(small_texts[:BATCH])]
+             for i, t in enumerate(texts[:BATCH])]
     stdin_small = "\n".join(json.dumps(r) for r in small) + "\n"
     answers = [run_cli(cli, ["serve", "--config", str(model_cfg), "--kb",
-                             str(tmp / "kb50k.jsonl"), *opt, *device],
+                             str(tmp / "kb-serve.jsonl"), *opt, *device],
                        stdin_small)[1]
                for opt in ([], ["--store", str(tmp / "serve.docs")])]
     if answers[0] != answers[1] or not answers[0]:
@@ -1548,7 +2071,7 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
         f"bf16): {len(got)} requests in {serve_s:.1f} s with the KB open and "
         f"the checkpoint load, launches {served}; responses equal serve() "
         f"on the in-memory engine with the same tagger; --kb --store over "
-        f"the 50k JSONL answers as --kb does ({card})")
+        f"the first {n_serve_kb} docs' JSONL answers as --kb does ({card})")
 
 
 def fuse_served(engine, tokenizer, records):
@@ -1604,6 +2127,7 @@ def main() -> int:
     # -- 1. device -----------------------------------------------------------
     card = card_line()
     log(card)
+    log(f"host: {host_line()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device: {torch.cuda.get_device_name(0)} x "

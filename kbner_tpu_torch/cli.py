@@ -196,22 +196,32 @@ def cmd_ingest_dump(args) -> None:
     log.info("wrote %d records to %s", n, args.out)
 
 
-def cmd_index(args) -> None:
+def cmd_index(args) -> Dict[str, float]:
     """Build a KB from parsed-wiki JSONL and save it (text and title BM25
-    indices, the packed doc store, meta.json), on the host."""
-    if args.ik_dict or args.ik_smart:
-        raise NotImplementedError(
-            "--ik_dict/--ik_smart (the zh IK analyzer) are not ported to "
-            "kbner_tpu_torch yet (ROADMAP A6)")
+    indices, the packed doc store, meta.json, a zh KB's IK dictionary), on
+    the host. Returns the document count and the seconds of the text
+    index's analysis, vocabulary and layout, the title index's build and
+    the save."""
     _setup_logging(None)
     out = Path(args.out)
+    t0 = time.perf_counter()
     text_index, store, title_index = build_kb_from_jsonl(
         args.kb, lang=args.lang, store_path=out / "kb.docs",
-        fail_path=args.kb_fail_file)
-    save_kb(out, text_index, store, title_index, args.lang)
+        fail_path=args.kb_fail_file, ik_dict=args.ik_dict,
+        ik_smart=args.ik_smart)
+    built_s = time.perf_counter() - t0
+    save_kb(out, text_index, store, title_index, args.lang,
+            ik_dict=args.ik_dict, ik_smart=args.ik_smart)
     store.close()
-    log.info("saved %d-doc %s index to %s", text_index.n_docs, args.lang,
-             out)
+    text_s = text_index.build_seconds
+    title_s = sum(title_index.build_seconds.values())
+    stats = {"docs": text_index.n_docs, **text_s, "title": title_s,
+             "read": built_s - sum(text_s.values()) - title_s,
+             "save": time.perf_counter() - t0 - built_s}
+    log.info("saved %d-doc %s index to %s; seconds %s", text_index.n_docs,
+             args.lang, out, ", ".join(f"{k} {v:.2f}" for k, v in
+                                      stats.items() if k != "docs"))
+    return stats
 
 
 def _predictor(config_path: str, device: str) -> FinetuneTrainer:
@@ -491,9 +501,12 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--lang", default="en")
     sp.add_argument("--kb_fail_file", default=None,
                     help="append unparseable KB lines here and go on")
-    sp.add_argument("--ik_dict", default=None, help="zh only (not ported)")
+    sp.add_argument("--ik_dict", default=None,
+                    help="zh only: an IK dictionary (a word per line) or "
+                         "'builtin' for the shipped word list; copied into "
+                         "the KB directory")
     sp.add_argument("--ik_smart", action="store_true",
-                    help="zh only (not ported)")
+                    help="zh only: ik_smart instead of ik_max_word")
     sp.set_defaults(fn=cmd_index)
 
     sp = sub.add_parser("ingest-dump")

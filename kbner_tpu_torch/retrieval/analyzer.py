@@ -1,18 +1,23 @@
-"""Text analysis: Lucene standard-analyzer tokenization (counterpart of
-``kbner_tpu/retrieval/analyzer.py``, the pure-Python UAX#29 path only).
+"""Text analysis: Lucene standard-analyzer tokenization and the zh
+analyzers (counterpart of ``kbner_tpu/retrieval/analyzer.py``).
 
 Elasticsearch's ``standard`` analyzer is the UAX#29 word-break grammar plus
 lowercasing, with no stopwords: MidLetter/MidNumLet/Single_Quote joins
 (``don't``, ``U.S.A``, ``3.14``), ExtendNumLet joins (``foo_bar``), single
 Han/Hiragana characters, joined Katakana runs, and Extend/Format chars
-attached to the current token. The zh (IK / bigram) analyzers wait for
-ROADMAP A6.
+attached to the current token. zh is indexed with IK in the reference
+recipe (``ik_max_word``/``ik_smart``): :class:`IkAnalyzer` segments Han runs
+with a word list, and without one :func:`cjk_analyze` adds Han bigrams.
+``kbner_tpu_torch/native`` analyzes whole batches of documents with the
+standard and bigram rules in one native call, with tables generated from
+:func:`_wb_class` below.
 """
 
 from __future__ import annotations
 
 import re
 import unicodedata
+from pathlib import Path
 from typing import List, Tuple
 
 # -- UAX#29 Word_Break classes (the subset relevant to the KB's languages) --
@@ -200,11 +205,132 @@ def highlight_hits(text: str, query_terms, pre: str = "<hit>",
     return "".join(out)
 
 
-def get_analyzer(lang: str = "en"):
-    """The index analyzer of a language: the standard analyzer for every
-    language but zh, whose IK and char-bigram analyzers are not ported."""
+def _is_cjk_single(tok: str) -> bool:
+    return len(tok) == 1 and _in_ranges(ord(tok), _HAN_RANGES)
+
+
+def cjk_analyze(text: str) -> List[str]:
+    """The zh analyzer without a dictionary: the standard tokens, each
+    single Han character followed by its bigram with the Han character
+    before it."""
+    base = standard_analyze(text)
+    out: List[str] = []
+    prev_cjk = None
+    for tok in base:
+        out.append(tok)
+        if _is_cjk_single(tok):
+            if prev_cjk is not None:
+                out.append(prev_cjk + tok)
+            prev_cjk = tok
+        else:
+            prev_cjk = None
+    return out
+
+
+class IkAnalyzer:
+    """IK-style dictionary analyzer for zh (``ik_max_word`` /
+    ``ik_smart``). Over each run of adjacent single Han tokens of the
+    standard tokenization:
+
+    * ``smart=False`` (ik_max_word): every dictionary word at every
+      position, overlapping ("北京大学" with {北京, 大学, 北京大学} gives all
+      three), then each character no word covers as a unigram;
+    * ``smart=True`` (ik_smart): greedy forward maximum matching, one
+      segmentation, longest word first.
+
+    Other tokens pass through as the standard analyzer makes them. The
+    dictionary is a word-per-line file (``#`` comments), as IK's
+    ``main.dic``; words shorter than two characters are ignored.
+    """
+
+    def __init__(self, words, smart: bool = False):
+        self.words = {w for w in words if len(w) >= 2}
+        self.smart = smart
+        self.max_len = max((len(w) for w in self.words), default=1)
+        # the prefixes end a position's scan without a trie
+        self.prefixes = {w[:i] for w in self.words
+                         for i in range(1, len(w))}
+
+    @classmethod
+    def from_file(cls, dict_path, smart: bool = False) -> "IkAnalyzer":
+        words = []
+        with open(dict_path, encoding="utf-8") as f:
+            for line in f:
+                w = line.strip()
+                if w and not w.startswith("#"):
+                    words.append(w)
+        return cls(words, smart=smart)
+
+    def _han_run(self, run: str) -> List[str]:
+        n = len(run)
+        out: List[str] = []
+        if self.smart:
+            i = 0
+            while i < n:
+                for L in range(min(self.max_len, n - i), 1, -1):
+                    if run[i:i + L] in self.words:
+                        out.append(run[i:i + L])
+                        i += L
+                        break
+                else:
+                    out.append(run[i])
+                    i += 1
+            return out
+        covered = [False] * n
+        for i in range(n):
+            for L in range(2, min(self.max_len, n - i) + 1):
+                piece = run[i:i + L]
+                if piece in self.words:
+                    out.append(piece)
+                    for j in range(i, i + L):
+                        covered[j] = True
+                if L < n - i + 1 and piece not in self.prefixes \
+                        and piece not in self.words:
+                    break
+        for i in range(n):
+            if not covered[i]:
+                out.append(run[i])
+        return out
+
+    def __call__(self, text: str) -> List[str]:
+        toks = analyze_with_offsets(text)
+        out: List[str] = []
+        run: List[str] = []
+        last_end = None
+        for tok, s, e in toks:
+            if _is_cjk_single(tok) and (last_end is None or s == last_end
+                                        or not run):
+                if run and s != last_end:
+                    out.extend(self._han_run("".join(run)))
+                    run = []
+                run.append(tok)
+                last_end = e
+                continue
+            if run:
+                out.extend(self._han_run("".join(run)))
+                run = []
+                last_end = None
+            out.append(tok)
+        if run:
+            out.extend(self._han_run("".join(run)))
+        return out
+
+
+def builtin_zh_lexicon() -> Path:
+    """The checked-in zh word list (about 3.5k common words), the
+    dictionary ``--ik_dict builtin`` names."""
+    return Path(__file__).parent / "zh_lexicon.txt"
+
+
+def get_analyzer(lang: str = "en", dict_path=None, smart: bool = False):
+    """The index analyzer of a language: for zh an :class:`IkAnalyzer`
+    over ``dict_path`` (``"builtin"``: :func:`builtin_zh_lexicon`;
+    ``smart`` for ik_smart), else the char-bigram :func:`cjk_analyze`;
+    the standard analyzer for every other language."""
     if lang == "zh":
-        raise NotImplementedError(
-            "the zh analyzers (IK / char bigrams) are not ported to "
-            "kbner_tpu_torch yet (ROADMAP A6)")
+        if dict_path is not None:
+            if dict_path == "builtin":
+                dict_path = builtin_zh_lexicon()
+            return IkAnalyzer.from_file(dict_path, smart=smart)
+        return cjk_analyze
     return standard_analyze

@@ -32,10 +32,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
 from ..ops.bm25 import (KEY_PAD, bm25_pruned_topk_packed, bm25_topk,
                         gather_pruned_candidate_keys)
-from .index import BM25Index, log_quantize, long_to_int4
+from .index import BM25Index, long_to_int4
 
 _DOC_PAD = 512  # the doc axis is padded to a multiple of this on upload
 
@@ -105,9 +106,11 @@ def _place_length_groups(lens: np.ndarray, lanes: int, max_seg: int
 
 
 DELTA16_GAP_BITS = 13          # slot = (gap13 << 3) | tf3
-DELTA16_MAX_GAP = (1 << DELTA16_GAP_BITS) - 1  # 8191
-DELTA16_TF_CAP = 7             # tf saturates (tfNorm ~flat past it)
-DELTA16_CONT = np.uint16(DELTA16_MAX_GAP << 3)  # continuation: tf=0
+# the 13-bit gap's largest value (8191), tf's cap (tfNorm is about flat
+# past 7) and the continuation slot (tf = 0)
+DELTA16_MAX_GAP = native.DELTA16_MAX_GAP
+DELTA16_TF_CAP = native.DELTA16_TF_CAP
+DELTA16_CONT = native.DELTA16_CONT
 
 
 def _nontiny_remap(df: np.ndarray, tiny_cap: int
@@ -147,55 +150,14 @@ def _pack_doc_rows_delta16(
     Returns (flat [NR, lanes] uint16, off [N] int32 slot offsets,
     lens [N] uint8|int32 slot counts, r2 covering rows).
     """
-    N, L = dt.shape
-    valid = dt >= 0
-    rm = np.where(valid, remap[np.maximum(dt, 0)], np.int64(2**62))
-    if valid.any() and int(rm[valid].min()) < 0:
-        raise ValueError("delta16 rows require tiny terms dropped first")
-    order = np.argsort(rm, axis=1, kind="stable")
-    rm_s = np.take_along_axis(rm, order, axis=1)
-    di_s = np.take_along_axis(di, order, axis=1)
-    orig_s = np.take_along_axis(dt, order, axis=1)
-    v_s = rm_s < 2**62
-
-    idf_s = idf[np.maximum(orig_s, 0)].astype(np.float64)
-    x = np.where(v_s, di_s / np.maximum(idf_s, 1e-30), 0.0)
-    x = np.clip(x, 0.0, 1.0 - 1e-9)
-    tf = np.rint(norm[:, None] * x / (1.0 - x)).astype(np.int64)
-    tf = np.clip(tf, 1, DELTA16_TF_CAP)
-
-    prev = np.concatenate(
-        [np.zeros((N, 1), np.int64), rm_s[:, :-1]], axis=1)
-    gaps = np.where(v_s, rm_s - np.where(v_s, prev, 0), 0)
-    # the first valid slot's gap is the id itself
-    n_cont = gaps // DELTA16_MAX_GAP
-    rem = gaps - n_cont * DELTA16_MAX_GAP  # in [0, MAX_GAP)
-    slots_per = np.where(v_s, 1 + n_cont, 0)
-    lens = slots_per.sum(axis=1)
+    lens, emit = native.delta16_rows(dt, di, remap, idf, norm)
+    lens = lens[:dt.shape[0]]
     max_seg = int(lens.max(initial=0))
-
     off, nr = _place_length_groups(lens, lanes, max(max_seg, 1))
     if off.max(initial=0) + max_seg >= 2**31:
         raise ValueError("delta16 layout exceeds int32 offsets; shard more")
-
-    flat = np.full(nr * lanes, 0, dtype=np.uint16)
-    # slot stream: per posting, n_cont continuations then the real slot
-    pv, jv = np.nonzero(v_s)
-    reps = slots_per[pv, jv]
-    tot = int(reps.sum())
-    pidx = np.repeat(np.arange(len(pv)), reps)
-    ends = np.cumsum(reps)
-    is_real = np.arange(tot) == np.repeat(ends - 1, reps)
-    vals = np.where(
-        is_real,
-        (rem[pv, jv][pidx].astype(np.uint32) << 3)
-        | tf[pv, jv][pidx].astype(np.uint32),
-        np.uint32(DELTA16_CONT)).astype(np.uint16)
-    # slot position within its doc (slots are doc-major)
-    doc_of_slot = pv[pidx]
-    first_global = np.repeat(np.cumsum(lens) - lens, lens.astype(np.int64))
-    slot_in_doc = np.arange(tot) - first_global
-    flat[off[doc_of_slot] + slot_in_doc] = vals
+    flat = np.zeros(nr * lanes, dtype=np.uint16)
+    emit(off, flat)
     r2 = 1 if max_seg <= lanes else (max_seg + lanes - 1) // lanes
     lens_dtype = np.uint8 if max_seg < 256 else np.int32
     return (flat.reshape(nr, lanes), off.astype(np.int32),
@@ -207,18 +169,7 @@ def _drop_tiny_slots(dt: np.ndarray, di: np.ndarray, df: np.ndarray,
     """Left-compacted copies of the padded doc arrays without the slots of
     tiny terms (df <= tiny_cap): the host scores those exactly, so the
     pass-2 rows need not carry them."""
-    keep = dt >= 0
-    keep[keep] = df[dt[keep]] > tiny_cap
-    new_len = keep.sum(axis=1)
-    ld = max(int(new_len.max(initial=0)), 1)
-    n = dt.shape[0]
-    dt2 = np.full((n, ld), -1, dtype=dt.dtype)
-    di2 = np.zeros((n, ld), dtype=di.dtype)
-    rows = np.nonzero(keep)[0]
-    cols = (np.cumsum(keep, axis=1) - 1)[keep]
-    dt2[rows, cols] = dt[keep]
-    di2[rows, cols] = di[keep]
-    return dt2, di2
+    return native.compact_tiny(dt, di, df, tiny_cap)
 
 
 def _pow2_width(n: int, start: int) -> int:
@@ -230,23 +181,6 @@ def _pow2_width(n: int, start: int) -> int:
 
 
 # -- pass-2 row layout (packed32) ----------------------------------------------
-
-def _quantize_codes(di: np.ndarray, bits: int,
-                    scale: Optional[Tuple[float, float]] = None
-                    ) -> Tuple[np.ndarray, float, float]:
-    """Log-quantized impacts ``(codes, lo, step)``, against a given ``(lo,
-    step)`` when ``scale`` is set (float64 logs)."""
-    if scale is None:
-        return log_quantize(di, bits=bits)
-    lo, step = scale
-    levels = (1 << bits) - 2
-    codes = np.zeros(di.shape, np.uint16 if bits <= 16 else np.uint32)
-    pos = di > 0
-    codes[pos] = np.clip(
-        np.rint((np.log(di[pos].astype(np.float64)) - lo) / step), 0, levels
-    ).astype(codes.dtype) + 1
-    return codes, lo, step
-
 
 def _pack_doc_rows_ragged(
     dt: np.ndarray,
@@ -298,20 +232,8 @@ def _pack_doc_rows_ragged(
         raise ValueError("ragged layout exceeds int32 offsets; shard more")
 
     flat = np.full(nr * lanes, -1, dtype=np.int32)
-    if term_lo is not None:
-        codes = np.zeros(di.shape, np.uint32)
-        p = valid & (di > 0)
-        base = term_lo[np.maximum(dt, 0)].astype(np.float64)
-        codes[p] = np.clip(
-            np.rint((np.log(di[p].astype(np.float64)) - base[p]) / step),
-            0, levels).astype(np.uint32) + 1
-    else:
-        codes, _, _ = _quantize_codes(di, bits=code_bits, scale=(lo, step))
-    packed = ((codes.astype(np.uint32) << term_bits)
-              | (dt.astype(np.uint32) & ((1 << term_bits) - 1))
-              ).view(np.int32)
-    pos = off[:, None] + np.arange(Ld, dtype=np.int64)[None, :]
-    flat[pos[valid]] = packed[valid]
+    native.pack_ragged(dt, di, off, term_bits, lo, step, levels, flat,
+                       term_lo=term_lo)
     lens_dtype = np.uint8 if Ld < 256 else np.int32
     return (flat.reshape(nr, lanes), off.astype(np.int32),
             lens.astype(lens_dtype), term_bits, lo, step, r2)
@@ -360,7 +282,11 @@ class RetrievalEngine:
     text field's pass-2 rows: ``"delta16"``, ``"packed32"``, or
     ``"auto"`` (delta16 on an index with stored doc lengths and quantized
     norms, else packed32); ``align_windows`` pads each term's CSR range to
-    whole rows.
+    whole rows. ``deep_terms`` of each query's rarest selected terms read
+    ``deep_cap`` postings in pass 1 instead of ``posting_budget //
+    rare_terms`` (the text CSR then keeps up to ``deep_cap`` per term).
+    The host side (CSR, rows, the tiny terms' exact sums) is built by the
+    native runtime, ``kbner_tpu_torch/native``.
     """
 
     def __init__(
@@ -398,6 +324,9 @@ class RetrievalEngine:
             raise NotImplementedError(
                 "device=False (host arrays for a MixEngine) is not ported "
                 "yet (ROADMAP A4)")
+        if deep_terms and mode != "pruned":
+            raise ValueError("deep_terms>0 supports only the unsharded "
+                             "pruned engine")
         self.mode = mode
         self.text_index = text_index
         self.title_index = title_index
@@ -428,9 +357,6 @@ class RetrievalEngine:
         """The pruned knobs and the values derived from them, as the
         reference derives them; what a later slice ports raises here."""
         idx = self.text_index
-        if deep_terms or deep_cap:
-            raise NotImplementedError(
-                "deep_terms/deep_cap are not ported yet (ROADMAP A4)")
         if topc_recall > 0.0:
             raise NotImplementedError(
                 "topc_recall > 0 (approx_max_k) has no torch counterpart; "
@@ -452,6 +378,13 @@ class RetrievalEngine:
             256, idx.n_docs // 20)
         self.n_candidates = n_candidates
         self.per_term_cap = max(1, posting_budget // rare_terms)
+        # deep windows: the deep_terms rarest selected terms of a query
+        # read deep_cap postings in pass 1 instead of per_term_cap, and the
+        # text CSR keeps min(df, deep_cap) postings per term
+        self.deep_terms = int(deep_terms)
+        self.deep_cap = max(int(deep_cap), self.per_term_cap)
+        if self.deep_terms > rare_terms:
+            raise ValueError("deep_terms must be <= rare_terms")
         self.compact_rows = compact_rows
         self.tiny_cap = (min(tiny_df_cap, self.per_term_cap, self.df_cap)
                          if compact_rows else 0)
@@ -550,7 +483,8 @@ class RetrievalEngine:
         # the device never looks up a tiny text term, so its postings leave
         # the text CSR; the title CSR keeps every term
         off32, packed, clo, cstep = idx.csr_rows_packed(
-            cap=self.per_term_cap, min_df=self.tiny_cap if text else 0,
+            cap=self.deep_cap if text and self.deep_terms
+            else self.per_term_cap, min_df=self.tiny_cap if text else 0,
             align_windows=self._csr_aligned)
         self._csr_scale[name] = (clo, cstep)
         self.csr[name] = (put(off32), put(packed))
@@ -580,45 +514,15 @@ class RetrievalEngine:
     def _gather_tiny_exact(self, q_terms: np.ndarray, q_weights: np.ndarray
                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Host exact block of the tiny terms: per query, every posting of
-        every tiny query term, deduplicated by doc with impact sums and
-        weighted sums (float64 sums, docs in ascending order). Returns
-        (doc [Q, T] int32, imp [Q, T], exact [Q, T]) with -1/0 padding, T a
-        multiple of 128."""
+        every tiny query term, summed by doc in float32 in posting order,
+        docs in the order first seen (``native.gather_tiny_exact``).
+        Returns (doc [Q, T] int32, imp [Q, T], exact [Q, T]) with -1/0
+        padding, T a multiple of 128."""
         offsets, p_doc, p_imp, df = self.text_index.csr
-        n_docs = self.text_index.n_docs
-        Q = q_terms.shape[0]
         is_tiny = (q_terms >= 0) & (df[np.maximum(q_terms, 0)]
                                     <= self.tiny_cap)
-        qidx, tpos = np.nonzero(is_tiny)
-        if len(qidx) == 0:
-            z = np.zeros((Q, 0), np.float32)
-            return np.full((Q, 0), -1, np.int32), z, z
-        terms = q_terms[qidx, tpos].astype(np.int64)
-        ws = q_weights[qidx, tpos].astype(np.float32)
-        dfs = df[terms]
-        total = int(dfs.sum())
-        cum = np.cumsum(dfs) - dfs
-        flat = (np.repeat(offsets[terms], dfs)
-                + (np.arange(total) - np.repeat(cum, dfs)))
-        docs = p_doc[flat].astype(np.int64)
-        imps = p_imp[flat]
-        key = np.repeat(qidx.astype(np.int64), dfs) * n_docs + docs
-        uniq, inv = np.unique(key, return_inverse=True)
-        s_imp = np.bincount(inv, weights=imps).astype(np.float32)
-        s_ex = np.bincount(inv, weights=imps * np.repeat(ws, dfs)).astype(
-            np.float32)
-        uq = uniq // n_docs
-        counts = np.bincount(uq, minlength=Q)
-        T = ((int(counts.max(initial=0)) + 127) // 128) * 128
-        pos = np.arange(len(uniq)) - np.repeat(
-            np.cumsum(counts) - counts, counts)
-        out_doc = np.full((Q, T), -1, np.int32)
-        out_imp = np.zeros((Q, T), np.float32)
-        out_ex = np.zeros((Q, T), np.float32)
-        out_doc[uq, pos] = (uniq % n_docs).astype(np.int32)
-        out_imp[uq, pos] = s_imp
-        out_ex[uq, pos] = s_ex
-        return out_doc, out_imp, out_ex
+        return native.gather_tiny_exact(offsets, p_doc, p_imp, q_terms,
+                                        q_weights, is_tiny)
 
     def _tiny_block(self, q_terms: np.ndarray, q_weights: np.ndarray
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -789,10 +693,18 @@ class RetrievalEngine:
         key_blocks = []
         for name, rare in zip(names, rares):
             lo, step = self._csr_scale[name]
-            key_blocks.append(gather_pruned_candidate_keys(
-                self._put(rare), *self.csr[name], self.per_term_cap,
-                reencode=True, lo_src=lo, step_src=step, lo_dst=rank_lo,
-                step_dst=rank_step, aligned=self._csr_aligned))
+            rare = self._put(rare)
+            windows = [(rare, self.per_term_cap)]
+            if name == "text" and self.deep_terms:
+                # selection is df-ascending: the first deep_terms columns
+                # are the rarest terms, read to deep_cap
+                windows = [(rare[:, :self.deep_terms], self.deep_cap),
+                           (rare[:, self.deep_terms:], self.per_term_cap)]
+            for cols, cap in windows:
+                key_blocks.append(gather_pruned_candidate_keys(
+                    cols, *self.csr[name], cap, reencode=True, lo_src=lo,
+                    step_src=step, lo_dst=rank_lo, step_dst=rank_step,
+                    aligned=self._csr_aligned))
         t_doc = t_ex = None
         if tiny is not None:
             t_doc, t_ex = self._unpack_tiny(tiny)

@@ -1,5 +1,5 @@
 """BM25 index with Lucene-compatible statistics (counterpart of
-``kbner_tpu/retrieval/index.py``, numpy paths only).
+``kbner_tpu/retrieval/index.py``).
 
 The index is built on the host and laid out as dense padded arrays for
 device-side scoring:
@@ -17,7 +17,10 @@ Lucene 8 / ES 7.x BM25:
 
 ``quantize_norms=True`` reproduces Lucene's one-byte document-length
 encoding. The file format of :meth:`BM25Index.save` is the JAX package's,
-so an index saved by either package opens in the other.
+so an index saved by either package opens in the other. Documents and
+query batches analyzed by the standard or bigram analyzer go through the
+native batch analyzer, and the CSR is built and capped natively
+(``kbner_tpu_torch/native``).
 """
 
 from __future__ import annotations
@@ -25,12 +28,14 @@ from __future__ import annotations
 import dataclasses
 import logging
 import pickle
+import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .analyzer import standard_analyze
+from .. import native
+from .analyzer import cjk_analyze, standard_analyze
 
 PAD_TERM = -1  # padding slot in doc_terms
 OOV_TERM = -2  # query term absent from the index vocabulary
@@ -131,6 +136,7 @@ class BM25Index:
         n_docs: int,
         avgdl: float,
         params: BM25Params,
+        analyzer: Callable[[str], List[str]] = standard_analyze,
         doc_dl: Optional[np.ndarray] = None,
     ):
         self.vocab = vocab
@@ -140,7 +146,10 @@ class BM25Index:
         self.n_docs = n_docs
         self.avgdl = avgdl
         self.params = params
+        self.analyzer = analyzer  # documents' and queries' analyzer
         self.doc_dl = doc_dl  # per-doc (quantized) length in the norm
+        # seconds of build's analysis, vocabulary and layout steps
+        self.build_seconds: Dict[str, float] = {}
         self._csr = None  # lazy (offsets, postings_doc, postings_imp, df)
         # lazy (sorted key array, their ids) for batch lookup, set in one
         # assignment: encode_queries runs on several threads at once
@@ -156,16 +165,8 @@ class BM25Index:
         (ties in doc order), so a capped prefix holds the term's
         highest-impact documents."""
         if self._csr is None:
-            valid = self.doc_terms >= 0
-            terms = self.doc_terms[valid]
-            docs = np.nonzero(valid)[0].astype(np.int32)
-            imps = self.doc_impacts[valid].astype(np.float32)
-            order = np.lexsort((-imps, terms))
-            terms_s = terms[order]
-            df = np.bincount(terms_s, minlength=len(self.vocab))
-            offsets = np.zeros(len(self.vocab) + 1, dtype=np.int64)
-            np.cumsum(df, out=offsets[1:])
-            self._csr = (offsets, docs[order], imps[order], df.astype(np.int64))
+            self._csr = native.build_csr(self.doc_terms, self.doc_impacts,
+                                         len(self.vocab))
         return self._csr
 
     def csr_capped(self, cap: int, min_df: int = 0):
@@ -174,23 +175,9 @@ class BM25Index:
         past its window, and never looks up the tiny terms the host scores
         exactly). Returns (offsets int64 [V+1], doc ids, impacts)."""
         offsets, p_doc, p_imp, df = self.csr
-        V = len(self.vocab)
         if (cap <= 0 or (df <= cap).all()) and min_df <= 0:
             return offsets, p_doc, p_imp
-        starts = offsets[:-1]
-        pos = np.arange(len(p_doc), dtype=np.int64) - np.repeat(starts, df)
-        df_c = df.copy()
-        keep = np.ones(len(p_doc), bool)
-        if cap > 0:
-            keep &= pos < cap
-            np.minimum(df_c, cap, out=df_c)
-        if min_df > 0:
-            tiny = df <= min_df
-            keep &= ~np.repeat(tiny, df)
-            df_c[tiny] = 0
-        off_c = np.zeros(V + 1, dtype=np.int64)
-        np.cumsum(df_c, out=off_c[1:])
-        return off_c, p_doc[keep], p_imp[keep]
+        return native.csr_cap(offsets, p_doc, p_imp, df, cap, min_df)
 
     def csr_rows_packed(self, lanes: int = 128, guard_rows: int = 32,
                         cap: int = 0, min_df: int = 0,
@@ -226,6 +213,7 @@ class BM25Index:
     def build(
         cls,
         docs: Sequence[str],
+        analyzer: Callable[[str], List[str]] = standard_analyze,
         params: Optional[BM25Params] = None,
         max_doc_terms: int | str | None = "auto",
         pad_docs_to: int = 128,
@@ -233,13 +221,30 @@ class BM25Index:
         """Analyze each document, then lay out the padded impact arrays in
         one vectorized pass (:meth:`build_encoded`).
 
+        Over 256 documents, the standard and bigram analyzers run in the
+        native batch analyzer, in chunks of 2**18 documents (its buffers
+        take about 40 times the input's bytes). The vocabulary is the
+        sorted unique tokens, as the reference builds it. The seconds of
+        the three steps (analysis, vocabulary, layout) are kept in
+        ``build_seconds``.
+
         ``max_doc_terms`` caps distinct terms per document (lowest-impact
         overflow dropped); ``"auto"`` caps at the 99.5th percentile of
         per-doc distinct-term counts. ``pad_docs_to`` pads N up to a
         multiple; padding rows have no terms and never match.
         """
         params = params or BM25Params()
-        analyzed = [standard_analyze(doc) for doc in docs]
+        t0 = time.perf_counter()
+        if analyzer in (standard_analyze, cjk_analyze) and len(docs) > 256:
+            mode = "cjk" if analyzer is cjk_analyze else "standard"
+            chunk = 1 << 18
+            analyzed = []
+            for i in range(0, len(docs), chunk):
+                analyzed.extend(native.analyze_docs(
+                    list(docs[i:i + chunk]), mode=mode))
+        else:
+            analyzed = [analyzer(doc) for doc in docs]
+        t1 = time.perf_counter()
         n_docs = len(docs)
         doc_lens = np.fromiter(
             (len(t) for t in analyzed), np.int64, count=n_docs)
@@ -249,6 +254,7 @@ class BM25Index:
         for terms in analyzed:
             flat[pos:pos + len(terms)] = terms
             pos += len(terms)
+        del analyzed
         if total:
             # sorted-unique vocabulary + vectorized token->id mapping
             uniq, flat_ids = np.unique(flat, return_inverse=True)
@@ -256,6 +262,8 @@ class BM25Index:
         else:
             vocab = {}
             flat_ids = np.zeros(0, dtype=np.int64)
+        del flat
+        t2 = time.perf_counter()
 
         max_len = int(doc_lens.max()) if n_docs else 1
         tok = np.full((max(n_docs, 1), max(max_len, 1)), -1, dtype=np.int32)
@@ -263,9 +271,12 @@ class BM25Index:
         offsets = np.cumsum(doc_lens) - doc_lens
         col = np.arange(total) - np.repeat(offsets, doc_lens)
         tok[row, col] = flat_ids
-        return cls.build_encoded(
+        index = cls.build_encoded(
             tok[:n_docs], vocab, params=params, max_doc_terms=max_doc_terms,
-            pad_docs_to=pad_docs_to, doc_lens=doc_lens)
+            pad_docs_to=pad_docs_to, analyzer=analyzer, doc_lens=doc_lens)
+        index.build_seconds = {"analysis": t1 - t0, "vocabulary": t2 - t1,
+                               "layout": time.perf_counter() - t2}
+        return index
 
     @staticmethod
     def _term_runs(
@@ -305,6 +316,7 @@ class BM25Index:
         params: Optional[BM25Params] = None,
         max_doc_terms: int | str | None = "auto",
         pad_docs_to: int = 128,
+        analyzer: Callable[[str], List[str]] = standard_analyze,
         doc_lens: Optional[np.ndarray] = None,
     ) -> "BM25Index":
         """Vectorized build from pre-analyzed term ids ``[N, L]`` (pad < 0):
@@ -369,9 +381,19 @@ class BM25Index:
         doc_impacts[doc_of_run[keep], pos[keep]] = impact[keep]
 
         return cls(vocab, idf, doc_terms, doc_impacts, n_docs, avgdl, params,
-                   doc_dl=np.asarray(dl, dtype=np.int32))
+                   analyzer, doc_dl=np.asarray(dl, dtype=np.int32))
 
     # -- queries --------------------------------------------------------------
+
+    def _analyze_queries(self, queries: Sequence[str]) -> List[List[str]]:
+        """The tokens of each query, by the index's analyzer: through the
+        native batch analyzer for more than 16 queries where that is the
+        standard or the bigram analyzer."""
+        if self.analyzer in (standard_analyze, cjk_analyze) \
+                and len(queries) > 16:
+            mode = "cjk" if self.analyzer is cjk_analyze else "standard"
+            return native.analyze_docs(list(queries), mode=mode)
+        return [self.analyzer(q) for q in queries]
 
     def _lookup_terms(self, tokens: np.ndarray) -> np.ndarray:
         """Vectorized vocab lookup of a flat token array (object dtype of
@@ -420,7 +442,7 @@ class BM25Index:
         q_weights = np.zeros((Q, max_query_terms), dtype=np.float32)
         if Q == 0:
             return q_terms, q_weights
-        analyzed = [standard_analyze(q) for q in queries]
+        analyzed = self._analyze_queries(queries)
         lens = np.fromiter((len(t) for t in analyzed), np.int64, count=Q)
         total = int(lens.sum())
         if total == 0:
@@ -477,14 +499,17 @@ class BM25Index:
             )
 
     @classmethod
-    def load(cls, path: str | Path) -> "BM25Index":
-        """Open an index written by :meth:`save`. The file is a pickle:
-        open only files this program wrote."""
+    def load(cls, path: str | Path,
+             analyzer: Callable[[str], List[str]] = standard_analyze
+             ) -> "BM25Index":
+        """Open an index written by :meth:`save`, its queries analyzed by
+        ``analyzer``. The file is a pickle: open only files this program
+        wrote."""
         with open(path, "rb") as f:
             d = pickle.load(f)
         return cls(
             vocab=d["vocab"], idf=d["idf"], doc_terms=d["doc_terms"],
             doc_impacts=d["doc_impacts"], n_docs=d["n_docs"],
             avgdl=d["avgdl"], params=BM25Params(**d["params"]),
-            doc_dl=d.get("doc_dl"),
+            analyzer=analyzer, doc_dl=d.get("doc_dl"),
         )

@@ -6,8 +6,9 @@ The retrieval file is the reference's: per sentence, the query line, then
 one line per retrieved context ``sentence \\t paragraph \\t title \\t score
 \\t url \\t hits``, then a blank line. A KB directory holds ``text.idx`` and
 ``title.idx`` (``BM25Index.save`` pickles), ``kb.docs`` (a
-:class:`~.docstore.PackedDocStore`) and ``meta.json``; either package opens
-what the other saved.
+:class:`~.docstore.PackedDocStore`), ``meta.json`` and, for a zh KB indexed
+with an IK dictionary, its copy ``ik.dic``; either package opens what the
+other saved.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..data.conll import SentenceRecord
-from .analyzer import get_analyzer, highlight_hits
+from .analyzer import builtin_zh_lexicon, get_analyzer, highlight_hits
 from .docstore import PackedDocStore, PackedDocStoreWriter
 from .engine import DocStore, RetrievalEngine, RetrievedDoc
 from .fusion import extract_entities
@@ -148,12 +149,15 @@ def save_kb(
     store,
     title_index: Optional[BM25Index] = None,
     lang: str = "en",
+    ik_dict: Optional[str | Path] = None,
+    ik_smart: bool = False,
 ) -> None:
     """Write a KB directory: ``text.idx`` (and ``title.idx``), ``kb.docs``
     and ``meta.json``. A :class:`PackedDocStore` is copied unless it is
-    already the directory's ``kb.docs``; any other store is packed. Open
-    it again with :func:`load_kb`."""
-    get_analyzer(lang)  # zh raises here
+    already the directory's ``kb.docs``; any other store is packed. The
+    IK dictionary of a zh KB (``ik_dict``, ``"builtin"`` for the shipped
+    one) is copied in as ``ik.dic``, since queries must be segmented as
+    the documents were. Open it again with :func:`load_kb`."""
     d = Path(dir_path)
     d.mkdir(parents=True, exist_ok=True)
     text_index.save(d / "text.idx")
@@ -164,19 +168,29 @@ def save_kb(
             shutil.copyfile(store.path, d / "kb.docs")
     else:
         PackedDocStore.from_store(d / "kb.docs", store).close()
-    (d / "meta.json").write_text(json.dumps({"lang": lang}))
+    meta = {"lang": lang}
+    if ik_dict is not None:
+        src = builtin_zh_lexicon() if ik_dict == "builtin" else ik_dict
+        shutil.copyfile(src, d / "ik.dic")
+        meta["ik_dict"] = "ik.dic"
+        meta["ik_smart"] = bool(ik_smart)
+    (d / "meta.json").write_text(json.dumps(meta))
 
 
 def load_kb(dir_path: str | Path
             ) -> Tuple[BM25Index, PackedDocStore, Optional[BM25Index], str]:
     """Open a :func:`save_kb` directory: (text index, mmapped doc store,
-    title index or None, language)."""
+    title index or None, language), the indices with the language's
+    analyzer (the saved IK dictionary's for a zh KB that has one)."""
     d = Path(dir_path)
     meta = json.loads((d / "meta.json").read_text())
     lang = meta.get("lang", "en")
-    get_analyzer(lang)  # zh, with or without an IK dictionary, raises here
-    text_index = BM25Index.load(d / "text.idx")
-    title_index = (BM25Index.load(d / "title.idx")
+    analyzer = get_analyzer(
+        lang, dict_path=(d / meta["ik_dict"] if meta.get("ik_dict")
+                         else None),
+        smart=meta.get("ik_smart", False))
+    text_index = BM25Index.load(d / "text.idx", analyzer=analyzer)
+    title_index = (BM25Index.load(d / "title.idx", analyzer=analyzer)
                    if (d / "title.idx").exists() else None)
     return text_index, PackedDocStore(d / "kb.docs"), title_index, lang
 
@@ -191,6 +205,8 @@ def build_kb_from_jsonl(
     with_title_index: bool = True,
     store_path: Optional[str | Path] = None,
     fail_path: Optional[str | Path] = None,
+    ik_dict: Optional[str | Path] = None,
+    ik_smart: bool = False,
 ) -> Tuple[BM25Index, "DocStore | PackedDocStore", Optional[BM25Index]]:
     """Text (and title) indices and a doc store from parsed-wiki JSONL:
     one object per line with ``title``, ``sentence``, ``paragraph`` and
@@ -201,9 +217,11 @@ def build_kb_from_jsonl(
     ``store_path`` streams the payloads into a :class:`PackedDocStore`
     there instead of holding them in memory. ``fail_path`` appends each
     line that is not a JSON object to that file and goes on; without it
-    such a line raises.
+    such a line raises. A zh KB is analyzed by the IK analyzer over
+    ``ik_dict`` (``"builtin"`` for the shipped word list; ``ik_smart``
+    for ik_smart), else by char bigrams.
     """
-    get_analyzer(lang)  # zh raises here
+    analyzer = get_analyzer(lang, dict_path=ik_dict, smart=ik_smart)
     sentences: List[str] = []
     titles: List[str] = []
     paragraphs: List[str] = []
@@ -249,8 +267,9 @@ def build_kb_from_jsonl(
     if n_failed:
         log.warning("build_kb_from_jsonl: %d unparseable lines appended to "
                     "%s", n_failed, fail_path)
-    text_index = BM25Index.build(sentences, params=params)
-    title_index = (BM25Index.build(titles, params=params)
+    text_index = BM25Index.build(sentences, analyzer=analyzer,
+                                 params=params)
+    title_index = (BM25Index.build(titles, analyzer=analyzer, params=params)
                    if with_title_index else None)
     if writer is not None:
         store: DocStore | PackedDocStore = PackedDocStore(store_path)

@@ -227,6 +227,25 @@ def test_pruned_engine_on_card_matches_cpu(card):
     _assert_same_topk(gs, gi, cs, ci)
 
 
+def test_deep_windows_on_card_match_cpu(card):
+    """Deep pass-1 windows (the 4 rarest terms read to 1024 postings,
+    the others to 32) on the card equal the same engine on the CPU, with
+    one K2 launch per batch."""
+    docs = synth_wiki_docs(3000, vocab=4000, n_topics=40, seed=5)
+    index = BM25Index.build_encoded(docs, {f"w{i}": i for i in range(4000)})
+    kw = dict(mode="pruned", rare_terms=8, posting_budget=256,
+              n_candidates=256, deep_terms=4, deep_cap=1024)
+    gpu = RetrievalEngine(index, device=card, **kw)
+    cpu = RetrievalEngine(index, device="cpu", **kw)
+    q, _ = sentence_queries(docs, 32, 64, seed=4)
+    qt, qw = index.encode_queries(
+        [" ".join(f"w{t}" for t in r[r >= 0]) for r in q])
+    before = bm25.delta16_rescore.launches
+    gs, gi = gpu.search_encoded(qt, qw, k=10)
+    assert bm25.delta16_rescore.launches == before + 1
+    _assert_same_topk(gs, gi, *cpu.search_encoded(qt, qw, k=10))
+
+
 @pytest.mark.parametrize("Q,C,Lq,Ld", [
     (5, 300, 12, 20),     # ragged Q and C
     (3, 77, 1, 52),       # one query term

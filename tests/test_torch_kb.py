@@ -109,8 +109,9 @@ def test_highlight_hits_matches_jax():
     assert analyzer.highlight_hits("Berlin is big", {"BERLIN"}) == \
         "<hit>Berlin</hit> is big"
     assert analyzer.get_analyzer("en") is analyzer.standard_analyze
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        analyzer.get_analyzer("zh")
+    # zh: the char-bigram analyzer, as in the reference
+    assert analyzer.get_analyzer("zh") is analyzer.cjk_analyze
+    assert janalyzer.get_analyzer("zh") is janalyzer.cjk_analyze
 
 
 # -- the packed doc store -----------------------------------------------------
@@ -310,16 +311,22 @@ def test_build_with_store_and_fail_file_matches_jax(kb_path, tmp_path):
 
 
 def test_zh_and_ik_raise_naming_their_roadmap_item(kb_path, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        build_kb_from_jsonl(kb_path, lang="zh")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        cli.main(["index", "--kb", str(kb_path), "--out", str(tmp_path / "x"),
-                  "--ik_dict", "builtin"])
+    """zh KBs build, with or without an IK dictionary, and reopen with
+    their analyzer; cli multistage still raises naming ROADMAP A6."""
+    text, _, title = build_kb_from_jsonl(kb_path, lang="zh")
+    assert text.analyzer is analyzer.cjk_analyze
+    assert title.analyzer is analyzer.cjk_analyze
+    cli.main(["index", "--kb", str(kb_path), "--out", str(tmp_path / "x"),
+              "--lang", "zh", "--ik_dict", "builtin"])
+    assert (tmp_path / "x" / "ik.dic").read_bytes() == \
+        analyzer.builtin_zh_lexicon().read_bytes()
+    text_x, store_x, _, lang = load_kb(tmp_path / "x")
+    assert lang == "zh" and isinstance(text_x.analyzer, analyzer.IkAnalyzer)
+    store_x.close()
     text, store, title = build_kb_from_jsonl(kb_path)
     save_kb(tmp_path / "kb", text, store, title)
     (tmp_path / "kb" / "meta.json").write_text(json.dumps({"lang": "zh"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        load_kb(tmp_path / "kb")
+    assert load_kb(tmp_path / "kb")[0].analyzer is analyzer.cjk_analyze
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         cli.main(["multistage", "a.yaml", "b.yaml"])
 

@@ -149,12 +149,12 @@ def test_engine_modes_of_later_slices_raise():
     """The pruned engine's options that a later slice ports raise, each
     naming its ROADMAP item; an unknown mode or row layout is a plain
     error. (The title field, packed32 rows and the two-operand top-k are
-    ported: tests/test_torch_rescore.py.)"""
+    ported: tests/test_torch_rescore.py; deep windows:
+    tests/test_torch_pruned.py.)"""
     index = BM25Index.build(["a b c", "b c d", "c d e"], pad_docs_to=8)
     raw = BM25Index.build(["a b c"], params=BM25Params(quantize_norms=False),
                           pad_docs_to=8)
-    for kwargs in (dict(mesh=object()), dict(deep_terms=2),
-                   dict(deep_cap=1024), dict(topc_recall=0.9),
+    for kwargs in (dict(mesh=object()), dict(topc_recall=0.9),
                    dict(device=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP A4"):
             RetrievalEngine(index, mode="pruned", **{"device": "cpu",

@@ -26,6 +26,7 @@ from kbner_tpu.retrieval import RetrievalEngine as JEngine
 from kbner_tpu.retrieval import engine as jengine
 from kbner_tpu.retrieval.fusion import fuse_contexts as j_fuse
 from kbner_tpu_torch import cli
+from kbner_tpu_torch import native as tnative
 from kbner_tpu_torch.data.dictionary import make_tag_dictionary
 from kbner_tpu_torch.data.subword import HashTokenizer
 from kbner_tpu_torch.models.tagger import SequenceTagger, TaggerConfig
@@ -42,8 +43,8 @@ from kbner_tpu_torch.retrieval.synth import (K2_KINDS, synth_delta16_docs,
                                              synth_rescore_operands)
 from kbner_tpu_torch.serve import request_record, serve
 
-# float32 sums of the same terms in another order; the engine's tiny sums
-# are float32 (kbner_tpu's native gather) against float64 (the port)
+# float32 sums of the same terms in another order; the tiny sums of the
+# numpy twin are float64, the native gathers' float32
 RTOL, ATOL = 1e-5, 1e-5
 K2_RTOL, K2_ATOL = 1e-5, 1e-6
 TINY_RTOL = 1e-6
@@ -271,15 +272,22 @@ def _tiny_maps(doc, ex):
 
 @pytest.mark.parametrize("config", ["defaults", "bench"])
 def test_gather_tiny_exact_matches_jax(corpus, config):
-    """kbner_tpu's native gather sums in float32 in posting order and
-    lists docs first-seen; the port's numpy branch sums in float64 and
-    sorts: compared as per-query {doc: sum} maps."""
+    """The port's native gather equals kbner_tpu's (float32 sums in
+    posting order, docs first-seen); its numpy twin sums in float64 and
+    sorts, so it is compared as per-query {doc: sum} maps."""
     te, je, qt, qw = _engines(corpus, **ENGINE_CONFIGS[config])
     got = te._gather_tiny_exact(qt, qw)
     want = je._gather_tiny_exact(qt, qw)
     assert got[0].shape[1] > 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    offsets, p_doc, p_imp, df = te.text_index.csr
+    is_tiny = (qt >= 0) & (df[np.maximum(qt, 0)] <= te.tiny_cap)
+    twin = tnative.gather_tiny_exact_ref(offsets, p_doc, p_imp, qt, qw,
+                                         is_tiny)
+    assert twin[0].shape == got[0].shape
     for i in (1, 2):
-        for g, w in zip(_tiny_maps(got[0], got[i]),
+        for g, w in zip(_tiny_maps(twin[0], twin[i]),
                         _tiny_maps(want[0], want[i])):
             assert g.keys() == w.keys()
             for d in g:
@@ -310,14 +318,20 @@ def _parse_jax_packed(je, packed, t_cols, lq):
             packed[:, pos + lq:pos + 2 * lq].view(np.float32))
 
 
+@pytest.mark.parametrize("branch", ["native", "numpy"])
 @pytest.mark.parametrize("config", ["defaults", "bench", "tiny_pack",
                                     "tiny_f16", "tiny_f32", "tiny_width",
                                     "full_rows"])
-def test_query_blocks_and_tiny_encodings_match_jax(corpus, config,
+def test_query_blocks_and_tiny_encodings_match_jax(corpus, config, branch,
                                                    monkeypatch):
-    """With kbner_tpu's numpy tiny gather (native gather off), the port's
-    query blocks equal the reference's upload, encoding for encoding."""
-    monkeypatch.setattr(jnative, "gather_tiny_exact", lambda *a, **k: None)
+    """The port's query blocks equal the reference's upload, encoding for
+    encoding: both tiny gathers native, or both numpy (kbner_tpu's native
+    gather off, the port's numpy twin in place of its native one)."""
+    if branch == "numpy":
+        monkeypatch.setattr(jnative, "gather_tiny_exact",
+                            lambda *a, **k: None)
+        monkeypatch.setattr(tnative, "gather_tiny_exact",
+                            tnative.gather_tiny_exact_ref)
     te, je, qt, qw = _engines(corpus, **ENGINE_CONFIGS[config])
     for _ in range(2):  # the second batch meets the raised width floors
         (rare,), tiny, [(qt2, qw2)] = te._pack_queries(qt, qw)
@@ -537,6 +551,68 @@ def test_pruned_engine_matches_jax(corpus, config):
         assert_same_topk(ts, ti, js, ji)
     es, ei = te.search_encoded(qt[:0], qw[:0], k=10)  # an empty batch
     assert es.shape == ei.shape == (0, 10)
+
+
+DEEP_KNOBS = dict(rare_terms=8, posting_budget=256, n_candidates=128)
+
+
+@pytest.mark.parametrize("compact_rows", [True, False])
+def test_deep_windows_match_jax(corpus, compact_rows):
+    """deep_terms=4, deep_cap=1024 over windows of 32 postings: the text
+    CSR kept at deep_cap, the deep key block first in pass 1, and top-k
+    ids equal to the reference's within ties, from search_encoded and
+    from search_stream; recall against exhaustive no lower than without
+    deep windows (tests/test_pruned_retrieval.py's deep-window test)."""
+    _, t, j, queries = corpus
+    kw = dict(DEEP_KNOBS, deep_terms=4, deep_cap=1024,
+              compact_rows=compact_rows)
+    te = RetrievalEngine(t, mode="pruned", device="cpu", **kw)
+    je = JEngine(j, mode="pruned", use_pallas=True, **kw)
+    assert te.per_term_cap == je.per_term_cap == 32
+    assert te.deep_cap == je.deep_cap == 1024
+    for a, b in zip(te.csr["text"], je._device_csr):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    qt, qw = t.encode_queries(queries)
+    keys, _, _, _ = te._device_queries(te._pack_queries(qt, qw))
+    rare = te._pack_queries(qt, qw)[0][0]
+    deep = tbm25.gather_pruned_candidate_keys(
+        torch.from_numpy(rare[:, :4]), *te.csr["text"], 1024,
+        reencode=True, lo_src=te._csr_scale["text"][0],
+        step_src=te._csr_scale["text"][1], lo_dst=te._csr_scale["text"][0],
+        step_dst=te._csr_scale["text"][1] + float(np.log(64.0)) / 254.0,
+        aligned=True)
+    torch.testing.assert_close(keys[:, :deep.shape[1]], deep, rtol=0,
+                               atol=0)
+    ts, ti = te.search_encoded(qt, qw, k=10)
+    js, ji = je.search_encoded(qt, qw, k=10)
+    assert_same_topk(ts, ti, js, ji)
+    (ss, si), = list(te.search_stream([(qt, qw)], k=10))
+    np.testing.assert_array_equal(ss, ts)
+    np.testing.assert_array_equal(si, ti)
+
+    exact = RetrievalEngine(t, device="cpu").search(queries, k=10)
+    shallow = RetrievalEngine(t, mode="pruned", device="cpu",
+                              compact_rows=compact_rows, **DEEP_KNOBS)
+
+    def recall(engine):
+        return np.mean([
+            len({d.doc_id for d in a} & {d.doc_id for d in b}) / len(a)
+            for a, b in zip(exact, engine.search(queries, k=10))])
+
+    assert recall(te) >= recall(shallow)
+
+
+def test_deep_windows_validation():
+    """tests/test_pruned_retrieval.py's deep-window refusals."""
+    index = BM25Index.build(zipf_corpus(n_docs=100, vocab=200, seed=9),
+                            params=BM25Params(quantize_norms=False),
+                            pad_docs_to=64)
+    with pytest.raises(ValueError, match="deep_terms"):
+        RetrievalEngine(index, mode="pruned", rare_terms=8, deep_terms=12,
+                        deep_cap=512, device="cpu")
+    with pytest.raises(ValueError, match="unsharded"):
+        RetrievalEngine(index, mode="exhaustive", deep_terms=2,
+                        deep_cap=512, device="cpu")
 
 
 @pytest.mark.parametrize("compact_rows,rel", [(False, 1e-4), (True, 5e-4)])

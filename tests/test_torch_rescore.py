@@ -20,6 +20,7 @@ from kbner_tpu.retrieval import BM25Params as JParams
 from kbner_tpu.retrieval import RetrievalEngine as JEngine
 from kbner_tpu.retrieval import engine as jengine
 from kbner_tpu.retrieval.index import log_quantize as j_log_quantize
+from kbner_tpu_torch import native as tnative
 from kbner_tpu_torch.ops import bm25 as tbm25
 from kbner_tpu_torch.retrieval import engine as tengine
 from kbner_tpu_torch.retrieval.engine import RetrievalEngine
@@ -540,13 +541,27 @@ def test_term_scale_from_csr_matches_jax(corpus, field):
 @pytest.mark.parametrize("bits,scale", [(16, None), (12, (-1.5, 0.002)),
                                         (23, (0.25, 1e-6))])
 def test_quantize_codes_matches_jax(corpus, bits, scale):
-    di = corpus[2][True][0].doc_impacts
-    got = tengine._quantize_codes(di, bits, scale)
+    """The log codes of the index's impacts: ``log_quantize``'s on their
+    own range, and at a given scale the codes the native ragged pack
+    writes above the term bits, equal to the reference's
+    ``_quantize_codes``."""
+    t = corpus[2][True][0]
+    di = t.doc_impacts
     want = jengine._quantize_codes(di, bits, scale)
-    np.testing.assert_array_equal(got[0], want[0])
-    assert got[0].dtype == want[0].dtype and got[1:] == want[1:]
     if scale is None:
+        got = log_quantize(di, bits)
+        np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[0], j_log_quantize(di, bits)[0])
+        assert got[0].dtype == want[0].dtype and got[1:] == want[1:]
+        return
+    N, Ld = di.shape
+    flat = np.full(N * Ld, -1, np.int32)
+    tnative.pack_ragged(t.doc_terms, di, np.arange(N) * Ld, 32 - bits,
+                        scale[0], scale[1], (1 << bits) - 2, flat)
+    valid = t.doc_terms >= 0
+    codes = flat.reshape(N, Ld).view(np.uint32) >> (32 - bits)
+    np.testing.assert_array_equal(codes[valid], want[0][valid])
+    assert (want[0][valid] > 1).any()
 
 
 # -- the pruned engine over packed32 rows and with a title field -----------------

@@ -234,22 +234,29 @@ def test_cli_serve_writes_serve_responses(both, kb_path, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,err", [
-    # the zh analyzers, with the payloads in a packed store
-    (["--store", "x.docs", "--lang", "zh"], NotImplementedError),
-    # a KB saved with the zh analyzer
-    (["--index_dir", "kb_dir"], NotImplementedError),
-    (["--lang", "zh"], NotImplementedError),  # the zh analyzers
+    # a sharded engine is not a mode of the port (ROADMAP A6, multi-GPU)
+    (["--engine_mode", "sharded"], ValueError),
+    # HF tokenizers wait for tokenizer files (ROADMAP A6)
+    (["--config", "hf.yaml"], NotImplementedError),
+    # a zh KB saved with an IK dictionary that has gone missing
+    (["--index_dir", "kb_dir"], FileNotFoundError),
 ])
 def test_cli_serve_refuses_later_slices(both, kb_path, tmp_path, monkeypatch,
                                         argv, err):
+    """What cli serve still refuses. (zh KBs, --store and --index_dir are
+    served: tests/test_torch_zh.py, test_torch_retrieve.py.)"""
     _, _, tags, _, _, _ = both
     target = tmp_path / "run"
     tags.save(target / "tag_dictionary.json")
     cfg = _write_config(tmp_path, target)
+    hf = yaml.safe_load(cfg.read_text())
+    hf["tokenizer"] = {"type": "hf"}
+    (tmp_path / "hf.yaml").write_text(yaml.safe_dump(hf))
     text, store, title = build_kb_from_jsonl(kb_path)
     save_kb(tmp_path / "kb_dir", text, store, title)
-    (tmp_path / "kb_dir" / "meta.json").write_text('{"lang": "zh"}')
-    argv = [str(tmp_path / a) if a in ("x.docs", "kb_dir") else a
+    (tmp_path / "kb_dir" / "meta.json").write_text(
+        '{"lang": "zh", "ik_dict": "ik.dic"}')
+    argv = [str(tmp_path / a) if a in ("hf.yaml", "kb_dir") else a
             for a in argv]
     monkeypatch.setattr("sys.stdin", io.StringIO(""))
     with pytest.raises(err):
