@@ -37,7 +37,13 @@ numpy twins at full size and the pruned engine built both ways, four
 Python one on 100,000 multilingual sentences, a 100,000-doc zh KB indexed
 with IK and searched both ways, deep pass-1 windows held against the
 plain pruned engine, retrieval with the trained model's seeds and
-BERTScore reranking, and ``cli serve`` from the saved KB. It prints what
+BERTScore reranking, and ``cli serve`` from the saved KB. Last, the MIX
+track: a ru KB beside the en and zh ones, ``cli retrieve --route mix``
+through one MixEngine over the three (K2 once per language and batch, on
+global ids), held to the per-engine fan-out and, for recall, to the
+exhaustive fan-out (K1), then with entity clauses; and ``cli multistage``
+of two XLM-R-large stages, the second starting from the first's
+exported encoder. It prints what
 it measured on the lines before the last and exits non-zero on any
 failure.
 Its last line is one JSON object naming the device.
@@ -1093,25 +1099,27 @@ def query_blocks(path):
 def k1_at_retrieve_shape(bm25, engine, queries, entities, dev,
                          per_tile: int = 2, seed: int = 0) -> str:
     """K1 at one ``cli retrieve`` batch (the queries and entity clauses of
-    ``retrieve_for_records``) on ``engine``'s text and title fields. The
-    kernel scores every row; the plain version scores ``per_tile`` random
-    rows of each 32-query tile of the kernel, over the whole doc axis,
-    held at RTOL/ATOL with top-K ids equal within ties. Returns the
-    report: error, time (CUDA events) and bound per field."""
+    ``retrieve_for_records``) on ``engine``'s text and title fields, or on
+    its text field alone where ``entities`` is None. The kernel scores
+    every row; the plain version scores ``per_tile`` random rows of each
+    32-query tile of the kernel, over the whole doc axis, held at
+    RTOL/ATOL with top-K ids equal within ties. Returns the report: error,
+    time (CUDA events) and bound per field."""
     import torch
 
     Q = len(queries)
-    qt, qw = engine.text_index.encode_queries(
-        list(queries), max_query_terms=MAX_QUERY_TERMS)
-    tt, tw = engine.title_index.encode_queries(
-        [" ".join(e) for e in entities], max_query_terms=MAX_QUERY_TERMS,
-        boosts=[TITLE_BOOST] * Q)
+    blocks = [("text", engine.text_index.encode_queries(
+        list(queries), max_query_terms=MAX_QUERY_TERMS))]
+    if entities is not None:
+        blocks.append(("title", engine.title_index.encode_queries(
+            [" ".join(e) for e in entities],
+            max_query_terms=MAX_QUERY_TERMS, boosts=[TITLE_BOOST] * Q)))
     rng = np.random.RandomState(seed)
     rows = sorted({min(t + o, Q - 1) for t in range(0, Q, 32)
                    for o in rng.randint(0, 32, per_tile)})
     rows = torch.tensor(rows, device=dev)
     parts = []
-    for name, (q_t, q_w) in (("text", (qt, qw)), ("title", (tt, tw))):
+    for name, (q_t, q_w) in blocks:
         dt, di = engine.fields[name]
         q_t = torch.as_tensor(np.asarray(q_t, np.int32), device=dev)
         q_w = torch.as_tensor(np.asarray(q_w, np.float32), device=dev)
@@ -1144,17 +1152,25 @@ def k1_at_retrieve_shape(bm25, engine, queries, entities, dev,
     return "; ".join(parts)
 
 
-def k2_at_retrieve_shape(bm25, engine, queries) -> str:
-    """K2 on the pass-2 operands that ``search_stream`` packs for one
-    ``cli retrieve`` batch of sentence queries on the pruned ``engine``,
-    held to its plain version at RTOL/ATOL with top-K ids equal within
-    ties. Returns the report: error, time (CUDA events) and bound."""
+def k2_at_retrieve_shape(bm25, engine, queries, entities=None) -> str:
+    """K2 on the pass-2 operands that the pruned ``engine`` packs for one
+    ``cli retrieve`` batch of sentence queries (``search_stream``), or,
+    with ``entities``, of sentence queries and their title-boosted entity
+    clauses (``mix_search --with_entity``), held to its plain version at
+    RTOL/ATOL with top-K ids equal within ties. Returns the report: error,
+    time (CUDA events) and bound."""
     import torch
 
     qt, qw = engine.text_index.encode_queries(
         list(queries), max_query_terms=MAX_QUERY_TERMS)
-    keys, fields, _, kw = engine._device_queries(engine._pack_queries(qt,
-                                                                      qw))
+    title = ()
+    if entities is not None:
+        title = engine.title_index.encode_queries(
+            [" ".join(e) for e in entities],
+            max_query_terms=MAX_QUERY_TERMS,
+            boosts=[TITLE_BOOST] * len(entities))
+    keys, fields, _, kw = engine._device_queries(engine._pack_queries(
+        qt, qw, *title))
     _, _, ops = bm25.pass2_operands(keys, fields, **kw)
     fn, args = ops[0]
     if fn is not bm25.delta16_rescore:
@@ -2074,6 +2090,504 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
         f"the first {n_serve_kb} docs' JSONL answers as --kb does ({card})")
 
 
+# phase 4i: MIX retrieval over three saved language KBs, and staged
+# fine-tuning; after 4h in the same temporary directory (its en and zh
+# KBs, its CoNLL splits and its model config)
+N_RU_DOCS = 100_000
+RU_SPLITS = {"train": 2_000, "dev": 300, "test": 300}
+MIX_CHECK = (512, 256, 256)  # en, zh, ru queries of the held-equal batch
+CYRILLIC = "абвгдежзиклмнопрстуфхцчшщэюя"
+STAGE_RECORDS = (48, 16, 16)  # train, dev, test sentences per language
+DE_WORDS = {"visited": "besuchte", "yesterday": "gestern", "hired":
+            "stellte", "in": "in", "the": "das", "office": "Büro", "of":
+            "von", "is": "ist", "and": "und", "met": "trafen", "at": "bei",
+            "reports": "Berichte", "from": "aus", "mention": "nennen",
+            "opened": "eröffnete", "a": "ein", "plant": "Werk", "near":
+            "nahe"}
+
+
+def cyrillic_word(i: int) -> str:
+    """Term id ``i`` as a distinct Cyrillic word (base 28, two letters at
+    least)."""
+    base, out = len(CYRILLIC), ""
+    i += len(CYRILLIC)
+    while i:
+        i, r = divmod(i, base)
+        out = CYRILLIC[r] + out
+    return out
+
+
+def ru_kb(n: int, seed: int):
+    """``n`` seeded ru KB sentences: topical Zipf text
+    (:func:`synth_wiki_docs`, as the en KB's) in Cyrillic words, each
+    followed by the first four words of one of
+    :func:`multilingual_sentences`. Returns (texts, term ids [n, L] with
+    -1 pads, the words of the term ids)."""
+    from kbner_tpu_torch.retrieval.synth import synth_wiki_docs
+
+    docs = synth_wiki_docs(n, vocab=200_000, n_topics=n // 50, seed=seed)
+    words = [cyrillic_word(t) for t in range(int(docs.max()) + 1)]
+    texts = [" ".join([words[t] for t in row if t >= 0] + ml.split()[:4])
+             for row, ml in zip(docs.tolist(),
+                                multilingual_sentences(n, seed))]
+    return texts, docs, words
+
+
+def stage_corpora(tmp, seed: int):
+    """The staged-training corpora: an en and a de column corpus of the
+    quality fixture's sentences (the de one with German function words),
+    made from ``seed``. Returns their folders."""
+    from kbner_tpu_torch.data.conll import SentenceRecord, write_column_file
+    from kbner_tpu_torch.data.quality_fixture import make_quality_corpus
+    from kbner_tpu_torch.data.tag_schemes import bioes_to_bio
+
+    folders = []
+    for i, lang in enumerate(("en", "de")):
+        corpus = make_quality_corpus(*STAGE_RECORDS, seed=seed + i).corpora[0]
+        folder = tmp / f"stage-{lang}"
+        for split in ("train", "dev", "test"):
+            words = DE_WORDS if lang == "de" else {}
+            # written in BIO, as column corpora come
+            write_column_file(folder / f"{split}.txt", [SentenceRecord(
+                tokens=[words.get(t, t) for t in r.tokens],
+                tags={"ner": bioes_to_bio(r.tags["ner"])})
+                for r in getattr(corpus, split)])
+        folders.append(folder)
+    return folders
+
+
+def mix_stage_phase(cli, bm25, dev, card, tmp, model_cfg, encoder="large",
+                    n_ru=N_RU_DOCS, ru_splits=None, mix_check=MIX_CHECK
+                    ) -> dict:
+    """Phase 4i, after 4h in its directory ``tmp`` (its saved 1M en KB
+    ``kb1m``, its zh KB ``zhkb``, its CoNLL splits and ``model_cfg``):
+    (a) a ru KB of ``n_ru`` seeded docs through ``cli index --lang ru``;
+    (b) ``cli retrieve --route mix --engine_mode pruned`` over the three
+    KBs and splits of en, zh and ru sentences: one MixEngine over the
+    concatenated languages, one K2 launch per language and batch; the
+    MixEngine held to ``mix_search`` over the languages' pruned engines
+    on the card for one batch of the three languages, K2 held to its plain
+    version on every language step's operands (global ids), K1 held to
+    its plain version on each language's exhaustive engine at that
+    batch, the route's recall@K against ``mix_search`` over exhaustive
+    engines (K1); (c) ``--route mix --with_entity``, the per-engine route
+    with title boosts, K2 held to its plain version on each language's
+    engine of the run at two of its batches; (d) ``cli multistage`` of two stage configs, multilingual en +
+    de then monolingual en, XLM-R at full width, the second stage's
+    encoder at load held equal to the first stage's export. Returns the
+    K2 launches of the MixEngine route and the K1 launches of the
+    exhaustive fan-out."""
+    import json
+    import math
+
+    import torch
+
+    from kbner_tpu_torch import checkpoint
+    from kbner_tpu_torch import weights
+    from kbner_tpu_torch.data.conll import (SentenceRecord, read_column_file,
+                                            write_column_file)
+    from kbner_tpu_torch.data.subword import HashTokenizer, subtoken_length
+    from kbner_tpu_torch.retrieval import engine as engine_mod
+    from kbner_tpu_torch.retrieval.engine import RetrievalEngine, mix_search
+    from kbner_tpu_torch.retrieval.pipeline import sentence_query
+    from kbner_tpu_torch.retrieval.synth import sentence_queries
+    from kbner_tpu_torch.train import FinetuneTrainer
+
+    ru_splits = ru_splits or RU_SPLITS
+    device = ["--device", str(dev)]
+    out = {}
+
+    # -- (a) the ru KB -------------------------------------------------------
+    texts, ru_docs, ru_words = ru_kb(n_ru, seed=51)
+    with open(tmp / "ru.jsonl", "w", encoding="utf-8") as f:
+        for i, (text, row) in enumerate(zip(texts, ru_docs)):
+            f.write(json.dumps({"title": " ".join(ru_words[t]
+                                                  for t in row[:2]),
+                                "sentence": text, "paragraph": text,
+                                "url": f"https://ru.wikipedia.org/wiki/{i}"},
+                               ensure_ascii=False) + "\n")
+    (stats, _), index_s = timed(lambda: run_cli(cli, [
+        "index", "--kb", str(tmp / "ru.jsonl"), "--out", str(tmp / "rukb"),
+        "--lang", "ru"]))
+    log(f"cli index --lang ru: {n_ru} docs (topical Zipf sentences in "
+        f"Cyrillic words, each with four words of a multilingual sentence) "
+        f"from JSONL in {index_s:.1f} s ({n_ru / index_s:.0f} docs/s) "
+        f"({card})")
+
+    # -- (b) the MIX route -----------------------------------------------------
+    data = tmp / "mix-conll"
+    seed = 52
+    split_langs = {}
+    for split in ("train", "dev", "test"):
+        en = read_column_file(tmp / "conll" / f"{split}.txt",
+                              {0: "text", 1: "ner"}, comment_symbol="# id")
+        zh = read_column_file(tmp / "zh-conll" / f"{split}.txt",
+                              {0: "text", 1: "ner"}, comment_symbol="# id")
+        q_ids, _ = sentence_queries(ru_docs, ru_splits[split],
+                                    q_len=MAX_QUERY_TERMS, seed=seed)
+        seed += 1
+        ru = [SentenceRecord(
+            tokens=[ru_words[t] for t in q[q >= 0]],
+            tags={"ner": ["B-PER", "I-PER"] + ["O"] * (int((q >= 0).sum())
+                                                      - 2)},
+            comment=f"# id ru-{split}-{i}") for i, q in enumerate(q_ids)]
+        write_column_file(data / f"{split}.txt", en + zh + ru)
+        split_langs[split] = (["en"] * len(en) + ["zh"] * len(zh)
+                              + ["ru"] * len(ru))
+    kbs = [f"en={tmp / 'kb1m'}", f"zh={tmp / 'zhkb'}", f"ru={tmp / 'rukb'}"]
+    common = ["retrieve", "--route", "mix", "--data_folder", str(data),
+              "--tokenizer_config", str(model_cfg), *device,
+              *[a for kb in kbs for a in ("--index_dir", kb)]]
+    n_batches = sum(math.ceil(len(v) / cli.RETRIEVE_BATCH)
+                    for v in split_langs.values())
+    made = {}
+    mix_class = engine_mod.MixEngine
+
+    def capture(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        made["mix"] = mix_class(*args, **kwargs)
+        torch.cuda.synchronize()
+        made["build_s"] = time.perf_counter() - t0
+        return made["mix"]
+
+    engine_mod.MixEngine = capture
+    reset_counts(bm25)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        (st, _), wall = timed(lambda: run_cli(cli, [
+            *common, "--engine_mode", "pruned", "--out",
+            str(tmp / "mix-pruned")]))
+    finally:
+        engine_mod.MixEngine = mix_class
+    got = counts(bm25)
+    mix = made.get("mix")
+    if mix is None:
+        raise AssertionError("cli retrieve --route mix --engine_mode pruned "
+                             "did not go through a MixEngine")
+    M = len(mix.langs)
+    expect_counts("cli retrieve --route mix (MixEngine)", got,
+                  {"delta16_rescore": M * n_batches})
+    out["mix_launches"] = got["delta16_rescore"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_lang = sum(sum(a.nbytes for a in e.rows["text"] + e.csr["text"])
+                   for e in mix.engines.values())
+    last_r2 = mix.engines[mix.langs[-1]]._row_meta["text"][4]
+    pad = (mix._r2 - last_r2) * mix._dev[0].shape[1] * 2
+    if mix.nbytes != per_lang + pad:
+        raise AssertionError(f"MixEngine holds {mix.nbytes} bytes on the "
+                             f"card, not the languages' {per_lang} + {pad}")
+    split_s = {s: sum(v for k, v in t.items() if k != "sentences")
+               for s, t in st.items()}
+    log(f"cli retrieve --route mix --engine_mode pruned over {M} saved KBs "
+        f"({', '.join(f'{lang} {e.text_index.n_docs}' for lang, e in mix.engines.items())} "
+        f"docs): {wall:.1f} s, of which {wall - sum(split_s.values()):.1f} s "
+        f"opening the KBs and building the host engines and the MixEngine "
+        f"(MixEngine {made['build_s']:.2f} s: concatenation and upload of "
+        f"{sum(e.n_padded for e in mix.engines.values())} docs, "
+        f"{mix.nbytes / 1e6:.1f} MB on the card = the languages' rows and "
+        f"CSRs, {per_lang / 1e6:.1f} MB, + {pad} bytes of guard rows, r2 "
+        f"{mix._r2}); K2 launches {got['delta16_rescore']} = {M} languages x "
+        f"{n_batches} batches; peak allocated {peak:.2f} GB; per split: "
+        + "; ".join(
+            f"{s} {t['sentences']} sentences ({len(split_langs[s])} en+zh+ru"
+            f", {math.ceil(t['sentences'] / cli.RETRIEVE_BATCH)} batches) "
+            f"{t['sentences'] / split_s[s]:.0f}/s (retrieve "
+            f"{t['retrieve']:.2f} s, write {t['write']:.2f} s, fuse "
+            f"{t['fuse']:.2f} s, read {t['read']:.2f} s)"
+            for s, t in st.items()) + f" ({card})")
+    tokenizer = HashTokenizer(vocab_size=HASH_VOCAB)
+    for split, n in ((s, len(v)) for s, v in split_langs.items()):
+        fused = read_column_file(tmp / "mix-pruned" / f"{split}.txt",
+                                 {0: "text", 1: "ner"},
+                                 comment_symbol="# id")
+        longest = max(subtoken_length(tokenizer, [
+            w for w in r.tokens if w != "<EOS>"]) + ("<EOS>" in r.tokens)
+            for r in fused)
+        if len(fused) > n or longest > 510 or not any(
+                "<EOS>" in r.tokens for r in fused):
+            raise AssertionError(f"cli retrieve --route mix {split}: "
+                                 f"{len(fused)} fused of {n}, longest "
+                                 f"{longest} subtokens")
+
+    # the MixEngine against the per-engine fan-out on the card, one batch
+    # of the three languages' train queries
+    train = read_column_file(data / "train.txt", {0: "text", 1: "ner"},
+                             comment_symbol="# id")
+    by_lang = {lang: [sentence_query(r, "mix") for r, l in zip(
+        train, split_langs["train"]) if l == lang] for lang in mix.langs}
+    batch = [q for lang, n in zip(("en", "zh", "ru"), mix_check)
+             for q in by_lang[lang][:n]]
+    t0 = time.perf_counter()
+    # the MixEngine ships the tiny sums as float16: so do these engines
+    card_engines = {lang: RetrievalEngine(
+        e.text_index, store=e.store, mode="pruned", device=dev,
+        tiny_pack=False) for lang, e in mix.engines.items()}
+    torch.cuda.synchronize()
+    fan_build_s = time.perf_counter() - t0
+    d16_args = []
+    inner = bm25.delta16_rescore
+
+    def keep(*args):
+        d16_args.append(args)
+        return inner(*args)
+
+    # the wrapper counts its launches on the name it is bound to: these
+    # comparison launches go to keep.launches and count nowhere
+    keep.launches = 0
+    bm25.delta16_rescore = keep
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_mix = mix.search_texts(batch, k=K)
+        mix_s = time.perf_counter() - t0
+    finally:
+        bm25.delta16_rescore = inner
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_mix = mix_search(card_engines, batch, k=K)
+    fan_s = time.perf_counter() - t0
+    n_hits = 0
+    for q, (g, w) in enumerate(zip(got_mix, want_mix)):
+        gs = np.array([d.score for _, d in g])
+        ws = np.array([d.score for _, d in w])
+        np.testing.assert_allclose(gs, ws, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"MixEngine query {q}")
+        cut = gs[-1] * (1 + RTOL) + ATOL if len(gs) else 0.0
+        if ({(lang, d.doc_id) for lang, d in g if d.score > cut}
+                != {(lang, d.doc_id) for lang, d in w if d.score > cut}):
+            raise AssertionError(f"MixEngine query {q}: (lang, doc_id) "
+                                 "differ from mix_search's")
+        n_hits += len(g)
+    langs_hit = sorted({lang for row in got_mix for lang, _ in row})
+    if len(d16_args) != M or langs_hit != sorted(mix.langs):
+        raise AssertionError(f"MixEngine batch: {len(d16_args)} K2 calls, "
+                             f"hits from {langs_hit}")
+    log(f"MixEngine.search_texts against mix_search over the {M} languages' "
+        f"pruned engines on the card (built in {fan_build_s:.1f} s), one "
+        f"batch of {len(batch)} train queries ({'/'.join(map(str, mix_check))} "
+        f"en/zh/ru): {n_hits} hits from {langs_hit}, (lang, doc_id) equal "
+        f"within ties, scores within rtol {RTOL}; host clock "
+        f"{mix_s * 1e3:.1f} ms against {fan_s * 1e3:.1f} ms ({card})")
+    # K2 on each language step's operands: global candidate ids into the
+    # concatenated rows
+    parts, k2_ms = [], {}
+    for (lang, (_, _, _, n_real, doc_b, _)), args in zip(
+            zip(mix.langs, mix._scalars), d16_args):
+        cand = args[2]
+        real = cand[(cand >= doc_b) & (cand < doc_b + n_real)]
+        want = bm25.delta16_rescore_ref(*args)
+        got_k2 = inner(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got_k2, want, rtol=RTOL, atol=ATOL)
+        if int(real.numel()) == 0 and doc_b > 0:
+            raise AssertionError(f"K2's {lang} step has no global id")
+        err = float((got_k2 - want).abs().max())
+        eager = time_cuda_ms(lambda: inner(*args), iters=20)
+        dev_ms = time_device_ms(lambda: inner(*args), iters=200)
+        plain = time_cuda_ms(lambda: bm25.delta16_rescore_ref(*args),
+                             iters=3)
+        n_bytes, n_ops = delta16_need(args)
+        b_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        o_ms = n_ops / PEAK_INT32_OPS_PER_S * 1e3
+        k2_ms[lang] = (dev_ms, eager, plain, max(b_ms, o_ms))
+        parts.append(
+            f"{lang} (ids {doc_b}..{doc_b + n_real - 1}, Q={cand.shape[0]} "
+            f"W={args[0].shape[1]} C={cand.shape[1]} R2={args[-1]}): max abs "
+            f"err {err:.3g}; {dev_ms:.4f} ms on the device (CUDA graph, L2 "
+            f"warm), {eager:.4f} ms eager, plain {plain:.3f} ms, bound "
+            f"{max(b_ms, o_ms):.5f} ms by "
+            f"{'bytes' if b_ms >= o_ms else 'operations'}")
+    out["k2_mix"] = k2_ms
+    log("delta16_rescore on the MixEngine's concatenated operands, one "
+        "language step each, equal to the plain version (RTOL/ATOL): "
+        + "; ".join(parts) + f" ({card})")
+    del card_engines
+
+    # recall@K of the MIX route against the exhaustive fan-out (K1)
+    exhaustive = {lang: RetrievalEngine(e.text_index, store=e.store,
+                                        device=dev)
+                  for lang, e in mix.engines.items()}
+    # K1 on every language's text field at the fan-out's shape: the same
+    # 1024 mixed queries go to every engine
+    log(f"bm25_score_block at the MIX fan-out's shape, the held-equal batch "
+        f"of {len(batch)} en/zh/ru train queries on each language's "
+        f"exhaustive engine: " + "; ".join(
+            f"{lang} {k1_at_retrieve_shape(bm25, e, batch, None, dev)}"
+            for lang, e in exhaustive.items()) + f" ({card})")
+    reset_counts(bm25)
+    recalls = {lang: [] for lang in mix.langs}
+    t0 = time.perf_counter()
+    for split in ("train", "dev", "test"):
+        recs = read_column_file(data / f"{split}.txt", {0: "text", 1: "ner"},
+                                comment_symbol="# id")
+        queries = [sentence_query(r, "mix") for r in recs]
+        got_urls = [[line.split("\t")[4] for line in lines]
+                    for _, lines in query_blocks(
+                        tmp / "mix-pruned" / f"{split}.retrieval.tsv")]
+        for i in range(0, len(queries), cli.RETRIEVE_BATCH):
+            rows_x = mix_search(exhaustive, queries[i:i + cli.RETRIEVE_BATCH],
+                                k=K)
+            for row, urls, lang in zip(
+                    rows_x, got_urls[i:i + cli.RETRIEVE_BATCH],
+                    split_langs[split][i:i + cli.RETRIEVE_BATCH]):
+                want = {d.url for _, d in row}
+                if want:
+                    recalls[lang].append(len(want & set(urls)) / len(want))
+    exh_s = time.perf_counter() - t0
+    got = counts(bm25)
+    expect_counts("mix_search over exhaustive engines", got,
+                  {"bm25_score_block": M * n_batches})
+    out["k1_mix_launches"] = got["bm25_score_block"]
+    recall = float(np.mean(sum(recalls.values(), [])))
+    log(f"cli retrieve --route mix (MixEngine) against mix_search over "
+        f"exhaustive engines (K1, {got['bm25_score_block']} launches = {M} "
+        f"languages x {n_batches} batches, {exh_s:.1f} s): recall@{K} "
+        f"{recall:.4f} over {sum(map(len, recalls.values()))} queries (bar "
+        f"{MIN_RECALL}); by the query's language "
+        + ", ".join(f"{lang} {np.mean(r):.4f} ({len(r)})"
+                    for lang, r in recalls.items() if r) + f" ({card})")
+    if recall < MIN_RECALL:
+        raise AssertionError(f"--route mix recall@{K} {recall:.4f} is below "
+                             f"{MIN_RECALL}")
+    mix_langs = list(mix.langs)
+    del exhaustive, mix, made
+    torch.cuda.empty_cache()
+
+    # -- (c) --with_entity: the per-engine route with title boosts -----------
+    fan_out, calls = engine_mod.mix_search, []
+
+    def capture_fan_out(engines, queries, *args, **kwargs):
+        calls.append((engines, list(queries), kwargs.get("entity_queries")))
+        return fan_out(engines, queries, *args, **kwargs)
+
+    engine_mod.mix_search = capture_fan_out
+    reset_counts(bm25)
+    try:
+        (st, _), wall = timed(lambda: run_cli(cli, [
+            *common, "--engine_mode", "pruned", "--with_entity", "--out",
+            str(tmp / "mix-entity")]))
+    finally:
+        engine_mod.mix_search = fan_out
+    got = counts(bm25)
+    expect_counts("cli retrieve --route mix --with_entity", got,
+                  {"delta16_rescore": M * n_batches})
+    split_s = {s: sum(v for k, v in t.items() if k != "sentences")
+               for s, t in st.items()}
+    n_title = sum("<hit>" in line.split(" ---#--- ")[-1]
+                  for line in (tmp / "mix-entity" / "train.retrieval.tsv")
+                  .read_text(encoding="utf-8").splitlines()
+                  if " ---#--- " in line)
+    if n_title == 0:
+        raise AssertionError("--route mix --with_entity: no title hit")
+    log(f"cli retrieve --route mix --engine_mode pruned --with_entity "
+        f"(mix_search over {M} pruned engines with title fields, built in "
+        f"the run): {wall:.1f} s; launches {got}; per split: " + "; ".join(
+            f"{s} {t['sentences'] / split_s[s]:.0f} sentences/s "
+            f"(retrieve {t['retrieve']:.2f} s)" for s, t in st.items())
+        + f"; {n_title} train contexts with a title hit ({card})")
+    # K2 on each language's own pruned engine of that run, at two train
+    # batches (sentence queries with their entity clauses): the first (en)
+    # and the one that holds the first ru query (zh and ru)
+    engines = calls[0][0]
+    if len(calls) != n_batches or sorted(engines) != sorted(mix_langs):
+        raise AssertionError("--route mix --with_entity: the fan-out ran "
+                             f"{len(calls)} batches over {sorted(engines)}")
+    langs_t = split_langs["train"]
+    for b in sorted({0, langs_t.index("ru") // cli.RETRIEVE_BATCH}):
+        _, queries, entities = calls[b]
+        if entities is None:
+            raise AssertionError("--route mix --with_entity: no entity "
+                                 "clauses")
+        in_batch = sorted(set(langs_t[b * cli.RETRIEVE_BATCH:
+                                      (b + 1) * cli.RETRIEVE_BATCH]))
+        log(f"delta16_rescore on each language's pruned engine of the "
+            f"--with_entity route, train batch {b} ({len(queries)} "
+            f"{'/'.join(in_batch)} queries with their entity clauses): "
+            + "; ".join(
+                f"{lang} {k2_at_retrieve_shape(bm25, e, queries, entities)}"
+                for lang, e in engines.items()) + f" ({card})")
+    del engines, calls
+    torch.cuda.empty_cache()
+
+    # -- (d) cli multistage ---------------------------------------------------
+    en_dir, de_dir = stage_corpora(tmp, seed=61)
+    configs = []
+    for name, folders, extra in (
+            ("stage1", (en_dir, de_dir), {"resample_smooth": 0.7,
+                                          "save_finetuned_encoder": True}),
+            ("stage2", (en_dir,), {})):
+        path = tmp / f"{name}.json"
+        path.write_text(json.dumps({
+            "name": name, "corpora": [{
+                "name": f.name, "data_folder": str(f),
+                "column_format": {"0": "text", "1": "ner"}}
+                for f in folders],
+            "tokenizer": {"type": "hash", "vocab_size": HASH_VOCAB},
+            "model": {"encoder": encoder},
+            "train": {"learning_rate": 5e-6, "lr_rate": 10000.0,
+                      "batch_size": 8, "max_epochs": 1, "seed": 3, **extra},
+            "target_dir": str(tmp / name)}))
+        configs.append(path)
+    seen, stage_s = [], []
+    load_encoder, train = FinetuneTrainer.load_encoder, FinetuneTrainer.train
+
+    def checked_load(self, path):
+        load_encoder(self, path)
+        tree = weights.to_jax_params(self.model.state_dict(),
+                                     self.model.config)["params"]["encoder"]
+        export = checkpoint.load(path)
+        flat = {}
+
+        def walk(a, b, key=""):
+            if isinstance(a, dict):
+                if set(a) != set(b):
+                    raise AssertionError(f"encoder keys differ at {key}")
+                for k in a:
+                    walk(a[k], b[k], f"{key}/{k}")
+            else:
+                flat[key] = float(np.abs(np.asarray(a, np.float64)
+                                         - np.asarray(b, np.float64)).max())
+        walk(tree, export)
+        seen.append((path, max(flat.values()), len(flat)))
+
+    def timed_train(self, base_path, config):
+        t0 = time.perf_counter()
+        result = train(self, base_path, config)
+        torch.cuda.synchronize()
+        stage_s.append(time.perf_counter() - t0)
+        return result
+
+    FinetuneTrainer.load_encoder = checked_load
+    FinetuneTrainer.train = timed_train
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        (results, _), wall = timed(lambda: run_cli(cli, [
+            "multistage", *map(str, configs), *device]))
+    finally:
+        FinetuneTrainer.load_encoder = load_encoder
+        FinetuneTrainer.train = train
+    export = tmp / "stage1" / "finetuned-encoder.msgpack"
+    if (len(results) != 2 or len(seen) != 1 or seen[0][0] != export
+            or seen[0][1] != 0.0):
+        raise AssertionError(f"cli multistage: {len(results)} stages, "
+                             f"encoder loads {seen}")
+    losses = [r["history"]["train_loss"][0] for r in results]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"cli multistage: train losses {losses}")
+    log(f"cli multistage (XLM-R {encoder}, float32 masters with bf16 "
+        f"compute, batch 8, one epoch each; stage 1 en + de with "
+        f"resample_smooth 0.7, stage 2 en from stage 1's export): "
+        f"{wall:.1f} s in all, stages {stage_s[0]:.1f} s and "
+        f"{stage_s[1]:.1f} s (training, evaluation and checkpoints), train "
+        f"losses {losses[0]:.4f} and {losses[1]:.4f}; the export "
+        f"{export.stat().st_size / 1e9:.3f} GB; stage 2's encoder at load "
+        f"against stage 1's export: max abs diff {seen[0][1]} over "
+        f"{seen[0][2]} arrays; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+    return out
+
+
 def fuse_served(engine, tokenizer, records):
     """The records ``serve`` fuses: each searched with its own tokens."""
     from kbner_tpu_torch.retrieval.fusion import fuse_contexts
@@ -2106,6 +2620,9 @@ def main() -> int:
               "runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
 
+    from pathlib import Path
+
+    import kbner_tpu_torch.cli as cli
     from kbner_tpu_torch.data.conll import EOS_MARKER
     from kbner_tpu_torch.data.dictionary import make_tag_dictionary
     from kbner_tpu_torch.data.encode import encode_batch
@@ -2588,6 +3105,10 @@ def main() -> int:
         # -- 4h. the offline KB stage, with 4g's trained model -------------
         kb_stage_phase(engine, docs, title_docs, encoded, exact, requests,
                        bm25, dev, card, tmp, f"{tmp}/b")
+        # -- 4i. MIX retrieval over three language KBs, staged training ----
+        torch.cuda.empty_cache()
+        mix = mix_stage_phase(cli, bm25, dev, card, Path(tmp),
+                              Path(tmp) / "model.yaml")
 
     # -- 5. kernels ----------------------------------------------------------
     kernels = [{
@@ -2596,6 +3117,7 @@ def main() -> int:
         "source": "kbner_tpu_torch/csrc/bm25_score.cu",
         "replaces": "kbner_tpu/ops/bm25.py:84",
         "launches": launches,
+        "mix_launches": mix["k1_mix_launches"],
         "max_abs_err": max(err_cases, k1["err"], k1_title["err"]),
         "ms": k1["dev_ms"],
         "cold_ms": k1["cold_ms"],
@@ -2611,6 +3133,7 @@ def main() -> int:
         "source": "kbner_tpu_torch/csrc/delta16_rescore.cu",
         "replaces": "kbner_tpu/ops/bm25.py:248",
         "launches": d16_launches,
+        "mix_launches": mix["mix_launches"],
         "max_abs_err": max(d16_err_cases, d16_err_main),
         "ms": d16_ms,
         "cold_ms": d16_cold_ms,

@@ -9,15 +9,22 @@
     python -m kbner_tpu_torch.cli test  --config CONFIG.yaml
     python -m kbner_tpu_torch.cli parse --config CONFIG.yaml --target_dir D
     python -m kbner_tpu_torch.cli serve --config CONFIG.yaml --index_dir KB_DIR
+    python -m kbner_tpu_torch.cli retrieve --route mix --engine_mode pruned \
+        --index_dir en=KB_EN --index_dir de=KB_DE --data_folder CONLL \
+        --out FUSED
+    python -m kbner_tpu_torch.cli multistage STAGE1.yaml STAGE2.yaml
 
 ``ingest-dump`` turns a MediaWiki XML dump into parsed-wiki JSONL and
 ``index`` saves a KB built from that JSONL (text and title BM25 indices, a
 packed doc store); both run on the host. ``retrieve`` searches every
 sentence of a CoNLL folder's ``train/dev/test.txt`` in a KB (``--index_dir``
-or ``--kb``) and writes each split's retrieval file and its context-fused
-column file, what ``train`` reads. ``train`` fine-tunes the NER tagger on
-the config's column corpora (``FinetuneTrainer``; the other trainers and
-the parser targets wait for ROADMAP A6) and tests the best model; ``test``
+or ``--kb``), or with ``--route mix`` in every language's KB at once,
+and writes each split's retrieval file and its context-fused column file,
+what ``train`` reads. ``train`` fine-tunes the NER tagger on the config's
+column corpora (``FinetuneTrainer``; the other trainers and the parser
+targets wait for ROADMAP A6) and tests the best model; ``multistage``
+trains one config after another, each stage starting from the encoder the
+previous one exported; ``test``
 evaluates the best (else final) model on the test sets; ``parse`` tags
 every ``*.txt`` column file of a folder (or one file) into
 ``<stem>.conllu`` with a ``pred`` column. ``serve`` reads JSONL requests on
@@ -54,6 +61,7 @@ from .serve import serve
 from .train.trainer import FinetuneTrainer
 
 log = logging.getLogger("kbner_tpu_torch")
+RETRIEVE_BATCH = 1024  # queries per search, as in retrieve_for_records
 
 
 def _trained_checkpoint(target_dir: Path) -> Optional[Path]:
@@ -270,6 +278,87 @@ def _rerank_bertscore(predictor, queries, results, chunk: int = 1024):
     return out
 
 
+def _single_search_fn(args):
+    """``cli retrieve``'s search over one KB: ``(records, entities) ->``
+    one list of results per record."""
+    from .retrieval.pipeline import retrieve_for_records
+
+    text_index, store, title_index = _open_kb(args)
+    engine = RetrievalEngine(text_index, store=store,
+                             title_index=title_index, mode=args.engine_mode,
+                             device=args.device)
+
+    def run_search(records, entities):
+        return retrieve_for_records(
+            engine, records, k=args.k, lang=args.lang,
+            with_entity=args.with_entity, entities=entities)
+    return run_search
+
+
+def _mix_search_fn(args):
+    """``cli retrieve --route mix``'s search: one engine per language KB
+    (repeated ``--kb lang=path`` and ``--index_dir lang=dir``), every query
+    fanned out to all of them and merged by score (the reference's
+    wildcard ``*wiki_v1`` msearch). Pruned sentence queries go through one
+    :class:`MixEngine` over the engines' concatenated arrays (the engines
+    keep theirs on the host); entity-boosted or exhaustive searches go
+    through :func:`mix_search`, engine by engine, which also reads the
+    title indices. Returns ``(records, entities) ->`` one list of results
+    per record."""
+    from .retrieval.engine import MixEngine, mix_search
+    from .retrieval.pipeline import sentence_query
+
+    single_dispatch = args.engine_mode == "pruned" and not args.with_entity
+    engine_device = False if single_dispatch else args.device
+    engines = {}
+    for spec in args.kb or []:
+        lang, sep, path = spec.rpartition("=")
+        if not sep:
+            lang, path = "en", spec
+        text_index, store, title_index = build_kb_from_jsonl(path,
+                                                             lang=lang)
+        engines[lang] = RetrievalEngine(
+            text_index, store=store, title_index=title_index,
+            mode=args.engine_mode, device=engine_device)
+    for spec in args.index_dir or []:
+        text_index, store, title_index, lang = load_kb(
+            spec.split("=", 1)[-1])
+        engines[lang] = RetrievalEngine(
+            text_index, store=store, title_index=title_index,
+            mode=args.engine_mode, device=engine_device)
+    if not engines:
+        raise SystemExit("--route mix needs --kb lang=path / --index_dir "
+                         "entries")
+    mix = None
+    if single_dispatch:
+        try:
+            mix = MixEngine(engines, device=args.device)
+        except ValueError as err:  # e.g. an index without doc lengths
+            log.warning("MixEngine unavailable (%s); using the per-engine "
+                        "fan-out", err)
+            engines = {lang: RetrievalEngine(
+                e.text_index, store=e.store, title_index=e.title_index,
+                mode=args.engine_mode, device=args.device)
+                for lang, e in engines.items()}
+
+    def run_search(records, entities):
+        queries = [sentence_query(r, "mix") for r in records]
+        starts = range(0, len(queries), RETRIEVE_BATCH)
+        batches = [queries[i:i + RETRIEVE_BATCH] for i in starts]
+        if mix is not None:
+            rows = [row for done in mix.search_texts_stream(batches,
+                                                            k=args.k)
+                    for row in done]
+        else:
+            rows = [row for i, b in zip(starts, batches)
+                    for row in mix_search(
+                        engines, b, k=args.k, entity_queries=(
+                            entities[i:i + RETRIEVE_BATCH]
+                            if args.with_entity else None))]
+        return [[doc for _, doc in row] for row in rows]
+    return run_search
+
+
 def cmd_retrieve(args) -> Dict[str, Dict[str, float]]:
     """Search every sentence of ``--data_folder``'s train/dev/test.txt in
     the KB and write, per split, ``<split>.retrieval.tsv`` and the
@@ -278,15 +367,10 @@ def cmd_retrieve(args) -> Dict[str, Dict[str, float]]:
     rerank, write, fuse)."""
     from .data.conll import SentenceRecord
     from .retrieval.fusion import extract_entities, fuse_contexts
-    from .retrieval.pipeline import (retrieve_for_records, sentence_query,
-                                     write_retrieval_file)
+    from .retrieval.pipeline import sentence_query, write_retrieval_file
     from .retrieval.rerank import rerank_by_edit_distance
 
     _setup_logging(None)
-    if args.route == "mix":
-        raise NotImplementedError(
-            "--route mix (MixEngine, one query fanned out to every language "
-            "KB) is not ported to kbner_tpu_torch yet (ROADMAP A6)")
     if args.hf_tokenizer:
         raise NotImplementedError(
             "--hf_tokenizer: HF tokenizers wait until the repository holds "
@@ -294,10 +378,8 @@ def cmd_retrieve(args) -> Dict[str, Dict[str, float]]:
     if args.rerank == "bertscore" and not args.model_config:
         raise SystemExit("--rerank bertscore needs --model_config (the "
                          "encoder supplying the token embeddings)")
-    text_index, store, title_index = _open_kb(args)
-    engine = RetrievalEngine(text_index, store=store,
-                             title_index=title_index, mode=args.engine_mode,
-                             device=args.device)
+    run_search = (_mix_search_fn(args) if args.route == "mix"
+                  else _single_search_fn(args))
     # the fusion budget is measured with the training tokenizer
     if args.tokenizer_config:
         tokenizer = ServeConfig.from_file(
@@ -343,9 +425,7 @@ def cmd_retrieve(args) -> Dict[str, Dict[str, float]]:
             else:
                 entities = [extract_entities(r) for r in records]
         lap("seeds")
-        results = retrieve_for_records(
-            engine, records, k=args.k, lang=args.lang,
-            with_entity=args.with_entity, entities=entities)
+        results = run_search(records, entities)
         lap("retrieve")
         if args.rerank == "edit":
             results = [rerank_by_edit_distance(sentence_query(r, args.lang),
@@ -379,11 +459,29 @@ def cmd_retrieve(args) -> Dict[str, Dict[str, float]]:
     return stats
 
 
-def cmd_multistage(args) -> None:
-    raise NotImplementedError(
-        "cli multistage (retrieval/iterative.py, staged training that "
-        "hands each stage's encoder to the next) is not ported to "
-        "kbner_tpu_torch yet (ROADMAP A6)")
+def cmd_multistage(args) -> List[dict]:
+    """Staged fine-tuning over the stage configs in order: each stage
+    trains as ``cli train`` does and exports its tuned encoder, and the
+    next stage's encoder starts from that export. Returns each stage's
+    training result."""
+    from .retrieval.iterative import run_multistage
+
+    _setup_logging(None)
+
+    def build(path, encoder_init):
+        config = ExperimentConfig.from_file(path)
+        trainer = _build(config, args.device)
+        if encoder_init is not None:
+            trainer.load_encoder(encoder_init)
+            log.info("stage %s starts from the encoder %s", path,
+                     encoder_init)
+        return (trainer, config.make_train_config(),
+                config.resolve_target_dir())
+
+    results = run_multistage(list(args.configs), build)
+    for i, r in enumerate(results):
+        log.info("stage %d best dev score: %s", i + 1, r["best_dev_score"])
+    return results
 
 
 def serving_tagger(config: ServeConfig, tag_dict: Dictionary,
@@ -492,7 +590,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="exhaustive (default) or pruned")
 
     sp = sub.add_parser("multistage")
-    sp.add_argument("configs", nargs="+")
+    sp.add_argument("configs", nargs="+",
+                    help="stage configs in order; each stage's tuned "
+                         "encoder starts the next")
+    sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     sp.set_defaults(fn=cmd_multistage)
 
     sp = sub.add_parser("index")
@@ -523,7 +624,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--index_dir", action="append",
                     help="a saved KB from `index`")
     sp.add_argument("--route", default="single", choices=("single", "mix"),
-                    help="mix is not ported (ROADMAP A6)")
+                    help="mix: fan every query out to every language KB "
+                         "(--kb lang=path, --index_dir lang=dir, "
+                         "repeatable) and merge by score")
     sp.add_argument("--data_folder", required=True,
                     help="folder of train/dev/test.txt column files")
     sp.add_argument("--out", required=True)

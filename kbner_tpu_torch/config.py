@@ -25,6 +25,10 @@ from .train.trainer import TrainConfig
 
 def _read_yaml(path: str | Path) -> Dict[str, Any]:
     text = Path(path).read_text()
+    if text.lstrip().startswith("{"):
+        # a config written as JSON reads as JSON, with PyYAML or without
+        # (YAML 1.1 would read a number such as 5e-06 as a string)
+        return json.loads(text)
     try:
         import yaml  # only the CLI reads YAML; the package imports without it
     except ImportError:  # a config written as JSON reads without PyYAML

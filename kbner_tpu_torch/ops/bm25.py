@@ -720,16 +720,18 @@ def pass2_operands(
     imp_lo: float = 0.0,
     imp_step: float = 1.0,
     ragged_rows: Sequence[int] = (),
+    rescore_id_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, List[tuple]]:
     """Pass 1 of :func:`bm25_pruned_topk_packed` and what it hands pass 2:
     (cand_ids [Q, C] int64, cand_valid [Q, C] bool, one ``(function,
     arguments)`` per field from :func:`_rescore_operands`, invalid
-    candidates at id 0)."""
+    candidates at id 0; pass 2 reads the rows of ``id +
+    rescore_id_offset``)."""
     cand_ids, cand_valid = select_candidates(
         cand_keys, n_candidates, max_dup_shifts, imp_lo, imp_step)
     safe_ids = torch.where(cand_valid, cand_ids, 0)
-    return cand_ids, cand_valid, _rescore_operands(safe_ids, fields,
-                                                   ragged_rows)
+    return cand_ids, cand_valid, _rescore_operands(
+        safe_ids + rescore_id_offset, fields, ragged_rows)
 
 
 def _final_topk(total: torch.Tensor, cand_ids: torch.Tensor,
@@ -760,6 +762,7 @@ def bm25_pruned_topk_packed(
     tiny_ex: Optional[torch.Tensor] = None,
     ragged_rows: Sequence[int] = (),
     topc_recall: float = 0.0,
+    rescore_id_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-pass top-k (scores float32, doc ids int64, -1 where fewer than
     k candidates score) from pooled pass-1 keys ``cand_keys [Q, P]``.
@@ -768,6 +771,12 @@ def bm25_pruned_topk_packed(
     pass 2 plus the exact f32 ``tiny_ex`` sums of the host-gathered
     ``tiny_doc`` block, padding documents (id >= ``n_real_docs``) are
     dropped, and the top k remain.
+
+    ``rescore_id_offset`` shifts the candidate ids only for the pass-2 row
+    lookup and in the returned ids: a ``MixEngine`` concatenates every
+    language's pass-2 rows into one structure, while the pass-1 keys, the
+    ``n_real_docs`` bound and the ``tiny_doc`` match stay in the
+    language's own ids.
     """
     if topc_recall > 0.0:
         raise NotImplementedError(
@@ -775,7 +784,7 @@ def bm25_pruned_topk_packed(
             "exact top-C is the ported path (ROADMAP A4)")
     cand_ids, cand_valid, rescore = pass2_operands(
         cand_keys, fields, n_candidates, max_dup_shifts, imp_lo, imp_step,
-        ragged_rows)
+        ragged_rows, rescore_id_offset)
     safe_ids = torch.where(cand_valid, cand_ids, 0)
 
     total = _sum_pass2(safe_ids, rescore)
@@ -784,7 +793,11 @@ def bm25_pruned_topk_packed(
         m = (safe_ids[:, :, None] == tiny_doc[:, None, :]) & (
             tiny_doc[:, None, :] >= 0)
         total = total + torch.where(m, tiny_ex[:, None, :], 0.0).sum(-1)
-    return _final_topk(total, cand_ids, cand_valid, n_real_docs, k)
+    top_scores, top_ids = _final_topk(total, cand_ids, cand_valid,
+                                      n_real_docs, k)
+    if rescore_id_offset:
+        top_ids = torch.where(top_ids >= 0, top_ids + rescore_id_offset, -1)
+    return top_scores, top_ids
 
 
 def gather_pruned_candidate_keys(

@@ -21,24 +21,53 @@ entity-boosted queries:
 Only the top-k ids and scores come back. Document texts stay on the host
 and are materialized into result records with the reference's
 retrieval-file fields (sentence/paragraph/title/score/url).
+
+Across languages (the recipe's MIX track, one query searched in every
+language's KB): :func:`mix_search` fans a batch out to each language's
+engine and merges by score; :class:`MixEngine` holds the languages'
+pruned arrays concatenated on the device and runs the pruned search of
+each language on global ids; :func:`langwiki_search` routes each query to
+its own language's engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import native
 from ..device import resolve_device
-from ..ops.bm25 import (KEY_PAD, bm25_pruned_topk_packed, bm25_topk,
-                        gather_pruned_candidate_keys)
+from ..ops.bm25 import (KEY_PAD, _top_sorted, bm25_pruned_topk_packed,
+                        bm25_topk, gather_pruned_candidate_keys)
 from .index import BM25Index, long_to_int4
 
 _DOC_PAD = 512  # the doc axis is padded to a multiple of this on upload
+# ln(64) of headroom per code step, so summed tiny contributions do not
+# clip to pass-1 code 255
+_RANK_HEADROOM = float(np.log(64.0)) / 254.0
+
+
+def _rank_step(csr_step: float, dtype=np.float64) -> float:
+    """The pooled pass-1 keys' ranking step: a CSR's log step plus
+    :data:`_RANK_HEADROOM`, summed in ``dtype`` (float32 where the scale
+    travels as float32 scalars, as in :class:`MixEngine`)."""
+    return float(dtype(csr_step) + dtype(_RANK_HEADROOM))
+
+
+def _tiny_keys(t_doc: torch.Tensor, t_ex: torch.Tensor, rank_lo: float,
+               rank_step: float) -> torch.Tensor:
+    """The tiny block's pass-1 keys ``(doc << 8) | code`` [Q, T] int64:
+    each exact sum's log code on the ranking scale, clamped to 1..255;
+    KEY_PAD where the doc is -1 or the sum is not positive."""
+    code = torch.clamp(torch.round(
+        (torch.log(torch.clamp(t_ex, min=1e-30)) - rank_lo) / rank_step)
+        + 1.0, 1.0, 255.0).long()
+    return torch.where((t_doc >= 0) & (t_ex > 0), (t_doc << 8) | code,
+                       KEY_PAD)
 
 
 @dataclasses.dataclass
@@ -262,6 +291,112 @@ def _term_scale_from_csr(index: BM25Index, code_bits: int
     return term_lo, max(rng / max(levels, 1), 1e-12)
 
 
+def _upload_tree(tree, device: torch.device, stream):
+    """Start the upload of every numpy array in ``tree`` (nested lists and
+    tuples; anything else passes as is) on ``stream`` from pinned
+    buffers. Returns (the same structure over device tensors, the event
+    recorded after the copies, the device tensors)."""
+    on_side = []
+
+    def put(x):
+        if isinstance(x, np.ndarray):
+            t = torch.from_numpy(np.ascontiguousarray(x)).pin_memory().to(
+                device, non_blocking=True)
+            on_side.append(t)
+            return t
+        if isinstance(x, (list, tuple)):
+            return type(x)(put(y) for y in x)
+        return x
+
+    with torch.cuda.stream(stream):
+        tree = put(tree)
+        uploaded = torch.cuda.Event()
+        uploaded.record(stream)
+    return tree, uploaded, on_side
+
+
+def _pipelined(batches, encode, pack, run, device: torch.device,
+               workers: int, depth: int):
+    """Yield ``run(pack(encode(b)))`` pulled to numpy (a tuple of arrays)
+    for each batch ``b``, in order, with three stages overlapping:
+    ``workers`` prep threads run ``encode`` at once and ``pack`` in batch
+    order (a pack may grow never-shrink widths), then start the packed
+    arrays' upload from pinned buffers on a side stream; ``run`` launches
+    the kernels on the caller's thread, on its current stream, which waits
+    for the batch's upload event; each result is copied into pinned
+    buffers and pulled by its own thread after a CUDA event, with at most
+    ``depth`` batches dispatched and not yet yielded."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    cuda = device.type == "cuda"
+    side = torch.cuda.Stream(device) if cuda else None
+    packed_to = threading.Condition()
+    n_packed = [0]
+
+    def prep(i, b):
+        err = None
+        try:
+            enc = encode(b)
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            err = e
+        with packed_to:  # batch i packs after batch i - 1
+            packed_to.wait_for(lambda: n_packed[0] == i)
+            try:
+                if err is None:
+                    packed = pack(enc)
+            finally:
+                n_packed[0] += 1
+                packed_to.notify_all()
+        if err is not None:
+            raise err
+        if not cuda:
+            return packed, None, []
+        return _upload_tree(packed, device, side)
+
+    def pull(done, host):
+        done.synchronize()
+        return tuple(h.numpy() for h in host)
+
+    with ThreadPoolExecutor(max_workers=max(workers, 1)) as ex, \
+            ThreadPoolExecutor(max_workers=max(depth, 1) + 1) as pulls:
+        preps: deque = deque()
+        pending: deque = deque()
+
+        def dispatch():
+            packed, uploaded, on_side = preps.popleft().result()
+            if cuda:
+                cur = torch.cuda.current_stream(device)
+                cur.wait_event(uploaded)
+                for t in on_side:  # allocated on the side stream
+                    t.record_stream(cur)
+            out = run(packed)
+            if not cuda:
+                pending.append(pulls.submit(
+                    lambda: tuple(t.numpy() for t in out)))
+                return
+            host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                     pin_memory=True) for t in out)
+            for h, t in zip(host, out):
+                h.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(cur)
+            pending.append(pulls.submit(pull, done, host))
+
+        for i, b in enumerate(batches):
+            preps.append(ex.submit(prep, i, b))
+            if len(preps) > max(workers, 1):
+                dispatch()
+                if len(pending) > depth:
+                    yield pending.popleft().result()
+        while preps:
+            dispatch()
+            if len(pending) > depth:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+
+
 class RetrievalEngine:
     """BM25 query execution over one language's index (text field, plus an
     optional title field for entity-boosted queries).
@@ -320,10 +455,9 @@ class RetrievalEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "a sharded engine (mesh) is not ported yet (ROADMAP A4)")
-        if device is False:
-            raise NotImplementedError(
-                "device=False (host arrays for a MixEngine) is not ported "
-                "yet (ROADMAP A4)")
+        if device is False and mode != "pruned":
+            raise ValueError(
+                "device=False supports only the unsharded pruned engine")
         if deep_terms and mode != "pruned":
             raise ValueError("deep_terms>0 supports only the unsharded "
                              "pruned engine")
@@ -338,7 +472,9 @@ class RetrievalEngine:
                 compact_rows, tiny_df_cap, tiny_width, tiny_pack, tiny_f16,
                 row_layout, tiny_cols_floor, d16_width_floor, topc_recall,
                 align_windows, deep_terms, deep_cap)
-        self.device = resolve_device(device)
+        # device=False keeps the pruned arrays on the host (numpy) for a
+        # MixEngine to concatenate and upload once; search methods raise
+        self.device = None if device is False else resolve_device(device)
         # field name -> device (doc_terms_t [Ld, N] int32,
         # doc_impacts_t [Ld, N] float32), the exhaustive kernel's operands
         self.fields = {}
@@ -421,10 +557,19 @@ class RetrievalEngine:
                 torch.from_numpy(np.ascontiguousarray(di.T)).to(self.device))
 
     def _put(self, x) -> torch.Tensor:
-        """A host array on the engine's device (a tensor passes as is)."""
+        """A host array on the engine's device (a tensor passes as is); a
+        ``device=False`` engine keeps it on the host."""
         if isinstance(x, torch.Tensor):
             return x
+        if self.device is None:
+            return np.ascontiguousarray(x)
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _require_device(self) -> None:
+        if self.device is None:
+            raise ValueError(
+                "engine built with device=False (host arrays only): search "
+                "through the MixEngine that owns it")
 
     def _upload_pruned(self, name: str, idx: BM25Index, dt: np.ndarray,
                        di: np.ndarray) -> None:
@@ -685,11 +830,10 @@ class RetrievalEngine:
         too)."""
         rares, tiny, blocks = packed
         names = ("text", "title")[:len(blocks)]
-        # one ranking scale for every key: the text CSR's, with ln(64) of
-        # headroom so summed tiny contributions do not clip to code 255;
+        # one ranking scale for every key: the text CSR's with headroom;
         # the title windows are re-encoded onto it
         rank_lo, csr_step = self._csr_scale["text"]
-        rank_step = csr_step + float(np.log(64.0)) / 254.0
+        rank_step = _rank_step(csr_step)
         key_blocks = []
         for name, rare in zip(names, rares):
             lo, step = self._csr_scale[name]
@@ -708,11 +852,7 @@ class RetrievalEngine:
         t_doc = t_ex = None
         if tiny is not None:
             t_doc, t_ex = self._unpack_tiny(tiny)
-            code = torch.clamp(torch.round(
-                (torch.log(torch.clamp(t_ex, min=1e-30)) - rank_lo)
-                / rank_step) + 1.0, 1.0, 255.0).long()
-            ok = (t_doc >= 0) & (t_ex > 0)
-            key_blocks.append(torch.where(ok, (t_doc << 8) | code, KEY_PAD))
+            key_blocks.append(_tiny_keys(t_doc, t_ex, rank_lo, rank_step))
         fields = tuple(self._field(name, *block)
                        for name, block in zip(names, blocks))
         # a doc enters the pool at most once per window of each rare block
@@ -738,6 +878,35 @@ class RetrievalEngine:
             keys, fields, n_real_docs=self.text_index.n_docs, k=k,
             tiny_doc=t_doc, tiny_ex=t_ex, **kwargs)
 
+    def _search_device(self, q_terms: np.ndarray, q_weights: np.ndarray,
+                       k: int, title_terms: Optional[np.ndarray] = None,
+                       title_weights: Optional[np.ndarray] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k of pre-encoded queries as tensors on the engine's device
+        (scores [Q, k] float32, ids [Q, k] int64), not yet pulled."""
+        self._require_device()
+        if title_terms is not None and self.title_index is None:
+            raise ValueError("engine built without a title index")
+        if self.mode == "pruned":
+            if title_terms is not None:
+                title_terms = np.asarray(title_terms)
+                title_weights = np.asarray(title_weights)
+            return self._search_pruned(
+                np.asarray(q_terms), np.asarray(q_weights), k, title_terms,
+                title_weights)
+
+        def put(x, dtype):
+            return torch.as_tensor(np.asarray(x, dtype=dtype),
+                                   device=self.device)
+
+        fields = [(put(q_terms, np.int32), put(q_weights, np.float32),
+                   *self.fields["text"])]
+        if title_terms is not None:
+            fields.append((put(title_terms, np.int32),
+                           put(title_weights, np.float32),
+                           *self.fields["title"]))
+        return bm25_topk(fields, k=k, doc_chunk=self.doc_chunk)
+
     def search_encoded(
         self,
         q_terms: np.ndarray,
@@ -747,30 +916,8 @@ class RetrievalEngine:
         title_weights: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k over pre-encoded queries. Returns (scores, ids) [Q, k]."""
-        if self.mode == "pruned":
-            if title_terms is not None:
-                if self.title_index is None:
-                    raise ValueError("engine built without a title index")
-                title_terms = np.asarray(title_terms)
-                title_weights = np.asarray(title_weights)
-            scores, ids = self._search_pruned(
-                np.asarray(q_terms), np.asarray(q_weights), k, title_terms,
-                title_weights)
-            return scores.cpu().numpy(), ids.cpu().numpy()
-
-        def put(x, dtype):
-            return torch.as_tensor(np.asarray(x, dtype=dtype),
-                                   device=self.device)
-
-        fields = [(put(q_terms, np.int32), put(q_weights, np.float32),
-                   *self.fields["text"])]
-        if title_terms is not None:
-            if "title" not in self.fields:
-                raise ValueError("engine built without a title index")
-            fields.append((put(title_terms, np.int32),
-                           put(title_weights, np.float32),
-                           *self.fields["title"]))
-        scores, ids = bm25_topk(fields, k=k, doc_chunk=self.doc_chunk)
+        scores, ids = self._search_device(q_terms, q_weights, k, title_terms,
+                                          title_weights)
         return scores.cpu().numpy(), ids.cpu().numpy()
 
     def search_stream(self, batches, k: int = 10, workers: int = 3,
@@ -779,126 +926,34 @@ class RetrievalEngine:
         ``(scores, ids)`` numpy arrays per batch, in order.
 
         A batch is ``(q_terms, q_weights)`` or a list of raw query strings.
-        In pruned mode three stages overlap: ``workers`` prep threads
-        analyze and encode batch i+1, pack it on the host (in batch order,
-        so the never-shrink query widths grow as per-batch calls grow
-        them) and start its upload, from pinned buffers on a side stream,
-        while the card runs batch i; the results come back through pinned
-        buffers, each pulled by its own thread after a CUDA event, with at
-        most ``depth`` batches dispatched and not yet yielded. Every kernel
-        launches on the caller's thread, on its current stream, which
-        waits for each batch's upload event. Exhaustive mode searches each
-        batch with :meth:`search_encoded`.
+        In pruned mode three stages overlap (:func:`_pipelined`):
+        ``workers`` prep threads analyze and encode batch i+1, pack it on
+        the host (in batch order, so the never-shrink query widths grow as
+        per-batch calls grow them) and start its upload while the card
+        runs batch i; the results come back through pinned buffers, with
+        at most ``depth`` batches dispatched and not yet yielded.
+        Exhaustive mode searches each batch with :meth:`search_encoded`.
         """
+        self._require_device()
+
         def encode(b):
             if b and isinstance(b[0], str):
                 b = self.text_index.encode_queries(
                     list(b), max_query_terms=max_query_terms)
-            return b
+            qt, qw = (np.asarray(x) for x in b)
+            return qt, qw
 
         if self.mode != "pruned":
-            for b in batches:
-                qt, qw = encode(b)
-                yield self.search_encoded(qt, qw, k=k)
-            return
+            return (self.search_encoded(*encode(b), k=k) for b in batches)
 
-        from collections import deque
-        from concurrent.futures import ThreadPoolExecutor
+        def run(packed):
+            keys, fields, (t_doc, t_ex), kw = self._device_queries(packed)
+            return bm25_pruned_topk_packed(
+                keys, fields, n_real_docs=self.text_index.n_docs, k=k,
+                tiny_doc=t_doc, tiny_ex=t_ex, **kw)
 
-        cuda = self.device.type == "cuda"
-        side = torch.cuda.Stream(self.device) if cuda else None
-        packed_to = threading.Condition()
-        n_packed = [0]
-
-        def prep(i, b):
-            err = None
-            try:
-                qt, qw = (np.asarray(x) for x in encode(b))
-            except BaseException as e:  # noqa: BLE001 (re-raised below)
-                err = e
-            with packed_to:  # batch i packs after batch i - 1
-                packed_to.wait_for(lambda: n_packed[0] == i)
-                try:
-                    if err is None:
-                        packed = self._pack_queries(qt, qw)
-                finally:
-                    n_packed[0] += 1
-                    packed_to.notify_all()
-            if err is not None:
-                raise err
-            if not cuda:
-                return packed, None, []
-            return self._upload_packed(packed, side)
-
-        def pull(done, host):
-            done.synchronize()
-            return tuple(h.numpy() for h in host)
-
-        with ThreadPoolExecutor(max_workers=max(workers, 1)) as ex, \
-                ThreadPoolExecutor(max_workers=max(depth, 1) + 1) as pulls:
-            preps: deque = deque()
-            pending: deque = deque()
-
-            def dispatch():
-                packed, uploaded, on_side = preps.popleft().result()
-                if cuda:
-                    cur = torch.cuda.current_stream(self.device)
-                    cur.wait_event(uploaded)
-                    for t in on_side:  # allocated on the side stream
-                        t.record_stream(cur)
-                keys, fields, (t_doc, t_ex), kw = self._device_queries(
-                    packed)
-                out = bm25_pruned_topk_packed(
-                    keys, fields, n_real_docs=self.text_index.n_docs, k=k,
-                    tiny_doc=t_doc, tiny_ex=t_ex, **kw)
-                if not cuda:
-                    pending.append(pulls.submit(
-                        lambda: tuple(t.numpy() for t in out)))
-                    return
-                host = tuple(torch.empty(t.shape, dtype=t.dtype,
-                                         pin_memory=True) for t in out)
-                for h, t in zip(host, out):
-                    h.copy_(t, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(cur)
-                pending.append(pulls.submit(pull, done, host))
-
-            for i, b in enumerate(batches):
-                preps.append(ex.submit(prep, i, b))
-                if len(preps) > max(workers, 1):
-                    dispatch()
-                    if len(pending) > depth:
-                        yield pending.popleft().result()
-            while preps:
-                dispatch()
-                if len(pending) > depth:
-                    yield pending.popleft().result()
-            while pending:
-                yield pending.popleft().result()
-
-    def _upload_packed(self, packed, stream):
-        """Start the upload of :meth:`_pack_queries`' host arrays on
-        ``stream`` from pinned buffers. Returns (the same structure over
-        device tensors, the event recorded after the copies, the device
-        tensors)."""
-        on_side = []
-
-        def put(x):
-            if not isinstance(x, np.ndarray):
-                return x
-            t = torch.from_numpy(np.ascontiguousarray(x)).pin_memory().to(
-                self.device, non_blocking=True)
-            on_side.append(t)
-            return t
-
-        rares, tiny, blocks = packed
-        with torch.cuda.stream(stream):
-            packed = ([put(r) for r in rares],
-                      None if tiny is None else tuple(put(x) for x in tiny),
-                      [tuple(put(x) for x in blk) for blk in blocks])
-            uploaded = torch.cuda.Event()
-            uploaded.record(stream)
-        return packed, uploaded, on_side
+        return _pipelined(batches, encode, lambda e: self._pack_queries(*e),
+                          run, self.device, workers, depth)
 
     def search(
         self,
@@ -961,4 +1016,312 @@ class RetrievalEngine:
         for scores, ids in self.search_stream(
                 batches, k=k, max_query_terms=max_query_terms):
             out.extend(self._materialize(scores, ids))
+        return out
+
+
+def langwiki_search(
+    engines: Dict[str, RetrievalEngine],
+    queries: Sequence[str],
+    langs: Sequence[str],
+    k: int = 10,
+) -> List[List[RetrievedDoc]]:
+    """Language-routed search (the reference's ``langwiki`` setting for
+    multilingual training: one index per language, each sentence queried
+    in its own language's). A query whose language has no engine gets no
+    results."""
+    by_lang: Dict[str, List[int]] = {}
+    for i, lang in enumerate(langs):
+        by_lang.setdefault(lang, []).append(i)
+    out: List[List[RetrievedDoc]] = [[] for _ in queries]
+    for lang, idxs in by_lang.items():
+        eng = engines.get(lang)
+        if eng is None:
+            continue
+        for i, res in zip(idxs, eng.search([queries[i] for i in idxs],
+                                           k=k)):
+            out[i] = res
+    return out
+
+
+def mix_search(
+    engines: Dict[str, RetrievalEngine],
+    queries: Sequence[str],
+    k: int = 10,
+    entity_queries: Optional[Sequence[Sequence[str]]] = None,
+    title_boost: float = 2.0,
+    max_query_terms: int = 64,
+) -> List[List[Tuple[str, RetrievedDoc]]]:
+    """The MIX track's fan-out: every query searched in every language's
+    engine and the results merged by score (the reference's wildcard
+    ``*wiki_v1`` msearch). ``entity_queries`` adds the title-boosted
+    clauses on every engine that has a title index. Every engine's batch
+    is dispatched before any result is pulled; the merge is a stable sort
+    by score, so equal scores keep the engines' order, then their rank."""
+    dispatched = []
+    for lang, eng in engines.items():
+        q_terms, q_weights = eng.text_index.encode_queries(
+            list(queries), max_query_terms=max_query_terms)
+        t_terms = t_weights = None
+        if entity_queries is not None and eng.title_index is not None:
+            joined = [" ".join(ents) for ents in entity_queries]
+            t_terms, t_weights = eng.title_index.encode_queries(
+                joined, max_query_terms=max_query_terms,
+                boosts=[title_boost] * len(joined))
+        dispatched.append((lang, eng, eng._search_device(
+            q_terms, q_weights, k, t_terms, t_weights)))
+    per_engine = {lang: eng._materialize(scores.cpu().numpy(),
+                                         ids.cpu().numpy())
+                  for lang, eng, (scores, ids) in dispatched}
+    merged: List[List[Tuple[str, RetrievedDoc]]] = []
+    for qi in range(len(queries)):
+        rows = [(lang, doc) for lang, res in per_engine.items()
+                for doc in res[qi]]
+        rows.sort(key=lambda x: -x[1].score)
+        merged.append(rows[:k])
+    return merged
+
+
+def _host(x) -> np.ndarray:
+    """A host copy of an engine array (numpy, or a tensor anywhere)."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class MixEngine:
+    """The MIX track's search over several languages' pruned engines as
+    one structure on the card (counterpart of the reference's
+    ``MixEngine``, its wildcard ``*wiki_v1`` msearch).
+
+    The languages' pass-2 delta16 rows, slot offsets, lengths and norm
+    codes are concatenated along the doc axis (offsets rebased to global
+    slots), and their packed pass-1 CSRs along the row axis (offset tables
+    rebased to global elements, one after another behind per-language
+    vocabulary bases), so the card holds the sum of the languages'
+    arrays, not M copies of the largest. A batch runs the pruned search of
+    :class:`RetrievalEngine` once per language: pass 1 over the language's
+    CSR, pass 2 through K2 (``ops.bm25.delta16_rescore``) on the
+    concatenated rows with the candidates shifted to global ids
+    (``rescore_id_offset``), one launch per language; the per-language
+    top-k lists merge on the card in ``lax.top_k``'s order (language,
+    then rank, among equal scores).
+
+    Build the engines with ``device=False`` so their arrays stay on the
+    host until this class uploads the concatenation once to ``device``.
+    """
+
+    # never-shrink floors of the query blocks' widths, the reference's
+    W_FLOOR = 64         # remapped delta16 query terms
+    T_COLS_FLOOR = 512   # tiny-block entries
+
+    def __init__(self, engines: Dict[str, RetrievalEngine],
+                 n_candidates: int = 512, device="cuda"):
+        if not engines:
+            raise ValueError("MixEngine needs at least one engine")
+        self.device = resolve_device(device)
+        self.langs = list(engines)
+        self.engines = engines
+        e0 = engines[self.langs[0]]
+        for lang, e in engines.items():
+            if e.mode != "pruned" or not e._row_d16 or not e.compact_rows:
+                raise ValueError(
+                    f"engine {lang!r}: MixEngine needs pruned mode with "
+                    "delta16 rows and compact_rows")
+            if (e.rare_terms, e.per_term_cap) != (
+                    e0.rare_terms, e0.per_term_cap):
+                raise ValueError("engines must share pass-1 knobs "
+                                 "(rare_terms, posting budget)")
+            p, p0 = e.text_index.params, e0.text_index.params
+            if (p.k1, p.b) != (p0.k1, p0.b):
+                raise ValueError("engines must share BM25 params")
+            if e._csr_aligned != e0._csr_aligned:
+                raise ValueError("engines must share align_windows")
+            # every language's remapped query block comes out as wide
+            e._d16_w_floor = max(e._d16_w_floor, self.W_FLOOR)
+        self.rare_terms = e0.rare_terms
+        self.per_term_cap = e0.per_term_cap
+        self.n_candidates = n_candidates
+        self._csr_aligned = e0._csr_aligned
+        self._k1 = float(e0.text_index.params.k1)
+        self._b = float(e0.text_index.params.b)
+        self._t_cols_floor = self.T_COLS_FLOOR
+        self._r2 = max(e._row_meta["text"][4] for e in engines.values())
+
+        flats, offs, lens, normcs, csr_offs, csr_pks = [], [], [], [], [], []
+        # per language: avgdl, CSR lo and step (float32, as the reference
+        # carries them), real docs, doc base, vocabulary base
+        self._scalars = []
+        rows = elems = docs = ventries = 0
+        for lang in self.langs:
+            e = engines[lang]
+            flat, off, ln, normc = (_host(a) for a in e.rows["text"])
+            co, cp = (_host(a) for a in e.csr["text"])
+            lo, step = e._csr_scale["text"]
+            self._scalars.append((
+                float(np.float32(e.text_index.avgdl)), float(np.float32(lo)),
+                float(np.float32(step)), e.text_index.n_docs, docs,
+                ventries))
+            flats.append(flat)
+            offs.append(off.astype(np.int64) + rows * flat.shape[1])
+            lens.append(ln)
+            normcs.append(normc)
+            csr_offs.append(co.astype(np.int64) + elems)
+            csr_pks.append(cp)
+            rows += flat.shape[0]
+            elems += cp.size
+            docs += off.shape[0]
+            ventries += co.shape[0]
+        if max(offs[-1].max(initial=0), csr_offs[-1].max(initial=0)) \
+                >= 2**31:
+            raise ValueError("concatenated mix layout exceeds int32 "
+                             "offsets; shard the mix group")
+        # a covering read of r2 rows from the last language's last segment
+        # may pass its own guard rows when an earlier language's r2 is
+        # larger: the plain pass 2 reads them (K2 reads only the segment)
+        last_r2 = engines[self.langs[-1]]._row_meta["text"][4]
+        flats.append(np.zeros((self._r2 - last_r2, flats[0].shape[1]),
+                              flats[0].dtype))
+        self._doc_base = np.asarray([s[4] for s in self._scalars], np.int64)
+        self._dev = tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in (np.concatenate(flats), np.concatenate(offs).astype(
+                np.int32), np.concatenate(lens), np.concatenate(normcs),
+                      np.concatenate(csr_offs).astype(np.int32),
+                      np.concatenate(csr_pks)))
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the concatenated structure on the device."""
+        return sum(t.nbytes for t in self._dev)
+
+    # -- query packing ---------------------------------------------------------
+
+    def _encode(self, queries: Sequence[str], max_query_terms: int = 64):
+        """Each language's analysis and encoding of ``queries``."""
+        return [self.engines[lang].text_index.encode_queries(
+            list(queries), max_query_terms=max_query_terms)
+            for lang in self.langs]
+
+    def _pack(self, encoded) -> tuple:
+        """Host half of a batch from :meth:`_encode`'s output, one [M, Q,
+        ...] array per operand: rare term ids [M, Q, RM] int32, the tiny
+        block's docs [M, Q, T] int32 (-1 pads) and exact sums [M, Q, T]
+        float16, and the remapped delta16 query block, terms [M, Q, W]
+        int32 and idf-folded weights [M, Q, W] float32. T and W are
+        never-shrink powers of two shared by every language."""
+        per = []
+        t_max, w_max = 1, self.W_FLOOR
+        for lang, (qt, qw) in zip(self.langs, encoded):
+            e = self.engines[lang]
+            rare = e._select_rare_terms(qt, df_floor=e.tiny_cap)
+            t_doc, t_ex = e._tiny_block(qt, qw)
+            qt2, qw2 = e._remap_queries_d16(qt, qw)
+            per.append((rare, t_doc, t_ex, qt2, qw2))
+            t_max = max(t_max, t_doc.shape[1])
+            w_max = max(w_max, qt2.shape[1])
+        t_cols = max(_pow2_width(t_max, 256), self._t_cols_floor)
+        self._t_cols_floor = t_cols
+        M, Q = len(self.langs), encoded[0][0].shape[0]
+        rare_all = np.empty((M, Q, self.rare_terms), np.int32)
+        t_doc_all = np.full((M, Q, t_cols), -1, np.int32)
+        t_ex_all = np.zeros((M, Q, t_cols), np.float16)
+        qt_all = np.full((M, Q, w_max), -1, np.int32)
+        qw_all = np.zeros((M, Q, w_max), np.float32)
+        for li, (rare, t_doc, t_ex, qt2, qw2) in enumerate(per):
+            rare_all[li] = rare
+            t_doc_all[li, :, :t_doc.shape[1]] = t_doc
+            t_ex_all[li, :, :t_ex.shape[1]] = t_ex
+            qt_all[li, :, :qt2.shape[1]] = qt2
+            qw_all[li, :, :qw2.shape[1]] = qw2
+        return rare_all, t_doc_all, t_ex_all, qt_all, qw_all
+
+    def pack_batch(self, queries: Sequence[str],
+                   max_query_terms: int = 64) -> tuple:
+        """:meth:`_pack` of ``queries``, each analyzed once per language
+        with that language's analyzer."""
+        return self._pack(self._encode(queries, max_query_terms))
+
+    # -- device search ---------------------------------------------------------
+
+    def _search(self, packed, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One batch on the device: the pruned search of every language in
+        turn, then the merge of their top-k lists. Returns (scores [Q, k]
+        float32, global ids [Q, k] int64, -1 where fewer score)."""
+        rare, t_doc, t_ex, qt, qw = (
+            x if isinstance(x, torch.Tensor)
+            else torch.from_numpy(x).to(self.device) for x in packed)
+        flat, off, ln, normc, csr_off, csr_pk = self._dev
+        scores, ids = [], []
+        for li, (avgdl, lo, step, n_real, doc_b, voc_b) in enumerate(
+                self._scalars):
+            # the ranking scale of the pooled keys: the language's CSR
+            # scale with headroom, summed in float32
+            rank_step = _rank_step(step, np.float32)
+            r = rare[li]
+            keys = gather_pruned_candidate_keys(
+                torch.where(r >= 0, r + voc_b, -1), csr_off, csr_pk,
+                self.per_term_cap, reencode=True, lo_src=lo, step_src=step,
+                lo_dst=lo, step_dst=rank_step, aligned=self._csr_aligned)
+            td = t_doc[li].long()
+            ex = torch.where(td >= 0, t_ex[li].to(torch.float32), 0.0)
+            s, i = bm25_pruned_topk_packed(
+                torch.cat([keys, _tiny_keys(td, ex, lo, rank_step)], dim=1),
+                ((qt[li], qw[li], flat, off, ln, normc, self._k1, self._b,
+                  avgdl),),
+                n_real_docs=n_real, k=k, n_candidates=self.n_candidates,
+                max_dup_shifts=self.rare_terms + 1, imp_lo=lo,
+                imp_step=rank_step, tiny_doc=td, tiny_ex=ex,
+                ragged_rows=(self._r2,), rescore_id_offset=doc_b)
+            scores.append(s)
+            ids.append(i)
+        s, i = torch.cat(scores, dim=1), torch.cat(ids, dim=1)
+        top, pos = _top_sorted(s, k)
+        return top, torch.gather(i, 1, pos)
+
+    # -- public API ------------------------------------------------------------
+
+    def search_texts(self, queries: Sequence[str], k: int = 10,
+                     max_query_terms: int = 64
+                     ) -> List[List[Tuple[str, RetrievedDoc]]]:
+        """MIX retrieval of raw-string queries: per query the top ``k``
+        over every language, as (language, document) by score."""
+        scores, ids = self._search(
+            self.pack_batch(queries, max_query_terms=max_query_terms), k)
+        return self._materialize(scores.cpu().numpy(), ids.cpu().numpy())
+
+    def search_texts_stream(self, query_batches, k: int = 10,
+                            workers: int = 3, depth: int = 2,
+                            max_query_terms: int = 64):
+        """Pipelined MIX search over batches of raw-string queries,
+        yielding each batch's merged results in order: prep threads
+        encode and pack batch i+1 and upload it while the card searches
+        batch i (:func:`_pipelined`)."""
+        for scores, ids in _pipelined(
+                query_batches,
+                lambda qs: self._encode(qs, max_query_terms), self._pack,
+                lambda packed: self._search(packed, k), self.device,
+                workers, depth):
+            yield self._materialize(scores, ids)
+
+    def _materialize(self, scores: np.ndarray, ids: np.ndarray
+                     ) -> List[List[Tuple[str, RetrievedDoc]]]:
+        """Global ids to (language, record) through the doc bases; -1
+        fills, padding docs and non-matches (score <= 0) are dropped."""
+        out: List[List[Tuple[str, RetrievedDoc]]] = []
+        for qi in range(ids.shape[0]):
+            row = []
+            for r in range(ids.shape[1]):
+                g, s = int(ids[qi, r]), float(scores[qi, r])
+                if g < 0 or s <= 0.0:
+                    continue
+                li = int(np.searchsorted(self._doc_base, g,
+                                         side="right")) - 1
+                lang = self.langs[li]
+                eng = self.engines[lang]
+                d = g - int(self._doc_base[li])
+                if d >= eng.text_index.n_docs:
+                    continue
+                if eng.store is not None:
+                    row.append((lang, eng.store.materialize(d, s)))
+                else:
+                    row.append((lang, RetrievedDoc(doc_id=d, score=s)))
+            out.append(row)
         return out

@@ -492,3 +492,88 @@ def test_bertscore_on_card_matches_cpu(card):
     got = bertscore_f1(*(x.to(card) for x in (q, qm, d, dm)))
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def _mix_corpora(n_langs: int = 11):
+    """Seeded corpora, one per language: Zipf sentences of 10 words, but
+    the first language's are 40 words drawn evenly from 200 (no term is
+    tiny) and its last three hold all 200, two covering rows of pass 2
+    where the last language's docs need one."""
+    out = {}
+    for seed, lang in enumerate("bn de en es fa hi ko nl ru tr zh".split()
+                                [:n_langs]):
+        rng = np.random.RandomState(seed)
+        ranks = np.arange(1, 301, dtype=np.float64)
+        p = (1.0 / ranks) / np.sum(1.0 / ranks)
+        out[lang] = [" ".join(f"w{w}" for w in rng.choice(300, 10, p=p))
+                     for _ in range(100 + 20 * seed)]
+    rng = np.random.RandomState(99)
+    out["bn"] = [" ".join(f"w{w}" for w in rng.choice(200, 40))
+                 for _ in range(400)] + [
+        " ".join(f"w{w}" for w in rng.permutation(200)) for _ in range(3)]
+    return out
+
+
+MIX_KNOBS = dict(mode="pruned", rare_terms=8, posting_budget=2048,
+                 n_candidates=32, tiny_df_cap=16, tiny_pack=False,
+                 tiny_f16=True)
+
+
+def test_mix_engine_on_card_matches_the_fanout(card):
+    """MixEngine at M=11 on the card against mix_search over the same
+    languages' pruned engines on the card: (lang, doc_id) equal within
+    ties, scores at RTOL; one K2 launch per language and batch."""
+    from kbner_tpu_torch.retrieval.engine import MixEngine, mix_search
+
+    corp = _mix_corpora()
+    idxs = {lang: BM25Index.build(d, pad_docs_to=64)
+            for lang, d in corp.items()}
+    mix = MixEngine({lang: RetrievalEngine(
+        idx, store=DocStore(sentences=corp[lang]), device=False,
+        **MIX_KNOBS) for lang, idx in idxs.items()}, n_candidates=32)
+    per_engine = {lang: RetrievalEngine(
+        idx, store=DocStore(sentences=corp[lang]), device=card,
+        **MIX_KNOBS) for lang, idx in idxs.items()}
+    queries = [corp["bn"][0], corp["bn"][-1], corp["zh"][7], corp["ko"][3],
+               "w1 w5 w9 w200", corp["ru"][19]]
+    before = bm25.delta16_rescore.launches
+    got = mix.search_texts(queries, k=5)
+    assert bm25.delta16_rescore.launches - before == len(corp)
+    want = mix_search(per_engine, queries, k=5)
+    assert any(got)
+    for g, w in zip(got, want):
+        gs = np.array([d.score for _, d in g])
+        ws = np.array([d.score for _, d in w])
+        np.testing.assert_allclose(gs, ws, rtol=RTOL, atol=ATOL)
+        cut = gs[-1] * (1 + RTOL) + ATOL if len(gs) else 0.0
+        assert {(lang, d.doc_id) for lang, d in g if d.score > cut} == \
+            {(lang, d.doc_id) for lang, d in w if d.score > cut}
+
+
+def test_delta16_kernel_with_global_ids_matches_plain(card):
+    """K2 on a MixEngine's concatenated rows, candidates at global ids of
+    every language (the last language's last docs at the largest r2),
+    against the plain version on the card."""
+    from kbner_tpu_torch.retrieval.engine import MixEngine
+
+    corp = _mix_corpora(4)
+    mix = MixEngine({lang: RetrievalEngine(
+        BM25Index.build(d, pad_docs_to=64), device=False, **MIX_KNOBS)
+        for lang, d in corp.items()}, n_candidates=32)
+    flat, off, ln, nc = mix._dev[:4]
+    rng = np.random.RandomState(0)
+    n = off.shape[0]
+    cand = np.concatenate([rng.randint(0, n, size=(4, 200)),
+                           np.tile(np.arange(n - 50, n), (4, 1))], axis=1)
+    cand = torch.from_numpy(cand.astype(np.int32)).to(card)
+    qt = torch.from_numpy(rng.randint(-1, 200, size=(4, 64)).astype(
+        np.int32)).to(card)
+    qw = torch.from_numpy(rng.rand(4, 64).astype(np.float32)).to(card)
+    avgdl = mix._scalars[-1][0]
+    args = (qt, qw, cand, flat, off, ln, nc, mix._k1, mix._b, avgdl,
+            mix._r2)
+    got = bm25.delta16_rescore(*args)
+    want = bm25.delta16_rescore_ref(*args)
+    torch.cuda.synchronize()
+    assert mix._r2 > 1 and float(want.abs().sum()) > 0
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)

@@ -312,7 +312,7 @@ def test_build_with_store_and_fail_file_matches_jax(kb_path, tmp_path):
 
 def test_zh_and_ik_raise_naming_their_roadmap_item(kb_path, tmp_path):
     """zh KBs build, with or without an IK dictionary, and reopen with
-    their analyzer; cli multistage still raises naming ROADMAP A6."""
+    their analyzer."""
     text, _, title = build_kb_from_jsonl(kb_path, lang="zh")
     assert text.analyzer is analyzer.cjk_analyze
     assert title.analyzer is analyzer.cjk_analyze
@@ -327,8 +327,6 @@ def test_zh_and_ik_raise_naming_their_roadmap_item(kb_path, tmp_path):
     save_kb(tmp_path / "kb", text, store, title)
     (tmp_path / "kb" / "meta.json").write_text(json.dumps({"lang": "zh"}))
     assert load_kb(tmp_path / "kb")[0].analyzer is analyzer.cjk_analyze
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        cli.main(["multistage", "a.yaml", "b.yaml"])
 
 
 # -- dump ingestion -----------------------------------------------------------

@@ -150,12 +150,11 @@ def test_engine_modes_of_later_slices_raise():
     naming its ROADMAP item; an unknown mode or row layout is a plain
     error. (The title field, packed32 rows and the two-operand top-k are
     ported: tests/test_torch_rescore.py; deep windows:
-    tests/test_torch_pruned.py.)"""
+    tests/test_torch_pruned.py; device=False: tests/test_torch_mix.py.)"""
     index = BM25Index.build(["a b c", "b c d", "c d e"], pad_docs_to=8)
     raw = BM25Index.build(["a b c"], params=BM25Params(quantize_norms=False),
                           pad_docs_to=8)
-    for kwargs in (dict(mesh=object()), dict(topc_recall=0.9),
-                   dict(device=False)):
+    for kwargs in (dict(mesh=object()), dict(topc_recall=0.9)):
         with pytest.raises(NotImplementedError, match="ROADMAP A4"):
             RetrievalEngine(index, mode="pruned", **{"device": "cpu",
                                                      **kwargs})

@@ -319,9 +319,8 @@ def test_cli_retrieve_refuses_unported_options(kb_path, tmp_path):
     common = ["retrieve", "--kb", str(kb_path), "--data_folder",
               str(FIX / "ner_toy"), "--out", str(tmp_path), "--device",
               "cpu"]
-    for extra in (["--route", "mix"], ["--hf_tokenizer", "tok_dir"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            cli.main(common + extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        cli.main(common + ["--hf_tokenizer", "tok_dir"])
     with pytest.raises(SystemExit):
         cli.main(common + ["--rerank", "bertscore"])
 
