@@ -43,7 +43,11 @@ through one MixEngine over the three (K2 once per language and batch, on
 global ids), held to the per-engine fan-out and, for recall, to the
 exhaustive fan-out (K1), then with entity clauses; and ``cli multistage``
 of two XLM-R-large stages, the second starting from the first's
-exported encoder. It prints what
+exported encoder. Last, the recipe's ACE step: ``cli train`` with
+``trainer: ReinforcementTrainer`` over the published stack (XLM-R large
+frozen, word vectors, a char-BiLSTM and two Flair char-LMs) on KB
+sentences fused through K1, the stack held between the card and the CPU,
+and ``cli ensemble``, ``evaluate`` and ``speed``. It prints what
 it measured on the lines before the last and exits non-zero on any
 failure.
 Its last line is one JSON object naming the device.
@@ -1097,14 +1101,15 @@ def query_blocks(path):
 
 
 def k1_at_retrieve_shape(bm25, engine, queries, entities, dev,
-                         per_tile: int = 2, seed: int = 0) -> str:
+                         per_tile: int = 2, seed: int = 0,
+                         every_row: bool = False) -> str:
     """K1 at one ``cli retrieve`` batch (the queries and entity clauses of
     ``retrieve_for_records``) on ``engine``'s text and title fields, or on
     its text field alone where ``entities`` is None. The kernel scores
     every row; the plain version scores ``per_tile`` random rows of each
-    32-query tile of the kernel, over the whole doc axis, held at
-    RTOL/ATOL with top-K ids equal within ties. Returns the report: error,
-    time (CUDA events) and bound per field."""
+    32-query tile of the kernel (every row with ``every_row``), over the
+    whole doc axis, held at RTOL/ATOL with top-K ids equal within ties.
+    Returns the report: error, time (CUDA events) and bound per field."""
     import torch
 
     Q = len(queries)
@@ -1115,9 +1120,10 @@ def k1_at_retrieve_shape(bm25, engine, queries, entities, dev,
             [" ".join(e) for e in entities],
             max_query_terms=MAX_QUERY_TERMS, boosts=[TITLE_BOOST] * Q)))
     rng = np.random.RandomState(seed)
-    rows = sorted({min(t + o, Q - 1) for t in range(0, Q, 32)
-                   for o in rng.randint(0, 32, per_tile)})
-    rows = torch.tensor(rows, device=dev)
+    rows = (range(Q) if every_row else
+            sorted({min(t + o, Q - 1) for t in range(0, Q, 32)
+                    for o in rng.randint(0, 32, per_tile)}))
+    rows = torch.tensor(list(rows), device=dev)
     parts = []
     for name, (q_t, q_w) in blocks:
         dt, di = engine.fields[name]
@@ -2588,6 +2594,317 @@ def mix_stage_phase(cli, bm25, dev, card, tmp, model_cfg, encoder="large",
     return out
 
 
+# phase 4j: the recipe's last two steps -- the ACE search over the published
+# stack (configs/multistage_ace_ensemble.yaml), then cli ensemble, evaluate
+# and speed
+ACE_SPLITS = {"train": 48, "dev": 16, "test": 16}  # cut of 4h's splits
+ACE_STACK = [{"type": "transformer", "fine_tune": False},
+             {"type": "word", "dim": 300},
+             {"type": "char_bilstm", "char_dim": 32, "hidden": 64},
+             {"type": "flair", "embed_dim": 32, "hidden": 512}]
+ACE_EPISODES = 2        # the published search runs 30
+ACE_EPOCHS = 1          # the published training runs 150
+N_FEATURE_CHECK = 2     # sentences of the float32 card-vs-CPU stack check
+# float32 on both sides, sums in another order: 24 XLM-R layers and
+# 1024-step LSTMs. The largest error read on an H100 (700 W) was 1.07e-05,
+# XLM-R large's features; the LSTM members' 1.8e-07 and below
+FEATURE_RTOL, FEATURE_ATOL = 1e-4, 1e-4
+
+
+def ace_stage_phase(cli, bm25, dev, card, tmp, encoder="large",
+                    splits=None, stack=None, n_check=N_FEATURE_CHECK
+                    ) -> dict:
+    """Phase 4j, after 4i in its directory ``tmp`` (4h's saved KB
+    ``kb1m``, its CoNLL splits ``conll`` and ``model.yaml``, 4g's model
+    ``b``, 4i's stage configs and models): (a) a cut of 4h's splits fused
+    through ``cli retrieve`` with the exhaustive engine (K1, one launch
+    per split, counted), then K1 held to its plain version at each
+    split's shape, every row, on the KB opened as ``cli retrieve`` opens
+    it;
+    (b) ``cli train`` with ``trainer: ReinforcementTrainer`` over the
+    published stack (XLM-R frozen, word 300, char-BiLSTM 32/64, Flair
+    32/512), batch 32, CRF, ``ACE_EPISODES`` episodes of ``ACE_EPOCHS``
+    epoch and the final training, each episode timed, one optimizer step
+    split by member with CUDA events; (c) the stack's features for
+    ``n_check`` sentences on the card against the same module on the CPU,
+    float32 on both sides, the ACE run's weights; (d) ``cli parse`` of
+    4i's two stage models and 4g's served model on the en stage test
+    split, ``cli ensemble`` of the three, ``cli evaluate`` of the
+    ensemble joined with gold and of the ACE run's test file, ``cli
+    speed`` on 4i's stage-2 config. Returns K1's launches in (a)."""
+    import dataclasses
+
+    import torch
+
+    from kbner_tpu_torch import checkpoint, weights
+    from kbner_tpu_torch.config import ExperimentConfig, ServeConfig
+    from kbner_tpu_torch.data.conll import (ListCorpus, SentenceRecord,
+                                            read_column_file,
+                                            write_column_file)
+    from kbner_tpu_torch.data.dictionary import Dictionary
+    from kbner_tpu_torch.data.encode import make_batches
+    from kbner_tpu_torch.eval.metrics import evaluate_spans
+    from kbner_tpu_torch.retrieval.engine import RetrievalEngine
+    from kbner_tpu_torch.retrieval.pipeline import load_kb, sentence_query
+    from kbner_tpu_torch.train import FinetuneTrainer
+
+    splits = splits or ACE_SPLITS
+    device = ["--device", str(dev)]
+    t_phase = time.perf_counter()
+
+    # -- (a) the corpus, fused through K1 -------------------------------------
+    raw, fused = tmp / "ace-raw", tmp / "ace-conll"
+    queries = {}
+    for split, n in splits.items():
+        cut = read_column_file(tmp / "conll" / f"{split}.txt",
+                               {0: "text", 1: "ner"},
+                               comment_symbol="# id")[:n]
+        write_column_file(raw / f"{split}.txt", cut)
+        queries[split] = [sentence_query(r) for r in cut]
+    reset_counts(bm25)
+    _, wall = timed(lambda: run_cli(cli, [
+        "retrieve", "--index_dir", str(tmp / "kb1m"), "--data_folder",
+        str(raw), "--out", str(fused), "--tokenizer_config",
+        str(tmp / "model.yaml"), *device]))
+    got = counts(bm25)
+    # one launch per split: each holds fewer queries than a batch
+    expect_counts("the ACE corpus's cli retrieve", got,
+                  {"bm25_score_block": len(splits)})
+    text_index, store, title_index, _ = load_kb(tmp / "kb1m")
+    engine = RetrievalEngine(text_index, store=store,
+                             title_index=title_index, device=dev)
+    held = "; ".join(
+        f"{split} "
+        + k1_at_retrieve_shape(bm25, engine, q, None, dev, every_row=True)
+        for split, q in queries.items())
+    del engine
+    store.close()
+    torch.cuda.empty_cache()
+    recs = {s: read_column_file(fused / f"{s}.txt", {0: "text", 1: "ner"},
+                                comment_symbol="# id") for s in splits}
+    n_ctx = sum("<EOS>" in r.tokens for r in recs["train"])
+    if any(len(recs[s]) != n for s, n in splits.items()) or n_ctx == 0:
+        raise AssertionError(f"ACE corpus: {[len(v) for v in recs.values()]}"
+                             f" fused sentences, {n_ctx} with context")
+    words = [len(r.tokens) for r in recs["train"]]
+    chars = [sum(map(len, r.tokens)) + len(r.tokens) - 1
+             for r in recs["train"]]
+    log(f"ACE corpus: {'/'.join(map(str, splits.values()))} train/dev/test "
+        f"KB sentences (gold B-PER I-PER) fused by cli retrieve with the "
+        f"exhaustive engine in {wall:.1f} s; launches {got}; train: "
+        f"{n_ctx}/{splits['train']} with context, {max(words)} words and "
+        f"{max(chars)} characters at most; bm25_score_block at each "
+        f"split's retrieve shape on kb1m's text field: {held} ({card})")
+
+    # -- (b) cli train with the ACE trainer -----------------------------------
+    run = tmp / "ace"
+    cfg = tmp / "ace.json"
+    stack = stack or ACE_STACK
+    cfg.write_text(json.dumps({
+        "name": "en-ace-stack",
+        "corpora": [{"name": "ACE", "data_folder": str(fused),
+                     "column_format": {"0": "text", "1": "ner"},
+                     "comment_symbol": "# id", "tag_to_bioes": "ner"}],
+        "tag_layer": "ner",
+        "tokenizer": {"type": "hash", "vocab_size": HASH_VOCAB},
+        "model": {"encoder": encoder, "remat": True,
+                  "remat_policy": "dots_saveable", "use_crf": True,
+                  "embeddings": stack},
+        "ace": {"episodes": ACE_EPISODES, "controller_lr": 0.1,
+                "reward_kind": "plain"},
+        "train": {"learning_rate": 0.1, "lr_rate": 1.0, "batch_size": 32,
+                  "max_epochs": ACE_EPOCHS},
+        "trainer": "ReinforcementTrainer", "target_dir": str(run)}))
+    train_s = []
+    train = FinetuneTrainer.train
+
+    def describe(members):
+        return " + ".join(
+            f"XLM-R {encoder} frozen" if m["type"] == "transformer" else
+            f"word {m['dim']}" if m["type"] == "word" else
+            f"char-BiLSTM {m['char_dim']}/{m['hidden']}"
+            if m["type"] == "char_bilstm" else
+            f"Flair {m['embed_dim']}/{m['hidden']}" for m in members)
+
+    def timed_train(self, base_path, config):
+        t0 = time.perf_counter()
+        result = train(self, base_path, config)
+        torch.cuda.synchronize()
+        train_s.append(time.perf_counter() - t0)
+        return result
+
+    FinetuneTrainer.train = timed_train
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        (result, _), wall = timed(lambda: run_cli(cli, ["train", "--config",
+                                                        str(cfg), *device]))
+    finally:
+        FinetuneTrainer.train = train
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    history = result["history"]
+    state = json.loads((run / "training_state.json").read_text())
+    tested = json.loads((run / "test_results.json").read_text())["ACE"]
+    losses = result["final"]["history"]["train_loss"]
+    if (len(history) != ACE_EPISODES or len(train_s) != ACE_EPISODES + 1
+            or state["best_action"] != result["best_action"]
+            or not all(0.0 <= h["f1"] <= 1.0 for h in history)
+            or not np.isfinite(losses).all()
+            or not 0.0 <= tested["micro_f1"] <= 1.0):
+        raise AssertionError(f"cli train (ACE): history {history}, "
+                             f"{len(train_s)} trainings, state {state}, "
+                             f"final losses {losses}, test {tested}")
+    log(f"cli train, trainer: ReinforcementTrainer ({describe(stack)}, CRF, "
+        f"batch 32; "
+        f"cuts: {ACE_EPISODES} episodes of {ACE_EPOCHS} epoch, "
+        f"{splits['train']} train sentences): {wall:.1f} s in all; "
+        + "; ".join(f"episode {h['episode']} mask {h['mask']} dev F1 "
+                    f"{h['f1']:.4f} in {s:.1f} s"
+                    for h, s in zip(history, train_s))
+        + f"; best action {result['best_action']}; final training "
+        f"{train_s[-1]:.1f} s, losses {', '.join(f'{v:.4f}' for v in losses)}"
+        f"; test micro F1 {tested['micro_f1']:.4f}; peak allocated "
+        f"{peak_gb:.2f} GB ({card})")
+
+    # one optimizer step of the run's largest train batch, split by member
+    config = ExperimentConfig.from_file(cfg)
+    trainer, specs = cli._build_ace(config, dev)
+    trainer.selection = np.ones(len(specs), np.float32)
+    train_config = config.make_train_config()
+    batch = max(trainer._make_train_batches(trainer.corpus.train,
+                                            train_config, 0),
+                key=lambda eb: eb.input_ids.shape[0])
+    arrays = trainer._to_device(batch)
+    members = trainer.model.stack.members
+    flair = members[3]
+    lengths = arrays["char_stream_mask"].sum(-1)
+
+    def fwd_bwd(fn):
+        def step():
+            fn().float().sum().backward()
+            trainer.model.zero_grad(set_to_none=True)
+        return step
+
+    opt = trainer.make_optimizer(train_config)
+    rng = torch.Generator().manual_seed(1)
+    parts = {
+        "XLM-R forward (frozen)": lambda: members[0](arrays),
+        "char-BiLSTM forward + backward": fwd_bwd(lambda: members[2](arrays)),
+        "Flair forward LM forward + backward": fwd_bwd(
+            lambda: flair.fwd(arrays["char_stream"], lengths)),
+        "Flair backward LM forward + backward": fwd_bwd(
+            lambda: flair.bwd(arrays["char_stream"], lengths)),
+        "whole step (train_step)": lambda: trainer.train_step(
+            batch, opt, train_config, rng)}
+    for fn in parts.values():  # warm-up
+        fn()
+    split = {name: event_ms(fn) for name, fn in parts.items()}
+    wall_ms, dev_ms, top = profile_step(trainer, batch, train_config,
+                                        torch.cuda.synchronize)
+    B, S = batch.input_ids.shape
+    busy = ("not measured (the trace holds no device kernels)"
+            if dev_ms is None else
+            f"{dev_ms:.1f} ms of device kernels in {wall_ms:.1f} ms under "
+            f"torch.profiler, idle {max(0.0, 1 - dev_ms / wall_ms):.1%}; "
+            "largest: " + "; ".join(f"{n[:60]} {ms:.1f} ms x{c}"
+                                    for n, ms, c in top))
+    log(f"ACE optimizer step (B={B}, S={S} subtokens, W="
+        f"{batch.word_mask.shape[1]} words, T="
+        f"{arrays['char_stream'].shape[1]} stream characters), ms by CUDA "
+        f"events: " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + f"; one step under the profiler: {busy} ({card})")
+    del trainer, opt, arrays, members, flair
+    torch.cuda.empty_cache()
+
+    # -- (c) the stack on the card against the CPU, float32 -------------------
+    f32 = dataclasses.replace(config)
+    f32.make_train_encoder_config = lambda tok: config.make_encoder_config(
+        tok, dtype=torch.float32, param_dtype=torch.float32)
+    tree = checkpoint.load(run / "best-model.msgpack")
+    feats = []
+    for where in ("cpu", dev):
+        t, specs = cli._build_ace(f32, where)
+        t.model.load_state_dict(weights.from_jax_params(tree, t.model))
+        t.selection = np.ones(len(stack), np.float32)  # every member
+        eb = make_batches(recs["train"][:n_check], t.tokenizer, None,
+                          n_check)[0]
+        with torch.no_grad():
+            feats.append(t.model._extract_features(t._to_device(eb)).cpu())
+        del t
+    del tree
+    widths = np.cumsum([0] + [spec.dim for spec in specs])
+    errs = [float((feats[1][..., a:b] - feats[0][..., a:b]).abs().max())
+            for a, b in zip(widths[:-1], widths[1:])]
+    torch.testing.assert_close(feats[1], feats[0], rtol=FEATURE_RTOL,
+                               atol=FEATURE_ATOL)
+    log(f"the stack's features on the card against the CPU (float32 on "
+        f"both, the ACE run's best-model.msgpack, every member selected, "
+        f"{n_check} train sentences, "
+        f"{tuple(feats[0].shape)}): max abs err per member "
+        + ", ".join(f"{e:.3g}" for e in errs)
+        + f" (rtol {FEATURE_RTOL}, atol {FEATURE_ATOL}) ({card})")
+    del feats
+    torch.cuda.empty_cache()
+
+    # -- (d) cli parse, ensemble, evaluate, speed -----------------------------
+    ens = tmp / "ensemble"
+    test_file = tmp / "stage-en" / "test.txt"
+    gold = read_column_file(test_file, {0: "text", 1: "ner"})
+    preds = []
+    for name in ("stage1", "stage2"):
+        run_cli(cli, ["parse", "--config", str(tmp / f"{name}.json"),
+                      "--target_dir", str(test_file), "--out_dir",
+                      str(ens / name), "--keep_order", *device])
+        preds.append(ens / name / "test.conllu")
+    # 4g's recipe tagger has no embedding2nn, which cli parse's tagger
+    # always has: it is served as cli serve loads it, and its predictions
+    # are written as cli parse writes them
+    served = ServeConfig.from_file(tmp / "model.yaml")
+    tag_dict = Dictionary.load(tmp / "b" / "tag_dictionary.json")
+    tagger = cli.serving_tagger(served, tag_dict, dev)
+    recs_b = read_column_file(test_file, {0: "text", 1: "ner"})
+    for rec, pred in zip(recs_b, FinetuneTrainer(
+            tagger, ListCorpus([]), served.make_tokenizer(), tag_dict,
+            device=dev).predict(recs_b, sort_by_length=False)):
+        rec.tags["pred"] = pred
+    preds.append(ens / "b" / "test.conllu")
+    write_column_file(preds[-1], recs_b, layers=("pred",))
+    del tagger
+    out_file = ens / "ens.conll"
+    run_cli(cli, ["ensemble", *map(str, preds), "--out", str(out_file)])
+    systems = [[r.tags["pred"] for r in read_column_file(
+        p, {0: "text", 1: "pred"})] for p in preds + [out_file]]
+    if any(len(s) != len(gold) for s in systems):
+        raise AssertionError(f"cli ensemble: {[len(s) for s in systems]} "
+                             f"sentences against {len(gold)}")
+    joined = ens / "gold_pred.tsv"
+    write_column_file(joined, [SentenceRecord(tokens=g.tokens, tags={
+        "gold": g.tags["ner"], "pred": p}) for g, p in zip(gold, systems[-1])],
+        layers=("gold", "pred"))
+    scores = {}
+    for label, path in (("ensemble", joined),
+                        ("ACE test", run / "test.ACE.tsv")):
+        _, text = run_cli(cli, ["evaluate", str(path)])
+        scores[label] = json.loads(text.strip().splitlines()[-1])
+        if not 0.0 <= scores[label]["micro_f1"] <= 1.0:
+            raise AssertionError(f"cli evaluate ({label}): {scores[label]}")
+    f1s = [evaluate_spans([g.tags["ner"] for g in gold], s).micro_avg_f_score()
+           for s in systems[:-1]]
+    _, text = run_cli(cli, ["speed", "--config", str(tmp / "stage2.json"),
+                            *device])
+    speed = json.loads(text.strip().splitlines()[-1])
+    if not speed["sentences_per_second"] > 0:
+        raise AssertionError(f"cli speed: {speed}")
+    log(f"cli ensemble of three systems on the en stage test split "
+        f"({len(gold)} sentences: cli parse of 4i's stage 1 and stage 2 "
+        f"models, 4g's model served in bf16), span micro F1 against gold "
+        + ", ".join(f"{f:.4f}" for f in f1s) + "; cli evaluate of the "
+        f"ensemble joined with gold: {scores['ensemble']}; of the ACE run's "
+        f"test.ACE.tsv: {scores['ACE test']}; cli speed on 4i's stage-2 "
+        f"config (XLM-R {encoder}, its test split): {speed} ({card})")
+    log(f"phase 4j in {time.perf_counter() - t_phase:.1f} s")
+    return {"k1_launches": got["bm25_score_block"]}
+
+
 def fuse_served(engine, tokenizer, records):
     """The records ``serve`` fuses: each searched with its own tokens."""
     from kbner_tpu_torch.retrieval.fusion import fuse_contexts
@@ -3109,6 +3426,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         mix = mix_stage_phase(cli, bm25, dev, card, Path(tmp),
                               Path(tmp) / "model.yaml")
+        # -- 4j. ACE over the published stack, ensemble, evaluate, speed ----
+        torch.cuda.empty_cache()
+        ace = ace_stage_phase(cli, bm25, dev, card, Path(tmp))
 
     # -- 5. kernels ----------------------------------------------------------
     kernels = [{
@@ -3118,6 +3438,7 @@ def main() -> int:
         "replaces": "kbner_tpu/ops/bm25.py:84",
         "launches": launches,
         "mix_launches": mix["k1_mix_launches"],
+        "ace_launches": ace["k1_launches"],
         "max_abs_err": max(err_cases, k1["err"], k1_title["err"]),
         "ms": k1["dev_ms"],
         "cold_ms": k1["cold_ms"],

@@ -13,6 +13,10 @@
         --index_dir en=KB_EN --index_dir de=KB_DE --data_folder CONLL \
         --out FUSED
     python -m kbner_tpu_torch.cli multistage STAGE1.yaml STAGE2.yaml
+    python -m kbner_tpu_torch.cli ensemble P1.conllu P2.conllu P3.conllu \
+        --out ENS.conll
+    python -m kbner_tpu_torch.cli evaluate GOLD_PRED.tsv
+    python -m kbner_tpu_torch.cli speed --config CONFIG.yaml
 
 ``ingest-dump`` turns a MediaWiki XML dump into parsed-wiki JSONL and
 ``index`` saves a KB built from that JSONL (text and title BM25 indices, a
@@ -21,8 +25,12 @@ sentence of a CoNLL folder's ``train/dev/test.txt`` in a KB (``--index_dir``
 or ``--kb``), or with ``--route mix`` in every language's KB at once,
 and writes each split's retrieval file and its context-fused column file,
 what ``train`` reads. ``train`` fine-tunes the NER tagger on the config's
-column corpora (``FinetuneTrainer``; the other trainers and the parser
-targets wait for ROADMAP A6) and tests the best model; ``multistage``
+column corpora (``FinetuneTrainer``), or with ``trainer:
+ReinforcementTrainer`` runs the ACE search over a stacked-embedder tagger
+(``model.embeddings``) and trains the final model with its best selection,
+then tests the best model; ``trainer: LanguageModelTrainer`` pretrains a
+character LM (the distillation and SWAF trainers and the parser targets
+wait for ROADMAP A6); ``multistage``
 trains one config after another, each stage starting from the encoder the
 previous one exported; ``test``
 evaluates the best (else final) model on the test sets; ``parse`` tags
@@ -32,8 +40,12 @@ stdin and writes JSONL responses on stdout, one micro-batch of
 ``--batch_size`` requests at a time, with the request and response schema
 of ``kbner_tpu.cli serve`` (see :mod:`.serve`), from the trained
 ``best-model.msgpack`` (else ``final-model.msgpack``) that either package
-wrote, or from random weights when there is none. Every command but
-``ingest-dump`` and ``index`` runs on the card unless ``--device cpu`` is
+wrote, or from random weights when there is none. ``ensemble``
+majority-votes the spans of several prediction files (token and tag
+columns) into one; ``evaluate`` prints the span metric of a 'token gold
+pred' file and its JSON summary; ``speed`` measures the tagger's decode
+rate on the test set. Every command but ``ingest-dump``, ``index``,
+``ensemble`` and ``evaluate`` runs on the card unless ``--device cpu`` is
 given.
 """
 
@@ -81,8 +93,9 @@ def _build(config: ExperimentConfig, device: str) -> FinetuneTrainer:
             "families wait for ROADMAP A6 in kbner_tpu_torch")
     if config.trainer_kind != "finetune":
         raise NotImplementedError(
-            f"trainer: {config.trainer}: only the fine-tuning trainer is "
-            "ported; distill, ace, swaf and lm wait for ROADMAP A6")
+            f"trainer: {config.trainer}: this builds the fine-tuning "
+            "tagger; ace and lm train through cli train, distill and swaf "
+            "wait for ROADMAP A6")
     if config.model.get("encoder_weights"):
         raise NotImplementedError(
             "model.encoder_weights: loading HF XLM-R weights waits for "
@@ -111,6 +124,106 @@ def _build(config: ExperimentConfig, device: str) -> FinetuneTrainer:
         device=device)
 
 
+def _build_ace(config: ExperimentConfig, device: str):
+    """The stacked-embedder tagger (float32 parameters made from the train
+    config's seed; XLM-R's compute dtype as configured) and its trainer,
+    with the corpus's word and character vocabularies, for the ACE loop.
+    ``model.embeddings`` lists the stack's members:
+
+      - {type: transformer, fine_tune: false}
+      - {type: word, dim: D}
+      - {type: char_bilstm, char_dim: D, hidden: H}
+      - {type: flair, embed_dim: D, hidden: H}
+
+    Returns ``(trainer, specs)``."""
+    from .data.encode import build_char_vocab, build_word_vocab
+    from .device import resolve_device
+    from .models.embedders import (CharBiLSTMEmbedder, EmbedderSpec,
+                                   FlairLMEmbedder, TransformerWordEmbedder,
+                                   WordEmbedder)
+    from .models.tagger import StackedSequenceTagger
+
+    if config.targets != "ner":
+        raise NotImplementedError(
+            f"targets: {config.targets}: the ACE loop tags NER")
+    device = resolve_device(device)
+    train_config = config.make_train_config()
+    corpus = config.load_corpus()
+    tokenizer = config.make_tokenizer()
+    tag_dict = corpus.make_tag_dictionary(config.tag_layer)
+    word_vocab = build_word_vocab(corpus.train)
+    char_vocab = build_char_vocab(corpus.train)
+    enc_cfg = config.make_train_encoder_config(tokenizer)
+    specs = []
+    for i, e in enumerate(config.model.get("embeddings") or [
+            {"type": "word", "dim": 32},
+            {"type": "char_bilstm", "char_dim": 16, "hidden": 16}]):
+        kind = e.get("type", "word")
+        if kind == "word":
+            dim = e.get("dim", 32)
+            specs.append(EmbedderSpec(f"word{i}", WordEmbedder(
+                len(word_vocab), dim, device=device), dim))
+        elif kind == "char_bilstm":
+            hidden = e.get("hidden", 16)
+            specs.append(EmbedderSpec(f"char{i}", CharBiLSTMEmbedder(
+                len(char_vocab), e.get("char_dim", 16), hidden,
+                device=device), 2 * hidden))
+        elif kind == "flair":
+            hidden = e.get("hidden", 16)
+            specs.append(EmbedderSpec(f"flair{i}", FlairLMEmbedder(
+                len(char_vocab), e.get("embed_dim", 16), hidden,
+                device=device), 2 * hidden))
+        elif kind == "transformer":
+            specs.append(EmbedderSpec(f"xlmr{i}", TransformerWordEmbedder(
+                enc_cfg, e.get("fine_tune", False), device=device),
+                enc_cfg.hidden_size))
+        elif kind in ("elmo", "bpemb"):
+            raise NotImplementedError(
+                f"ACE embedding type {kind!r} waits for ROADMAP A6 in "
+                "kbner_tpu_torch (ELMo and BPEmb embedders)")
+        else:
+            raise ValueError(f"unknown ACE embedding type {kind!r}")
+    m = config.model
+    tagger_cfg = TaggerConfig.for_tag_dictionary(
+        enc_cfg, tag_dict, use_crf=m.get("use_crf", True),
+        locked_dropout=m.get("locked_dropout", 0.5),
+        word_dropout=m.get("word_dropout", 0.05))
+    model = StackedSequenceTagger(tagger_cfg, specs, device=device,
+                                  seed=train_config.seed)
+    trainer = FinetuneTrainer(model, corpus, tokenizer, tag_dict,
+                              tag_layer=config.tag_layer, device=device)
+    trainer.word_vocab = word_vocab
+    trainer.char_vocab = char_vocab
+    return trainer, specs
+
+
+def _run_lm(config: ExperimentConfig, target_dir: Path, device: str
+            ) -> dict:
+    """Char-LM pretraining on the corpus's train text: a
+    :class:`~.models.embedders.CharLMHead` (``model.embed_dim``,
+    ``model.hidden``) made from seed 0, ``char-lm.msgpack`` and
+    ``char_vocab.json`` under the target directory."""
+    import torch
+
+    from .device import resolve_device
+    from .models.embedders import CharLMHead
+    from .train.lm_trainer import LanguageModelTrainer
+
+    device = resolve_device(device)
+    texts = [" ".join(r.tokens) for r in config.load_corpus().train]
+    vocab = Dictionary()
+    for ch in " \n" + "".join(texts):
+        vocab.add_item(ch)
+    model = CharLMHead(len(vocab), config.model.get("embed_dim", 32),
+                       config.model.get("hidden", 64), device=device)
+    model.reset_parameters(torch.Generator(device=device).manual_seed(0))
+    result = LanguageModelTrainer(model, vocab, device=device).train(
+        texts, target_dir, config.make_train_config())
+    vocab.save(target_dir / "char_vocab.json")
+    log.info("char-LM final loss %s", result["final_loss"])
+    return result
+
+
 def _setup_logging(target_dir: Optional[Path] = None) -> None:
     handlers: List[logging.Handler] = [logging.StreamHandler(sys.stderr)]
     if target_dir is not None:
@@ -120,14 +233,30 @@ def _setup_logging(target_dir: Optional[Path] = None) -> None:
                         format="%(asctime)s %(levelname)s %(message)s")
 
 
-def cmd_train(args) -> None:
+def cmd_train(args) -> dict:
+    """Train as the config's trainer says and test the best model;
+    returns the training result (the ACE search's, with its history and
+    best action, for ``trainer: ReinforcementTrainer``)."""
     config = ExperimentConfig.from_file(args.config)
     target_dir = config.resolve_target_dir()
     _setup_logging(target_dir)
-    trainer = _build(config, args.device)
-    result = trainer.train(target_dir, config.make_train_config())
-    log.info("best dev score: %s", result["best_dev_score"])
+    if config.trainer_kind == "lm":
+        return _run_lm(config, target_dir, args.device)
+    if config.trainer_kind == "ace":
+        from .train.reinforce import ReinforceConfig, ace_train
+
+        trainer, specs = _build_ace(config, args.device)
+        result = ace_train(trainer, config.make_train_config(), target_dir,
+                           num_embeddings=len(specs),
+                           config=ReinforceConfig(**config.ace))
+        log.info("ACE best action %s (dev F1 %.4f)", result["best_action"],
+                 result["best_f1"])
+    else:
+        trainer = _build(config, args.device)
+        result = trainer.train(target_dir, config.make_train_config())
+        log.info("best dev score: %s", result["best_dev_score"])
     trainer.final_test(target_dir)
+    return result
 
 
 def cmd_test(args) -> None:
@@ -484,6 +613,65 @@ def cmd_multistage(args) -> List[dict]:
     return results
 
 
+def cmd_speed(args) -> Dict[str, float]:
+    """The tagger's decode rate over the first test set (else the train
+    set), from the best checkpoint when there is one."""
+    config = ExperimentConfig.from_file(args.config)
+    if config.targets != "ner":
+        raise ValueError("cli speed measures the NER tagger decode path; "
+                         f"targets: {config.targets} is not supported")
+    _setup_logging(None)
+    trainer = _build(config, args.device)
+    best = config.resolve_target_dir() / "best-model.msgpack"
+    if best.exists():
+        trainer.load(best)
+    records = trainer.corpus.test_list[0] or trainer.corpus.train
+    out = {"sentences_per_second": trainer.evaluate_speed(
+        records, batch_size=args.batch_size), "n_sentences": len(records)}
+    print(json.dumps(out))
+    return out
+
+
+def cmd_ensemble(args) -> None:
+    """Majority-vote the prediction files (token and tag columns) into
+    ``--out``, on the host."""
+    from .eval.ensemble import ensemble_predictions
+
+    _setup_logging(None)
+    systems, records = [], None
+    for f in args.predictions:
+        recs = read_column_file(f, {0: "text", 1: "pred"},
+                                comment_symbol=args.comment_symbol)
+        systems.append([r.tags["pred"] for r in recs])
+        if records is None:
+            records = recs
+    for rec, tags in zip(records, ensemble_predictions(
+            systems, threshold=args.threshold)):
+        rec.tags["pred"] = tags
+    write_column_file(args.out, records, layers=("pred",))
+    log.info("wrote the ensemble of %d systems to %s", len(systems),
+             args.out)
+
+
+def cmd_evaluate(args) -> Dict[str, float]:
+    """Span metric of a file of 'token gold pred' lines: the per-class
+    table, then a JSON line of micro and macro F1, precision and
+    recall."""
+    from .eval.metrics import evaluate_spans
+
+    recs = read_column_file(args.predictions,
+                            {0: "text", 1: "gold", 2: "pred"},
+                            comment_symbol=args.comment_symbol)
+    metric = evaluate_spans([r.tags["gold"] for r in recs],
+                            [r.tags["pred"] for r in recs])
+    out = {"micro_f1": metric.micro_avg_f_score(),
+           "macro_f1": metric.macro_avg_f_score(),
+           "precision": metric.precision(), "recall": metric.recall()}
+    print(metric)
+    print(json.dumps(out))
+    return out
+
+
 def serving_tagger(config: ServeConfig, tag_dict: Dictionary,
                    device: str) -> SequenceTagger:
     """The tagger ``cli serve`` runs: the encoder stored in its compute
@@ -588,6 +776,22 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--mode", default="sentence_link")
     sp.add_argument("--engine_mode", default="exhaustive",
                     help="exhaustive (default) or pruned")
+
+    sp = add("speed", cmd_speed)
+    sp.add_argument("--batch_size", type=int, default=32)
+
+    sp = sub.add_parser("ensemble")
+    sp.add_argument("predictions", nargs="+",
+                    help="prediction files (token pred columns)")
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--threshold", type=float, default=None)
+    sp.add_argument("--comment_symbol", default="# id")
+    sp.set_defaults(fn=cmd_ensemble)
+
+    sp = sub.add_parser("evaluate")
+    sp.add_argument("predictions", help="file with 'token gold pred' lines")
+    sp.add_argument("--comment_symbol", default="# id")
+    sp.set_defaults(fn=cmd_evaluate)
 
     sp = sub.add_parser("multistage")
     sp.add_argument("configs", nargs="+",

@@ -3,9 +3,11 @@
 :class:`ServeConfig` is what serving reads: ``name``, ``tag_layer``,
 ``targets``, ``tokenizer``, ``model`` and ``target_dir``, other keys
 ignored. :class:`ExperimentConfig` adds what ``cli train``/``test``/``parse``
-read: the column-format ``corpora``, ``train`` (a :class:`TrainConfig`;
-unknown keys raise), ``trainer`` (``ModelFinetuner``/``FinetuneTrainer``)
-and ``data``; unknown top-level keys raise, as the JAX package's do.
+read: the column-format ``corpora``, ``train`` (a :class:`TrainConfig`,
+or an ``LMTrainConfig`` for ``trainer: lm``; unknown keys raise),
+``trainer`` (a kind or one of its reference class names), ``data`` and
+``ace`` (the ACE episode loop's ``ReinforceConfig``); unknown top-level
+keys raise, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -126,6 +128,9 @@ class ExperimentConfig(ServeConfig):
     train: Dict[str, Any] = dataclasses.field(default_factory=dict)
     data: Dict[str, Any] = dataclasses.field(default_factory=dict)
     trainer: str = "FinetuneTrainer"
+    # the ACE episode loop's settings (episodes, controller_lr,
+    # reward_kind, seed)
+    ace: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def from_file(cls, path: str | Path) -> "ExperimentConfig":
@@ -161,7 +166,8 @@ class ExperimentConfig(ServeConfig):
         serve = {f.name: raw[f.name] for f in dataclasses.fields(ServeConfig)
                  if f.name in raw}
         return cls(**serve, corpora=corpora, train=raw.get("train") or {},
-                   data=raw.get("data") or {}, trainer=trainer)
+                   data=raw.get("data") or {}, trainer=trainer,
+                   ace=raw.get("ace") or {})
 
     @property
     def trainer_kind(self) -> str:
@@ -183,15 +189,27 @@ class ExperimentConfig(ServeConfig):
                 "waits for ROADMAP A6 in kbner_tpu_torch")
         return corpus
 
-    def make_train_config(self) -> TrainConfig:
-        """The trainer's config; unknown ``train:`` keys raise."""
-        known = {f.name for f in dataclasses.fields(TrainConfig)}
+    def make_train_config(self):
+        """The trainer's config (an ``LMTrainConfig`` for the char-LM
+        trainer, else a :class:`TrainConfig`); unknown ``train:`` keys
+        raise."""
+        if self.trainer_kind == "distill":
+            raise NotImplementedError(
+                "the distillation trainer's DistillConfig waits for ROADMAP "
+                "A6 in kbner_tpu_torch")
+        if self.trainer_kind == "lm":
+            from .train.lm_trainer import LMTrainConfig
+
+            cls_ = LMTrainConfig
+        else:
+            cls_ = TrainConfig
+        known = {f.name for f in dataclasses.fields(cls_)}
         unknown = set(self.train) - known
         if unknown:
             raise ValueError(
                 f"unknown train keys for {self.trainer}: {sorted(unknown)}; "
                 f"known: {sorted(known)}")
-        return TrainConfig(**self.train)
+        return cls_(**self.train)
 
     def make_train_encoder_config(self, tokenizer: HashTokenizer
                                   ) -> XLMRConfig:

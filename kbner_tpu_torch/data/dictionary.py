@@ -10,11 +10,17 @@ from typing import Dict, List, Union
 
 
 class Dictionary:
-    """Bidirectional item<->index map; items keep insertion order."""
+    """Bidirectional item<->index map; items keep insertion order. With
+    ``add_unk`` the item ``<unk>`` takes index 0 and stands in for every
+    unknown item (text vocabularies; tag dictionaries have none)."""
 
-    def __init__(self):
+    UNK = "<unk>"
+
+    def __init__(self, add_unk: bool = False):
         self.item2idx: Dict[str, int] = {}
         self.idx2item: List[str] = []
+        if add_unk:
+            self.add_item(self.UNK)
 
     def add_item(self, item: str) -> int:
         if item not in self.item2idx:
@@ -25,6 +31,8 @@ class Dictionary:
     def get_idx_for_item(self, item: str) -> int:
         idx = self.item2idx.get(item)
         if idx is None:
+            if self.UNK in self.item2idx:
+                return self.item2idx[self.UNK]
             raise KeyError(f"Item {item!r} not in dictionary.")
         return idx
 

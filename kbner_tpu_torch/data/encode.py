@@ -1,5 +1,5 @@
 """Sentence records -> padded integer arrays (counterpart of
-``kbner_tpu/data/encode.py``, without the classic-embedding features).
+``kbner_tpu/data/encode.py``).
 
   input_ids [B, S]       subtoken ids incl CLS/SEP
   attention_mask [B, S]  1 for real subtokens
@@ -9,6 +9,9 @@
   crf_mask [B, W]        word_mask minus retrieved-context (X) positions
   lang_ids [B]           source-corpus id
 
+:func:`add_classic_features` adds the inputs of the classic embedders
+(word ids, per-word characters, the sentence's character stream) to a
+batch's ``extra`` arrays.
 The ``<EOS>`` context separator word is encoded as the tokenizer's SEP
 token. The arrays stay numpy here; the tagger moves them to its device.
 """
@@ -35,6 +38,8 @@ class EncodedBatch:
     crf_mask: np.ndarray
     lang_ids: np.ndarray
     records: Optional[List[SentenceRecord]] = None
+    # the classic embedders' inputs (add_classic_features)
+    extra: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
 
     def arrays(self) -> Dict[str, np.ndarray]:
         return {
@@ -45,6 +50,7 @@ class EncodedBatch:
             "tag_ids": self.tag_ids,
             "crf_mask": self.crf_mask,
             "lang_ids": self.lang_ids,
+            **self.extra,
         }
 
 
@@ -229,3 +235,96 @@ def make_batches(
                      **encode_kwargs)
         for chunk in chunks
     ]
+
+
+def build_word_vocab(records: Sequence[SentenceRecord]) -> Dictionary:
+    """Token vocabulary of a corpus (index 0 is ``<unk>``)."""
+    vocab = Dictionary(add_unk=True)
+    for rec in records:
+        for tok in rec.tokens:
+            vocab.add_item(tok)
+    return vocab
+
+
+def build_char_vocab(records: Sequence[SentenceRecord]) -> Dictionary:
+    """Character vocabulary of a corpus (index 0 is ``<unk>``, then the
+    ``' '`` word separator)."""
+    vocab = Dictionary(add_unk=True)
+    vocab.add_item(" ")
+    for rec in records:
+        for tok in rec.tokens:
+            for ch in tok:
+                vocab.add_item(ch)
+    return vocab
+
+
+def add_classic_features(
+    eb: EncodedBatch,
+    word_vocab: Optional[Dictionary] = None,
+    char_vocab: Optional[Dictionary] = None,
+    max_chars_per_word: int = 16,
+    max_stream_chars: int = 1024,
+) -> EncodedBatch:
+    """Add the classic embedders' int32 inputs to ``eb.extra``, on the
+    batch's ``[B, W]`` word axis (BPEmb's piece ids and ELMo's byte ids
+    wait for their embedders, ROADMAP A6):
+
+      word_ids [B, W]                 each word's id in ``word_vocab``
+      char_ids, char_mask [B, W, C]   each word's first C characters
+      char_stream, char_stream_mask   the words joined by ``' '``, cut at
+        [B, T]                        ``max_stream_chars``; T rounded up
+                                      to 32 and capped at that cut
+      word_char_starts, ..._ends      each word's first and last character
+        [B, W]                        in the stream, clipped to T - 1
+    """
+    if eb.records is None:
+        raise ValueError("add_classic_features needs eb.records")
+    B, W = eb.word_mask.shape
+
+    if word_vocab is not None:
+        word_ids = np.zeros((B, W), dtype=np.int32)
+        for b, rec in enumerate(eb.records):
+            for w, tok in enumerate(rec.tokens[:W]):
+                word_ids[b, w] = word_vocab.item2idx.get(tok, 0)
+        eb.extra["word_ids"] = word_ids
+
+    if char_vocab is not None:
+        C = max_chars_per_word
+        idx = char_vocab.item2idx
+        space = idx.get(" ", 0)
+        streams, bounds = [], []
+        for rec in eb.records:
+            chars: List[int] = []
+            starts, ends = [], []
+            for w, tok in enumerate(rec.tokens[:W]):
+                if w > 0:
+                    chars.append(space)
+                starts.append(len(chars))
+                chars.extend(idx.get(ch, 0) for ch in tok)
+                ends.append(max(len(chars) - 1, 0))
+            streams.append(chars[:max_stream_chars])
+            bounds.append((starts, ends))
+        T = min(round_up(max(max(map(len, streams)), 1), 32),
+                max_stream_chars)
+        char_ids = np.zeros((B, W, C), dtype=np.int32)
+        char_mask = np.zeros((B, W, C), dtype=np.int32)
+        char_stream = np.zeros((B, T), dtype=np.int32)
+        char_stream_mask = np.zeros((B, T), dtype=np.int32)
+        word_char_starts = np.zeros((B, W), dtype=np.int32)
+        word_char_ends = np.zeros((B, W), dtype=np.int32)
+        for b, (rec, chars, (starts, ends)) in enumerate(
+                zip(eb.records, streams, bounds)):
+            char_stream[b, :len(chars)] = chars
+            char_stream_mask[b, :len(chars)] = 1
+            for w, tok in enumerate(rec.tokens[:W]):
+                word_char_starts[b, w] = min(starts[w], T - 1)
+                word_char_ends[b, w] = min(ends[w], T - 1)
+                for c, ch in enumerate(tok[:C]):
+                    char_ids[b, w, c] = idx.get(ch, 0)
+                    char_mask[b, w, c] = 1
+        eb.extra.update(char_ids=char_ids, char_mask=char_mask,
+                        char_stream=char_stream,
+                        char_stream_mask=char_stream_mask,
+                        word_char_starts=word_char_starts,
+                        word_char_ends=word_char_ends)
+    return eb

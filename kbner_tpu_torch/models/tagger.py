@@ -15,12 +15,16 @@ Losses: the mean per-sentence CRF negative log-likelihood with
 transition-skip masking (or masked token cross-entropy), and the
 multi-view agreement loss. Dropout is on when a host ``torch.Generator``
 is passed as ``rng`` (see :mod:`.xlmr`), and off without one.
+
+:class:`StackedSequenceTagger` takes its word features from a stack of
+embedders (:mod:`.embedders`) instead, under the batch's ACE
+``selection`` mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +34,7 @@ from ..device import resolve_device
 from ..ops.crf import crf_decode, crf_marginals, crf_neg_log_likelihood
 from ..ops.losses import feature_l2_loss
 from ..ops.losses import multi_view_loss as mv_loss
+from .embedders import EmbedderSpec, StackedEmbedder, reset_dense_
 from .xlmr import Linear, XLMRConfig, XLMREncoder, device_generator
 
 NO_TRANS = -10000.0
@@ -60,6 +65,14 @@ class TaggerConfig:
         )
 
 
+def _tagger_device(config: TaggerConfig, device) -> torch.device:
+    if config.transition_attention:
+        raise NotImplementedError(
+            "transition_attention waits for the distillation trainer's "
+            "slice of kbner_tpu_torch (ROADMAP A6)")
+    return resolve_device(device)
+
+
 class SequenceTagger(nn.Module):
     """XLM-R + CRF (or softmax) tagger. Parameters are made on ``device``
     (the card by default) in the encoder's storage dtype (the emission
@@ -70,27 +83,28 @@ class SequenceTagger(nn.Module):
 
     def __init__(self, config: TaggerConfig, device="cuda", seed: int = 0):
         super().__init__()
-        if config.transition_attention:
-            raise NotImplementedError(
-                "transition_attention waits for the distillation trainer's "
-                "slice of kbner_tpu_torch (ROADMAP A6)")
-        device = resolve_device(device)
+        device = _tagger_device(config, device)
+        self.encoder = XLMREncoder(config.encoder, device=device)
+        self._heads(config, device, config.encoder.hidden_size,
+                    config.encoder.storage_dtype)
+        self._init_weights(torch.Generator(device=device).manual_seed(seed))
+
+    def _heads(self, config: TaggerConfig, device: torch.device, width: int,
+               dtype: torch.dtype) -> None:
+        """``embedding2nn`` (``width`` wide, stored in ``dtype``), the
+        float32 emission head and the transitions."""
         self.config = config
-        enc = config.encoder
-        self.encoder = XLMREncoder(enc, device=device)
         self.embedding2nn = (
-            Linear(enc.hidden_size, enc.hidden_size, device=device,
-                   dtype=enc.storage_dtype)
+            Linear(width, width, device=device, dtype=dtype)
             if config.relearn_embeddings else None)
-        self.emission = Linear(enc.hidden_size, config.num_tags,
-                               device=device, dtype=torch.float32)
+        self.emission = Linear(width, config.num_tags, device=device,
+                               dtype=torch.float32)
         self.transitions = None
         if config.use_crf:
             shape = (config.num_tags, config.num_tags)
             if config.num_languages > 0:
                 shape = (config.num_languages,) + shape
             self.transitions = nn.Parameter(torch.empty(shape, device=device))
-        self._init_weights(torch.Generator(device=device).manual_seed(seed))
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
@@ -281,3 +295,38 @@ class SequenceTagger(nn.Module):
                                  self._batch_transitions(batch),
                                  cfg.start_idx, cfg.stop_idx)
         return F.softmax(emissions, dim=-1)
+
+
+class StackedSequenceTagger(SequenceTagger):
+    """The tagger over a stack of embedders (the ACE substrate): the word
+    features are the :class:`StackedEmbedder` of ``specs`` under the
+    batch's ``selection`` mask (a float ``[N]`` vector, all members when
+    absent); ``embedding2nn`` and the emission head run over the stack's
+    total width in float32. Parameters are drawn as Flax draws them (see
+    :mod:`.embedders`; transitions normal(0, 1)) from a generator seeded
+    with ``seed`` on ``device``."""
+
+    def __init__(self, config: TaggerConfig, specs: Sequence[EmbedderSpec],
+                 device="cuda", seed: int = 0):
+        nn.Module.__init__(self)
+        device = _tagger_device(config, device)
+        self.specs = tuple(specs)
+        self.stack = StackedEmbedder([s.module for s in specs]).to(device)
+        self._heads(config, device, sum(s.dim for s in specs),
+                    torch.float32)
+        self._init_weights(torch.Generator(device=device).manual_seed(seed))
+
+    @torch.no_grad()
+    def _init_weights(self, gen: torch.Generator) -> None:
+        for member in self.stack.members:
+            member.reset_parameters(gen)
+        for lin in (self.embedding2nn, self.emission):
+            if lin is not None:
+                reset_dense_(lin, gen)
+        if self.transitions is not None:
+            self.transitions.normal_(0.0, 1.0, generator=gen)
+
+    def _extract_features(self, batch: Batch,
+                          rng: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+        return self.stack(batch, batch.get("selection"))

@@ -14,13 +14,13 @@ and response schema:
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from .data.conll import X_LABEL, SentenceRecord
 from .data.dictionary import Dictionary
-from .data.encode import make_batches
+from .data.encode import EncodedBatch, make_batches
 from .data.subword import HashTokenizer
 from .data.tag_schemes import get_spans
 from .models.tagger import SequenceTagger
@@ -38,20 +38,25 @@ def predict(
     batch_size: int = 32,
     tag_layer: str = "ner",
     sort_by_length: bool = True,
+    to_device: Optional[Callable[[EncodedBatch], Dict[str, torch.Tensor]]]
+    = None,
 ) -> List[List[str]]:
     """Predicted BIOES tag strings per sentence, in input order.
 
     Retrieved-context positions (everything from ``<EOS>`` on, and gold
     ``S-X`` tags) are refilled with ``S-X`` after the masked decode; words
-    cut off by the 512-subtoken budget get ``O``.
+    cut off by the 512-subtoken budget get ``O``. ``to_device`` turns an
+    encoded batch into the tagger's inputs (by default its arrays, on the
+    tagger's device).
     """
     results: List[Optional[List[str]]] = [None] * len(records)
     rec_index = {id(r): i for i, r in enumerate(records)}
     for eb in make_batches(records, tokenizer, None, batch_size,
                            sort_by_length=sort_by_length,
                            tag_layer=tag_layer):
-        batch = {k: torch.from_numpy(v).to(tagger.device)
-                 for k, v in eb.arrays().items()}
+        batch = (to_device(eb) if to_device is not None else
+                 {k: torch.from_numpy(v).to(tagger.device)
+                  for k, v in eb.arrays().items()})
         tags, _ = tagger.decode(batch)
         tags = tags.cpu().numpy()
         for b, rec in enumerate(eb.records):

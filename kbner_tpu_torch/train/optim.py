@@ -58,7 +58,10 @@ def inverse_sqrt_schedule(peak_lr: float, warmup_steps: int) -> Schedule:
 
 
 def is_encoder_param(name: str) -> bool:
-    return name.split(".")[0] == "encoder"
+    """An encoder parameter: one with ``encoder`` among its path's names,
+    the plain tagger's ``encoder.*`` and a stack's
+    ``stack.members.<i>.encoder.*`` alike (optax's ``encoder`` label)."""
+    return "encoder" in name.split(".")
 
 
 class FinetuneOptimizer:
@@ -167,7 +170,7 @@ class FinetuneOptimizer:
         for group, sl in (("encoder", slice(0, n_enc)),
                           ("head", slice(n_enc, None))):
             lr = self.lr(group)
-            if lr:
+            if lr and params[sl]:
                 torch._foreach_add_(list(params[sl]), upd[sl], alpha=-lr)
         for m, new in zip(self.mu, mu):
             if m is not new:

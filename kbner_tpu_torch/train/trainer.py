@@ -39,7 +39,8 @@ from .. import weights
 from ..data import corpus_ops
 from ..data.conll import X_LABEL, Corpus, ListCorpus, SentenceRecord
 from ..data.dictionary import Dictionary
-from ..data.encode import EncodedBatch, encode_batch, make_batches
+from ..data.encode import (EncodedBatch, add_classic_features, encode_batch,
+                           make_batches)
 from ..data.subword import HashTokenizer
 from ..device import resolve_device
 from ..eval.metrics import Metric, evaluate_spans
@@ -123,12 +124,28 @@ class FinetuneTrainer:
         self.tokenizer = tokenizer
         self.tag_dict = tag_dict
         self.tag_layer = tag_layer
+        # ACE: the embedder-selection mask every batch carries (set per
+        # episode by train/reinforce.py), and the classic embedders'
+        # vocabularies (add_classic_features)
+        self.selection: Optional[np.ndarray] = None
+        self.word_vocab: Optional[Dictionary] = None
+        self.char_vocab: Optional[Dictionary] = None
 
     # -- one step ---------------------------------------------------------------
 
     def _to_device(self, eb: EncodedBatch) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in eb.arrays().items()}
+        """The batch's arrays on the device, with the classic embedders'
+        inputs when the trainer has their vocabularies and the ``[N]``
+        selection mask when it has one."""
+        if (self.word_vocab is not None or self.char_vocab is not None) \
+                and not {"word_ids", "char_ids"} & set(eb.extra):
+            add_classic_features(eb, self.word_vocab, self.char_vocab)
+        out = {k: torch.from_numpy(v).to(self.device)
+               for k, v in eb.arrays().items()}
+        if self.selection is not None:
+            out["selection"] = torch.as_tensor(
+                np.asarray(self.selection, np.float32), device=self.device)
+        return out
 
     def _loss(self, item, config: TrainConfig,
               rng: Optional[torch.Generator]) -> torch.Tensor:
@@ -332,7 +349,8 @@ class FinetuneTrainer:
         return predict_tags(records, self.model, self.tokenizer,
                             self.tag_dict, batch_size=batch_size,
                             tag_layer=self.tag_layer,
-                            sort_by_length=sort_by_length)
+                            sort_by_length=sort_by_length,
+                            to_device=self._to_device)
 
     @torch.no_grad()
     def embed_texts(self, texts: Sequence[str], batch_size: int = 64
@@ -416,21 +434,23 @@ class FinetuneTrainer:
     # -- persistence ----------------------------------------------------------------
 
     def save(self, path: str | Path) -> None:
-        weights.save_params(self.model.state_dict(), self.model.config, path)
+        weights.save_params(self.model.state_dict(), self.model, path)
 
     def load(self, path: str | Path) -> None:
-        self.model.load_state_dict(
-            weights.load_params(path, self.model.config))
+        self.model.load_state_dict(weights.load_params(path, self.model))
 
     def save_encoder(self, path: str | Path) -> None:
-        """Only the tuned encoder's tree (``params.encoder``)."""
-        tree = weights.to_jax_params(self.model.state_dict(),
-                                     self.model.config)
+        """Only the tuned encoder's tree (``params.encoder``; a stacked
+        tagger has none there, as in the reference)."""
+        tree = weights.to_jax_params(self.model.state_dict(), self.model)
         weights.checkpoint.dump(tree["params"]["encoder"], path)
 
     def load_encoder(self, path: str | Path) -> None:
-        tree = weights.to_jax_params(self.model.state_dict(),
-                                     self.model.config)
+        tree = weights.to_jax_params(self.model.state_dict(), self.model)
+        if "encoder" not in tree["params"]:
+            raise KeyError("params.encoder: the tagger's tree has none (a "
+                           "stacked tagger keeps XLM-R under "
+                           "stack/members_<i>/encoder)")
         tree["params"]["encoder"] = weights.checkpoint.load(path)
         self.model.load_state_dict(
-            weights.from_jax_params(tree, self.model.config))
+            weights.from_jax_params(tree, self.model))

@@ -7,6 +7,16 @@ read by :mod:`.checkpoint`), so this module needs no JAX. Flax
 ``Dense.kernel`` is ``[in, out]`` and becomes ``nn.Linear.weight``
 ``[out, in]``; LayerNorm ``scale``/``bias`` become ``weight``/``bias``;
 ``Embed.embedding`` becomes ``nn.Embedding.weight``.
+
+A stacked tagger's tree (``kbner_tpu``'s ``StackedSequenceTagger``) holds
+its members under ``stack/members_{i}``: XLM-R's ``encoder``, a word
+table's ``table``, the char-BiLSTM's ``chars`` with its forward and
+backward cells ``OptimizedLSTMCell_0`` and ``_1``, each Flair LM's
+``{fwd,bwd}/embed`` and ``{fwd,bwd}/OptimizedLSTMCell_0``; an LSTM cell's
+``{ii,if,ig,io}/kernel`` and ``{hi,hf,hg,ho}/{kernel,bias}`` become
+:class:`~.models.embedders.FlaxLSTM`'s fused ``kernel_i``, ``kernel_h``
+and ``bias``. Every function here takes a :class:`TaggerConfig` (the
+plain tagger) or the tagger module itself (either kind).
 """
 
 from __future__ import annotations
@@ -16,28 +26,75 @@ from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from . import checkpoint
-from .models.tagger import TaggerConfig
+from .models.embedders import (CharBiLSTMEmbedder, CharLMHead,
+                               FlairLMEmbedder, TransformerWordEmbedder,
+                               WordEmbedder)
+from .models.tagger import SequenceTagger, StackedSequenceTagger, TaggerConfig
+from .models.xlmr import XLMRConfig
 
 _EMBEDS = ("word_embeddings", "position_embeddings", "token_type_embeddings")
 _PROJS = ("query", "key", "value", "out")
+_GATES = "ifgo"
+Target = Union[TaggerConfig, SequenceTagger, CharLMHead]
 
 
-def _pairs(config: TaggerConfig):
-    """``(flax path, state-dict prefix, kind)`` of every parameter group
-    of the tagger; kind is ``dense``, ``norm`` or ``embed``."""
-    out = [(("encoder", n), f"encoder.{n}", "embed") for n in _EMBEDS]
-    out.append((("encoder", "embeddings_ln"), "encoder.embeddings_ln",
-                "norm"))
-    for i in range(config.encoder.num_layers):
-        src, dst = ("encoder", f"layer_{i}"), f"encoder.layers.{i}"
-        out += [(src + ("attention", p), f"{dst}.attention.{p}", "dense")
+def _encoder_pairs(enc: XLMRConfig, src: tuple, dst: str):
+    out = [(src + (n,), f"{dst}.{n}", "embed") for n in _EMBEDS]
+    out.append((src + ("embeddings_ln",), f"{dst}.embeddings_ln", "norm"))
+    for i in range(enc.num_layers):
+        s, d = src + (f"layer_{i}",), f"{dst}.layers.{i}"
+        out += [(s + ("attention", p), f"{d}.attention.{p}", "dense")
                 for p in _PROJS]
-        out += [(src + ("attention_ln",), f"{dst}.attention_ln", "norm"),
-                (src + ("intermediate",), f"{dst}.intermediate", "dense"),
-                (src + ("output",), f"{dst}.output", "dense"),
-                (src + ("output_ln",), f"{dst}.output_ln", "norm")]
+        out += [(s + ("attention_ln",), f"{d}.attention_ln", "norm"),
+                (s + ("intermediate",), f"{d}.intermediate", "dense"),
+                (s + ("output",), f"{d}.output", "dense"),
+                (s + ("output_ln",), f"{d}.output_ln", "norm")]
+    return out
+
+
+def _member_pairs(member, src: tuple, dst: str):
+    if isinstance(member, TransformerWordEmbedder):
+        return _encoder_pairs(member.encoder.config, src + ("encoder",),
+                              f"{dst}.encoder")
+    if isinstance(member, WordEmbedder):
+        return [(src + ("table",), f"{dst}.table", "embed")]
+    if isinstance(member, CharBiLSTMEmbedder):
+        return [(src + ("chars",), f"{dst}.chars", "embed"),
+                (src + ("OptimizedLSTMCell_0",), f"{dst}.fwd", "lstm"),
+                (src + ("OptimizedLSTMCell_1",), f"{dst}.bwd", "lstm")]
+    if isinstance(member, FlairLMEmbedder):
+        return [pair for d in ("fwd", "bwd") for pair in (
+            (src + (d, "embed"), f"{dst}.{d}.embed", "embed"),
+            (src + (d, "OptimizedLSTMCell_0"), f"{dst}.{d}.lstm", "lstm"))]
+    raise TypeError(f"no Flax layout for a {type(member).__name__} member")
+
+
+def _config(target: Target) -> TaggerConfig:
+    return target if isinstance(target, TaggerConfig) else target.config
+
+
+def _use_crf(target: Target) -> bool:
+    return not isinstance(target, CharLMHead) and _config(target).use_crf
+
+
+def _pairs(target: Target):
+    """``(flax path, state-dict prefix, kind)`` of every parameter group
+    of the tagger (or char LM); kind is ``dense``, ``norm``, ``embed`` or
+    ``lstm``."""
+    if isinstance(target, CharLMHead):
+        return [(("lm", "embed"), "lm.embed", "embed"),
+                (("lm", "OptimizedLSTMCell_0"), "lm.lstm", "lstm"),
+                (("decoder",), "decoder", "dense")]
+    config = _config(target)
+    if isinstance(target, StackedSequenceTagger):
+        out = [pair for i, m in enumerate(target.stack.members)
+               for pair in _member_pairs(m, ("stack", f"members_{i}"),
+                                         f"stack.members.{i}")]
+    else:
+        out = _encoder_pairs(config.encoder, ("encoder",), "encoder")
     if config.relearn_embeddings:
         out.append((("embedding2nn",), "embedding2nn", "dense"))
     out.append((("emission",), "emission", "dense"))
@@ -49,30 +106,97 @@ _LEAVES = {"dense": (("kernel", "weight"), ("bias", "bias")),
            "embed": (("embedding", "weight"),)}
 
 
-def from_jax_params(params: Mapping[str, Any], config: TaggerConfig
-                    ) -> Dict[str, torch.Tensor]:
-    """State dict for ``SequenceTagger(config)`` from a Flax
-    ``SequenceTagger`` parameter tree (with or without the outer
-    ``"params"`` key). Tensors come back on the CPU in the dtypes the
-    module keeps (the encoder's storage dtype; float32 for the emission
-    head and transitions); ``load_state_dict`` moves them to the module's
-    device."""
-    p = params.get("params", params)
+def _dtypes(target: Target):
+    """``name -> dtype`` the tagger keeps each parameter in."""
+    if isinstance(target, nn.Module):
+        return {k: v.dtype for k, v in target.state_dict().items()}.get
+    return lambda name: (torch.float32 if name.startswith("emission")
+                         else target.encoder.storage_dtype)
+
+
+def _state(p: Mapping[str, Any], pairs, dtype) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
-    for path, prefix, kind in _pairs(config):
+    for path, prefix, kind in pairs:
         node = p
         for key in path:
             node = node[key]
-        dtype = (torch.float32 if prefix == "emission"
-                 else config.encoder.storage_dtype)
+        if kind == "lstm":
+            leaves = lstm_from_flax(node)
+        else:
+            leaves = {dst: (_tensor(node[src]).T if src == "kernel"
+                            else _tensor(node[src]))
+                      for src, dst in _LEAVES[kind]}
+        for dst, t in leaves.items():
+            name = f"{prefix}.{dst}".lstrip(".")
+            state[name] = t.to(dtype(name)).contiguous()
+    return state
+
+
+def _tree(state: Mapping[str, torch.Tensor], pairs) -> Dict[str, Any]:
+    def array(name):
+        return state[name.lstrip(".")].detach().float().cpu().numpy()
+
+    tree: Dict[str, Any] = {}
+    for path, prefix, kind in pairs:
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        if kind == "lstm":
+            node.update(lstm_to_flax(*(array(f"{prefix}.{n}") for n in (
+                "kernel_i", "kernel_h", "bias"))))
+            continue
         for src, dst in _LEAVES[kind]:
-            t = _tensor(node[src])
-            if src == "kernel":
-                t = t.T
-            state[f"{prefix}.{dst}"] = t.to(dtype).contiguous()
-    if config.use_crf:
+            arr = array(f"{prefix}.{dst}")
+            node[src] = np.ascontiguousarray(arr.T if src == "kernel"
+                                             else arr)
+    return tree
+
+
+def from_jax_params(params: Mapping[str, Any], target: Target
+                    ) -> Dict[str, torch.Tensor]:
+    """State dict for the tagger from a Flax ``SequenceTagger`` (or
+    ``StackedSequenceTagger``) parameter tree (with or without the outer
+    ``"params"`` key). Tensors come back on the CPU in the dtypes the
+    module keeps (the plain tagger's encoder storage dtype, float32 for
+    its emission head and transitions; a module's own dtypes);
+    ``load_state_dict`` moves them to the module's device."""
+    p = params.get("params", params)
+    state = _state(p, _pairs(target), _dtypes(target))
+    if _use_crf(target):
         state["transitions"] = _tensor(p["transitions"]).float()
     return state
+
+
+def member_from_jax_params(params: Mapping[str, Any], member: nn.Module
+                           ) -> Dict[str, torch.Tensor]:
+    """State dict for one stack member (a classic embedder or the
+    transformer member) from its Flax subtree ``stack/members_<i>``."""
+    return _state(params.get("params", params),
+                  _member_pairs(member, (), ""), _dtypes(member))
+
+
+def lstm_from_flax(cell: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """:class:`~.models.embedders.FlaxLSTM`'s ``kernel_i``, ``kernel_h``
+    and ``bias`` from a Flax ``OptimizedLSTMCell``'s parameters."""
+    return {"kernel_i": torch.cat([_tensor(cell[f"i{g}"]["kernel"])
+                                   for g in _GATES], dim=1),
+            "kernel_h": torch.cat([_tensor(cell[f"h{g}"]["kernel"])
+                                   for g in _GATES], dim=1),
+            "bias": torch.cat([_tensor(cell[f"h{g}"]["bias"])
+                               for g in _GATES])}
+
+
+def lstm_to_flax(kernel_i: np.ndarray, kernel_h: np.ndarray,
+                 bias: np.ndarray) -> Dict[str, Any]:
+    """The inverse of :func:`lstm_from_flax`, as numpy arrays."""
+    H = kernel_h.shape[0]
+    tree: Dict[str, Any] = {}
+    for j, g in enumerate(_GATES):
+        cols = slice(j * H, (j + 1) * H)
+        tree[f"i{g}"] = {"kernel": np.ascontiguousarray(kernel_i[:, cols])}
+        tree[f"h{g}"] = {"kernel": np.ascontiguousarray(kernel_h[:, cols]),
+                         "bias": np.ascontiguousarray(bias[cols])}
+    return tree
 
 
 def _tensor(x) -> torch.Tensor:
@@ -83,35 +207,27 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
-def to_jax_params(state: Mapping[str, torch.Tensor], config: TaggerConfig
+def to_jax_params(state: Mapping[str, torch.Tensor], target: Target
                   ) -> Dict[str, Any]:
     """The inverse of :func:`from_jax_params`: the Flax tagger's tree
     ``{"params": {...}}`` of float32 numpy arrays, the layout
     ``kbner_tpu``'s ``FinetuneTrainer.save`` writes."""
-    tree: Dict[str, Any] = {}
-    for path, prefix, kind in _pairs(config):
-        node = tree
-        for key in path:
-            node = node.setdefault(key, {})
-        for src, dst in _LEAVES[kind]:
-            arr = state[f"{prefix}.{dst}"].detach().float().cpu().numpy()
-            node[src] = np.ascontiguousarray(arr.T if src == "kernel"
-                                             else arr)
-    if config.use_crf:
+    tree = _tree(state, _pairs(target))
+    if _use_crf(target):
         tree["transitions"] = state["transitions"].detach().float().cpu(
         ).numpy()
     return {"params": tree}
 
 
-def save_params(state: Mapping[str, torch.Tensor], config: TaggerConfig,
+def save_params(state: Mapping[str, torch.Tensor], target: Target,
                 path: Union[str, Path]) -> None:
     """Write a tagger's state dict as the Flax checkpoint
     ``FinetuneTrainer.save`` of ``kbner_tpu`` writes."""
-    checkpoint.dump(to_jax_params(state, config), path)
+    checkpoint.dump(to_jax_params(state, target), path)
 
 
-def load_params(path: Union[str, Path], config: TaggerConfig
+def load_params(path: Union[str, Path], target: Target
                 ) -> Dict[str, torch.Tensor]:
     """The state dict of a Flax tagger checkpoint written by either
     package."""
-    return from_jax_params(checkpoint.load(path), config)
+    return from_jax_params(checkpoint.load(path), target)

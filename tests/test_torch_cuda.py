@@ -577,3 +577,160 @@ def test_delta16_kernel_with_global_ids_matches_plain(card):
     torch.cuda.synchronize()
     assert mix._r2 > 1 and float(want.abs().sum()) > 0
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _stacked_pair(card):
+    """A float32 stacked tagger over all four member kinds (XLM-R tiny,
+    frozen as ACE's stack holds it, word, char-BiLSTM, Flair) on the CPU
+    and, with the same weights, on the card; a quality-corpus batch with
+    the classic features; the tag dictionary."""
+    from kbner_tpu_torch.data.encode import (add_classic_features,
+                                             build_char_vocab,
+                                             build_word_vocab, encode_batch)
+    from kbner_tpu_torch.data.quality_fixture import make_quality_corpus
+    from kbner_tpu_torch.models import embedders as emb
+    from kbner_tpu_torch.models.tagger import StackedSequenceTagger
+
+    corpus = make_quality_corpus(24, 2, 2, seed=3)
+    tags = corpus.make_tag_dictionary("ner")
+    wv, cv = build_word_vocab(corpus.train), build_char_vocab(corpus.train)
+    enc = XLMRConfig.tiny(vocab_size=1000)
+    cfg = TaggerConfig.for_tag_dictionary(enc, tags, locked_dropout=0.0,
+                                          word_dropout=0.0)
+    taggers = []
+    for dev in ("cpu", card):
+        specs = [
+            emb.EmbedderSpec("x", emb.TransformerWordEmbedder(
+                enc, device=dev), 64),
+            emb.EmbedderSpec("w", emb.WordEmbedder(len(wv), 16, device=dev),
+                             16),
+            emb.EmbedderSpec("c", emb.CharBiLSTMEmbedder(len(cv), 8, 12,
+                                                         device=dev), 24),
+            emb.EmbedderSpec("f", emb.FlairLMEmbedder(len(cv), 8, 32,
+                                                      device=dev), 64)]
+        taggers.append(StackedSequenceTagger(cfg, specs, device=dev,
+                                             seed=0).eval())
+    taggers[1].load_state_dict(taggers[0].state_dict())
+    eb = encode_batch(corpus.train[:16], HashTokenizer(1000), tags)
+    add_classic_features(eb, wv, cv)
+    return taggers, eb, tags
+
+
+@pytest.mark.parametrize("selection", [None, [1.0, 0.0, 1.0, 1.0]])
+def test_stacked_tagger_on_card_matches_cpu(card, selection):
+    """The stack's features, emissions, loss and tags on the card against
+    the CPU, float32, same weights: rtol 1e-5, atol 1e-5 (the LSTMs'
+    float32 sums taken in another order over up to 160 steps)."""
+    (cpu, gpu), eb, _ = _stacked_pair(card)
+    arrays = eb.arrays()
+    outs = []
+    for tagger, dev in ((cpu, "cpu"), (gpu, card)):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+        if selection is not None:
+            batch["selection"] = torch.tensor(selection, device=dev)
+        with torch.no_grad():
+            outs.append((tagger._extract_features(batch),
+                         tagger.emissions(batch), tagger.loss(batch),
+                         tagger.decode(batch)[0]))
+    for name, want, got in zip(("features", "emissions", "loss"), outs[0],
+                               outs[1]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5,
+                                   msg=name)
+    assert torch.equal(outs[1][3].cpu(), outs[0][3])
+
+
+@pytest.mark.parametrize("selection", [[1.0, 1.0, 1.0, 1.0],
+                                       [1.0, 0.0, 1.0, 1.0]])
+def test_stacked_training_step_on_card_matches_cpu(card, selection):
+    """One float32 ACE optimizer step (``train_step``, AdamW with lr > 0
+    from the first update) of the stacked tagger on the card equals the
+    same step on the CPU: the loss rtol 1e-5; the gradients the optimizer
+    takes rtol 1e-4, atol 1e-6 (the LSTMs' backward sums taken in another
+    order); the updated parameters rtol 1e-4, atol 1e-6, as
+    test_training_step_on_card_matches_cpu. The frozen XLM-R has no
+    gradient and stays as it was; a masked member's gradients are zero."""
+    from kbner_tpu_torch.data.conll import ListCorpus
+    from kbner_tpu_torch.train import FinetuneTrainer, TrainConfig
+
+    taggers, eb, tags = _stacked_pair(card)
+    before = {n: p.detach().clone() for n, p in taggers[0].named_parameters()}
+    config = TrainConfig(learning_rate=1e-4, lr_rate=10.0, batch_size=16,
+                         use_inverse_sqrt=True)
+    runs = []
+    for tagger, dev in zip(taggers, ("cpu", card)):
+        trainer = FinetuneTrainer(tagger.train(), ListCorpus([]),
+                                  HashTokenizer(1000), tags, device=dev)
+        trainer.selection = np.asarray(selection, np.float32)
+        opt = trainer.make_optimizer(config)
+        grads = {}
+
+        def recorded(step=opt.step, model=tagger, grads=grads):
+            grads.update({n: None if p.grad is None else
+                          p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters()})
+            return step()
+
+        opt.step = recorded
+        loss = trainer.train_step(eb, opt, config, None)
+        runs.append((loss.cpu(), grads, {
+            n: p.detach().cpu() for n, p in tagger.named_parameters()}))
+    (loss_c, grads_c, after_c), (loss_g, grads_g, after_g) = runs
+    torch.testing.assert_close(loss_g, loss_c, rtol=1e-5, atol=0)
+    assert grads_g.keys() == grads_c.keys()
+    for name, want in grads_c.items():
+        if name.startswith("stack.members.0.encoder."):
+            assert want is None and grads_g[name] is None, name
+            assert torch.equal(after_c[name], before[name]), name
+            assert torch.equal(after_g[name], before[name]), name
+            continue
+        torch.testing.assert_close(grads_g[name], want, rtol=1e-4,
+                                   atol=1e-6, msg=name)
+        if name.startswith("stack.members.1.") and selection[1] == 0.0:
+            assert not bool(want.any()), name
+        torch.testing.assert_close(after_g[name], after_c[name], rtol=1e-4,
+                                   atol=1e-6, msg=name)
+    for lstm in ("stack.members.2.fwd.kernel_h",
+                 "stack.members.3.bwd.lstm.kernel_h"):
+        assert not torch.equal(after_c[lstm], before[lstm]), lstm
+
+
+def test_ace_episode_on_card(card, tmp_path):
+    """One ACE episode and the final training through ``cli train`` on
+    the card: the controller's state, the checkpoint (read back into a
+    CPU tagger that decodes the card's tags) and finite test results."""
+    import json
+    from pathlib import Path
+
+    import yaml
+
+    from kbner_tpu_torch import cli
+    from kbner_tpu_torch.config import ExperimentConfig
+
+    fixtures = Path(__file__).parent / "fixtures"
+    raw = yaml.safe_load((fixtures / "toy_config.yaml").read_text())
+    raw["corpora"][0]["data_folder"] = str(fixtures / "ner_toy")
+    raw.update(target_dir=str(tmp_path / "run"),
+               trainer="ReinforcementTrainer", ace={"episodes": 1})
+    raw["model"]["embeddings"] = [
+        {"type": "transformer"}, {"type": "word", "dim": 16},
+        {"type": "char_bilstm", "char_dim": 8, "hidden": 8},
+        {"type": "flair", "embed_dim": 8, "hidden": 16}]
+    raw["train"].update(max_epochs=3, learning_rate=0.05)
+    path = tmp_path / "ace.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    result = cli.main(["train", "--config", str(path)])
+    run = tmp_path / "run"
+    state = json.loads((run / "training_state.json").read_text())
+    assert state["best_action"] == result["best_action"]
+    assert sum(state["best_action"]) >= 1
+    f1 = json.loads((run / "test_results.json").read_text())["TOY"]
+    assert 0.0 <= f1["micro_f1"] <= 1.0
+    config = ExperimentConfig.from_file(path)
+    tags = []
+    for dev in ("cpu", "cuda"):
+        trainer, _ = cli._build_ace(config, dev)
+        trainer.load(run / "best-model.msgpack")
+        trainer.model.eval()
+        trainer.selection = np.asarray(result["best_action"], np.float32)
+        tags.append(trainer.predict(config.load_corpus().test_list[0]))
+    assert tags[0] == tags[1]

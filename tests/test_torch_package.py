@@ -52,6 +52,10 @@ def _modules():
 def test_importing_every_module_pulls_in_no_jax():
     mods = _modules()
     assert "kbner_tpu_torch.ops.bm25" in mods and len(mods) >= 20
+    assert {"kbner_tpu_torch.models.embedders",
+            "kbner_tpu_torch.train.reinforce",
+            "kbner_tpu_torch.train.lm_trainer",
+            "kbner_tpu_torch.eval.ensemble"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
@@ -71,6 +75,19 @@ def test_no_source_line_imports_jax_or_kbner_tpu():
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pattern.match(line)]
+    assert not hits, hits
+
+
+def test_no_library_rnn_or_compiled_graph():
+    """The LSTMs are written out (no cuDNN RNN through ``nn.LSTM``/
+    ``nn.GRU`` or ``torch._VF``), and nothing goes through
+    ``torch.compile`` or a fused attention call."""
+    pattern = re.compile(r"nn\.(LSTM|GRU|RNN)\(|_VF\.|torch\.compile\(|"
+                         r"scaled_dot_product_attention")
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pattern.search(line)]
     assert not hits, hits
 
 
@@ -143,6 +160,49 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["serve", "--config", str(cfg), "--index_dir",
                   str(tmp_path / "kb")])
+
+
+def test_ace_lm_and_speed_entry_points_default_to_the_card(no_cuda,
+                                                         tmp_path):
+    """The stacked tagger, the char-LM trainer and the ACE, LM and speed
+    commands need the card unless asked for the CPU; ensemble and
+    evaluate run on the host."""
+    from kbner_tpu_torch.models.embedders import EmbedderSpec, WordEmbedder
+    from kbner_tpu_torch.models.tagger import StackedSequenceTagger
+    from kbner_tpu_torch.train.lm_trainer import LanguageModelTrainer
+    from kbner_tpu_torch.models.embedders import CharLMHead
+
+    spec = [EmbedderSpec("w", WordEmbedder(5, 3), 3)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StackedSequenceTagger(_tiny_config(), spec)
+    assert StackedSequenceTagger(_tiny_config(), spec,
+                                 device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LanguageModelTrainer(CharLMHead(5, 2, 3), None)
+
+    corpus = make_quality_corpus(8, 2, 2).corpora[0]
+    data = tmp_path / "data"
+    for split in ("train", "dev", "test"):
+        write_column_file(data / f"{split}.txt", getattr(corpus, split))
+    base = {"name": "t", "tokenizer": {"type": "hash", "vocab_size": 1000},
+            "model": {"encoder": "tiny"}, "target_dir": str(tmp_path / "r"),
+            "corpora": [{"name": "Q", "data_folder": str(data),
+                         "column_format": {0: "text", 1: "ner"},
+                         "tag_to_bioes": None}]}
+    for name, extra in (("ace", {"trainer": "ReinforcementTrainer"}),
+                        ("lm", {"trainer": "LanguageModelTrainer"}),
+                        ("speed", {})):
+        cfg = tmp_path / f"{name}.yaml"
+        cfg.write_text(yaml.safe_dump({**base, **extra}))
+        command = "speed" if name == "speed" else "train"
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main([command, "--config", str(cfg)])
+    pred = tmp_path / "p.conllu"
+    pred.write_text("a S-PER S-PER\nb O O\n\n")
+    cli.main(["ensemble", str(pred), str(pred), "--out",
+              str(tmp_path / "e.conll")])
+    cli.main(["evaluate", str(pred)])
+    assert (tmp_path / "e.conll").read_text() == "a S-PER\nb O\n\n"
 
 
 def test_engine_modes_of_later_slices_raise():
