@@ -34,7 +34,7 @@ and held to the in-memory index, the KB saved and reopened, the native
 host runtime (``kbner_tpu_torch/native``, built with g++) held to its
 numpy twins at full size and the pruned engine built both ways, four
 ``cli retrieve`` runs over CoNLL splits, the native analyzer held to the
-Python one on 100,000 multilingual sentences, a 100,000-doc zh KB indexed
+Python one on 25,000 multilingual sentences, a 100,000-doc zh KB indexed
 with IK and searched both ways, deep pass-1 windows held against the
 plain pruned engine, retrieval with the trained model's seeds and
 BERTScore reranking, and ``cli serve`` from the saved KB. Last, the MIX
@@ -47,7 +47,13 @@ exported encoder. Last, the recipe's ACE step: ``cli train`` with
 ``trainer: ReinforcementTrainer`` over the published stack (XLM-R large
 frozen, word vectors, a char-BiLSTM and two Flair char-LMs) on KB
 sentences fused through K1, the stack held between the card and the CPU,
-and ``cli ensemble``, ``evaluate`` and ``speed``. It prints what
+and ``cli ensemble``, ``evaluate`` and ``speed``. Last, knowledge
+distillation: KB sentences in documents fused through K1, two XLM-R-large
+teachers trained by ``cli train`` (one with stride windows, one with
+document windows and transition attention), four students distilled from
+them per language (float16 and float32 caches, lazy teachers, k-best
+paths), ``cli parse`` of a student and SWAF over three systems' test
+files. It prints what
 it measured on the lines before the last and exits non-zero on any
 failure.
 Its last line is one JSON object naming the device.
@@ -988,8 +994,10 @@ def training_phase(engine, requests, bm25, dev, card, tokenizer,
 # -> cli retrieve into fused CoNLL files -> cli serve --index_dir
 N_DUMP_PAGES = 2000
 N_SERVE_KB_DOCS = 50_000  # cli serve --kb [--store] builds its KB at start
-# MultiCoNER EN's train and dev sizes; its test (217,818) is cut
-SPLITS = {"train": 15_300, "dev": 800, "test": 2_000}
+# MultiCoNER EN's dev size; its train (15,300) is cut to six cli retrieve
+# batches and its test (217,818) to 2,000, to leave room in the smoke's
+# time limit for phase 4k
+SPLITS = {"train": 6_144, "dev": 800, "test": 2_000}
 RETRIEVE_BATCH = 1024   # retrieve_for_records' queries per search
 RETRIEVE_RUNS = (("exhaustive", []), ("pruned", ["--engine_mode", "pruned"]),
                  ("exhaustive + entities", ["--with_entity"]),
@@ -1294,7 +1302,7 @@ def run_cli(cli, argv, stdin=None):
 # the host runtime's checks in phase 4h: the analyzer's multilingual
 # corpus, the zh KB indexed with IK over the builtin lexicon, and the deep
 # windows of the pruned engine (4096 postings for the 4 rarest terms)
-N_ML_SENTENCES = 100_000
+N_ML_SENTENCES = 25_000  # the Python analyzer takes ~55 s per 100k
 N_ZH_DOCS = 100_000
 ZH_SPLITS = {"train": 3_000, "dev": 500, "test": 500}
 DEEP = dict(deep_terms=4, deep_cap=4096)
@@ -2905,6 +2913,394 @@ def ace_stage_phase(cli, bm25, dev, card, tmp, encoder="large",
     return {"k1_launches": got["bm25_score_block"]}
 
 
+# phase 4k: knowledge distillation from two XLM-R-large teachers, then SWAF
+KD_SPLITS = {"train": 64, "dev": 16, "test": 16}  # cut of 4h's splits
+KD_DOC_SIZES = (4, 8)   # sentences per document of the KD corpus
+KD_BATCH = 16
+KD_STRIDE = 128         # teacher A's window budget, cut from 510
+KD_STUDENTS = (("a", dict(teacher_cache="f16", temperature=2.0)),
+               ("b", dict(posterior=True, teacher_cache="f32")),
+               ("c", dict(teacher_cache="lazy")),
+               ("d", dict(kbest=4)))
+
+
+def kd_stage_phase(cli, bm25, dev, card, tmp, encoder="large",
+                   splits=None) -> dict:
+    """Phase 4k, after 4i in its directory ``tmp`` (4h's saved KB
+    ``kb1m`` and CoNLL splits ``conll``, 4i's de stage corpus
+    ``stage-de``): (a) a cut of 4h's splits grouped into documents of
+    4-8 sentences (``-DOCSTART-`` lines) fused through ``cli retrieve``
+    with the exhaustive engine (K1, one launch per split, each held to its
+    plain version at its shape, every row); (b) two teachers through ``cli
+    train``: A over the fused en split and the de stage corpus with
+    ``stride_windows`` at 128 subtokens, B over the unfused en split (the
+    fused files carry no document marks) and the de corpus (one document
+    per sentence) with ``doc_context`` and an enhanced CRF with transition
+    attention; (c) four students through ``cli train`` with ``trainer:
+    DistillationTrainer`` and ``teachers: [A, B]`` routed per language
+    (f16 cache with temperature 2, posterior with an f32 cache, lazy,
+    k-best 4 from A), each step timed with CUDA events, and the
+    fine-tuner's step on the same batches; (d) ``cli parse`` of student
+    (a) and ``cli train`` with ``trainer: SWAFTrainer`` over the de test
+    files of A, B and (a). All share one tag dictionary, written into each
+    target directory first. Returns K1's launches in (a)."""
+    from pathlib import Path
+
+    import torch
+
+    from kbner_tpu_torch.config import ExperimentConfig
+    from kbner_tpu_torch.data.conll import (SentenceRecord, read_column_file,
+                                            write_column_file)
+    from kbner_tpu_torch.data.dictionary import make_tag_dictionary
+    from kbner_tpu_torch.data.encode import make_batches
+    from kbner_tpu_torch.data.subword import HashTokenizer
+    from kbner_tpu_torch.data.windows import split_long_record
+    from kbner_tpu_torch.retrieval.engine import RetrievalEngine
+    from kbner_tpu_torch.retrieval.pipeline import load_kb, sentence_query
+    from kbner_tpu_torch.train.distill import DistillationTrainer
+
+    splits = splits or KD_SPLITS
+    device = ["--device", str(dev)]
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(71)
+    fmt = {0: "text", 1: "ner"}
+
+    def docstart():
+        return SentenceRecord(tokens=["-DOCSTART-"], tags={"ner": ["O"]})
+
+    # -- (a) the corpus in documents, fused through K1 ------------------------
+    raw, fused = tmp / "kd-raw", tmp / "kd-conll"
+    queries, n_docs = {}, {}
+    for split, n in splits.items():
+        cut = read_column_file(tmp / "conll" / f"{split}.txt", fmt,
+                               comment_symbol="# id")[:n]
+        out, i = [], 0
+        while i < len(cut):
+            size = int(rng.randint(KD_DOC_SIZES[0], KD_DOC_SIZES[1] + 1))
+            out += [docstart()] + cut[i:i + size]
+            i += size
+        write_column_file(raw / f"{split}.txt", out)
+        back = read_column_file(raw / f"{split}.txt", fmt,
+                                comment_symbol="# id")
+        n_docs[split] = len({r.doc_id for r in back})
+        if [r.tokens for r in back] != [r.tokens for r in cut]:
+            raise AssertionError(f"KD corpus ({split}): the documents read "
+                                 "back differ from the sentences written")
+        queries[split] = [sentence_query(r) for r in cut]
+    reset_counts(bm25)
+    _, wall = timed(lambda: run_cli(cli, [
+        "retrieve", "--index_dir", str(tmp / "kb1m"), "--data_folder",
+        str(raw), "--out", str(fused), "--tokenizer_config",
+        str(tmp / "model.yaml"), *device]))
+    got = counts(bm25)
+    expect_counts("the KD corpus's cli retrieve", got,
+                  {"bm25_score_block": len(splits)})
+    text_index, store, title_index, _ = load_kb(tmp / "kb1m")
+    engine = RetrievalEngine(text_index, store=store,
+                             title_index=title_index, device=dev)
+    held = "; ".join(
+        f"{split} "
+        + k1_at_retrieve_shape(bm25, engine, q, None, dev, every_row=True)
+        for split, q in queries.items())
+    del engine
+    store.close()
+    torch.cuda.empty_cache()
+    fused_recs = {s: read_column_file(fused / f"{s}.txt", fmt,
+                                      comment_symbol="# id") for s in splits}
+    n_ctx = sum("<EOS>" in r.tokens for r in fused_recs["train"])
+    fused_docs = len({r.doc_id for s in fused_recs.values() for r in s})
+    if (any(len(fused_recs[s]) != n for s, n in splits.items())
+            or n_ctx == 0):
+        raise AssertionError(f"KD corpus: {[len(v) for v in fused_recs.values()]}"
+                             f" fused sentences, {n_ctx} with context")
+    log(f"KD corpus: {'/'.join(map(str, splits.values()))} train/dev/test KB "
+        f"sentences in {'/'.join(map(str, n_docs.values()))} documents of "
+        f"{KD_DOC_SIZES[0]}-{KD_DOC_SIZES[1]} sentences, fused by cli "
+        f"retrieve with the exhaustive engine in {wall:.1f} s; launches "
+        f"{got}; {n_ctx}/{splits['train']} train sentences with context; the"
+        f" fused files hold {fused_docs} document(s) (cli retrieve drops the"
+        f" -DOCSTART- marks, so teacher B's doc_context reads the unfused "
+        f"split); bm25_score_block at each split's retrieve shape on kb1m's "
+        f"text field: {held} ({card})")
+
+    # -- (b) the configs, one tag dictionary, the two teachers -----------------
+    de, de_docs = tmp / "stage-de", tmp / "kd-de-docs"
+    for split in ("train", "dev", "test"):
+        write_column_file(de_docs / f"{split}.txt", [
+            rec for r in read_column_file(de / f"{split}.txt", fmt)
+            for rec in (docstart(), r)])
+
+    def corpus(name, folder):
+        return {"name": name, "data_folder": str(folder),
+                "column_format": {"0": "text", "1": "ner"},
+                "comment_symbol": "# id", "tag_to_bioes": "ner"}
+
+    train = {**RECIPE, "batch_size": KD_BATCH, "max_epochs": 1}
+    common = {"tag_layer": "ner", "tokenizer": {"type": "hash",
+                                                "vocab_size": HASH_VOCAB}}
+    configs = {
+        "A": {**common, "name": "kd-teacher-a",
+              "corpora": [corpus("EN", fused), corpus("DE", de)],
+              "model": {"encoder": encoder},
+              "data": {"stride_windows": True, "max_subtokens": KD_STRIDE},
+              "train": train, "target_dir": str(tmp / "kd-teacher-a")},
+        "B": {**common, "name": "kd-teacher-b",
+              "corpora": [corpus("EN", raw), corpus("DE", de_docs)],
+              "model": {"encoder": encoder, "enhanced_crf": True,
+                        "transition_attention": True},
+              "data": {"doc_context": True},
+              "train": train, "target_dir": str(tmp / "kd-teacher-b")}}
+    paths = {k: tmp / f"kd-teacher-{k.lower()}.json" for k in ("A", "B")}
+    for label, kw in KD_STUDENTS:
+        configs[label] = {
+            **common, "name": f"kd-student-{label}",
+            "corpora": [corpus("EN", fused), corpus("DE", de)],
+            "model": {"encoder": encoder}, "trainer": "DistillationTrainer",
+            "teachers": [str(paths["A"]), str(paths["B"])],
+            "train": {**train, **kw},
+            "target_dir": str(tmp / f"kd-student-{label}")}
+        paths[label] = tmp / f"kd-student-{label}.json"
+    tokenizer = HashTokenizer(vocab_size=HASH_VOCAB)
+    prepared = {}
+    for key in ("A", "B"):
+        cfg = ExperimentConfig.from_dict(configs[key])
+        prepared[key] = cfg.prepare_corpus(cfg.load_corpus(), tokenizer)
+    tag_dict = make_tag_dictionary(
+        r.tags["ner"] for c in prepared.values() for corp in c.corpora
+        for split in (corp.train, corp.dev, corp.test) for r in split)
+    for key, raw_cfg in configs.items():
+        paths[key].write_text(json.dumps(raw_cfg))
+        tag_dict.save(Path(raw_cfg["target_dir"]) / "tag_dictionary.json")
+
+    a_recs = [r for c in prepared["A"].corpora
+              for split in (c.train, c.dev, c.test) for r in split]
+    pieces = [len(split_long_record(r, tokenizer, KD_STRIDE, 16))
+              for r in a_recs]
+    n_split = sum(p > 1 for p in pieces)
+    if n_split == 0:
+        raise AssertionError("teacher A: no record exceeds the window "
+                             "budget")
+    grown = [len(w.tokens) - len(r.tokens) for w, r in zip(
+        prepared["B"].corpora[0].train,
+        read_column_file(raw / "train.txt", fmt, comment_symbol="# id"))]
+    if not any(grown):
+        raise AssertionError("teacher B: no document window holds a "
+                             "neighbour")
+    teachers = {}
+    for key in ("A", "B"):
+        torch.cuda.reset_peak_memory_stats()
+        (result, _), wall = timed(lambda: run_cli(
+            cli, ["train", "--config", str(paths[key]), *device]))
+        run = Path(configs[key]["target_dir"])
+        tested = json.loads((run / "test_results.json").read_text())
+        losses = result["history"]["train_loss"]
+        if not np.isfinite(losses).all() or set(tested) != {"EN", "DE"}:
+            raise AssertionError(f"teacher {key}: losses {losses}, test "
+                                 f"{tested}")
+        teachers[key] = (result, tested, wall,
+                         torch.cuda.max_memory_allocated() / 1e9)
+        # the students load best-model.msgpack; 2.2 GB less on the disk
+        (run / "final-model.msgpack").unlink()
+    res, tested, wall, peak = teachers["A"]
+    log(f"teacher A (cli train, XLM-R {encoder}, CRF, stride_windows at "
+        f"{KD_STRIDE} subtokens, stride 16 words; EN fused + DE, batch "
+        f"{KD_BATCH}, 1 epoch): {n_split} of {len(a_recs)} records split "
+        f"into {sum(p for p in pieces if p > 1)} windows (train, dev and "
+        f"test; training and evaluate split them alike); {wall:.1f} s with "
+        f"the build, checkpoints and final_test; loss "
+        f"{res['history']['train_loss'][0]:.4f}; stitched evaluate span "
+        f"micro F1 dev {res['history']['dev_score'][0]:.4f}, test EN "
+        f"{tested['EN']['micro_f1']:.4f}, DE {tested['DE']['micro_f1']:.4f}"
+        f" (random weights, one epoch); peak allocated {peak:.2f} GB "
+        f"({card})")
+    res, tested, wall, peak = teachers["B"]
+    log(f"teacher B (cli train, XLM-R {encoder}, enhanced CRF over 2 "
+        f"languages with transition attention, doc_context at 510 "
+        f"subtokens; EN unfused in documents + DE one sentence per "
+        f"document): {sum(g > 0 for g in grown)}/{len(grown)} EN train "
+        f"windows hold neighbours, {np.mean(grown):.1f} neighbour words on "
+        f"average; {wall:.1f} s; loss {res['history']['train_loss'][0]:.4f}"
+        f"; test span micro F1 EN {tested['EN']['micro_f1']:.4f}, DE "
+        f"{tested['DE']['micro_f1']:.4f} (random weights); peak allocated "
+        f"{peak:.2f} GB ({card})")
+
+    # -- (c) four students -------------------------------------------------------
+    kd_step = DistillationTrainer.kd_step
+    emissions = DistillationTrainer._teacher_emissions
+    kbest = DistillationTrainer._teacher_kbest
+    events, caches = [], []
+
+    def timed_step(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = kd_step(self, *args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return loss
+
+    def timed_cache(fn, describe):
+        def wrapped(self, batches, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, batches, *args, **kwargs)
+            torch.cuda.synchronize()
+            caches.append((time.perf_counter() - t0, describe(out)))
+            return out
+        return wrapped
+
+    def emission_bytes(out):
+        return (sum(a.nbytes for a in out), out[0].dtype)
+
+    def kbest_bytes(out):
+        for _, w in out:
+            if not np.allclose(w.sum(-1), 1.0, rtol=1e-5):
+                raise AssertionError("k-best weights do not sum to 1")
+        return (sum(p.nbytes + w.nbytes for p, w in out), out[0][0].dtype)
+
+    students = {}
+    DistillationTrainer.kd_step = timed_step
+    DistillationTrainer._teacher_emissions = timed_cache(emissions,
+                                                         emission_bytes)
+    DistillationTrainer._teacher_kbest = timed_cache(kbest, kbest_bytes)
+    try:
+        for label, kw in KD_STUDENTS:
+            events.clear()
+            caches.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            (result, _), wall = timed(lambda: run_cli(
+                cli, ["train", "--config", str(paths[label]), *device]))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.synchronize()
+            step_ms = [s.elapsed_time(e) for s, e in events]
+            run = Path(configs[label]["target_dir"])
+            tested = json.loads((run / "test_results.json").read_text())
+            losses = result["history"]["train_loss"]
+            if (not np.isfinite(losses).all() or set(tested) != {"EN", "DE"}
+                    or len(step_ms) < 3):
+                raise AssertionError(f"student {label}: losses {losses}, "
+                                     f"{len(step_ms)} steps, test {tested}")
+            students[label] = dict(kw=kw, wall=wall, peak=peak,
+                                   steps=step_ms, caches=list(caches),
+                                   loss=losses[0], tested=tested)
+            # (a)'s best model is parsed below
+            for name in ("best-model.msgpack", "final-model.msgpack")[
+                    label == "a":]:
+                (run / name).unlink()
+    finally:
+        DistillationTrainer.kd_step = kd_step
+        DistillationTrainer._teacher_emissions = emissions
+        DistillationTrainer._teacher_kbest = kbest
+    (t16, (b16, d16)), = students["a"]["caches"]
+    (t32, (b32, d32)), = students["b"]["caches"]
+    if (d16, d32) != (np.float16, np.float32) or b16 * 2 != b32:
+        raise AssertionError(f"teacher caches: {b16} B {d16}, {b32} B {d32}")
+
+    # the fine-tuner's step on the same batches, in the same order
+    config = ExperimentConfig.from_file(paths["a"])
+    ft = cli._build(config, dev)
+    train_config = config.make_train_config()
+    batches = make_batches(ft.corpus.train, ft.tokenizer, ft.tag_dict,
+                           KD_BATCH, shuffle=False, tag_layer="ner",
+                           max_subtokens=train_config.max_subtokens)
+    opt = ft.make_optimizer(train_config)
+    step_rng = torch.Generator().manual_seed(0)
+    ft_events = []
+    for b_idx in np.random.RandomState(train_config.seed).permutation(
+            len(batches)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ft.train_step(batches[b_idx], opt, train_config, step_rng)
+        end.record()
+        ft_events.append((start, end))
+    torch.cuda.synchronize()
+    ft_ms = float(np.median([s.elapsed_time(e) for s, e in ft_events[2:]]))
+    shapes = sorted({tuple(b.input_ids.shape) for b in batches})
+    del ft, opt
+    torch.cuda.empty_cache()
+
+    def med(label):
+        return float(np.median(students[label]["steps"][2:]))
+
+    for label, kw in KD_STUDENTS:
+        s = students[label]
+        cache = ("; k-best cache " if "kbest" in kw else "; cache ") + (
+            ", ".join(f"{sec:.2f} s, {nb / 1e6:.2f} MB of host {dt}"
+                      for sec, (nb, dt) in s["caches"])
+            if s["caches"] else "none (the teachers emit per step)")
+        log(f"student ({label}) cli train, trainer: DistillationTrainer, "
+            f"{kw}, teachers [A, B] per language, XLM-R {encoder}, batch "
+            f"{KD_BATCH}, 1 epoch of {len(s['steps'])} steps: {s['wall']:.1f}"
+            f" s with the builds of student and teachers, checkpoints and "
+            f"final_test{cache}; {med(label):.1f} ms per KD optimizer step "
+            f"(CUDA events, median after the first two; steps "
+            + ", ".join(f"{v:.1f}" for v in s["steps"])
+            + f"); loss {s['loss']:.4f}; test span micro F1 EN "
+            f"{s['tested']['EN']['micro_f1']:.4f}, DE "
+            f"{s['tested']['DE']['micro_f1']:.4f} (random weights); peak "
+            f"allocated {s['peak']:.2f} GB ({card})")
+    log(f"KD step against the fine-tune step on the same {len(batches)} "
+        f"batches (shapes {shapes}), in the same order, CUDA events, "
+        f"median after the first two: fine-tune {ft_ms:.1f} ms; KD "
+        + ", ".join(f"({label}) {med(label):.1f}" for label, _ in
+                    KD_STUDENTS)
+        + f" ms; the lazy step (c) {med('c') - med('a'):+.1f} ms against "
+        f"the f16-cached step (a), {med('c') - med('b'):+.1f} against the "
+        f"f32 posterior step (b); teacher caching f16 {t16:.2f} s for "
+        f"{b16 / 1e6:.2f} MB, f32 {t32:.2f} s for {b32 / 1e6:.2f} MB of "
+        f"host memory; peak allocated lazy {students['c']['peak']:.2f} GB "
+        f"against cached {students['a']['peak']:.2f} GB ({card})")
+
+    # -- (d) cli parse of student (a), SWAF over three systems --------------
+    parse_dir = tmp / "kd-parse"
+    _, wall_parse = timed(lambda: run_cli(cli, [
+        "parse", "--config", str(paths["a"]), "--target_dir",
+        str(fused / "test.txt"), "--out_dir", str(parse_dir), "--keep_order",
+        *device]))
+    parsed = read_column_file(parse_dir / "test.conllu", {0: "text",
+                                                         1: "pred"},
+                              comment_symbol="# id")
+    if [r.tokens for r in parsed] != [r.tokens for r in fused_recs["test"]]:
+        raise AssertionError("cli parse of student (a): the sentences "
+                             "differ from the fused test split")
+    files = [str(Path(configs[k]["target_dir"]) / "test.DE.tsv")
+             for k in ("A", "B", "a")]
+    texts = [[r.tokens for r in read_column_file(f, {0: "text", 1: "gold",
+                                                     2: "pred"})]
+             for f in files]
+    if texts[1] != texts[0] or texts[2] != texts[0]:
+        raise AssertionError("SWAF: the systems' de test files differ in "
+                             "their sentences")
+    swaf_cfg = tmp / "kd-swaf.json"
+    swaf_cfg.write_text(json.dumps({
+        "name": "kd-swaf", "trainer": "SWAFTrainer",
+        "systems": {"dev": files, "test": files},
+        "train": {"max_epochs": 200, "learning_rate": 0.01},
+        "target_dir": str(tmp / "kd-swaf")}))
+    (swaf, printed), wall_swaf = timed(lambda: run_cli(
+        cli, ["train", "--config", str(swaf_cfg), *device]))
+    combined = read_column_file(tmp / "kd-swaf" / "test.swaf.tsv",
+                                {0: "text", 1: "pred"})
+    if (json.loads(printed.strip().splitlines()[-1]) != swaf
+            or not np.isfinite(swaf["final_loss"])
+            or not 0.0 <= swaf["test_micro_f1"] <= 1.0
+            or [r.tokens for r in combined] != texts[0]):
+        raise AssertionError(f"SWAF: {swaf}, {len(combined)} sentences")
+    system_f1 = ", ".join(f"{t['DE']['micro_f1']:.4f}" for t in (
+        teachers["A"][1], teachers["B"][1], students["a"]["tested"]))
+    log(f"cli parse of student (a) on the fused en test split: "
+        f"{len(parsed)} sentences in {wall_parse:.1f} s; cli train, "
+        f"trainer: SWAFTrainer over the de test files of A, B and (a) "
+        f"({len(texts[0])} sentences, 200 Adam steps at 0.01): "
+        f"{wall_swaf:.1f} s, final loss {swaf['final_loss']:.4f}, combined "
+        f"test span micro F1 {swaf['test_micro_f1']:.4f} against the "
+        f"systems' {system_f1} (all from random weights) ({card})")
+    log(f"phase 4k in {time.perf_counter() - t_phase:.1f} s")
+    return {"k1_launches": got["bm25_score_block"]}
+
+
 def fuse_served(engine, tokenizer, records):
     """The records ``serve`` fuses: each searched with its own tokens."""
     from kbner_tpu_torch.retrieval.fusion import fuse_contexts
@@ -3429,6 +3825,9 @@ def main() -> int:
         # -- 4j. ACE over the published stack, ensemble, evaluate, speed ----
         torch.cuda.empty_cache()
         ace = ace_stage_phase(cli, bm25, dev, card, Path(tmp))
+        # -- 4k. distillation from two teachers, SWAF ----------------------
+        torch.cuda.empty_cache()
+        kd = kd_stage_phase(cli, bm25, dev, card, Path(tmp))
 
     # -- 5. kernels ----------------------------------------------------------
     kernels = [{
@@ -3439,6 +3838,7 @@ def main() -> int:
         "launches": launches,
         "mix_launches": mix["k1_mix_launches"],
         "ace_launches": ace["k1_launches"],
+        "kd_launches": kd["k1_launches"],
         "max_abs_err": max(err_cases, k1["err"], k1_title["err"]),
         "ms": k1["dev_ms"],
         "cold_ms": k1["cold_ms"],

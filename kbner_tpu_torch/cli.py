@@ -25,12 +25,16 @@ sentence of a CoNLL folder's ``train/dev/test.txt`` in a KB (``--index_dir``
 or ``--kb``), or with ``--route mix`` in every language's KB at once,
 and writes each split's retrieval file and its context-fused column file,
 what ``train`` reads. ``train`` fine-tunes the NER tagger on the config's
-column corpora (``FinetuneTrainer``), or with ``trainer:
-ReinforcementTrainer`` runs the ACE search over a stacked-embedder tagger
-(``model.embeddings``) and trains the final model with its best selection,
-then tests the best model; ``trainer: LanguageModelTrainer`` pretrains a
-character LM (the distillation and SWAF trainers and the parser targets
-wait for ROADMAP A6); ``multistage``
+corpora (``FinetuneTrainer``; ``data.stride_windows`` and
+``data.doc_context`` apply), or with ``trainer: DistillationTrainer``
+(``ModelDistiller``) distills a student from the taggers of the configs
+under ``teachers:``, or with ``trainer: ReinforcementTrainer`` runs the
+ACE search over a stacked-embedder tagger (``model.embeddings``) and
+trains the final model with its best selection, each then testing the
+best model; ``trainer: SWAFTrainer`` learns per-token weights for the
+systems' prediction files under ``systems:`` and combines their test
+predictions; ``trainer: LanguageModelTrainer`` pretrains a character LM
+(the parser targets wait for ROADMAP A6); ``multistage``
 trains one config after another, each stage starting from the encoder the
 previous one exported; ``test``
 evaluates the best (else final) model on the test sets; ``parse`` tags
@@ -86,16 +90,18 @@ def _trained_checkpoint(target_dir: Path) -> Optional[Path]:
 
 def _build(config: ExperimentConfig, device: str) -> FinetuneTrainer:
     """The NER tagger (float32 master parameters, made from the train
-    config's seed) and its trainer over the config's corpora."""
+    config's seed) and its trainer over the config's corpora, with the
+    config's document windows and stride windows."""
     if config.targets != "ner":
+        if config.data.get("doc_context") or config.data.get(
+                "stride_windows"):
+            raise ValueError(
+                "doc_context / stride_windows are NER-tagger data "
+                f"policies; they are not applied under targets: "
+                f"{config.targets}")
         raise NotImplementedError(
             f"targets: {config.targets}: the parser and classifier "
             "families wait for ROADMAP A6 in kbner_tpu_torch")
-    if config.trainer_kind != "finetune":
-        raise NotImplementedError(
-            f"trainer: {config.trainer}: this builds the fine-tuning "
-            "tagger; ace and lm train through cli train, distill and swaf "
-            "wait for ROADMAP A6")
     if config.model.get("encoder_weights"):
         raise NotImplementedError(
             "model.encoder_weights: loading HF XLM-R weights waits for "
@@ -121,7 +127,39 @@ def _build(config: ExperimentConfig, device: str) -> FinetuneTrainer:
     return FinetuneTrainer(
         model, corpus, tokenizer, tag_dict, tag_layer=config.tag_layer,
         stride_windows=config.data.get("stride_windows", False),
-        device=device)
+        stride_max_subtokens=config.data.get("max_subtokens", 510),
+        stride_words=config.data.get("stride_words", 16), device=device)
+
+
+def _build_distill(config: ExperimentConfig, device: str):
+    """The student (as :func:`_build` makes it) and its
+    ``DistillationTrainer`` over the taggers of the ``teachers:`` configs,
+    each built from its own config and loaded from its best (else final)
+    checkpoint. A teacher whose tag dictionary differs from the
+    student's, or that has no checkpoint, raises."""
+    from .train.distill import DistillationTrainer
+
+    student = _build(config, device)
+    if not config.teachers:
+        raise ValueError("trainer: DistillationTrainer needs a 'teachers:' "
+                         "list of trained experiment-config paths")
+    teachers = []
+    for tpath in config.teachers:
+        tcfg = ExperimentConfig.from_file(tpath)
+        teacher = _build(tcfg, device)
+        if teacher.tag_dict.idx2item != student.tag_dict.idx2item:
+            raise ValueError(
+                f"teacher {tpath} tag dictionary differs from the "
+                "student's — KD needs a shared label space")
+        ckpt = _trained_checkpoint(tcfg.resolve_target_dir())
+        if ckpt is None:
+            raise ValueError(f"teacher {tpath} has no trained checkpoint "
+                             f"under {tcfg.resolve_target_dir()}")
+        teacher.load(ckpt)
+        teachers.append(teacher.model)
+    return DistillationTrainer(
+        student.model, student.corpus, student.tokenizer, student.tag_dict,
+        tag_layer=config.tag_layer, teachers=teachers, device=device)
 
 
 def _build_ace(config: ExperimentConfig, device: str):
@@ -224,6 +262,66 @@ def _run_lm(config: ExperimentConfig, target_dir: Path, device: str
     return result
 
 
+def _run_swaf(config: ExperimentConfig, target_dir: Path, device: str
+              ) -> dict:
+    """SWAF over ``systems: {dev: [...], test: [...]}``, files of 'token
+    gold pred' lines (gold from each split's first file): an
+    :class:`~.models.ensemble_model.EnsembleModel` (``model.hidden``, 128
+    by default, made from seed 0) trained ``train.max_epochs`` (200)
+    full-batch steps at ``train.learning_rate`` (0.01) on dev, then its
+    weighted vote over test into ``test.swaf.tsv``; the final loss and
+    the test span micro F1 go to ``swaf_results.json`` and stdout."""
+    from .eval.metrics import evaluate_spans
+    from .models.ensemble_model import (EnsembleConfig, EnsembleModel,
+                                        SWAFTrainer,
+                                        encode_system_predictions)
+
+    systems = config.systems
+    if not systems.get("dev") or not systems.get("test"):
+        raise ValueError("trainer: SWAFTrainer needs systems: {dev: [...], "
+                         "test: [...]} prediction files")
+
+    def load_split(files):
+        read = [read_column_file(f, {0: "text", 1: "gold", 2: "pred"},
+                                 tag_to_bioes=None) for f in files]
+        return (read[0], [[r.tags["pred"] for r in recs] for recs in read],
+                [r.tags["gold"] for r in read[0]])
+
+    _, dev_sys, dev_gold = load_split(systems["dev"])
+    test_recs, test_sys, test_gold = load_split(systems["test"])
+    label_dict = Dictionary()
+    label_dict.add_item("O")
+    for tags in dev_sys + test_sys + [dev_gold, test_gold]:
+        for sent in tags:
+            for t in sent:
+                label_dict.add_item(t)
+    dev_arrays = encode_system_predictions(dev_sys, dev_gold, label_dict)
+    test_arrays = encode_system_predictions(test_sys, test_gold, label_dict)
+    model = EnsembleModel(EnsembleConfig(
+        num_systems=len(dev_sys), num_labels=len(label_dict),
+        hidden=config.model.get("hidden", 128)), device=device)
+    trainer = SWAFTrainer(model)
+    losses = trainer.train(
+        dev_arrays, steps=int(config.train.get("max_epochs", 200)),
+        lr=float(config.train.get("learning_rate", 1e-2)))
+    combined = trainer.combine(test_arrays)
+    preds = []
+    for b, rec in enumerate(test_recs):
+        preds.append([label_dict.get_item_for_index(int(combined[b, w]))
+                      for w in range(len(rec.tokens))])
+        rec.tags["pred"] = preds[-1]
+    target_dir.mkdir(parents=True, exist_ok=True)
+    write_column_file(target_dir / "test.swaf.tsv", test_recs,
+                      layers=("pred",))
+    result = {"final_loss": losses[-1] if losses else None,
+              "test_micro_f1": evaluate_spans(test_gold,
+                                              preds).micro_avg_f_score()}
+    (target_dir / "swaf_results.json").write_text(json.dumps(result))
+    log.info("SWAF combined test micro-F1 %.4f", result["test_micro_f1"])
+    print(json.dumps(result))
+    return result
+
+
 def _setup_logging(target_dir: Optional[Path] = None) -> None:
     handlers: List[logging.Handler] = [logging.StreamHandler(sys.stderr)]
     if target_dir is not None:
@@ -236,13 +334,20 @@ def _setup_logging(target_dir: Optional[Path] = None) -> None:
 def cmd_train(args) -> dict:
     """Train as the config's trainer says and test the best model;
     returns the training result (the ACE search's, with its history and
-    best action, for ``trainer: ReinforcementTrainer``)."""
+    best action, for ``trainer: ReinforcementTrainer``; SWAF's final loss
+    and test F1)."""
     config = ExperimentConfig.from_file(args.config)
     target_dir = config.resolve_target_dir()
     _setup_logging(target_dir)
     if config.trainer_kind == "lm":
         return _run_lm(config, target_dir, args.device)
-    if config.trainer_kind == "ace":
+    if config.trainer_kind == "swaf":
+        return _run_swaf(config, target_dir, args.device)
+    if config.trainer_kind == "distill":
+        trainer = _build_distill(config, args.device)
+        result = trainer.train(target_dir, config.make_train_config())
+        log.info("KD best dev score: %s", result["best_dev_score"])
+    elif config.trainer_kind == "ace":
         from .train.reinforce import ReinforceConfig, ace_train
 
         trainer, specs = _build_ace(config, args.device)
@@ -687,6 +792,7 @@ def serving_tagger(config: ServeConfig, tag_dict: Dictionary,
         if trans is not None and len(trans.shape) == 3:
             shape["num_languages"] = int(trans.shape[0])  # enhanced CRF
         shape["relearn_embeddings"] = "embedding2nn" in params
+        shape["transition_attention"] = "sent_to_trans_att" in params
     tagger_cfg = TaggerConfig.for_tag_dictionary(
         config.make_encoder_config(tokenizer), tag_dict,
         use_crf=config.model.get("use_crf", True), **shape)

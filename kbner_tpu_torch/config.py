@@ -3,11 +3,17 @@
 :class:`ServeConfig` is what serving reads: ``name``, ``tag_layer``,
 ``targets``, ``tokenizer``, ``model`` and ``target_dir``, other keys
 ignored. :class:`ExperimentConfig` adds what ``cli train``/``test``/``parse``
-read: the column-format ``corpora``, ``train`` (a :class:`TrainConfig`,
-or an ``LMTrainConfig`` for ``trainer: lm``; unknown keys raise),
-``trainer`` (a kind or one of its reference class names), ``data`` and
-``ace`` (the ACE episode loop's ``ReinforceConfig``); unknown top-level
-keys raise, as the JAX package's do.
+read: ``corpora`` (column corpora with a ``column_format``, ``format:
+conllu`` or ``fasttext`` folders, or a registry name without a
+``column_format``, see :mod:`.data.corpora`), ``train`` (a
+:class:`TrainConfig`, a ``DistillConfig`` for the distillation trainer or
+an ``LMTrainConfig`` for ``trainer: lm``; unknown keys raise), ``trainer``
+(a kind or one of its reference class names), ``data`` (``doc_context``
+with ``doc_window_budget``; ``stride_windows`` with ``max_subtokens`` and
+``stride_words``), ``teachers`` (the distillation trainer's teacher
+configs), ``systems`` (SWAF's prediction files) and ``ace`` (the ACE
+episode loop's ``ReinforceConfig``); unknown top-level keys raise, as the
+JAX package's do.
 """
 
 from __future__ import annotations
@@ -19,7 +25,9 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from .data.conll import ListCorpus, load_column_corpus
+from .data.conll import (Corpus, ListCorpus, load_column_corpus,
+                         load_conllu_corpus, read_fasttext_file)
+from .data.doc_context import make_doc_context_records
 from .data.subword import HashTokenizer
 from .models.xlmr import XLMRConfig
 from .train.trainer import TrainConfig
@@ -101,6 +109,38 @@ class CorpusSpec:
     dev_file: str = "dev.txt"
     test_file: str = "test.txt"
     tag_to_bioes: Optional[str] = "ner"
+    # "column" (CoNLL), "conllu" (UD) or "fasttext" (__label__X text)
+    format: str = "column"
+
+
+def _corpus_spec(c: Dict[str, Any]) -> CorpusSpec:
+    """One ``corpora:`` block: a conllu or fastText folder (default files
+    ``<split>.conllu`` / ``<split>.txt``), a column corpus, or a registry
+    name (a block without ``column_format``, resolved under ``data_root``
+    with the block's folder, file, comment and tag-layer overrides)."""
+    fmt = c.get("format")
+    if fmt in ("fasttext", "conllu"):
+        suffix = "txt" if fmt == "fasttext" else "conllu"
+        return CorpusSpec(
+            name=c["name"], data_folder=c["data_folder"], column_format={},
+            format=fmt, train_file=c.get("train_file", f"train.{suffix}"),
+            dev_file=c.get("dev_file", f"dev.{suffix}"),
+            test_file=c.get("test_file", f"test.{suffix}"))
+    if "column_format" not in c:
+        from .data.corpora import corpus_spec
+
+        return corpus_spec(c["name"], c.get("data_root", "."), **{
+            k: v for k, v in c.items()
+            if k in ("data_folder", "train_file", "dev_file", "test_file",
+                     "comment_symbol", "tag_to_bioes")})
+    return CorpusSpec(
+        name=c["name"], data_folder=c["data_folder"],
+        column_format={int(k): v for k, v in c["column_format"].items()},
+        comment_symbol=c.get("comment_symbol"),
+        train_file=c.get("train_file", "train.txt"),
+        dev_file=c.get("dev_file", "dev.txt"),
+        test_file=c.get("test_file", "test.txt"),
+        tag_to_bioes=c.get("tag_to_bioes", "ner"))
 
 
 # trainer: key -> kind; the JAX package's reference class names are
@@ -131,6 +171,11 @@ class ExperimentConfig(ServeConfig):
     # the ACE episode loop's settings (episodes, controller_lr,
     # reward_kind, seed)
     ace: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # the distillation trainer's teachers: one experiment config per
+    # corpus language
+    teachers: List[str] = dataclasses.field(default_factory=list)
+    # SWAF's systems: {dev: [...], test: [...]} 'token gold pred' files
+    systems: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def from_file(cls, path: str | Path) -> "ExperimentConfig":
@@ -146,58 +191,71 @@ class ExperimentConfig(ServeConfig):
         if trainer not in TRAINERS:
             raise ValueError(
                 f"unknown trainer: {trainer!r}; one of {sorted(TRAINERS)}")
-        corpora = []
-        for c in raw.get("corpora") or []:
-            if c.get("format") in ("fasttext", "conllu") or \
-                    "column_format" not in c:
-                raise NotImplementedError(
-                    f"corpus {c.get('name')!r}: kbner_tpu_torch reads "
-                    "column files with a column_format; conllu, fastText "
-                    "and named corpora wait for ROADMAP A6")
-            corpora.append(CorpusSpec(
-                name=c["name"], data_folder=c["data_folder"],
-                column_format={int(k): v
-                               for k, v in c["column_format"].items()},
-                comment_symbol=c.get("comment_symbol"),
-                train_file=c.get("train_file", "train.txt"),
-                dev_file=c.get("dev_file", "dev.txt"),
-                test_file=c.get("test_file", "test.txt"),
-                tag_to_bioes=c.get("tag_to_bioes", "ner")))
+        corpora = [_corpus_spec(c) for c in raw.get("corpora") or []]
         serve = {f.name: raw[f.name] for f in dataclasses.fields(ServeConfig)
                  if f.name in raw}
         return cls(**serve, corpora=corpora, train=raw.get("train") or {},
                    data=raw.get("data") or {}, trainer=trainer,
-                   ace=raw.get("ace") or {})
+                   ace=raw.get("ace") or {},
+                   teachers=list(raw.get("teachers") or []),
+                   systems=raw.get("systems") or {})
 
     @property
     def trainer_kind(self) -> str:
         return TRAINERS[self.trainer]
 
     def load_corpus(self) -> ListCorpus:
-        return ListCorpus([load_column_corpus(
-            s.data_folder, s.column_format, train_file=s.train_file,
-            dev_file=s.dev_file, test_file=s.test_file,
-            comment_symbol=s.comment_symbol, tag_to_bioes=s.tag_to_bioes,
-            name=s.name) for s in self.corpora])
+        corpora = []
+        for s in self.corpora:
+            folder = Path(s.data_folder)
+            if s.format == "fasttext":
+                def read(fname, folder=folder):
+                    p = folder / fname
+                    return read_fasttext_file(p) if p.exists() else []
+
+                corpora.append(Corpus(
+                    train=read(s.train_file), dev=read(s.dev_file),
+                    test=read(s.test_file), name=s.name))
+            elif s.format == "conllu":
+                corpora.append(load_conllu_corpus(
+                    folder, train_file=s.train_file, dev_file=s.dev_file,
+                    test_file=s.test_file, name=s.name))
+            else:
+                corpora.append(load_column_corpus(
+                    folder, s.column_format, train_file=s.train_file,
+                    dev_file=s.dev_file, test_file=s.test_file,
+                    comment_symbol=s.comment_symbol,
+                    tag_to_bioes=s.tag_to_bioes, name=s.name))
+        return ListCorpus(corpora)
 
     def prepare_corpus(self, corpus: ListCorpus, tokenizer) -> ListCorpus:
-        """The config's data-encoding policies; ``doc_context`` windows
-        are not ported yet."""
-        if self.data.get("doc_context", False):
-            raise NotImplementedError(
-                "data.doc_context (document windows, data/doc_context.py) "
-                "waits for ROADMAP A6 in kbner_tpu_torch")
-        return corpus
+        """The config's data-encoding policies: with ``doc_context``
+        every split of every corpus becomes document windows of
+        ``doc_window_budget`` subtokens (510 by default; neighbours as
+        ``S-X`` words, :mod:`.data.doc_context`)."""
+        if not self.data.get("doc_context", False):
+            return corpus
+        budget = int(self.data.get("doc_window_budget", 510))
+
+        def windows(recs):
+            if not recs:
+                return recs
+            return make_doc_context_records(recs, tokenizer, budget=budget,
+                                            tag_layer=self.tag_layer)[0]
+
+        return ListCorpus([Corpus(train=windows(c.train), dev=windows(c.dev),
+                                  test=windows(c.test), name=c.name)
+                           for c in corpus.corpora])
 
     def make_train_config(self):
-        """The trainer's config (an ``LMTrainConfig`` for the char-LM
-        trainer, else a :class:`TrainConfig`); unknown ``train:`` keys
-        raise."""
+        """The trainer's config (a ``DistillConfig`` for the distillation
+        trainer, an ``LMTrainConfig`` for the char-LM trainer, else a
+        :class:`TrainConfig`); unknown ``train:`` keys raise."""
         if self.trainer_kind == "distill":
-            raise NotImplementedError(
-                "the distillation trainer's DistillConfig waits for ROADMAP "
-                "A6 in kbner_tpu_torch")
-        if self.trainer_kind == "lm":
+            from .train.distill import DistillConfig
+
+            cls_ = DistillConfig
+        elif self.trainer_kind == "lm":
             from .train.lm_trainer import LMTrainConfig
 
             cls_ = LMTrainConfig

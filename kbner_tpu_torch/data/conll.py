@@ -1,5 +1,5 @@
-"""CoNLL column files and sentence records (counterpart of
-``kbner_tpu/data/conll.py``; the column format, not conllu or fastText).
+"""CoNLL column files, CoNLL-U and fastText files, and sentence records
+(counterpart of ``kbner_tpu/data/conll.py``).
 
 A sentence is a record of token strings and per-layer tag strings. The
 ``<EOS>`` marker separates the original sentence from retrieved context
@@ -25,13 +25,14 @@ X_LABEL = "X"
 class SentenceRecord:
     """One sentence: parallel lists of tokens and tag layers. ``doc_id``
     groups sentences into documents, ``lang_id`` names the source
-    corpus."""
+    corpus, ``labels`` are a classification corpus's sentence labels."""
 
     tokens: List[str]
     tags: Dict[str, List[str]] = field(default_factory=dict)
     doc_id: int = -1
     lang_id: int = 0
     comment: Optional[str] = None
+    labels: List[str] = field(default_factory=list)
 
     @property
     def eos_index(self) -> int:
@@ -193,6 +194,104 @@ def load_column_corpus(
 
     return Corpus(train=read(train_file), dev=read(dev_file),
                   test=read(test_file), name=name or folder.name)
+
+
+#: CoNLL-U layer names produced by :func:`read_conllu_file` (UD columns
+#: LEMMA/UPOS/XPOS/HEAD/DEPREL/DEPS; FORM is the token text).
+CONLLU_LAYERS = ("lemma", "upos", "pos", "head", "deprel", "deps")
+
+
+def read_conllu_file(
+    path: Union[str, Path],
+    encoding: str = "utf-8",
+    max_sentences: Optional[int] = None,
+) -> List[SentenceRecord]:
+    """Parse a CoNLL-U (Universal Dependencies) file: the layers
+    ``lemma``, ``upos``, ``pos`` (XPOS), ``head``, ``deprel`` and
+    ``deps``; a ``#`` line becomes the sentence's comment; multiword-token
+    ranges (``1-2``) and empty nodes (``1.1``) are skipped, so heads refer
+    to the basic token ids; a missing column reads as ``_``."""
+    sentences: List[SentenceRecord] = []
+    cur_tokens: List[str] = []
+    cur_tags: Dict[str, List[str]] = {l: [] for l in CONLLU_LAYERS}
+    cur_comment: Optional[str] = None
+
+    def flush():
+        nonlocal cur_tokens, cur_tags, cur_comment
+        if cur_tokens:
+            sentences.append(SentenceRecord(
+                tokens=cur_tokens, tags=dict(cur_tags), comment=cur_comment))
+        cur_tokens = []
+        cur_tags = {l: [] for l in CONLLU_LAYERS}
+        cur_comment = None
+
+    with open(path, encoding=encoding) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line.strip():
+                flush()
+                if max_sentences is not None and \
+                        len(sentences) >= max_sentences:
+                    return sentences
+                continue
+            if line.startswith("#"):
+                cur_comment = line
+                continue
+            fields = line.split("\t")
+            if len(fields) < 2:
+                fields = line.split()
+            if "-" in fields[0] or "." in fields[0]:
+                continue
+            cur_tokens.append(fields[1])
+            for layer, col in zip(CONLLU_LAYERS, (2, 3, 4, 6, 7, 8)):
+                cur_tags[layer].append(fields[col] if col < len(fields)
+                                       else "_")
+    flush()
+    if max_sentences is not None:
+        sentences = sentences[:max_sentences]
+    return sentences
+
+
+def load_conllu_corpus(
+    data_folder: Union[str, Path],
+    train_file: str = "train.conllu",
+    dev_file: str = "dev.conllu",
+    test_file: str = "test.conllu",
+    name: Optional[str] = None,
+) -> Corpus:
+    """A UD treebank folder of CoNLL-U files; a missing split is empty."""
+    folder = Path(data_folder)
+
+    def read(fname: str) -> List[SentenceRecord]:
+        p = folder / fname
+        return read_conllu_file(p) if p.exists() else []
+
+    return Corpus(train=read(train_file), dev=read(dev_file),
+                  test=read(test_file), name=name or folder.name)
+
+
+def read_fasttext_file(
+    path: Union[str, Path],
+    label_prefix: str = "__label__",
+    encoding: str = "utf-8",
+    max_sentences: Optional[int] = None,
+) -> List[SentenceRecord]:
+    """A fastText classification file, ``__label__X token ...`` per line:
+    the labels (prefix dropped) and the other words as tokens; a line
+    without tokens is skipped."""
+    out: List[SentenceRecord] = []
+    with open(path, encoding=encoding) as f:
+        for line in f:
+            parts = line.strip().split()
+            labels = [p[len(label_prefix):] for p in parts
+                      if p.startswith(label_prefix)]
+            tokens = [p for p in parts if not p.startswith(label_prefix)]
+            if not tokens:
+                continue
+            out.append(SentenceRecord(tokens=tokens, labels=labels))
+            if max_sentences is not None and len(out) >= max_sentences:
+                break
+    return out
 
 
 @dataclass

@@ -8,13 +8,21 @@
   - float32 linear emission scores over the tagset;
   - a CRF over constrained transitions (nothing moves into ``<START>``,
     nothing out of ``<STOP>``: score -10000), one matrix or one per
-    language (``num_languages``, selected by the batch's ``lang_ids``); or
-    a softmax head (``use_crf=False``).
+    language (``num_languages``, selected by the batch's ``lang_ids``),
+    or with ``transition_attention`` a per-sentence softmax mixture of
+    the languages' matrices predicted from the mean word feature; or a
+    softmax head (``use_crf=False``).
 
 Losses: the mean per-sentence CRF negative log-likelihood with
-transition-skip masking (or masked token cross-entropy), and the
-multi-view agreement loss. Dropout is on when a host ``torch.Generator``
-is passed as ``rng`` (see :mod:`.xlmr`), and off without one.
+transition-skip masking (or masked token cross-entropy), the multi-view
+agreement loss, and the distillation losses (logit or posterior-marginal,
+and k-best sequence distillation). Dropout is on when a host
+``torch.Generator`` is passed as ``rng`` (see :mod:`.xlmr`), and off
+without one.
+
+The attention mixture serves the gold loss and decoding; the multi-view
+loss, the marginals and the distillation terms use the per-language
+matrices (``lang_ids``), as the JAX package's tagger does.
 
 :class:`StackedSequenceTagger` takes its word features from a stack of
 embedders (:mod:`.embedders`) instead, under the batch's ACE
@@ -31,8 +39,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.crf import crf_decode, crf_marginals, crf_neg_log_likelihood
-from ..ops.losses import feature_l2_loss
+from ..ops.crf import (crf_decode, crf_forward, crf_gold_score,
+                       crf_marginals, crf_neg_log_likelihood)
+from ..ops.losses import (distillation_loss, feature_l2_loss,
+                          posterior_distillation_loss)
 from ..ops.losses import multi_view_loss as mv_loss
 from .embedders import EmbedderSpec, StackedEmbedder, reset_dense_
 from .xlmr import Linear, XLMRConfig, XLMREncoder, device_generator
@@ -65,25 +75,17 @@ class TaggerConfig:
         )
 
 
-def _tagger_device(config: TaggerConfig, device) -> torch.device:
-    if config.transition_attention:
-        raise NotImplementedError(
-            "transition_attention waits for the distillation trainer's "
-            "slice of kbner_tpu_torch (ROADMAP A6)")
-    return resolve_device(device)
-
-
 class SequenceTagger(nn.Module):
     """XLM-R + CRF (or softmax) tagger. Parameters are made on ``device``
     (the card by default) in the encoder's storage dtype (the emission
-    head and transitions in float32) and drawn from a ``torch.Generator``
-    seeded with ``seed``: normal(0, 0.02) for matrices and embedding
-    tables, zero biases, unit LayerNorm scales, normal(0, 1)
-    transitions."""
+    head, transitions and transition attention in float32) and drawn from
+    a ``torch.Generator`` seeded with ``seed``: normal(0, 0.02) for
+    matrices (the attention's ``[H, L]`` included) and embedding tables,
+    zero biases, unit LayerNorm scales, normal(0, 1) transitions."""
 
     def __init__(self, config: TaggerConfig, device="cuda", seed: int = 0):
         super().__init__()
-        device = _tagger_device(config, device)
+        device = resolve_device(device)
         self.encoder = XLMREncoder(config.encoder, device=device)
         self._heads(config, device, config.encoder.hidden_size,
                     config.encoder.storage_dtype)
@@ -92,7 +94,8 @@ class SequenceTagger(nn.Module):
     def _heads(self, config: TaggerConfig, device: torch.device, width: int,
                dtype: torch.dtype) -> None:
         """``embedding2nn`` (``width`` wide, stored in ``dtype``), the
-        float32 emission head and the transitions."""
+        float32 emission head, the transitions and the transition
+        attention's ``[width, L]`` matrix and ``[L]`` bias."""
         self.config = config
         self.embedding2nn = (
             Linear(width, width, device=device, dtype=dtype)
@@ -105,6 +108,24 @@ class SequenceTagger(nn.Module):
             if config.num_languages > 0:
                 shape = (config.num_languages,) + shape
             self.transitions = nn.Parameter(torch.empty(shape, device=device))
+        self.sent_to_trans_att = self.sent_to_trans_att_b = None
+        if (config.use_crf and config.num_languages > 0
+                and config.transition_attention):
+            L = config.num_languages
+            self.sent_to_trans_att = nn.Parameter(
+                torch.empty((width, L), device=device))
+            self.sent_to_trans_att_b = nn.Parameter(
+                torch.empty((L,), device=device))
+
+    @torch.no_grad()
+    def _init_heads(self, gen: torch.Generator) -> None:
+        """Transitions normal(0, 1); the attention normal(0, 0.02) with a
+        zero bias."""
+        if self.transitions is not None:
+            self.transitions.normal_(0.0, 1.0, generator=gen)
+        if self.sent_to_trans_att is not None:
+            self.sent_to_trans_att.normal_(0.0, 0.02, generator=gen)
+            self.sent_to_trans_att_b.zero_()
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
@@ -116,8 +137,7 @@ class SequenceTagger(nn.Module):
             if isinstance(module, nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
-        if self.transitions is not None:
-            self.transitions.normal_(0.0, 1.0, generator=gen)
+        self._init_heads(gen)
 
     @property
     def device(self) -> torch.device:
@@ -125,23 +145,43 @@ class SequenceTagger(nn.Module):
 
     # -- transitions ----------------------------------------------------------
 
+    def _constrained(self) -> torch.Tensor:
+        """The transitions (every language's) with nothing into
+        ``<START>`` and nothing out of ``<STOP>``."""
+        cfg = self.config
+        t = self.transitions.clone()
+        t[..., :, cfg.start_idx] = NO_TRANS
+        t[..., cfg.stop_idx, :] = NO_TRANS
+        return t
+
     def transition_matrix(self, lang_ids: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
         """Constrained transitions: ``[K, K]``, or ``[B, K, K]`` when the
         tagger keeps one matrix per language and ``lang_ids`` are given
         (clipped into the languages; without them, language 0's)."""
         cfg = self.config
-        t = self.transitions.clone()
-        t[..., :, cfg.start_idx] = NO_TRANS
-        t[..., cfg.stop_idx, :] = NO_TRANS
+        t = self._constrained()
         if cfg.num_languages > 0:
             if lang_ids is None:
                 return t[0]
             return t[lang_ids.long().clamp(0, cfg.num_languages - 1)]
         return t
 
-    def _batch_transitions(self, batch: Batch) -> torch.Tensor:
-        return self.transition_matrix(batch.get("lang_ids"))
+    def _batch_transitions(self, batch: Batch,
+                           feats: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """The batch's transitions. With transition attention and word
+        ``feats``: ``[B, K, K]``, each sentence's softmax mixture of the
+        constrained per-language matrices, weighted from its features'
+        mean over its words; else :meth:`transition_matrix` of the batch's
+        ``lang_ids``."""
+        if self.sent_to_trans_att is None or feats is None:
+            return self.transition_matrix(batch.get("lang_ids"))
+        m = batch["word_mask"].float().unsqueeze(-1)
+        sent = (feats.float() * m).sum(1) / m.sum(1).clamp(min=1.0)
+        att = F.softmax(sent @ self.sent_to_trans_att
+                        + self.sent_to_trans_att_b, dim=-1)
+        return torch.einsum("bl,lij->bij", att, self._constrained())
 
     # -- features -------------------------------------------------------------
 
@@ -180,20 +220,27 @@ class SequenceTagger(nn.Module):
             feats = feats * mask / keep
         return feats
 
+    def _features_and_emissions(self, batch: Batch,
+                                rng: Optional[torch.Generator] = None):
+        """``(word features, float32 emission scores [B, W, K])``."""
+        feats = self._word_features(batch, rng)
+        return feats, self.emission(feats.float())
+
     def emissions(self, batch: Batch,
                   rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """Float32 emission scores ``[B, W, K]``."""
-        return self.emission(self._word_features(batch, rng).float())
+        return self._features_and_emissions(batch, rng)[1]
 
     # -- losses ---------------------------------------------------------------
 
-    def _gold_loss(self, emissions: torch.Tensor, batch: Batch
-                   ) -> torch.Tensor:
+    def _gold_loss(self, emissions: torch.Tensor, batch: Batch,
+                   feats: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
         if cfg.use_crf:
             nll = crf_neg_log_likelihood(
                 emissions, batch["tag_ids"], batch["crf_mask"],
-                self._batch_transitions(batch), cfg.start_idx, cfg.stop_idx)
+                self._batch_transitions(batch, feats), cfg.start_idx,
+                cfg.stop_idx)
             return nll.mean()
         logp = F.log_softmax(emissions, dim=-1)
         gold = torch.gather(logp, 2, batch["tag_ids"].long().unsqueeze(2))
@@ -204,8 +251,8 @@ class SequenceTagger(nn.Module):
              return_emissions: bool = False):
         """Mean per-sentence CRF NLL, or masked token cross-entropy for
         the softmax head."""
-        emissions = self.emissions(batch, rng)
-        loss = self._gold_loss(emissions, batch)
+        feats, emissions = self._features_and_emissions(batch, rng)
+        loss = self._gold_loss(emissions, batch, feats)
         if return_emissions:
             return loss, emissions
         return loss
@@ -248,15 +295,67 @@ class SequenceTagger(nn.Module):
                 feats_ctx[:, :W].float(), feats_orig[:, :W].float(), shared)
         return loss
 
-    def distill_loss(self, *args, **kwargs):
-        raise NotImplementedError(
-            "distill_loss waits for the distillation trainer's slice of "
-            "kbner_tpu_torch (ROADMAP A6)")
+    def distill_loss(
+        self,
+        batch: Batch,
+        teacher_logits: torch.Tensor,  # [B, W, K] float32
+        rng: Optional[torch.Generator] = None,
+        interpolation: float = 0.5,
+        temperature: float = 1.0,
+        posterior: bool = False,
+    ) -> torch.Tensor:
+        """``interpolation * kd + (1 - interpolation) * gold loss``: kd is
+        the temperature cross-entropy against the teacher's logits, or
+        with ``posterior`` (CRF only) the cross-entropy of the student's
+        CRF marginals against the teacher's, both under the per-language
+        transitions."""
+        cfg = self.config
+        loss, emissions = self.loss(batch, rng, return_emissions=True)
+        mask = batch["crf_mask"]
+        if posterior and cfg.use_crf:
+            trans = self._batch_transitions(batch)
+            marg_s = crf_marginals(emissions, mask, trans, cfg.start_idx,
+                                   cfg.stop_idx)
+            with torch.no_grad():  # the teacher's side is detached
+                marg_t = crf_marginals(teacher_logits, mask, trans,
+                                       cfg.start_idx, cfg.stop_idx)
+            kd = posterior_distillation_loss(marg_s, marg_t, mask)
+        else:
+            kd = distillation_loss(emissions, teacher_logits, mask,
+                                   temperature=temperature)
+        return interpolation * kd + (1.0 - interpolation) * loss
 
-    def kbest_distill_loss(self, *args, **kwargs):
-        raise NotImplementedError(
-            "kbest_distill_loss waits for the distillation trainer's slice "
-            "of kbner_tpu_torch (ROADMAP A6)")
+    def kbest_distill_loss(
+        self,
+        batch: Batch,
+        teacher_paths: torch.Tensor,  # [B, N, W] teacher k-best tags
+        teacher_weights: torch.Tensor,  # [B, N] path weights
+        rng: Optional[torch.Generator] = None,
+        interpolation: float = 0.5,
+    ) -> torch.Tensor:
+        """Sequence-level distillation: kd is minus the mean over
+        sentences of the weighted log-likelihood of the teacher's N paths
+        under the student's CRF (gold score minus log Z, the per-language
+        transitions), mixed with the gold loss. The N paths go through
+        one batched gold-score call over ``B * N`` rows."""
+        cfg = self.config
+        loss, emissions = self.loss(batch, rng, return_emissions=True)
+        mask = batch["crf_mask"]
+        trans = self._batch_transitions(batch)
+        log_z = crf_forward(emissions, mask, trans, cfg.start_idx,
+                            cfg.stop_idx)  # [B]
+        B, N, W = teacher_paths.shape
+
+        def rep(x):  # each sentence's row once per path
+            return x.repeat_interleave(N, dim=0)
+
+        gold = crf_gold_score(
+            rep(emissions), teacher_paths.reshape(B * N, W), rep(mask),
+            trans if trans.dim() == 2 else rep(trans), cfg.start_idx,
+            cfg.stop_idx)
+        lls = gold.view(B, N) - log_z[:, None]
+        kd = -(teacher_weights * lls).sum(1).mean()
+        return interpolation * kd + (1.0 - interpolation) * loss
 
     # -- decoding -------------------------------------------------------------
 
@@ -267,16 +366,17 @@ class SequenceTagger(nn.Module):
         the forward-backward marginals (``posterior=True``), or the
         softmax head's argmax. Masked positions get ``pad_tag``."""
         cfg = self.config
-        emissions = self.emissions(batch)
+        feats, emissions = self._features_and_emissions(batch)
         mask = batch["crf_mask"].bool()
         if cfg.use_crf and posterior:
             marg = crf_marginals(emissions, mask,
-                                 self._batch_transitions(batch),
+                                 self._batch_transitions(batch, feats),
                                  cfg.start_idx, cfg.stop_idx)
             best, tags = marg.max(dim=-1)
             score = (torch.log(best + 1e-9) * mask).sum(-1)
         elif cfg.use_crf:
-            return crf_decode(emissions, mask, self._batch_transitions(batch),
+            return crf_decode(emissions, mask,
+                              self._batch_transitions(batch, feats),
                               cfg.start_idx, cfg.stop_idx, pad_tag=pad_tag)
         else:
             tags = emissions.argmax(dim=-1)
@@ -302,14 +402,15 @@ class StackedSequenceTagger(SequenceTagger):
     features are the :class:`StackedEmbedder` of ``specs`` under the
     batch's ``selection`` mask (a float ``[N]`` vector, all members when
     absent); ``embedding2nn`` and the emission head run over the stack's
-    total width in float32. Parameters are drawn as Flax draws them (see
-    :mod:`.embedders`; transitions normal(0, 1)) from a generator seeded
+    total width in float32, as does the transition attention. Parameters
+    are drawn as Flax draws them (see :mod:`.embedders`; transitions
+    normal(0, 1), the attention normal(0, 0.02)) from a generator seeded
     with ``seed`` on ``device``."""
 
     def __init__(self, config: TaggerConfig, specs: Sequence[EmbedderSpec],
                  device="cuda", seed: int = 0):
         nn.Module.__init__(self)
-        device = _tagger_device(config, device)
+        device = resolve_device(device)
         self.specs = tuple(specs)
         self.stack = StackedEmbedder([s.module for s in specs]).to(device)
         self._heads(config, device, sum(s.dim for s in specs),
@@ -323,8 +424,7 @@ class StackedSequenceTagger(SequenceTagger):
         for lin in (self.embedding2nn, self.emission):
             if lin is not None:
                 reset_dense_(lin, gen)
-        if self.transitions is not None:
-            self.transitions.normal_(0.0, 1.0, generator=gen)
+        self._init_heads(gen)
 
     def _extract_features(self, batch: Batch,
                           rng: Optional[torch.Generator] = None

@@ -12,15 +12,19 @@ Conventions:
   - ``transitions[i, j]`` = score of moving FROM tag i TO tag j, either
     ``[K, K]`` or one matrix per sentence ``[B, K, K]``;
   - ``<START>``/``<STOP>`` indices are passed explicitly;
-  - ``mask[b, 0]`` must be 1 (the first word is never padding or context);
+  - the chain starts at word 0 whatever its mask says, as the JAX
+    package's scan does: a sentence whose first word is masked (a stride
+    window that starts in retrieved context) scores word 0 from
+    ``<START>`` in the partition function but not in the gold path;
   - all CRF math runs in float32.
 
 The loops over the word axis are plain PyTorch with autograd: the JAX
 package runs them as ``lax.scan`` and has no kernel for them. The forward
-recursions skip the word columns that are masked in every sentence of the
-batch (in a fused batch, the context words after the longest sentence):
-a masked step is an exact carry, so dropping such a column changes no
-value and no gradient, and the loop runs over the sentence words only.
+recursions skip the word columns after the first that are masked in
+every sentence of the batch (in a fused batch, the context words after
+the longest sentence): a masked step is an exact carry, so dropping such a
+column changes no value and no gradient, and the loop runs over the
+sentence words only.
 That costs one host sync per call.
 """
 
@@ -48,10 +52,12 @@ def _trans3(transitions: torch.Tensor, B: int) -> torch.Tensor:
 
 
 def _active_columns(emissions: torch.Tensor, mask: torch.Tensor):
-    """``(emissions, mask, cols)`` without the word columns that are
-    masked in every sentence; ``cols`` indexes the kept columns (None when
-    every column is kept)."""
+    """``(emissions, mask, cols)`` without the word columns after the
+    first that are masked in every sentence; ``cols`` indexes the kept
+    columns (None when every column is kept). Column 0 always stays: the
+    recursions start there whatever its mask."""
     live = mask.any(0)
+    live[0] = True
     if bool(live.all()):
         return emissions, mask, None
     cols = live.nonzero().squeeze(1)

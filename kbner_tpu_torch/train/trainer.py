@@ -9,6 +9,10 @@
     by 0, so the optimizer's update count and moments run on as optax's;
   - per-epoch dev evaluation, a dataset-level macro average over the
     corpora's dev sets (the negated train loss without dev sets);
+  - with ``stride_windows``, sentences over ``stride_max_subtokens``
+    train as overlapping word windows (split after resampling, each
+    epoch) and are evaluated window by window, stitched back
+    (:mod:`..data.windows`);
   - ``best-model.msgpack``/``final-model.msgpack`` (and
     ``finetuned-encoder.msgpack``) in the Flax tree layout the JAX
     package's trainer writes, so either package reads the other's;
@@ -42,6 +46,7 @@ from ..data.dictionary import Dictionary
 from ..data.encode import (EncodedBatch, add_classic_features, encode_batch,
                            make_batches)
 from ..data.subword import HashTokenizer
+from ..data.windows import predict_long, split_long_record
 from ..device import resolve_device
 from ..eval.metrics import Metric, evaluate_spans
 from ..models.tagger import SequenceTagger
@@ -106,16 +111,17 @@ class FinetuneTrainer:
         mesh=None,
         tag_layer: str = "ner",
         stride_windows: bool = False,
+        stride_max_subtokens: int = 510,
+        stride_words: int = 16,
         device="cuda",
     ):
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh waits for sharded training over "
                 "torch.distributed in kbner_tpu_torch (ROADMAP A6)")
-        if stride_windows:
-            raise NotImplementedError(
-                "stride_windows (data/windows.py) waits for a later slice "
-                "of kbner_tpu_torch (ROADMAP A6)")
+        self.stride_windows = stride_windows
+        self.stride_max_subtokens = stride_max_subtokens
+        self.stride_words = stride_words
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         if isinstance(corpus, Corpus):
@@ -191,10 +197,17 @@ class FinetuneTrainer:
 
     def _epoch_records(self, config: TrainConfig, epoch: int):
         if config.resample_smooth:
-            return corpus_ops.resample_corpora(
+            records = corpus_ops.resample_corpora(
                 self.corpus, smooth=config.resample_smooth,
                 seed=config.seed + epoch)
-        return self.corpus.train
+        else:
+            records = self.corpus.train
+        if self.stride_windows:
+            records = [chunk for rec in records
+                       for chunk, _ in split_long_record(
+                           rec, self.tokenizer, self.stride_max_subtokens,
+                           self.stride_words)]
+        return records
 
     def _make_train_batches(self, records, config: TrainConfig, epoch: int):
         """Encoded batches, shuffled with ``RandomState(seed + epoch)``;
@@ -397,9 +410,15 @@ class FinetuneTrainer:
     def evaluate(self, records: Sequence[SentenceRecord],
                  batch_size: int = 32, out_path: Optional[Path] = None
                  ) -> Tuple[Metric, List[List[str]]]:
-        """Span metric of the predictions against the gold tags (X, _ and
-        NE spans ignored); with ``out_path``, 'token gold pred' lines."""
-        preds = self.predict(records, batch_size)
+        """Span metric of the predictions (stitched from windows with
+        ``stride_windows``) against the gold tags (X, _ and NE spans
+        ignored); with ``out_path``, 'token gold pred' lines."""
+        if self.stride_windows:
+            preds = predict_long(
+                self, records, max_subtokens=self.stride_max_subtokens,
+                stride_words=self.stride_words, batch_size=batch_size)
+        else:
+            preds = self.predict(records, batch_size)
         gold = [r.tags[self.tag_layer] for r in records]
         metric = evaluate_spans(gold, preds,
                                 ignore_labels=(X_LABEL, "_", "NE"))

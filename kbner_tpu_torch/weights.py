@@ -15,8 +15,11 @@ backward cells ``OptimizedLSTMCell_0`` and ``_1``, each Flair LM's
 ``{fwd,bwd}/embed`` and ``{fwd,bwd}/OptimizedLSTMCell_0``; an LSTM cell's
 ``{ii,if,ig,io}/kernel`` and ``{hi,hf,hg,ho}/{kernel,bias}`` become
 :class:`~.models.embedders.FlaxLSTM`'s fused ``kernel_i``, ``kernel_h``
-and ``bias``. Every function here takes a :class:`TaggerConfig` (the
-plain tagger) or the tagger module itself (either kind).
+and ``bias``. The transitions, and the transition attention's
+``sent_to_trans_att`` ``[H, L]`` and ``sent_to_trans_att_b`` ``[L]``, keep
+their Flax names and layout. Every function here takes a
+:class:`TaggerConfig` (the plain tagger) or the tagger module itself
+(either kind).
 """
 
 from __future__ import annotations
@@ -32,13 +35,14 @@ from . import checkpoint
 from .models.embedders import (CharBiLSTMEmbedder, CharLMHead,
                                FlairLMEmbedder, TransformerWordEmbedder,
                                WordEmbedder)
+from .models.ensemble_model import EnsembleModel
 from .models.tagger import SequenceTagger, StackedSequenceTagger, TaggerConfig
 from .models.xlmr import XLMRConfig
 
 _EMBEDS = ("word_embeddings", "position_embeddings", "token_type_embeddings")
 _PROJS = ("query", "key", "value", "out")
 _GATES = "ifgo"
-Target = Union[TaggerConfig, SequenceTagger, CharLMHead]
+Target = Union[TaggerConfig, SequenceTagger, CharLMHead, EnsembleModel]
 
 
 def _encoder_pairs(enc: XLMRConfig, src: tuple, dst: str):
@@ -77,7 +81,18 @@ def _config(target: Target) -> TaggerConfig:
 
 
 def _use_crf(target: Target) -> bool:
-    return not isinstance(target, CharLMHead) and _config(target).use_crf
+    return (not isinstance(target, (CharLMHead, EnsembleModel))
+            and _config(target).use_crf)
+
+
+def _crf_leaves(target: Target):
+    """The CRF's float32 leaves, named alike in both trees."""
+    if not _use_crf(target):
+        return ()
+    cfg = _config(target)
+    if cfg.num_languages > 0 and cfg.transition_attention:
+        return ("transitions", "sent_to_trans_att", "sent_to_trans_att_b")
+    return ("transitions",)
 
 
 def _pairs(target: Target):
@@ -88,6 +103,9 @@ def _pairs(target: Target):
         return [(("lm", "embed"), "lm.embed", "embed"),
                 (("lm", "OptimizedLSTMCell_0"), "lm.lstm", "lstm"),
                 (("decoder",), "decoder", "dense")]
+    if isinstance(target, EnsembleModel):
+        return [(("hidden",), "hidden", "dense"),
+                (("hidden2score",), "hidden2score", "dense")]
     config = _config(target)
     if isinstance(target, StackedSequenceTagger):
         out = [pair for i, m in enumerate(target.stack.members)
@@ -162,8 +180,8 @@ def from_jax_params(params: Mapping[str, Any], target: Target
     ``load_state_dict`` moves them to the module's device."""
     p = params.get("params", params)
     state = _state(p, _pairs(target), _dtypes(target))
-    if _use_crf(target):
-        state["transitions"] = _tensor(p["transitions"]).float()
+    for name in _crf_leaves(target):
+        state[name] = _tensor(p[name]).float()
     return state
 
 
@@ -213,9 +231,8 @@ def to_jax_params(state: Mapping[str, torch.Tensor], target: Target
     ``{"params": {...}}`` of float32 numpy arrays, the layout
     ``kbner_tpu``'s ``FinetuneTrainer.save`` writes."""
     tree = _tree(state, _pairs(target))
-    if _use_crf(target):
-        tree["transitions"] = state["transitions"].detach().float().cpu(
-        ).numpy()
+    for name in _crf_leaves(target):
+        tree[name] = state[name].detach().float().cpu().numpy()
     return {"params": tree}
 
 

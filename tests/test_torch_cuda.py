@@ -734,3 +734,83 @@ def test_ace_episode_on_card(card, tmp_path):
         trainer.selection = np.asarray(result["best_action"], np.float32)
         tags.append(trainer.predict(config.load_corpus().test_list[0]))
     assert tags[0] == tags[1]
+
+
+def _distill_pair(card):
+    """A tiny student with transition attention over two languages and
+    one teacher (float32, dropout off), the same weights on the card and
+    on the CPU, over a two-language quality corpus; the teacher's targets
+    cached on the CPU."""
+    from kbner_tpu_torch.data.conll import Corpus, ListCorpus
+    from kbner_tpu_torch.data.encode import make_batches
+    from kbner_tpu_torch.data.quality_fixture import make_quality_corpus
+    from kbner_tpu_torch.train.distill import DistillationTrainer
+
+    base = make_quality_corpus(16, 2, 2, seed=5).corpora[0]
+    corpus = ListCorpus([Corpus(base.train[:8], [], [], "EN"),
+                         Corpus(base.train[8:], [], [], "DE")])
+    tags = corpus.make_tag_dictionary("ner")
+    cfg = TaggerConfig.for_tag_dictionary(
+        XLMRConfig.tiny(vocab_size=1000), tags, locked_dropout=0.0,
+        word_dropout=0.0, num_languages=2, transition_attention=True)
+    cpu_state = SequenceTagger(cfg, device="cpu", seed=0).state_dict()
+    teacher = SequenceTagger(cfg, device="cpu", seed=7)
+    out = []
+    for dev in ("cpu", card):
+        student = SequenceTagger(cfg, device=dev, seed=0)
+        student.load_state_dict(cpu_state)
+        out.append(DistillationTrainer(student, corpus, HashTokenizer(1000),
+                                       tags, teachers=[teacher], device=dev))
+    batch = make_batches(corpus.train, HashTokenizer(1000), tags, 16)[0]
+    assert set(batch.lang_ids.tolist()) == {0, 1}
+    return out, batch
+
+
+@pytest.mark.parametrize("mode", ["logit", "posterior", "kbest"])
+def test_distillation_step_on_card_matches_cpu(card, mode):
+    """One float32 distillation step (AdamW with lr > 0 from the first
+    update) of a student with transition attention, on the card against
+    the CPU, on the CPU's teacher targets: the loss rtol 1e-5; the
+    gradients and the updated parameters rtol 1e-4, atol 1e-6, as the
+    stacked step. The teacher's emissions and k-best paths on the card
+    equal the CPU's (emissions rtol 1e-5, atol 1e-5; paths exactly)."""
+    from kbner_tpu_torch.train.distill import DistillConfig
+    from kbner_tpu_torch.train.optim import make_finetune_optimizer
+
+    trainers, batch = _distill_pair(card)
+    config = DistillConfig(interpolation=0.6, temperature=2.0,
+                           posterior=mode == "posterior",
+                           kbest=3 if mode == "kbest" else 0)
+    cached = [t._teacher_kbest([batch], 3)[0] if mode == "kbest" else
+              t._teacher_emissions([batch], dtype=np.float32)[0]
+              for t in trainers]
+    if mode == "kbest":
+        np.testing.assert_array_equal(cached[1][0], cached[0][0])
+        np.testing.assert_allclose(cached[1][1], cached[0][1], rtol=1e-5,
+                                   atol=1e-6)
+    else:
+        np.testing.assert_allclose(cached[1], cached[0], rtol=1e-5,
+                                   atol=1e-5)
+    runs = []
+    for trainer in trainers:
+        arrays = trainer._to_device(batch)
+        opt = make_finetune_optimizer(
+            trainer.model.named_parameters(), lr=1e-4, lr_rate=10.0,
+            use_inverse_sqrt=True)
+        loss = trainer._kd_loss(arrays, trainer._targets(
+            config, batch, arrays, cached[0]), config, None)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in trainer.model.named_parameters()}
+        opt.step()
+        runs.append((loss.detach().cpu(), grads, {
+            n: p.detach().cpu() for n, p in
+            trainer.model.named_parameters()}))
+    (loss_c, grads_c, after_c), (loss_g, grads_g, after_g) = runs
+    torch.testing.assert_close(loss_g, loss_c, rtol=1e-5, atol=0)
+    assert bool(grads_c["sent_to_trans_att"].any())
+    for name, want in grads_c.items():
+        torch.testing.assert_close(grads_g[name], want, rtol=1e-4,
+                                   atol=1e-6, msg=name)
+        torch.testing.assert_close(after_g[name], after_c[name], rtol=1e-4,
+                                   atol=1e-6, msg=name)

@@ -373,13 +373,55 @@ def test_stacked_tagger_loss_and_emissions_match_flax(stacked, selection):
 
 
 def test_stacked_tagger_refuses_transition_attention(data):
-    cfg = TaggerConfig.for_tag_dictionary(
-        XLMRConfig.tiny(vocab_size=VOCAB),
-        data["pc"].make_tag_dictionary("ner"), num_languages=2,
-        transition_attention=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        StackedSequenceTagger(cfg, [emb.EmbedderSpec(
-            "w", emb.WordEmbedder(5, 3), 3)], device="cpu")
+    """Transition attention over a stack (it used to raise): the
+    attention is ``[total width, L]`` with its bias, carried both ways;
+    the loss (under the attention mixture), Viterbi tags and every
+    gradient equal the Flax stacked tagger's (word 24 + char-BiLSTM 8/8,
+    the composition tests/test_embedders_ace.py builds)."""
+    jtags = data["jc"].make_tag_dictionary("ner")
+    tags = data["pc"].make_tag_dictionary("ner")
+    jspecs = [jemb.EmbedderSpec("w", jemb.WordEmbedder(len(data["jwv"]), 24),
+                                24),
+              jemb.EmbedderSpec("c", jemb.CharBiLSTMEmbedder(
+                  len(data["jcv"]), 8, 8), 16)]
+    specs = [emb.EmbedderSpec("w", emb.WordEmbedder(len(data["wv"]), 24), 24),
+             emb.EmbedderSpec("c", emb.CharBiLSTMEmbedder(len(data["cv"]), 8,
+                                                          8), 16)]
+    kw = dict(locked_dropout=0.0, word_dropout=0.0, num_languages=2,
+              transition_attention=True)
+    model, params = init_stacked_tagger(
+        JTaggerConfig.for_tag_dictionary(JXLMRConfig.tiny(vocab_size=VOCAB),
+                                         jtags, **kw), jspecs,
+        jax.random.PRNGKey(0), data["jarrays"])
+    assert params["params"]["sent_to_trans_att"].shape == (24 + 16, 2)
+    params = _perturbed(params, 12)
+    tagger = StackedSequenceTagger(TaggerConfig.for_tag_dictionary(
+        XLMRConfig.tiny(vocab_size=VOCAB), tags, **kw), specs,
+        device="cpu", seed=2)
+    assert tuple(tagger.sent_to_trans_att.shape) == (40, 2)
+    tagger.load_state_dict(weights.from_jax_params(params, tagger),
+                           strict=True)
+    tree = weights.to_jax_params(tagger.state_dict(), tagger)
+    assert jax.tree_util.tree_structure(tree) == \
+        jax.tree_util.tree_structure(params)
+    arrays = dict(data["arrays"])
+    arrays["lang_ids"] = np.arange(len(arrays["lang_ids"]),
+                                   dtype=np.int32) % 2
+    jb = {k: jnp.asarray(v) for k, v in arrays.items()}
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    want, j_grads = jax.value_and_grad(lambda p: model.apply(
+        p, jb, deterministic=True, method=model.loss))(jp)
+    want_tags, _ = model.apply(jp, jb, method=model.decode)
+    got = tagger.loss(_torch(arrays))
+    got.backward()
+    _close(got, want)
+    want_grads = weights.from_jax_params(
+        jax.tree_util.tree_map(np.asarray, j_grads), tagger)
+    for name, p in tagger.named_parameters():
+        _close(p.grad, want_grads[name].numpy(), rtol=GRAD_RTOL, msg=name)
+    assert bool(tagger.sent_to_trans_att.grad.any())
+    np.testing.assert_array_equal(tagger.decode(_torch(arrays))[0].numpy(),
+                                  np.asarray(want_tags))
 
 
 def test_initial_draws_follow_flax_distributions():

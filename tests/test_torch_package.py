@@ -55,7 +55,12 @@ def test_importing_every_module_pulls_in_no_jax():
     assert {"kbner_tpu_torch.models.embedders",
             "kbner_tpu_torch.train.reinforce",
             "kbner_tpu_torch.train.lm_trainer",
-            "kbner_tpu_torch.eval.ensemble"} <= set(mods)
+            "kbner_tpu_torch.eval.ensemble",
+            "kbner_tpu_torch.train.distill",
+            "kbner_tpu_torch.models.ensemble_model",
+            "kbner_tpu_torch.data.windows",
+            "kbner_tpu_torch.data.doc_context",
+            "kbner_tpu_torch.data.corpora"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
@@ -203,6 +208,45 @@ def test_ace_lm_and_speed_entry_points_default_to_the_card(no_cuda,
               str(tmp_path / "e.conll")])
     cli.main(["evaluate", str(pred)])
     assert (tmp_path / "e.conll").read_text() == "a S-PER\nb O\n\n"
+
+
+def test_distill_and_swaf_entry_points_default_to_the_card(no_cuda,
+                                                           tmp_path):
+    """The distillation trainer, the SWAF model and their ``cli train``
+    routes need the card unless asked for the CPU."""
+    from kbner_tpu_torch.models.ensemble_model import (EnsembleConfig,
+                                                       EnsembleModel)
+    from kbner_tpu_torch.train.distill import DistillationTrainer
+
+    corpus = make_quality_corpus(8, 2, 2)
+    tags = corpus.make_tag_dictionary("ner")
+    tagger = SequenceTagger(TaggerConfig.for_tag_dictionary(
+        XLMRConfig.tiny(), tags), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DistillationTrainer(tagger, corpus, HashTokenizer(1000), tags,
+                            teachers=[tagger])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EnsembleModel(EnsembleConfig(2, 3))
+    assert EnsembleModel(EnsembleConfig(2, 3), device="cpu"
+                         ).hidden.weight.device.type == "cpu"
+    data = tmp_path / "data"
+    write_column_file(data / "train.txt", corpus.train)
+    pred = tmp_path / "p.tsv"
+    pred.write_text("a S-PER S-PER\nb O O\n\n")
+    base = {"name": "t", "tokenizer": {"type": "hash", "vocab_size": 1000},
+            "model": {"encoder": "tiny"}, "target_dir": str(tmp_path / "r"),
+            "corpora": [{"name": "Q", "data_folder": str(data),
+                         "column_format": {0: "text", 1: "ner"},
+                         "tag_to_bioes": None}]}
+    for name, extra in (
+            ("kd", {"trainer": "DistillationTrainer",
+                    "teachers": [str(tmp_path / "teacher.yaml")]}),
+            ("swaf", {"trainer": "SWAFTrainer",
+                      "systems": {"dev": [str(pred)], "test": [str(pred)]}})):
+        cfg = tmp_path / f"{name}.yaml"
+        cfg.write_text(yaml.safe_dump({**base, **extra}))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["train", "--config", str(cfg)])
 
 
 def test_engine_modes_of_later_slices_raise():

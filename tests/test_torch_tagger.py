@@ -218,23 +218,38 @@ def test_crf_decode_masking_equals_compaction():
 
 
 def test_unported_decode_options_raise():
-    """What stays unported raises, naming its ROADMAP item: transition
-    attention and the distillation losses (the decode options that used
-    to raise here are held to the Flax tagger below)."""
-    tags = make_tag_dictionary([TAGS])
-    enc = XLMRConfig.tiny(vocab_size=VOCAB)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        SequenceTagger(TaggerConfig.for_tag_dictionary(
-            enc, tags, num_languages=2, transition_attention=True),
-            device="cpu")
-    tagger = SequenceTagger(TaggerConfig.for_tag_dictionary(enc, tags),
-                            device="cpu")
-    arrays = _torch_batch(encode_batch(_records(SentenceRecord),
-                                       HashTokenizer(VOCAB)).arrays())
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tagger.distill_loss(arrays, torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tagger.kbest_distill_loss(arrays, torch.zeros(1), torch.zeros(1))
+    """The options that used to raise here (transition attention and the
+    distillation losses) now run, held to the Flax tagger: the attention
+    tagger's loss and Viterbi tags, and its logit and k-best
+    distillation losses on the same teacher inputs (their gradients:
+    tests/test_torch_distill.py)."""
+    model, params, tagger, arrays = _pair(num_languages=2,
+                                          transition_attention=True)
+    jb = {k: jnp.asarray(v) for k, v in arrays.items()}
+    batch = _torch_batch(arrays)
+    rng = np.random.RandomState(2)
+    B, W = arrays["word_mask"].shape
+    K = tagger.config.num_tags
+    logits = rng.standard_normal((B, W, K)).astype(np.float32)
+    paths = rng.randint(0, K - 2, size=(B, 3, W)).astype(np.int32)
+    pw = rng.dirichlet(np.ones(3), size=B).astype(np.float32)
+    want = [
+        model.apply(params, jb, deterministic=True, method=model.loss),
+        model.apply(params, jb, jnp.asarray(logits), deterministic=True,
+                    temperature=2.0, method=model.distill_loss),
+        model.apply(params, jb, jnp.asarray(paths), jnp.asarray(pw),
+                    deterministic=True, method=model.kbest_distill_loss)]
+    with torch.no_grad():
+        got = [tagger.loss(batch),
+               tagger.distill_loss(batch, torch.from_numpy(logits),
+                                   temperature=2.0),
+               tagger.kbest_distill_loss(batch, torch.from_numpy(paths),
+                                         torch.from_numpy(pw))]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-5)
+    want_tags, _ = model.apply(params, jb, method=model.decode)
+    np.testing.assert_array_equal(tagger.decode(batch)[0].numpy(),
+                                  np.asarray(want_tags))
 
 
 # -- the training side and the decode options, against the Flax tagger --------

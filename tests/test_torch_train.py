@@ -352,7 +352,12 @@ def test_cli_serve_answers_with_a_jax_checkpoint(trained_pair, tmp_path,
 
 
 def test_config_refusals(fixtures_path, tmp_path):
+    """Unknown keys and trainers raise; the parser target and a device
+    mesh still raise naming ROADMAP A6. What used to raise here runs:
+    document windows, the distillation trainer's student, conllu corpora
+    and stride windows."""
     raw = yaml.safe_load((fixtures_path / "toy_config.yaml").read_text())
+    raw["corpora"][0]["data_folder"] = str(fixtures_path / "ner_toy")
     with pytest.raises(ValueError, match="unknown config keys"):
         ExperimentConfig.from_dict({**raw, "trian": {}})
     with pytest.raises(ValueError, match="unknown train keys"):
@@ -361,24 +366,29 @@ def test_config_refusals(fixtures_path, tmp_path):
     with pytest.raises(ValueError, match="unknown trainer"):
         ExperimentConfig.from_dict({**raw, "trainer": "Nope"})
     cfg = ExperimentConfig.from_dict({**raw, "data": {"doc_context": True}})
+    corpus = cfg.prepare_corpus(cfg.load_corpus(), HashTokenizer(VOCAB))
+    assert any("S-X" in r.tags["ner"] for r in corpus.train)
+    student = cli._build(ExperimentConfig.from_dict(
+        {**raw, "trainer": "ModelDistiller"}), "cpu")
+    assert isinstance(student, FinetuneTrainer)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        cfg.prepare_corpus(None, None)
-    for extra in ({"trainer": "ModelDistiller"}, {"targets": "dependency"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            cli._build(ExperimentConfig.from_dict({**raw, **extra}), "cpu")
+        cli._build(ExperimentConfig.from_dict(
+            {**raw, "targets": "dependency"}), "cpu")
     conllu = dict(raw, corpora=[{"name": "UD", "data_folder": "x",
                                  "format": "conllu"}])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        ExperimentConfig.from_dict(conllu)
+    spec = ExperimentConfig.from_dict(conllu).corpora[0]
+    assert (spec.format, spec.train_file) == ("conllu", "train.conllu")
     enc = ExperimentConfig.from_dict(raw).make_train_encoder_config(
         HashTokenizer(VOCAB))
     assert enc.param_dtype == torch.float32 and enc.vocab_size == VOCAB
     tags = quality_fixture.make_quality_corpus(8, 2, 2).make_tag_dictionary(
         "ner")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        FinetuneTrainer(_port_tagger(tags), quality_fixture
-                        .make_quality_corpus(8, 2, 2), HashTokenizer(VOCAB),
-                        tags, stride_windows=True, device="cpu")
+    strided = FinetuneTrainer(_port_tagger(tags), quality_fixture
+                              .make_quality_corpus(8, 2, 2),
+                              HashTokenizer(VOCAB), tags,
+                              stride_windows=True, stride_max_subtokens=6,
+                              stride_words=1, device="cpu")
+    assert len(strided._epoch_records(TrainConfig(), 0)) > 8
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         FinetuneTrainer(_port_tagger(tags), quality_fixture
                         .make_quality_corpus(8, 2, 2), HashTokenizer(VOCAB),
