@@ -13,6 +13,8 @@
         --index_dir en=KB_EN --index_dir de=KB_DE --data_folder CONLL \
         --out FUSED
     python -m kbner_tpu_torch.cli multistage STAGE1.yaml STAGE2.yaml
+    python -m kbner_tpu_torch.cli parity --weights XLMR_DIR --data DATA \
+        --out OUT
     python -m kbner_tpu_torch.cli ensemble P1.conllu P2.conllu P3.conllu \
         --out ENS.conll
     python -m kbner_tpu_torch.cli evaluate GOLD_PRED.tsv
@@ -36,7 +38,10 @@ systems' prediction files under ``systems:`` and combines their test
 predictions; ``trainer: LanguageModelTrainer`` pretrains a character LM
 (the parser targets wait for ROADMAP A6); ``multistage``
 trains one config after another, each stage starting from the encoder the
-previous one exported; ``test``
+previous one exported; ``parity`` runs the recipe's two stages (a
+multilingual fine-tune, then EN from its encoder) from an HF XLM-R
+checkpoint directory (``model.encoder_weights`` in a config) and scores
+the EN test predictions with conlleval; ``test``
 evaluates the best (else final) model on the test sets; ``parse`` tags
 every ``*.txt`` column file of a folder (or one file) into
 ``<stem>.conllu`` with a ``pred`` column. ``serve`` reads JSONL requests on
@@ -64,6 +69,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from . import checkpoint, weights
 from .config import ExperimentConfig, ServeConfig
@@ -71,6 +77,7 @@ from .data.conll import ListCorpus, read_column_file, write_column_file
 from .data.dictionary import Dictionary
 from .data.subword import HashTokenizer
 from .models.tagger import SequenceTagger, TaggerConfig
+from .models.xlmr import load_hf_checkpoint
 from .retrieval.engine import RetrievalEngine
 from .retrieval.pipeline import build_kb_from_jsonl, load_kb, save_kb
 from .serve import serve
@@ -102,10 +109,6 @@ def _build(config: ExperimentConfig, device: str) -> FinetuneTrainer:
         raise NotImplementedError(
             f"targets: {config.targets}: the parser and classifier "
             "families wait for ROADMAP A6 in kbner_tpu_torch")
-    if config.model.get("encoder_weights"):
-        raise NotImplementedError(
-            "model.encoder_weights: loading HF XLM-R weights waits for "
-            "ROADMAP A6 (load_hf_checkpoint)")
     train_config = config.make_train_config()
     corpus = config.load_corpus()
     tokenizer = config.make_tokenizer()
@@ -124,11 +127,31 @@ def _build(config: ExperimentConfig, device: str) -> FinetuneTrainer:
                        else 0),
         transition_attention=m.get("transition_attention", False))
     model = SequenceTagger(tagger_cfg, device=device, seed=train_config.seed)
+    if m.get("encoder_weights"):
+        _load_encoder_weights(model, Path(m["encoder_weights"]))
     return FinetuneTrainer(
         model, corpus, tokenizer, tag_dict, tag_layer=config.tag_layer,
         stride_windows=config.data.get("stride_windows", False),
         stride_max_subtokens=config.data.get("max_subtokens", 510),
         stride_words=config.data.get("stride_words", 16), device=device)
+
+
+def _load_encoder_weights(model: SequenceTagger, weights_dir: Path) -> None:
+    """Load an HF checkpoint directory into the tagger's float32 master
+    encoder, on its device; a weight of another dtype or shape raises,
+    naming its key."""
+    encoder = model.encoder
+    own = encoder.state_dict()
+    state = load_hf_checkpoint(weights_dir, encoder.config,
+                               dtype=torch.float32, device=model.device)
+    for key, t in state.items():
+        if t.dtype != own[key].dtype or t.shape != own[key].shape:
+            raise ValueError(
+                f"model.encoder_weights: {key} is {t.dtype} "
+                f"{tuple(t.shape)} in {weights_dir}, the encoder's "
+                f"{own[key].dtype} {tuple(own[key].shape)}")
+    encoder.load_state_dict(state)
+    log.info("encoder weights from %s", weights_dir)
 
 
 def _build_distill(config: ExperimentConfig, device: str):
@@ -718,6 +741,145 @@ def cmd_multistage(args) -> List[dict]:
     return results
 
 
+def _sniff_column_format(train_file: Path) -> Dict[int, str]:
+    """Column layout of a CoNLL file: the first column is the text, the
+    last the ner tags (MultiCoNER ships 4 columns text/pos/upos/ner, the
+    fixtures 2); middle columns get placeholder names."""
+    names = {2: ["text", "ner"], 4: ["text", "pos", "upos", "ner"]}
+    with open(train_file, encoding="utf-8") as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line or line.startswith("#"):
+                continue
+            n = len(line.split())
+            cols = names.get(n, ["text"] + [f"c{i}" for i in range(
+                1, n - 1)] + ["ner"])
+            return {i: c for i, c in enumerate(cols)}
+    raise ValueError(f"no data lines in {train_file}")
+
+
+def cmd_parity(args) -> Optional[dict]:
+    """The one-command F1-parity run of the recipe: stage 1 fine-tunes on
+    the multilingual folder and exports its encoder, stage 2 fine-tunes
+    on the EN folder from that export, then the EN test predictions go
+    through conlleval's span F1. With ``--weights`` the encoder starts
+    from that HF checkpoint directory, always with the hash tokenizer: a
+    rehearsal whose F1 does not compare with the reference's (the port
+    has no HF tokenizer, so a directory that holds tokenizer files needs
+    ``--hash_tokenizer``, and raises without it); without it, from a random ``--encoder``
+    of a named size. Skips with a message and a JSON line when the
+    weights or a data folder are missing. Writes and prints
+    ``parity.json``; returns the summary (None when skipped)."""
+    from .eval.conlleval import conll_evaluate
+
+    out = Path(args.out)
+    _setup_logging(out)
+
+    def skip(msg):
+        print(f"[parity] SKIP: {msg}")
+        print(json.dumps({"parity": "skipped", "reason": msg}))
+
+    weights_dir = Path(args.weights) if args.weights else None
+    enc_spec, enc_weights = args.encoder, None
+    tok_cfg = {"type": "hash", "vocab_size": args.hash_vocab}
+    if weights_dir is not None:
+        if not (weights_dir / "config.json").exists():
+            return skip(
+                f"no HF encoder checkpoint at {weights_dir} (need "
+                "config.json + model.safetensors/pytorch_model.bin + "
+                "sentencepiece tokenizer); place a local xlm-roberta-large "
+                "export there")
+        enc_spec = enc_weights = str(weights_dir)
+        has_tok = any((weights_dir / f).exists() for f in (
+            "sentencepiece.bpe.model", "tokenizer.json"))
+        if has_tok and not args.hash_tokenizer:
+            # the checkpoint's own tokenizer needs HFTokenizer, which the
+            # port does not have: refuse before any stage runs
+            raise NotImplementedError(
+                f"{weights_dir} holds tokenizer files, but the port has no "
+                "HF tokenizer; pass --hash_tokenizer to rehearse with the "
+                "hash tokenizer (F1 not reference-comparable)")
+        log.warning("[parity] hash tokenizer with checkpoint weights: "
+                    "rehearsal mode, F1 not reference-comparable")
+
+    data = Path(args.data)
+    stage1_dir = data / args.stage1_folder
+    stage2_dir = data / args.stage2_folder
+    for d, what in ((stage1_dir, "stage-1 multilingual"),
+                    (stage2_dir, "stage-2 EN monolingual")):
+        if not (d / "train.txt").exists():
+            return skip(
+                f"{what} data folder missing: {d}/train.txt "
+                "(expected MultiCoNER *_conll_rank_eos_doc_full_wiki_v3 "
+                "layout with train/dev/test.txt)")
+
+    def stage_config(name, folder, epochs, target):
+        return ExperimentConfig.from_dict({
+            "name": name,
+            "corpora": [{
+                "name": name,
+                "data_folder": str(folder),
+                "column_format": _sniff_column_format(folder / "train.txt"),
+                "comment_symbol": "# id",
+                "tag_to_bioes": "ner",
+            }],
+            "tokenizer": tok_cfg,
+            # a checkpoint encoder trains under remat, as the reference's
+            # 550M fine-tune does
+            "model": {"encoder": enc_spec, "use_crf": True,
+                      "locked_dropout": 0.0, "word_dropout": 0.1,
+                      **({"encoder_weights": enc_weights, "remat": True,
+                          "remat_policy": "dots_saveable"}
+                         if enc_weights else {})},
+            # the reference stage recipes: lr 5e-6, head lr x10000
+            "train": {"learning_rate": args.lr, "lr_rate": args.lr_rate,
+                      "batch_size": args.batch_size,
+                      "accumulation_steps": args.accumulation_steps,
+                      "max_epochs": epochs,
+                      "save_finetuned_encoder": True},
+            "trainer": "ModelFinetuner",
+            "target_dir": str(target),
+        })
+
+    cfg1 = stage_config("parity-stage1-multi", stage1_dir,
+                        args.epochs_stage1, out / "stage1")
+    trainer1 = _build(cfg1, args.device)
+    log.info("[parity] stage 1 (multilingual) on %s ...", stage1_dir)
+    r1 = trainer1.train(out / "stage1", cfg1.make_train_config())
+    enc_path = out / "stage1" / "finetuned-encoder.msgpack"
+    log.info("[parity] stage 1 best dev %.4f; encoder export %s",
+             r1["best_dev_score"], enc_path)
+    del trainer1
+
+    cfg2 = stage_config("parity-stage2-en", stage2_dir,
+                        args.epochs_stage2, out / "stage2")
+    trainer2 = _build(cfg2, args.device)
+    if enc_path.exists():
+        trainer2.load_encoder(enc_path)
+        log.info("[parity] stage 2 init from %s", enc_path)
+    log.info("[parity] stage 2 (EN) on %s ...", stage2_dir)
+    r2 = trainer2.train(out / "stage2", cfg2.make_train_config())
+
+    results = trainer2.final_test(out / "stage2",
+                                  batch_size=args.batch_size)
+    tsv = out / "stage2" / "test.parity-stage2-en.tsv"
+    recs = (read_column_file(tsv, {0: "text", 1: "gold", 2: "pred"})
+            if tsv.exists() else [])
+    f1 = (conll_evaluate([r.tags["gold"] for r in recs],
+                         [r.tags["pred"] for r in recs],
+                         remove_x=True).micro_f1() if recs else -1.0)
+    summary = {
+        "parity": "ran",
+        "stage1_best_dev": r1["best_dev_score"],
+        "stage2_best_dev": r2["best_dev_score"],
+        "test_results": results,
+        "conlleval_micro_f1": round(float(f1), 4),
+    }
+    (out / "parity.json").write_text(json.dumps(summary, indent=2))
+    print(json.dumps(summary, indent=2))
+    return summary
+
+
 def cmd_speed(args) -> Dict[str, float]:
     """The tagger's decode rate over the first test set (else the train
     set), from the best checkpoint when there is one."""
@@ -898,6 +1060,38 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("predictions", help="file with 'token gold pred' lines")
     sp.add_argument("--comment_symbol", default="# id")
     sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser(
+        "parity", help="stage-1 multilingual -> stage-2 EN -> predict -> "
+        "conlleval (skips when weights or data are absent)")
+    sp.add_argument("--weights", default=None,
+                    help="local HF xlm-roberta checkpoint directory "
+                         "(config.json + safetensors/bin); omit for a "
+                         "random --encoder")
+    sp.add_argument("--data", required=True,
+                    help="root holding the stage data folders")
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--stage1_folder",
+                    default="MULTI_Multilingual_conll_rank_eos_doc_full_"
+                            "wiki_v3")
+    sp.add_argument("--stage2_folder",
+                    default="EN-English_conll_rank_eos_doc_full_wiki_v3")
+    sp.add_argument("--encoder", default="tiny",
+                    help="encoder when --weights is absent: tiny/base/large")
+    sp.add_argument("--hash_vocab", type=int, default=4096)
+    sp.add_argument("--hash_tokenizer", action="store_true",
+                    help="the hash tokenizer even where --weights holds "
+                         "tokenizer files (a rehearsal: F1 not comparable); "
+                         "without it such a directory raises")
+    sp.add_argument("--epochs_stage1", type=int, default=3)
+    sp.add_argument("--epochs_stage2", type=int, default=10)
+    sp.add_argument("--batch_size", type=int, default=8)
+    sp.add_argument("--accumulation_steps", type=int, default=1)
+    sp.add_argument("--lr", type=float, default=5e-6)
+    sp.add_argument("--lr_rate", type=float, default=10000,
+                    help="head-lr multiplier (reference: 10000 at lr 5e-6)")
+    sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_parity)
 
     sp = sub.add_parser("multistage")
     sp.add_argument("configs", nargs="+",

@@ -75,25 +75,25 @@ class ServeConfig:
 
     def make_encoder_config(self, tokenizer: HashTokenizer,
                             **overrides) -> XLMRConfig:
-        """The named encoder size, its vocabulary cut to the hash
-        tokenizer's (``vocab_size: 250002`` keeps XLM-R's full table), with
-        ``model.remat``/``model.remat_policy`` and ``overrides`` (for
-        example ``param_dtype=torch.float32`` for training)."""
+        """``model.encoder``: a named size (tiny, base, large), its
+        vocabulary cut to the hash tokenizer's (``vocab_size: 250002``
+        keeps XLM-R's full table), or an HF checkpoint directory, read
+        from its ``config.json`` with its own vocabulary (hash ids are
+        smaller, so they index it safely); with ``model.remat``/
+        ``model.remat_policy`` and ``overrides`` (for example
+        ``param_dtype=torch.float32`` for training)."""
         enc = self.model.get("encoder", self.model.get("size", "base"))
         sizes = {"tiny": XLMRConfig.tiny, "base": XLMRConfig.base,
                  "large": XLMRConfig.large}
-        if enc not in sizes:
-            raise NotImplementedError(
-                f"encoder {enc!r}: loading a checkpoint directory waits "
-                "until the repository holds XLM-R weights; use tiny, base "
-                "or large")
-        kw: Dict[str, Any] = {"vocab_size": tokenizer.vocab_size}
+        kw: Dict[str, Any] = {}
         if "remat" in self.model:
             kw["remat"] = bool(self.model["remat"])
         if self.model.get("remat_policy"):
             kw["remat_policy"] = str(self.model["remat_policy"])
         kw.update(overrides)
-        return sizes[enc](**kw)
+        if enc in sizes:
+            return sizes[enc](**{"vocab_size": tokenizer.vocab_size, **kw})
+        return XLMRConfig.from_hf_config(Path(enc) / "config.json", **kw)
 
     def resolve_target_dir(self) -> Path:
         return Path(self.target_dir or f"resources/taggers/{self.name}")

@@ -1,13 +1,27 @@
 """Subword tokenization (counterpart of ``kbner_tpu/data/subword.py``).
 
-Only the deterministic ``HashTokenizer`` is carried: the repository holds
-no HF tokenizer files, so ``HFTokenizer`` waits until one does.
+Tokenizers meet the :class:`SubwordTokenizer` protocol: per-word subtoken
+ids, which ``encode.py`` flattens into padded arrays with first-subtoken
+alignment. Only the deterministic ``HashTokenizer`` is carried: the
+repository holds no HF tokenizer files, so ``HFTokenizer`` waits until
+one does.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import List, Sequence
+from typing import List, Protocol, Sequence
+
+
+class SubwordTokenizer(Protocol):
+    cls_id: int
+    sep_id: int
+    pad_id: int
+    vocab_size: int
+
+    def encode_word(self, word: str) -> List[int]:
+        """Subtoken ids for one word (no specials)."""
+        ...
 
 
 class HashTokenizer:

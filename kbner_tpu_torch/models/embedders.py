@@ -81,6 +81,21 @@ def reset_dense_(lin: nn.Linear, gen: torch.Generator) -> None:
     lin.bias.zero_()
 
 
+@torch.no_grad()
+def reset_flax_(root: nn.Module, gen: torch.Generator) -> None:
+    """Flax's defaults over every layer under ``root``: ``nn.Linear`` as
+    ``Dense`` (:func:`reset_dense_`), ``nn.Embedding`` as ``Embed``
+    (:func:`embed_normal_`), ``nn.LayerNorm`` ones and zeros."""
+    for module in root.modules():
+        if isinstance(module, nn.Linear):
+            reset_dense_(module, gen)
+        elif isinstance(module, nn.Embedding):
+            embed_normal_(module.weight, gen)
+        elif isinstance(module, nn.LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+
+
 def _gather_words(states: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """``states[b, pos[b, w]]`` with positions clamped into the time
     axis: ``[B, T, H]`` and ``[B, W]`` -> ``[B, W, H]``."""
@@ -327,17 +342,9 @@ class TransformerWordEmbedder(nn.Module):
         self.fine_tune = fine_tune
         self.encoder = XLMREncoder(config, device=device)
 
-    @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
-        """As the tagger's encoder: normal(0, 0.02) matrices and tables,
-        zero biases, unit LayerNorm scales."""
-        for module in self.encoder.modules():
-            if isinstance(module, (nn.Linear, nn.Embedding)):
-                module.weight.normal_(0.0, 0.02, generator=gen)
-            if isinstance(module, (nn.Linear, nn.LayerNorm)):
-                module.bias.zero_()
-            if isinstance(module, nn.LayerNorm):
-                module.weight.fill_(1.0)
+        """As the tagger's encoder: Flax's defaults (:func:`reset_flax_`)."""
+        reset_flax_(self.encoder, gen)
 
     def forward(self, batch: Batch) -> torch.Tensor:
         with torch.set_grad_enabled(self.fine_tune and

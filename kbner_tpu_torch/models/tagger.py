@@ -44,7 +44,8 @@ from ..ops.crf import (crf_decode, crf_forward, crf_gold_score,
 from ..ops.losses import (distillation_loss, feature_l2_loss,
                           posterior_distillation_loss)
 from ..ops.losses import multi_view_loss as mv_loss
-from .embedders import EmbedderSpec, StackedEmbedder, reset_dense_
+from .embedders import (EmbedderSpec, StackedEmbedder, reset_dense_,
+                        reset_flax_)
 from .xlmr import Linear, XLMRConfig, XLMREncoder, device_generator
 
 NO_TRANS = -10000.0
@@ -79,9 +80,10 @@ class SequenceTagger(nn.Module):
     """XLM-R + CRF (or softmax) tagger. Parameters are made on ``device``
     (the card by default) in the encoder's storage dtype (the emission
     head, transitions and transition attention in float32) and drawn from
-    a ``torch.Generator`` seeded with ``seed``: normal(0, 0.02) for
-    matrices (the attention's ``[H, L]`` included) and embedding tables,
-    zero biases, unit LayerNorm scales, normal(0, 1) transitions."""
+    a ``torch.Generator`` seeded with ``seed`` from Flax's distributions:
+    Dense matrices lecun-normal, embedding tables normal(0, 1/sqrt(D)),
+    zero biases, unit LayerNorm scales, normal(0, 1) transitions and the
+    attention's ``[H, L]`` normal(0, 0.02)."""
 
     def __init__(self, config: TaggerConfig, device="cuda", seed: int = 0):
         super().__init__()
@@ -127,16 +129,12 @@ class SequenceTagger(nn.Module):
             self.sent_to_trans_att.normal_(0.0, 0.02, generator=gen)
             self.sent_to_trans_att_b.zero_()
 
-    @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
-        for module in self.modules():
-            if isinstance(module, (nn.Linear, nn.Embedding)):
-                module.weight.normal_(0.0, 0.02, generator=gen)
-            if isinstance(module, nn.Linear):
-                module.bias.zero_()
-            if isinstance(module, nn.LayerNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
+        """Flax's defaults, as ``init_tagger`` draws them: every Dense
+        lecun-normal with a zero bias, every Embed normal(0, 1/sqrt(D)),
+        LayerNorms ones and zeros (:func:`.embedders.reset_flax_`); then
+        the heads (:meth:`_init_heads`)."""
+        reset_flax_(self, gen)
         self._init_heads(gen)
 
     @property

@@ -26,20 +26,31 @@ embeddings, then each layer) and draws that group's masks on the device
 from a generator seeded with it. A layer under ``remat`` recomputes its
 masks from the same seed in the backward pass. Without ``rng`` the pass
 is deterministic.
+
+:func:`load_hf_checkpoint` reads an HF xlm-roberta checkpoint directory
+(``model.safetensors`` through the module's own reader, else
+``pytorch_model.bin``) into the encoder's state dict; HF's Linear weights
+are ``[out, in]`` as ``nn.Linear`` keeps them, so nothing is transposed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import math
-from typing import Optional
+import mmap
+from pathlib import Path
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from ..device import resolve_device
 
 _aten = torch.ops.aten
 _SAVED_DOTS = {
@@ -96,6 +107,25 @@ class XLMRConfig:
                         hidden_dropout=0.0, attention_dropout=0.0)
         defaults.update(kw)
         return cls(**defaults)
+
+    @classmethod
+    def from_hf_config(cls, path: str | Path, **kw) -> "XLMRConfig":
+        """The config of an HF ``config.json`` (its field names); explicit
+        ``kw`` win over the file's values."""
+        hf = json.loads(Path(path).read_text())
+        fields = dict(
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            num_layers=hf["num_hidden_layers"],
+            num_heads=hf["num_attention_heads"],
+            intermediate_size=hf["intermediate_size"],
+            max_position_embeddings=hf["max_position_embeddings"],
+            type_vocab_size=hf.get("type_vocab_size", 1),
+            pad_token_id=hf.get("pad_token_id", 1),
+            layer_norm_eps=hf.get("layer_norm_eps", 1e-5),
+        )
+        fields.update(kw)
+        return cls(**fields)
 
 
 def _remat_context(policy: Optional[str]):
@@ -272,3 +302,132 @@ class XLMREncoder(nn.Module):
             else:
                 hidden = layer(hidden, attn_bias, seed)
         return hidden
+
+
+# -- HF checkpoints ---------------------------------------------------------------
+
+def _hf_key_map(num_layers: int) -> Dict[str, str]:
+    """HF ``roberta.*`` state-dict keys (prefix stripped) -> the
+    :class:`XLMREncoder` state-dict names. HF Linear weights are already
+    ``[out, in]``, as ``nn.Linear`` keeps them."""
+    m = {
+        "embeddings.word_embeddings.weight": "word_embeddings.weight",
+        "embeddings.position_embeddings.weight":
+            "position_embeddings.weight",
+        "embeddings.token_type_embeddings.weight":
+            "token_type_embeddings.weight",
+        "embeddings.LayerNorm.weight": "embeddings_ln.weight",
+        "embeddings.LayerNorm.bias": "embeddings_ln.bias",
+    }
+    for i in range(num_layers):
+        src, dst = f"encoder.layer.{i}", f"layers.{i}"
+        for leaf in ("weight", "bias"):
+            for qkv in ("query", "key", "value"):
+                m[f"{src}.attention.self.{qkv}.{leaf}"] = \
+                    f"{dst}.attention.{qkv}.{leaf}"
+            m[f"{src}.attention.output.dense.{leaf}"] = \
+                f"{dst}.attention.out.{leaf}"
+            m[f"{src}.attention.output.LayerNorm.{leaf}"] = \
+                f"{dst}.attention_ln.{leaf}"
+            m[f"{src}.intermediate.dense.{leaf}"] = \
+                f"{dst}.intermediate.{leaf}"
+            m[f"{src}.output.dense.{leaf}"] = f"{dst}.output.{leaf}"
+            m[f"{src}.output.LayerNorm.{leaf}"] = f"{dst}.output_ln.{leaf}"
+    return m
+
+
+# safetensors dtype -> (little-endian numpy dtype of the raw bytes, the
+# torch dtype those bytes are); BF16 is read as uint16 and reinterpreted
+_SAFETENSORS_DTYPES = {"F32": ("<f4", torch.float32),
+                       "F16": ("<f2", torch.float16),
+                       "BF16": ("<u2", torch.bfloat16)}
+
+
+class _SafetensorsFile:
+    """A ``model.safetensors`` file, ``mmap``ped: a little-endian u64
+    header length, a JSON header (``{name: {dtype, shape, data_offsets}}``
+    with offsets into the data after it), then the raw tensors."""
+
+    def __init__(self, path: Path):
+        self._file = open(path, "rb")
+        try:
+            self._map = mmap.mmap(self._file.fileno(), 0,
+                                  access=mmap.ACCESS_COPY)
+            n = int.from_bytes(self._map[:8], "little")
+            self.header = json.loads(self._map[8:8 + n])
+        except BaseException:
+            self.close()
+            raise
+        self.header.pop("__metadata__", None)
+        self._base = 8 + n
+
+    def keys(self):
+        return self.header.keys()
+
+    def tensor(self, name: str) -> torch.Tensor:
+        """Tensor ``name``, a CPU view of the mapped bytes: copy it before
+        the file closes."""
+        entry = self.header[name]
+        if entry["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{name}: safetensors dtype {entry['dtype']} "
+                             f"(reads {sorted(_SAFETENSORS_DTYPES)})")
+        raw, dtype = _SAFETENSORS_DTYPES[entry["dtype"]]
+        begin, end = entry["data_offsets"]
+        count = math.prod(entry["shape"])
+        if end - begin != count * np.dtype(raw).itemsize:
+            raise ValueError(f"{name}: data_offsets {begin}..{end} do not "
+                             f"hold shape {entry['shape']} of "
+                             f"{entry['dtype']}")
+        arr = np.frombuffer(self._map, dtype=raw, count=count,
+                            offset=self._base + begin)
+        return torch.from_numpy(arr).view(dtype).reshape(entry["shape"])
+
+    def close(self) -> None:
+        if getattr(self, "_map", None) is not None:
+            self._map.close()
+        self._file.close()
+
+
+def load_hf_checkpoint(model_dir: str | Path,
+                       config: Optional[XLMRConfig] = None,
+                       dtype: torch.dtype = torch.float32,
+                       device="cuda") -> Dict[str, torch.Tensor]:
+    """The :class:`XLMREncoder` state dict of an HF xlm-roberta checkpoint
+    directory, in ``dtype`` on ``device`` (the card unless asked for the
+    CPU).
+
+    Reads ``model.safetensors`` (F32, F16 or BF16, ``mmap``ped, one tensor
+    at a time) or else ``pytorch_model.bin`` (``torch.load`` with
+    ``weights_only=True``); a ``roberta.`` key prefix is stripped. The
+    config defaults to the directory's ``config.json``. Raises
+    ``KeyError`` naming a weight the checkpoint lacks, and
+    ``FileNotFoundError`` when the directory holds neither file."""
+    device = resolve_device(device)
+    model_dir = Path(model_dir)
+    if config is None:
+        config = XLMRConfig.from_hf_config(model_dir / "config.json")
+    key_map = _hf_key_map(config.num_layers)
+    st_path = model_dir / "model.safetensors"
+    pt_path = model_dir / "pytorch_model.bin"
+    if st_path.exists():
+        source = _SafetensorsFile(st_path)
+        read, close = source.tensor, source.close
+        names = source.keys()
+    elif pt_path.exists():
+        raw = torch.load(pt_path, map_location="cpu", weights_only=True)
+        read, close, names = raw.__getitem__, raw.clear, raw.keys()
+    else:
+        raise FileNotFoundError(
+            f"no model.safetensors or pytorch_model.bin in {model_dir}")
+    try:
+        by_key = {k[len("roberta."):] if k.startswith("roberta.") else k: k
+                  for k in names}
+        state = {}
+        for hf_key, ours in key_map.items():
+            if hf_key not in by_key:
+                raise KeyError(f"missing weight in checkpoint: {hf_key}")
+            state[ours] = read(by_key[hf_key]).to(device=device, dtype=dtype,
+                                                  copy=True)
+    finally:
+        close()
+    return state

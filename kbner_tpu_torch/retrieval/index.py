@@ -16,8 +16,11 @@ Lucene 8 / ES 7.x BM25:
   score(q,d)  = sum_{t in q} boost(t) * idf(t) * tfNorm(t, d)
 
 ``quantize_norms=True`` reproduces Lucene's one-byte document-length
-encoding. The file format of :meth:`BM25Index.save` is the JAX package's,
-so an index saved by either package opens in the other. Documents and
+encoding. A collection too large to hold raw is built chunk by chunk
+(:meth:`BM25Index.build_streaming`). The file format of
+:meth:`BM25Index.save` and the directory layout of
+:meth:`BM25Index.save_sharded` are the JAX package's, so an index saved by
+either package opens in the other. Documents and
 query batches analyzed by the standard or bigram analyzer go through the
 native batch analyzer, and the CSR is built and capped natively
 (``kbner_tpu_torch/native``).
@@ -26,11 +29,13 @@ native batch analyzer, and the CSR is built and capped natively
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import pickle
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
@@ -124,6 +129,26 @@ class BM25Params:
     quantize_norms: bool = True
 
 
+def _row_width(nt: np.ndarray, n_runs: int,
+               max_doc_terms: int | str | None) -> Tuple[int, int]:
+    """``(ld, ld_full)``: the layout's row width under ``max_doc_terms``
+    (``"auto"``: the 99.5th percentile of distinct terms per doc, at
+    least 32; None: no cap) and the widest row's distinct terms."""
+    ld_full = int(nt.max()) if n_runs else 1
+    if max_doc_terms == "auto":
+        ld = min(ld_full,
+                 max(32, int(np.percentile(nt, 99.5)))) if n_runs else 1
+    elif max_doc_terms is None:
+        ld = ld_full
+    else:
+        ld = min(ld_full, int(max_doc_terms))
+    ld = max(ld, 1)
+    if ld < ld_full:
+        log.info("build: capped %d docs to %d distinct terms (max %d)",
+                 int((nt > ld).sum()), ld, ld_full)
+    return ld, ld_full
+
+
 class BM25Index:
     """Single-field BM25 index over a document collection."""
 
@@ -168,6 +193,21 @@ class BM25Index:
             self._csr = native.build_csr(self.doc_terms, self.doc_impacts,
                                          len(self.vocab))
         return self._csr
+
+    def csr_rows(self, lanes: int = 128, guard_rows: int = 32):
+        """Row-blocked postings: the CSR postings padded to whole
+        ``lanes``-wide rows plus ``guard_rows``, so any window's covering
+        rows exist. Returns (offsets int32 [V+1], doc rows [NR, lanes]
+        int32 pad -1, impact rows [NR, lanes] float32)."""
+        offsets, p_doc, p_imp, _ = self.csr
+        nnz = len(p_doc)
+        nr = (nnz + lanes - 1) // lanes + guard_rows
+        pd = np.full((nr * lanes,), -1, dtype=np.int32)
+        pd[:nnz] = p_doc
+        pi = np.zeros((nr * lanes,), dtype=np.float32)
+        pi[:nnz] = p_imp
+        return (offsets.astype(np.int32), pd.reshape(nr, lanes),
+                pi.reshape(nr, lanes))
 
     def csr_capped(self, cap: int, min_df: int = 0):
         """CSR truncated to each term's ``cap`` highest-impact postings,
@@ -309,6 +349,113 @@ class BM25Index:
         return term_of_run, tf[:n_runs], doc_of_run, nt
 
     @classmethod
+    def build_streaming(
+        cls,
+        chunks: Iterable[np.ndarray],
+        vocab: Dict[str, int],
+        params: Optional[BM25Params] = None,
+        max_doc_terms: int | str | None = "auto",
+        pad_docs_to: int = 128,
+        analyzer: Callable[[str], List[str]] = standard_analyze,
+    ) -> "BM25Index":
+        """Chunked two-phase build for collection-scale ingests: the
+        arrays of :meth:`build_encoded` on the concatenated input, without
+        ever holding the raw corpus.
+
+        ``chunks`` is an iterable of ``[n_i, L_i]`` int32 id arrays (pad
+        < 0; widths may differ, each below 65536 so a tf fits uint16).
+        Phase 1 draws one chunk at a time and reduces it to run triplets
+        (term id int32, tf uint16, doc id int64) through
+        :meth:`_term_runs`, accumulating df and doc lengths; phase 2
+        computes idf, avgdl and the norms once and scatters each chunk's
+        impacts into the padded layout, freeing its triplets. Peak host
+        memory is one raw chunk, the triplets and the final layout. Under
+        a ``max_doc_terms`` cap both builds keep each row's highest-impact
+        terms, but the order of a row's kept terms may differ (scores are
+        order-invariant)."""
+        params = params or BM25Params()
+        V = len(vocab)
+        df = np.zeros(V, dtype=np.int64)
+        runs: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        all_dl: List[np.ndarray] = []
+        all_nt: List[np.ndarray] = []
+        n_docs = 0
+        for tok in chunks:
+            tok = np.asarray(tok)
+            if tok.shape[1] >= 1 << 16:
+                raise ValueError("chunk width >= 65536 overflows uint16 tf")
+            t, tf, d, nt = cls._term_runs(tok, V)
+            df += np.bincount(t, minlength=V)
+            # tf exact in uint16: tf <= row width
+            runs.append((t, tf.astype(np.uint16), d.astype(np.int64) + n_docs))
+            all_dl.append((tok >= 0).sum(axis=1).astype(np.int64))
+            all_nt.append(nt[:tok.shape[0]])
+            n_docs += tok.shape[0]
+            del tok
+        doc_lens = (np.concatenate(all_dl) if all_dl
+                    else np.zeros(0, np.int64))
+        nt = (np.concatenate(all_nt).astype(np.int64) if all_nt
+              else np.zeros(0, np.int64))
+        del all_dl, all_nt
+        return cls._layout(runs, df, doc_lens, nt, vocab, params,
+                           max_doc_terms, pad_docs_to, analyzer)
+
+    @classmethod
+    def _layout(
+        cls,
+        runs: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+        df: np.ndarray,
+        doc_lens: np.ndarray,
+        nt: np.ndarray,
+        vocab: Dict[str, int],
+        params: BM25Params,
+        max_doc_terms: int | str | None,
+        pad_docs_to: int,
+        analyzer: Callable[[str], List[str]],
+    ) -> "BM25Index":
+        """Phase 2 of both builds: idf, avgdl and the norms once, then each
+        block of run triplets ``(term, tf, global doc id)``, doc-grouped in
+        ascending doc order, scattered into the padded layout and freed.
+        ``doc_lens`` are the per-doc term counts of the length norm, ``nt``
+        the distinct terms per doc."""
+        n_docs = len(doc_lens)
+        n_runs = int(nt.sum())
+        # Lucene's avgdl is the true mean term count; the per-doc dl in the
+        # norm is the (optionally) quantized stored value
+        avgdl = float(doc_lens.mean()) if n_docs else 1.0
+        idf = np.log(1.0 + (n_docs - df + 0.5) / (df + 0.5)).astype(
+            np.float32)
+        dl = (quantize_doc_lengths(doc_lens) if params.quantize_norms
+              else doc_lens)
+        norm = (params.k1 * (1.0 - params.b + params.b * dl / avgdl)
+                ).astype(np.float32)
+        ld, ld_full = _row_width(nt, n_runs, max_doc_terms)
+
+        n_pad = ((n_docs + pad_docs_to - 1) // pad_docs_to) * pad_docs_to
+        n_pad = max(n_pad, pad_docs_to)
+        doc_terms = np.full((n_pad, ld), PAD_TERM, dtype=np.int32)
+        doc_impacts = np.zeros((n_pad, ld), dtype=np.float32)
+        cum = np.cumsum(nt) - nt  # global run offset of each doc's block
+        while runs:
+            # pop front: each block's triplets are freed after its scatter
+            t, tf, d = runs.pop(0)
+            tf = tf.astype(np.float32, copy=False)
+            impact = idf[t] * tf / (tf + norm[d])
+            if ld < ld_full:
+                # the highest-impact terms of over-long docs (a stable
+                # sort keeps doc blocks in ascending doc order, so the
+                # global cum[] offsets stay valid)
+                order = np.lexsort((-impact, d))
+                t, d, impact = t[order], d[order], impact[order]
+            pos = np.arange(len(t), dtype=np.int64) - (
+                cum[d] - cum[d[0]] if len(d) else 0)
+            keep = pos < ld
+            doc_terms[d[keep], pos[keep]] = t[keep]
+            doc_impacts[d[keep], pos[keep]] = impact[keep]
+        return cls(vocab, idf, doc_terms, doc_impacts, n_docs, avgdl, params,
+                   analyzer, doc_dl=np.asarray(dl, dtype=np.int32))
+
+    @classmethod
     def build_encoded(
         cls,
         doc_token_ids: np.ndarray,
@@ -333,55 +480,12 @@ class BM25Index:
         if doc_lens is None:
             doc_lens = (tok >= 0).sum(axis=1).astype(np.int64)
         doc_lens = np.asarray(doc_lens, dtype=np.int64)
-        avgdl = float(doc_lens.mean()) if n_docs else 1.0
-
         term_of_run, tf, doc_of_run, nt = cls._term_runs(tok, V)
-        n_runs = term_of_run.shape[0]
-
-        df = np.bincount(term_of_run, minlength=V) if n_runs else np.zeros(
-            V, dtype=np.int64)
-        idf = np.log(1.0 + (n_docs - df + 0.5) / (df + 0.5)).astype(
-            np.float32)
-
-        # Lucene's avgdl is the true mean term count; the per-doc dl in the
-        # norm is the (optionally) quantized stored value
-        dl = (quantize_doc_lengths(doc_lens) if params.quantize_norms
-              else doc_lens)
-        norm = (params.k1 * (1.0 - params.b + params.b * dl / avgdl)
-                ).astype(np.float32)  # [N]
-        impact = idf[term_of_run] * tf / (tf + norm[doc_of_run])
-
-        ld_full = int(nt.max()) if n_runs else 1
-        if max_doc_terms == "auto":
-            ld = min(ld_full,
-                     max(32, int(np.percentile(nt, 99.5)))) if n_runs else 1
-        elif max_doc_terms is None:
-            ld = ld_full
-        else:
-            ld = min(ld_full, int(max_doc_terms))
-        ld = max(ld, 1)
-        if ld < ld_full:
-            # keep the highest-impact terms of over-long docs
-            order = np.lexsort((-impact, doc_of_run))
-            term_of_run = term_of_run[order]
-            doc_of_run = doc_of_run[order]
-            impact = impact[order]
-            log.info("build: capped %d docs to %d distinct terms (max %d)",
-                     int((nt > ld).sum()), ld, ld_full)
-
-        # position within doc (runs stay doc-grouped either way)
-        cum = np.cumsum(nt) - nt
-        pos = np.arange(n_runs) - cum[doc_of_run]
-        keep = pos < ld
-        n_pad = ((n_docs + pad_docs_to - 1) // pad_docs_to) * pad_docs_to
-        n_pad = max(n_pad, pad_docs_to)
-        doc_terms = np.full((n_pad, ld), PAD_TERM, dtype=np.int32)
-        doc_impacts = np.zeros((n_pad, ld), dtype=np.float32)
-        doc_terms[doc_of_run[keep], pos[keep]] = term_of_run[keep]
-        doc_impacts[doc_of_run[keep], pos[keep]] = impact[keep]
-
-        return cls(vocab, idf, doc_terms, doc_impacts, n_docs, avgdl, params,
-                   analyzer, doc_dl=np.asarray(dl, dtype=np.int32))
+        df = np.bincount(term_of_run, minlength=V)
+        return cls._layout(
+            [(term_of_run, tf, doc_of_run)], df, doc_lens,
+            nt[:n_docs].astype(np.int64), vocab, params, max_doc_terms,
+            pad_docs_to, analyzer)
 
     # -- queries --------------------------------------------------------------
 
@@ -513,3 +617,82 @@ class BM25Index:
             avgdl=d["avgdl"], params=BM25Params(**d["params"]),
             analyzer=analyzer, doc_dl=d.get("doc_dl"),
         )
+
+    def save_sharded(self, dir_path: str | Path, n_shards: int) -> None:
+        """Write the index as ``n_shards`` doc-range shards
+        (``shardNNN.npz``: ``doc_terms``, ``doc_impacts``, ``doc_dl``) that
+        share the global statistics, saved once (``vocab.pkl``,
+        ``idf.npy``, ``shards.json``): the JAX package's layout, so a
+        directory written by either package opens in the other."""
+        p = Path(dir_path)
+        p.mkdir(parents=True, exist_ok=True)
+        per = -(-self.n_docs // max(n_shards, 1))
+        for i in range(n_shards):
+            lo, hi = i * per, min((i + 1) * per, self.n_docs)
+            np.savez(
+                p / f"shard{i:03d}.npz",
+                doc_terms=self.doc_terms[lo:hi],
+                doc_impacts=self.doc_impacts[lo:hi],
+                doc_dl=(self.doc_dl[lo:hi] if self.doc_dl is not None
+                        else np.zeros(0, np.int32)))
+        with open(p / "vocab.pkl", "wb") as f:
+            pickle.dump(self.vocab, f, protocol=4)
+        np.save(p / "idf.npy", self.idf)
+        (p / "shards.json").write_text(json.dumps({
+            "n_shards": n_shards, "n_docs": self.n_docs,
+            "docs_per_shard": per, "ld": int(self.doc_terms.shape[1]),
+            "n_padded": int(self.doc_terms.shape[0]),
+            "avgdl": self.avgdl, "has_dl": self.doc_dl is not None,
+            "params": dataclasses.asdict(self.params)}))
+
+    @classmethod
+    def load_sharded(cls, dir_path: str | Path,
+                     analyzer: Callable[[str], List[str]] = standard_analyze
+                     ) -> "BM25Index":
+        """Open a :meth:`save_sharded` directory. The padded layout is
+        allocated once and each shard copied in and freed, so peak memory
+        is the layout plus one shard. ``vocab.pkl`` is a pickle: open only
+        directories this program wrote."""
+        p = Path(dir_path)
+        meta = json.loads((p / "shards.json").read_text())
+        with open(p / "vocab.pkl", "rb") as f:
+            vocab = pickle.load(f)
+        idf = np.load(p / "idf.npy")
+        n_docs, ld = meta["n_docs"], meta["ld"]
+        doc_terms = np.full((meta["n_padded"], ld), PAD_TERM, dtype=np.int32)
+        doc_impacts = np.zeros((meta["n_padded"], ld), dtype=np.float32)
+        doc_dl = np.zeros(n_docs, np.int32) if meta["has_dl"] else None
+        per = meta["docs_per_shard"]
+        for i in range(meta["n_shards"]):
+            with np.load(p / f"shard{i:03d}.npz") as z:
+                lo = i * per
+                hi = lo + z["doc_terms"].shape[0]
+                doc_terms[lo:hi] = z["doc_terms"]
+                doc_impacts[lo:hi] = z["doc_impacts"]
+                if doc_dl is not None:
+                    doc_dl[lo:hi] = z["doc_dl"]
+        return cls(
+            vocab=vocab, idf=idf, doc_terms=doc_terms,
+            doc_impacts=doc_impacts, n_docs=n_docs, avgdl=meta["avgdl"],
+            params=BM25Params(**meta["params"]), analyzer=analyzer,
+            doc_dl=doc_dl)
+
+    # -- reference scoring ----------------------------------------------------
+
+    def score_oracle(self, queries: Sequence[str],
+                     boosts: Optional[Sequence[float]] = None) -> np.ndarray:
+        """Exact float64 host scoring of every (padded) doc, ``[Q, N]``:
+        the reference the kernels and engines are held to. O(Q x Lq x N x
+        Ld); a few queries at a time."""
+        q_terms, q_weights = self.encode_queries(queries, boosts=boosts)
+        scores = np.zeros((len(queries), self.doc_terms.shape[0]),
+                          dtype=np.float64)
+        for qi in range(len(queries)):
+            for j in range(q_terms.shape[1]):
+                t = q_terms[qi, j]
+                if t < 0:
+                    continue
+                match = self.doc_terms == t  # [N, Ld]
+                scores[qi] += q_weights[qi, j] * (
+                    self.doc_impacts * match).sum(axis=1)
+        return scores

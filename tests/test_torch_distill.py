@@ -477,21 +477,14 @@ def test_distill_train_keys_validated(tmp_path):
 def test_cli_kd_end_to_end(tmp_path):
     """A teacher trained by ``cli train``, then a student distilled from
     it through ``trainer: DistillationTrainer`` + ``teachers:`` learns the
-    toy corpus, as the JAX CLI's does. The port draws its tagger's
-    matrices from normal(0, 0.02) where Flax draws Dense kernels
-    lecun-normal (std 1/8 at this width), so at the tiny width both runs
-    take a step of 5e-3 where the JAX test takes 1e-3 (at 1e-3 the port's
-    teacher reaches F1 0.36 in 25 epochs, the JAX package's 1.0)."""
+    toy corpus at the JAX test's step, 1e-3, as the JAX CLI's does."""
     teacher_p, teacher_raw = _config(tmp_path, name="teacher")
-    teacher_raw["train"]["learning_rate"] = 5e-3
-    teacher_p.write_text(yaml.safe_dump(teacher_raw))
     cli.main(["train", "--config", str(teacher_p), "--device", "cpu"])
     assert (Path(teacher_raw["target_dir"]) / "best-model.msgpack").exists()
     student_p, student_raw = _config(
         tmp_path, name="student", trainer="DistillationTrainer",
         teachers=[str(teacher_p)])
-    student_raw["train"].update(interpolation=0.5, max_epochs=20,
-                                learning_rate=5e-3)
+    student_raw["train"].update(interpolation=0.5, max_epochs=20)
     student_p.write_text(yaml.safe_dump(student_raw))
     result = cli.main(["train", "--config", str(student_p), "--device",
                        "cpu"])

@@ -83,6 +83,26 @@ def test_no_source_line_imports_jax_or_kbner_tpu():
     assert not hits, hits
 
 
+def test_no_module_imports_the_hf_libraries():
+    """The card machine has no ``safetensors``, ``transformers`` or
+    ``tokenizers``: no module of the port imports them, at import time or
+    in any source line (the checkpoint reader is the port's own)."""
+    names = ("safetensors", "transformers", "tokenizers")
+    pattern = re.compile(rf"^\s*(from|import) ({'|'.join(names)})(\.|\s|$)")
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pattern.match(line)]
+    assert not hits, hits
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}: importlib.import_module(m)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {names!r}]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
 def test_no_library_rnn_or_compiled_graph():
     """The LSTMs are written out (no cuDNN RNN through ``nn.LSTM``/
     ``nn.GRU`` or ``torch._VF``), and nothing goes through
@@ -247,6 +267,26 @@ def test_distill_and_swaf_entry_points_default_to_the_card(no_cuda,
         cfg.write_text(yaml.safe_dump({**base, **extra}))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["train", "--config", str(cfg)])
+
+
+def test_checkpoint_and_parity_entry_points_default_to_the_card(no_cuda,
+                                                               tmp_path):
+    """``load_hf_checkpoint`` and ``cli parity`` need the card unless
+    asked for the CPU; parity's skips need no device."""
+    from kbner_tpu_torch.models.xlmr import load_hf_checkpoint
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_hf_checkpoint(tmp_path / "ckpt")
+    with pytest.raises(FileNotFoundError):
+        load_hf_checkpoint(tmp_path / "ckpt", XLMRConfig.tiny(),
+                           device="cpu")
+    toy = REPO / "tests" / "fixtures" / "ner_toy"
+    argv = ["parity", "--data", str(toy.parent), "--stage1_folder",
+            toy.name, "--stage2_folder", toy.name, "--out",
+            str(tmp_path / "out")]
+    assert cli.main(argv[:2] + [str(tmp_path / "none")] + argv[3:]) is None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(argv)
 
 
 def test_engine_modes_of_later_slices_raise():

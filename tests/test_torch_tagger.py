@@ -389,3 +389,79 @@ def test_multi_view_loss_and_gradients_match_flax(kw):
         np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(),
                                    rtol=GRAD_RTOL, atol=GRAD_ATOL,
                                    err_msg=name)
+
+
+# -- the initial draw, against Flax's defaults ---------------------------------
+
+def _drawn_trees(kind):
+    """The Flax tagger's initial tree and the port tagger's (as a Flax
+    tree through ``to_jax_params``) at width 64, each from its own seed:
+    the plain tagger, one with per-language transitions and transition
+    attention, or a stacked tagger over XLM-R and a word table."""
+    from kbner_tpu.data.encode import add_classic_features as j_classic
+    from kbner_tpu.data.encode import build_char_vocab as j_char_vocab
+    from kbner_tpu.data.encode import build_word_vocab as j_word_vocab
+    from kbner_tpu.models import embedders as jemb
+    from kbner_tpu.models.tagger import init_stacked_tagger
+    from kbner_tpu_torch.models import embedders as emb
+    from kbner_tpu_torch.models.tagger import StackedSequenceTagger
+    from kbner_tpu_torch.weights import to_jax_params
+
+    kw = dict(num_languages=2, transition_attention=True) \
+        if kind == "attention" else {}
+    j_tags = j_tag_dict([TAGS])
+    j_cfg = JTaggerConfig.for_tag_dictionary(
+        JXLMRConfig.tiny(vocab_size=VOCAB), j_tags, **kw)
+    cfg = TaggerConfig.for_tag_dictionary(
+        XLMRConfig.tiny(vocab_size=VOCAB), make_tag_dictionary([TAGS]), **kw)
+    records = _records(JRecord)
+    batch = j_encode(records, JTokenizer(vocab_size=VOCAB))
+    if kind == "stacked":
+        n_words = 400
+        j_classic(batch, j_word_vocab(records), j_char_vocab(records))
+        _, params = init_stacked_tagger(
+            j_cfg, [jemb.EmbedderSpec("x", jemb.TransformerWordEmbedder(
+                j_cfg.encoder), 64),
+                jemb.EmbedderSpec("w", jemb.WordEmbedder(n_words, 32), 32)],
+            jax.random.PRNGKey(0),
+            {k: jnp.asarray(v) for k, v in batch.arrays().items()})
+        # the Flax table's size is the vocabulary's; draw the same size
+        n_words = params["params"]["stack"]["members_1"]["table"][
+            "embedding"].shape[0]
+        tagger = StackedSequenceTagger(cfg, [
+            emb.EmbedderSpec("x", emb.TransformerWordEmbedder(cfg.encoder),
+                             64),
+            emb.EmbedderSpec("w", emb.WordEmbedder(n_words, 32), 32)],
+            device="cpu", seed=0)
+    else:
+        _, params = init_tagger(
+            j_cfg, jax.random.PRNGKey(0),
+            {k: jnp.asarray(v) for k, v in batch.arrays().items()})
+        tagger = SequenceTagger(cfg, device="cpu", seed=0)
+    return (jax.tree_util.tree_map(np.asarray, params),
+            to_jax_params(tagger.state_dict(), tagger))
+
+
+@pytest.mark.parametrize("kind", ["plain", "attention", "stacked"])
+def test_parameters_are_drawn_as_flax_draws_them(kind):
+    """Every parameter's mean and std match the Flax tree's leaf by leaf:
+    Dense kernels lecun-normal, Embed tables normal(0, 1/sqrt(D)), zero
+    biases, LayerNorm ones and zeros, normal(0, 1) transitions and the
+    attention's normal(0, 0.02). Tolerance, for a leaf of n values whose
+    Flax std is s: six standard errors of the difference of two samples,
+    6 s sqrt(2/n) for the means and 6 s / sqrt(n) for the stds (exact
+    for constant leaves). No leaf reads std 0.02 where Flax's does not."""
+    want, got = _drawn_trees(kind)
+    flat_want = dict(jax.tree_util.tree_leaves_with_path(want))
+    flat_got = dict(jax.tree_util.tree_leaves_with_path(got))
+    assert flat_got.keys() == flat_want.keys()
+    for path, w in flat_want.items():
+        g = flat_got[path]
+        name = jax.tree_util.keystr(path)
+        assert g.shape == w.shape, name
+        s, n = float(w.std()), w.size
+        assert abs(float(g.mean()) - float(w.mean())) <= \
+            6 * s * (2 / n) ** 0.5 + 1e-7, name
+        assert abs(float(g.std()) - s) <= 6 * s / n ** 0.5 + 1e-7, name
+        if abs(s - 0.02) > 0.005:
+            assert abs(float(g.std()) - 0.02) > 0.005, name

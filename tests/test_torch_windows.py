@@ -430,14 +430,11 @@ def test_prepare_corpus_equals_the_reference(tmp_path):
 
 # -- the CLI ---------------------------------------------------------------------------
 
-def _cli_config(tmp_path, data, epochs, lr=5e-3):
+def _cli_config(tmp_path, data, epochs):
     raw = yaml.safe_load((FIX / "toy_config.yaml").read_text())
     raw["corpora"][0]["data_folder"] = str(FIX / "ner_toy")
     raw["corpora"][0]["test_file"] = "train.txt"
-    # the port's normal(0, 0.02) matrices learn the toy corpus at a
-    # larger step than Flax's lecun-normal ones (tests/test_torch_distill
-    # .py::test_cli_kd_end_to_end)
-    raw["train"].update(max_epochs=epochs, learning_rate=lr)
+    raw["train"].update(max_epochs=epochs)
     raw["target_dir"] = str(tmp_path / "run")
     raw["data"] = data
     p = tmp_path / "cfg.yaml"
@@ -449,7 +446,7 @@ def test_cli_train_with_doc_context(tmp_path):
     """``data: {doc_context: true}`` trains and evaluates on document
     windows: neighbour sentences as S-X context around each sentence."""
     p, run = _cli_config(tmp_path, {"doc_context": True,
-                                    "doc_window_budget": 64}, 30, lr=1e-2)
+                                    "doc_window_budget": 64}, 30)
     cli.main(["train", "--config", str(p), "--device", "cpu"])
     results = json.loads((run / "test_results.json").read_text())
     assert results["TOY"]["micro_f1"] > 0.9
