@@ -43,7 +43,8 @@ through one MixEngine over the three (K2 once per language and batch, on
 global ids), held to the per-engine fan-out and, for recall, to the
 exhaustive fan-out (K1), then with entity clauses; and ``cli multistage``
 of two stages, the second starting from the first's exported encoder.
-This stage, ACE and distillation train XLM-R large's width cut to
+This stage, ACE, distillation, ``cli parity`` and all but the tree
+parser of the last phase train XLM-R large's width cut to
 ``CUT_LAYERS`` of its 24 layers. Last, the recipe's ACE step: ``cli
 train`` with ``trainer: ReinforcementTrainer`` over the published stack
 (XLM-R frozen, word vectors, a char-BiLSTM and two Flair char-LMs) on KB
@@ -58,9 +59,16 @@ files. Last, the collection-scale index and pretrained weights: the 1M
 docs stream-built in four chunks and held to the one-shot index, saved in
 shards and reopened, and served once through an exhaustive (K1) and a
 pruned (K2) engine held to the first engines and to the float64 oracle;
-then an HF checkpoint of a seeded XLM-R-large encoder loaded onto the
-card bit for bit, and ``cli parity`` over MultiCoNER-layout folders from
-it. It prints what
+then an HF checkpoint of a seeded encoder (XLM-R large's width at
+``CUT_LAYERS`` layers) loaded onto the card bit for bit, and ``cli
+parity`` over MultiCoNER-layout folders from it. Last, the parser and
+classifier families: a seeded UD treebank, KB sentences fused through K1
+and fastText documents through ``cli train``, ``test`` and (for the tree
+parser) ``parse`` under ``targets: dependency`` (XLM-R large at full
+depth with the projective tree CRF), ``enhancedud``, ``ner_dp``,
+``classification`` (GRU pooling) and ``regression``, with a float32
+parser held between the card and the CPU, the tree CRF's marginals held
+to float64 and a learning probe. It prints what
 it measured on the lines before the last and exits non-zero on any
 failure.
 Its last line is one JSON object naming the device.
@@ -2208,7 +2216,8 @@ DE_WORDS = {"visited": "besuchte", "yesterday": "gestern", "hired":
             "nahe"}
 
 
-# 4i's multistage, 4j and 4k train XLM-R large's width (hidden 1024, 16
+# 4i's multistage, 4j, 4k, 4l's checkpoint and cli parity, and 4m's
+# targets but the tree parser train XLM-R large's width (hidden 1024, 16
 # heads, FFN 4096, vocabulary 250002) cut to CUT_LAYERS of its 24 layers,
 # through an HF config.json that model.encoder names: a depth cut that
 # keeps the smoke within its time limit on the slower of the card
@@ -3645,20 +3654,23 @@ def write_multiconer(path, records) -> None:
 
 
 def checkpoint_phase(cli, dev, card, tmp, enc_cfg=None) -> None:
-    """Phase 4l (b): an HF directory written from a seeded XLM-R-large
-    encoder (``enc_cfg``), loaded onto the card with
-    ``load_hf_checkpoint`` and held bit-equal to its source; then ``cli
-    parity --weights`` over MultiCoNER-layout folders cut from 4h's and
-    4i's splits (stage 1 en + zh + ru, stage 2 en, one epoch each), each
-    stage's encoder held to the checkpoint at build and stage 2's to
-    stage 1's export at load."""
+    """Phase 4l (b): an HF directory written from a seeded encoder
+    (``enc_cfg``; XLM-R large's width at ``CUT_LAYERS`` of its 24 layers
+    by default), loaded onto the card with ``load_hf_checkpoint`` and
+    held bit-equal to its source; then ``cli parity --weights`` over
+    MultiCoNER-layout folders cut from 4h's and 4i's splits (stage 1 en +
+    zh + ru, stage 2 en, one epoch each), each stage's encoder held to the
+    checkpoint at build and stage 2's to stage 1's export at load."""
+    import dataclasses
+
     import torch
 
     from kbner_tpu_torch.data.conll import read_column_file
     from kbner_tpu_torch.models.embedders import TransformerWordEmbedder
     from kbner_tpu_torch.models.xlmr import XLMRConfig, load_hf_checkpoint
 
-    enc_cfg = enc_cfg or XLMRConfig.large(param_dtype=torch.float32)
+    enc_cfg = enc_cfg or dataclasses.replace(
+        XLMRConfig.large(param_dtype=torch.float32), num_layers=CUT_LAYERS)
     member = TransformerWordEmbedder(enc_cfg, device=dev)
     member.reset_parameters(torch.Generator(device=dev).manual_seed(7))
     state = member.encoder.state_dict()
@@ -3745,6 +3757,516 @@ def checkpoint_phase(cli, dev, card, tmp, enc_cfg=None) -> None:
         f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
         f"summary {json.dumps(summary)} (F1 from random weights says "
         f"nothing of the recipe's quality) ({card})")
+
+
+# phase 4m: the parser and classifier families through cli train, test and
+# parse: a seeded UD treebank, KB sentences fused through K1 for span NER,
+# and fastText documents
+UD_RELS = ("acl advcl advmod amod appos aux case cc ccomp clf compound conj "
+           "cop csubj dep det discourse dislocated expl fixed flat goeswith "
+           "iobj list mark nmod nsubj nummod obj obl orphan parataxis punct "
+           "reparandum root vocative xcomp").split()  # the 37 UD relations
+PARSE_SPLITS = {"train": 256, "dev": 64, "test": 64}
+PARSE_WORDS = (8, 40)   # words per treebank sentence
+SECOND_HEAD = 0.1       # share of words with a second head in DEPS
+NER_DP_SPLITS = {"train": 64, "dev": 16, "test": 16}  # cut of 4h's splits
+PARSE_BATCH = 16
+CHECK_LAYERS = 2        # the float32 card-vs-CPU parser's depth
+N_CHECK_SENTENCES = 4
+
+
+def _projective(rng, lo: int, hi: int, head: int, heads) -> None:
+    """A random projective subtree over words ``lo..hi`` under ``head``:
+    a random word of the span takes ``head``, the two sides recurse."""
+    if lo > hi:
+        return
+    r = int(rng.randint(lo, hi + 1))
+    heads[r - 1] = head
+    _projective(rng, lo, r - 1, r, heads)
+    _projective(rng, r + 1, hi, r, heads)
+
+
+def synth_treebank(n: int, seed: int):
+    """``n`` seeded UD sentences: each a list of 10-column CoNLL-U rows
+    over Zipf words ``w<id>``, a random single-root projective tree of
+    ``PARSE_WORDS`` words labelled from the 37 UD relations, and a DEPS
+    column holding each word's head and, for about ``SECOND_HEAD`` of the
+    words, a second one."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        size = int(rng.randint(PARSE_WORDS[0], PARSE_WORDS[1] + 1))
+        heads = [0] * size
+        _projective(rng, 1, size, 0, heads)
+        words = np.minimum(rng.zipf(1.3, size), 20_000)
+        rows = []
+        for i, (h, w) in enumerate(zip(heads, words), 1):
+            rel = "root" if h == 0 else UD_RELS[rng.randint(len(UD_RELS))]
+            while rel == "root" and h != 0:
+                rel = UD_RELS[rng.randint(len(UD_RELS))]
+            deps = {h: rel}
+            if rng.rand() < SECOND_HEAD:
+                h2 = int(rng.randint(0, size + 1))
+                if h2 not in (h, i):
+                    deps[h2] = UD_RELS[rng.randint(len(UD_RELS))]
+            cell = "|".join(f"{k}:{v}" for k, v in sorted(deps.items()))
+            rows.append(f"{i}\tw{w}\t_\t_\t_\t_\t{h}\t{rel}\t{cell}\t_")
+        out.append(rows)
+    return out
+
+
+def is_tree(heads) -> bool:
+    """One word on ROOT and every head chain reaches it."""
+    heads = [int(h) for h in heads]
+    if sum(h == 0 for h in heads) != 1:
+        return False
+    for d in range(1, len(heads) + 1):
+        seen, x = set(), d
+        while x != 0:
+            if x in seen or not 0 <= x - 1 < len(heads):
+                return False
+            seen.add(x)
+            x = heads[x - 1]
+    return True
+
+
+def parse_corpora(tmp, splits) -> dict:
+    """The treebank (``ud``, 10-column CoNLL-U files read as column
+    corpora) and fastText folders of its sentences (``clf``: a length
+    class, ``reg``: the length over 40). Returns the treebank's rows per
+    split."""
+    bank = {}
+    for i, (split, n) in enumerate(splits.items()):
+        bank[split] = synth_treebank(n, seed=90 + i)
+        for name in ("ud", "clf", "reg"):
+            (tmp / name).mkdir(parents=True, exist_ok=True)
+        (tmp / "ud" / f"{split}.txt").write_text(
+            "".join("\n".join(rows) + "\n\n" for rows in bank[split]))
+        clf, reg = [], []
+        for rows in bank[split]:
+            words = " ".join(r.split("\t")[1] for r in rows)
+            size = len(rows)
+            label = "short" if size < 18 else "mid" if size < 30 else "long"
+            clf.append(f"__label__{label} {words}")
+            reg.append(f"__label__{size / 40:.3f} {words}")
+        (tmp / "clf" / f"{split}.txt").write_text("\n".join(clf) + "\n")
+        (tmp / "reg" / f"{split}.txt").write_text("\n".join(reg) + "\n")
+    return bank
+
+
+def parser_check_batch(bank_rows, rel_dict, tokenizer, unannotated, seed):
+    """The encoded batch of the first ``N_CHECK_SENTENCES`` treebank
+    sentences with their gold arrays, a share ``unannotated`` of the
+    heads made ``_``."""
+    from kbner_tpu_torch.data.conll import SentenceRecord
+    from kbner_tpu_torch.data.encode import encode_batch
+    from kbner_tpu_torch.models.biaffine import encode_dependency_arrays
+
+    rng = np.random.RandomState(seed)
+    recs = []
+    for rows in bank_rows[:N_CHECK_SENTENCES]:
+        cols = [r.split("\t") for r in rows]
+        recs.append(SentenceRecord(tokens=[c[1] for c in cols], tags={
+            "head": ["_" if rng.rand() < unannotated else c[6]
+                     for c in cols],
+            "deprel": [c[7] for c in cols]}))
+    eb = encode_batch(recs, tokenizer)
+    encode_dependency_arrays(eb, rel_dict=rel_dict)
+    return eb.arrays()
+
+
+def parser_against_cpu(dev, enc_cfg, bank_rows, rel_dict, tokenizer) -> str:
+    """One float32 biaffine parser (``enc_cfg``: XLM-R large's width at
+    ``CHECK_LAYERS`` layers), its biaffine weights drawn non-zero, on the
+    card and on the CPU with the same weights, under ``ce``, ``crf`` and
+    ``partial``: ``s_arc``, the loss and every parameter's gradient held
+    at rtol 1e-3 with an atol of 1e-4 of the CPU tensor's largest
+    magnitude (float32 sums in another order over width 1024); the
+    attention key biases' gradients, 0 in exact arithmetic (a key bias
+    shifts every score of a softmax row alike), within 1e-6 on both
+    devices. Returns the report."""
+    import dataclasses
+
+    import torch
+
+    from kbner_tpu_torch.models.biaffine import BiaffineConfig, BiaffineParser
+
+    parts = []
+    cfg = BiaffineConfig(enc_cfg, num_rels=len(rel_dict))
+    cpu = BiaffineParser(cfg, device="cpu", seed=0)
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(1)
+        for p in (cpu.arc_attn.weight, cpu.rel_attn.weight):
+            p.normal_(0.0, 0.05, generator=gen)
+    gpu = BiaffineParser(cfg, device=dev, seed=1)
+    gpu.load_state_dict(cpu.state_dict())
+    for arc_loss, partial in (("ce", False), ("crf", False), ("crf", True)):
+        # the arc loss is read from the config at each call
+        cpu.config = gpu.config = dataclasses.replace(
+            cfg, arc_loss=arc_loss, partial=partial)
+        cpu.zero_grad(set_to_none=True)
+        gpu.zero_grad(set_to_none=True)
+        arrays = parser_check_batch(bank_rows, rel_dict, tokenizer,
+                                    0.3 if partial else 0.0, seed=5)
+        if partial and not (arrays["heads"] < 0).any():
+            raise AssertionError("the partial check batch has no "
+                                 "unannotated head")
+        b_cpu = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        b_gpu = {k: v.to(dev) for k, v in b_cpu.items()}
+        worst = {}
+
+        def held(name, got, want):
+            want = want.detach().float()
+            got = got.detach().float().cpu()
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-3,
+                                       atol=1e-4 * scale + 1e-12, msg=name)
+            worst[name] = float((got - want).abs().max()) / max(scale, 1e-30)
+
+        held("s_arc", gpu.scores(b_gpu)[0], cpu.scores(b_cpu)[0])
+        l_cpu, l_gpu = cpu.loss(b_cpu), gpu.loss(b_gpu)
+        l_cpu.backward()
+        l_gpu.backward()
+        l_cpu, l_gpu = l_cpu.detach(), l_gpu.detach()
+        held("loss", l_gpu, l_cpu)
+        n_params, key_bias = 0, 0.0
+        for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+            if name.endswith("attention.key.bias"):
+                key_bias = max(key_bias, float(p.grad.abs().max()),
+                               float(q.grad.abs().max()))
+                if key_bias > 1e-6:
+                    raise AssertionError(f"{name}: gradient {key_bias:.3g}, "
+                                         "0 in exact arithmetic")
+                continue
+            held(name, q.grad, p.grad)
+            n_params += 1
+        key = max(worst, key=worst.get)
+        parts.append(f"{arc_loss}{' partial' if partial else ''}: loss "
+                     f"{float(l_gpu):.5f} (CPU {float(l_cpu):.5f}), s_arc "
+                     f"and {n_params} gradients held, largest error "
+                     f"{worst[key]:.2e} of its tensor's scale ({key}); key "
+                     f"bias gradients <= {key_bias:.2e}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return "; ".join(parts)
+
+
+def tree_crf_on_card(dev, word_mask, reps: int = 5) -> dict:
+    """The tree CRF at one train batch's shape (``word_mask`` [B, W], the
+    grid n = W + 1) on random scores: the marginals on the card held to
+    float64 on the CPU (atol 1e-4), and the ms (CUDA events, median of
+    ``reps``) of the loss forward and backward and of the marginals."""
+    import torch
+
+    from kbner_tpu_torch.ops.tree_crf import tree_crf_loss, tree_crf_marginals
+
+    B, W = word_mask.shape
+    rng = np.random.RandomState(4)
+    scores = torch.from_numpy((3 * rng.randn(B, W + 1, W + 1)).astype(
+        np.float32))
+    wm = torch.from_numpy(np.asarray(word_mask))
+    got = tree_crf_marginals(scores.to(dev), wm.to(dev)).cpu()
+    want = tree_crf_marginals(scores.double(), wm)
+    err = float((got.double() - want).abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f"tree-CRF marginals on the card differ from "
+                             f"float64 on the CPU by {err:.3g}")
+    s_dev, wm_dev = scores.to(dev), wm.to(dev)
+    heads = torch.zeros((B, W), dtype=torch.long, device=dev)
+
+    def loss_step():
+        s = s_dev.detach().requires_grad_(True)
+        tree_crf_loss(s, wm_dev, heads).sum().backward()
+
+    loss_ms = float(np.median([event_ms(loss_step) for _ in range(reps)]))
+    marg_ms = float(np.median([event_ms(lambda: tree_crf_marginals(
+        s_dev, wm_dev)) for _ in range(reps)]))
+    return dict(B=B, n=W + 1, err=err, loss_ms=loss_ms, marg_ms=marg_ms)
+
+
+def parse_stage_phase(cli, bm25, dev, card, tmp, cut, encoder="large",
+                      splits=None, ner_splits=None, check_cfg=None) -> dict:
+    """Phase 4m, after 4l in its directory ``tmp`` (4h's saved KB ``kb1m``,
+    CoNLL splits ``conll`` and ``model.yaml``): (a) a seeded UD treebank
+    and fastText documents of its sentences; (b) a cut of 4h's splits
+    fused through ``cli retrieve`` with the exhaustive engine (K1, one
+    launch per split, each held to its plain version at its shape, every
+    row) for span NER; (c) a float32 biaffine parser at ``check_cfg``
+    (XLM-R large's width, ``CHECK_LAYERS`` layers) on the card against the
+    CPU under ``ce``, ``crf`` and ``partial``; (d) ``cli train``, ``cli
+    test`` and, for the tree parser, ``cli parse`` of every parsing and
+    classification target (``dependency`` with the tree CRF through
+    ``encoder``, the others through ``cut``), each step timed with CUDA
+    events, the parsed test split held to be trees, each target's
+    checkpoints deleted before the next; the tree CRF at the first train
+    batch's shape against float64 on the CPU, and a learning probe of the
+    tree parser. Returns K1's launches in (b)."""
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+
+    from kbner_tpu_torch.config import ExperimentConfig
+    from kbner_tpu_torch.data.conll import read_column_file, write_column_file
+    from kbner_tpu_torch.models.xlmr import XLMRConfig
+    from kbner_tpu_torch.retrieval.engine import RetrievalEngine
+    from kbner_tpu_torch.retrieval.pipeline import load_kb, sentence_query
+    from kbner_tpu_torch.train import parser_trainer as pt
+    from kbner_tpu_torch.train.optim import make_finetune_optimizer
+
+    splits = splits or PARSE_SPLITS
+    ner_splits = ner_splits or NER_DP_SPLITS
+    check_cfg = check_cfg or dataclasses.replace(XLMRConfig.large(
+        vocab_size=HASH_VOCAB, dtype=torch.float32,
+        param_dtype=torch.float32, hidden_dropout=0.0,
+        attention_dropout=0.0), num_layers=CHECK_LAYERS)
+    device = ["--device", str(dev)]
+    t_phase = time.perf_counter()
+
+    # -- (a) the treebank and the documents -----------------------------------
+    bank, wall_bank = timed(lambda: parse_corpora(tmp, splits))
+    n_second = sum(r.split("\t")[8].count("|") for s in bank.values()
+                   for rows in s for r in rows)
+    n_words = sum(len(rows) for s in bank.values() for rows in s)
+    log(f"treebank: {'/'.join(map(str, splits.values()))} train/dev/test "
+        f"sentences of {PARSE_WORDS[0]}-{PARSE_WORDS[1]} words ({n_words} "
+        f"words), random projective trees over the {len(UD_RELS)} UD "
+        f"relations, {n_second} second heads in DEPS "
+        f"({n_second / n_words:.1%} of the words); fastText length classes "
+        f"and lengths of the same sentences; written in {wall_bank:.1f} s")
+
+    # -- (b) the span-NER corpus, fused through K1 ---------------------------
+    fmt = {0: "text", 1: "ner"}
+    raw, fused = tmp / "ner-dp-raw", tmp / "ner-dp-conll"
+    queries = {}
+    for split, n in ner_splits.items():
+        cut_recs = read_column_file(tmp / "conll" / f"{split}.txt", fmt,
+                                    comment_symbol="# id")[:n]
+        write_column_file(raw / f"{split}.txt", cut_recs)
+        queries[split] = [sentence_query(r) for r in cut_recs]
+    reset_counts(bm25)
+    _, wall_fuse = timed(lambda: run_cli(cli, [
+        "retrieve", "--index_dir", str(tmp / "kb1m"), "--data_folder",
+        str(raw), "--out", str(fused), "--tokenizer_config",
+        str(tmp / "model.yaml"), *device]))
+    got = counts(bm25)
+    expect_counts("the span-NER corpus's cli retrieve", got,
+                  {"bm25_score_block": len(ner_splits)})
+    text_index, store, title_index, _ = load_kb(tmp / "kb1m")
+    engine = RetrievalEngine(text_index, store=store,
+                             title_index=title_index, device=dev)
+    held_k1 = "; ".join(
+        f"{split} " + k1_at_retrieve_shape(bm25, engine, q, None, dev,
+                                           every_row=True)
+        for split, q in queries.items())
+    del engine
+    store.close()
+    torch.cuda.empty_cache()
+    fused_train = read_column_file(fused / "train.txt", fmt,
+                                   comment_symbol="# id")
+    n_ctx = sum("<EOS>" in r.tokens for r in fused_train)
+    if len(fused_train) != ner_splits["train"] or n_ctx == 0:
+        raise AssertionError(f"span-NER corpus: {len(fused_train)} fused "
+                             f"train sentences, {n_ctx} with context")
+    log(f"span-NER corpus: {'/'.join(map(str, ner_splits.values()))} "
+        f"train/dev/test KB sentences fused by cli retrieve with the "
+        f"exhaustive engine in {wall_fuse:.1f} s; launches {got}; "
+        f"{n_ctx}/{len(fused_train)} train sentences with context, up to "
+        f"{max(len(r.tokens) for r in fused_train)} words; bm25_score_block"
+        f" at each split's retrieve shape on kb1m's text field: {held_k1} "
+        f"({card})")
+
+    # -- (c) the configs; the parser on the card against the CPU ------------
+    def corpus(name, folder, **kw):
+        return {"name": name, "data_folder": str(folder), **kw}
+
+    ud = corpus("UD", tmp / "ud", column_format={
+        "1": "text", "6": "head", "7": "deprel", "8": "deps"},
+        tag_to_bioes=None)
+    common = {"tokenizer": {"type": "hash", "vocab_size": HASH_VOCAB},
+              "train": {**RECIPE, "batch_size": PARSE_BATCH,
+                        "max_epochs": 1}}
+    configs = {
+        "dependency": {"corpora": [ud], "data": {"n_buckets": 4},
+                       "model": {"encoder": encoder, "arc_loss": "crf"}},
+        "enhancedud": {"corpora": [ud], "data": {"dep_layer": "deps"},
+                       "model": {"encoder": cut}},
+        "ner_dp": {"corpora": [corpus(
+            "EN", fused, column_format={"0": "text", "1": "ner"},
+            comment_symbol="# id", tag_to_bioes="ner")],
+            "model": {"encoder": cut}},
+        "classification": {"corpora": [corpus("CLF", tmp / "clf",
+                                              format="fasttext")],
+                           "model": {"encoder": cut, "pooling": "rnn"}},
+        "regression": {"corpora": [corpus("REG", tmp / "reg",
+                                          format="fasttext")],
+                       "model": {"encoder": cut}}}
+    paths = {}
+    for target, raw_cfg in configs.items():
+        raw_cfg.update(common, name=f"parse-{target}", targets=target,
+                       target_dir=str(tmp / f"parse-{target}"))
+        paths[target] = tmp / f"parse-{target}.json"
+        paths[target].write_text(json.dumps(raw_cfg))
+
+    dep_cfg = ExperimentConfig.from_file(paths["dependency"])
+    tokenizer = dep_cfg.make_tokenizer()
+    rel_dict = pt.build_rel_dictionary(dep_cfg.load_corpus().train)
+    t0 = time.perf_counter()
+    held_parser = parser_against_cpu(dev, check_cfg, bank["test"], rel_dict,
+                                     tokenizer)
+    log(f"biaffine parser on the card against the CPU (float32, XLM-R "
+        f"width {check_cfg.hidden_size}, {check_cfg.num_layers} layers, "
+        f"vocab {check_cfg.vocab_size}, {len(rel_dict)} relations, "
+        f"{N_CHECK_SENTENCES} treebank sentences): {held_parser}; "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+
+    # -- (d) cli train, test and parse of every target ---------------------
+    train_step = pt._TaskTrainer.train_step
+    mst_decode, fallback = pt.mst_decode, pt.single_root_eisner
+    events, repairs, trees = [], [], []
+
+    def timed_step(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = train_step(self, *args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return loss
+
+    def counted_mst(s_arc, word_mask):
+        repairs.append(s_arc.shape[0])
+        return mst_decode(s_arc, word_mask)
+
+    def counted_fallback(scores):
+        trees.append(1)
+        return fallback(scores)
+
+    runs = {}
+    pt._TaskTrainer.train_step = timed_step
+    pt.mst_decode, pt.single_root_eisner = counted_mst, counted_fallback
+    try:
+        for target in cli.PARSER_TARGETS:
+            events.clear()
+            repairs.clear()
+            trees.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            (result, printed), wall = timed(lambda: run_cli(
+                cli, ["train", "--config", str(paths[target]), *device]))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.synchronize()
+            step_ms = [s.elapsed_time(e) for s, e in events]
+            scores = json.loads(printed.strip().splitlines()[-1])
+            run_dir = Path(configs[target]["target_dir"])
+            history = json.loads((run_dir / "history.json").read_text())
+            if (len(step_ms) < 3 or not np.isfinite(history[0]["loss"])
+                    or not all(np.isfinite(v) for v in scores.values())):
+                raise AssertionError(f"{target}: {len(step_ms)} steps, "
+                                     f"history {history}, test {scores}")
+            (_, printed), wall_test = timed(lambda: run_cli(
+                cli, ["test", "--config", str(paths[target]), *device]))
+            tested = json.loads(printed[printed.index("{"):])
+            name = configs[target]["corpora"][0]["name"]
+            if set(tested) != {name} or set(tested[name]) != set(scores):
+                raise AssertionError(f"{target}: cli test printed {tested}")
+            for k, v in scores.items():
+                if abs(tested[name][k] - v) > 0.02 * max(1.0, abs(v)):
+                    raise AssertionError(f"{target}: cli test {k} "
+                                         f"{tested[name][k]} against cli "
+                                         f"train's {v}")
+            runs[target] = dict(wall=wall, wall_test=wall_test, peak=peak,
+                                steps=step_ms, loss=history[0]["loss"],
+                                dev={k: v for k, v in history[0].items()
+                                     if k not in ("epoch", "loss")},
+                                test=scores, repairs=sum(repairs),
+                                trees=sum(trees))
+            if target == "dependency":
+                parse_dir = tmp / "parse-out"
+                repairs.clear()
+                trees.clear()
+                _, wall_parse = timed(lambda: run_cli(cli, [
+                    "parse", "--config", str(paths[target]), "--target_dir",
+                    str(tmp / "ud" / "test.txt"), "--out_dir",
+                    str(parse_dir), *device]))
+                parsed = read_column_file(
+                    parse_dir / "test.conllu",
+                    {0: "text", 1: "head", 2: "deprel"})
+                gold = [[r.split("\t")[1] for r in rows]
+                        for rows in bank["test"]]
+                if [r.tokens for r in parsed] != gold:
+                    raise AssertionError("cli parse: the parsed sentences "
+                                         "differ from the test split")
+                bad = [i for i, r in enumerate(parsed)
+                       if not is_tree(r.tags["head"])]
+                if bad:
+                    raise AssertionError(f"cli parse: sentences {bad[:10]} "
+                                         "are not single-root trees")
+                runs[target].update(wall_parse=wall_parse,
+                                    parse_repairs=sum(repairs),
+                                    parse_trees=sum(trees),
+                                    n_parsed=len(parsed))
+            drop_checkpoints(tmp)
+    finally:
+        pt._TaskTrainer.train_step = train_step
+        pt.mst_decode, pt.single_root_eisner = mst_decode, fallback
+
+    # -- (e) the tree CRF at a train batch's shape; a learning probe -----
+    corpus_d, _, model, trainer = cli._build_parser(dep_cfg, dev)
+    batches = trainer._encode(list(corpus_d.train), PARSE_BATCH,
+                              seed=dep_cfg.make_train_config().seed)
+    widest = max(batches, key=lambda b: b.word_mask.shape[1])
+    crf = tree_crf_on_card(dev, widest.word_mask)
+    opt = make_finetune_optimizer(model.named_parameters(),
+                                  lr=RECIPE["learning_rate"], lr_rate=1.0,
+                                  use_inverse_sqrt=True)
+    arrays = trainer._to_device(widest)
+    with torch.no_grad():
+        before = float(model.loss(arrays))
+    for _ in range(LEARN_STEPS):
+        trainer.train_step(widest, opt, None)
+    with torch.no_grad():
+        after = float(model.loss(arrays))
+    if not after < before:
+        raise AssertionError(f"the tree parser's learning probe: loss "
+                             f"{before:.5f} -> {after:.5f}")
+    del corpus_d, model, trainer, opt, arrays
+    torch.cuda.empty_cache()
+    log(f"tree CRF at the widest train batch's shape (B={crf['B']}, grid "
+        f"n={crf['n']}: {crf['n'] - 1} inside steps, a Python loop of "
+        f"launches): loss forward and backward {crf['loss_ms']:.2f} ms, "
+        f"marginals (decode) {crf['marg_ms']:.2f} ms per batch (CUDA "
+        f"events, median of 5); marginals on the card against float64 on "
+        f"the CPU max abs err {crf['err']:.2e} (atol 1e-4); learning probe "
+        f"(XLM-R {encoder_label(encoder)}, tree CRF, {LEARN_STEPS} steps at "
+        f"lr {RECIPE['learning_rate']} for every parameter on that batch, "
+        f"dropout off): loss {before:.5f} -> {after:.5f} ({card})")
+
+    for target in cli.PARSER_TARGETS:
+        r = runs[target]
+        enc = encoder if target == "dependency" else cut
+        extra = ""
+        if target == "dependency":
+            extra = (f"; cli parse of the test split: {r['n_parsed']} "
+                     f"sentences in {r['wall_parse']:.1f} s, every one a "
+                     f"single-root tree; MST repairs {r['parse_repairs']}, "
+                     f"of which the MST left {r['parse_trees']} without a "
+                     f"single-root tree (single_root_eisner's then); cli "
+                     f"train's evaluations {r['repairs']} and "
+                     f"{r['trees']}")
+        log(f"{target} (cli train, XLM-R {encoder_label(enc)}, float32 "
+            f"masters, bf16 compute, batch {PARSE_BATCH}, 1 epoch of "
+            f"{len(r['steps'])} steps): {r['wall']:.1f} s with the build, "
+            f"evaluation and checkpoints, cli test {r['wall_test']:.1f} s; "
+            f"{float(np.median(r['steps'][2:])):.1f} ms per train step (CUDA "
+            f"events, median after the first two); loss {r['loss']:.4f}; dev "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["dev"].items())
+            + "; test " + ", ".join(f"{k} {v:.4f}"
+                                    for k, v in r["test"].items())
+            + f" (random weights){extra}; peak allocated {r['peak']:.2f} GB "
+            f"({card})")
+    log(f"phase 4m in {time.perf_counter() - t_phase:.1f} s")
+    return {"k1_launches": got["bm25_score_block"]}
 
 
 def drop_checkpoints(tmp) -> None:
@@ -4305,6 +4827,10 @@ def main() -> int:
             pruned_out[0])
         checkpoint_phase(cli, dev, card, Path(tmp))
         log(f"phase 4l in {time.perf_counter() - t_phase:.1f} s")
+        drop_checkpoints(Path(tmp))
+        # -- 4m. the parser and classifier families --------------------------
+        torch.cuda.empty_cache()
+        parse = parse_stage_phase(cli, bm25, dev, card, Path(tmp), cut)
 
     # -- 5. kernels ----------------------------------------------------------
     kernels = [{
@@ -4317,6 +4843,7 @@ def main() -> int:
         "ace_launches": ace["k1_launches"],
         "kd_launches": kd["k1_launches"],
         "stream_launches": stream["k1"],
+        "parse_launches": parse["k1_launches"],
         "max_abs_err": max(err_cases, k1["err"], k1_title["err"]),
         "ms": k1["dev_ms"],
         "cold_ms": k1["cold_ms"],

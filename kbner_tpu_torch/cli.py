@@ -35,8 +35,13 @@ ACE search over a stacked-embedder tagger (``model.embeddings``) and
 trains the final model with its best selection, each then testing the
 best model; ``trainer: SWAFTrainer`` learns per-token weights for the
 systems' prediction files under ``systems:`` and combines their test
-predictions; ``trainer: LanguageModelTrainer`` pretrains a character LM
-(the parser targets wait for ROADMAP A6); ``multistage``
+predictions; ``trainer: LanguageModelTrainer`` pretrains a character LM;
+``targets: dependency``, ``enhancedud``, ``ner_dp``, ``classification``
+or ``regression`` trains the biaffine tree parser, the graph parser, span
+NER as parsing, the text classifier or the regressor instead, then
+prints the best model's test scores (``test`` prints them per test set,
+``parse`` writes ``head``/``deprel``, ``deps`` or ``ner`` columns);
+``multistage``
 trains one config after another, each stage starting from the encoder the
 previous one exported; ``parity`` runs the recipe's two stages (a
 multilingual fine-tune, then EN from its encoder) from an HF XLM-R
@@ -100,15 +105,11 @@ def _build(config: ExperimentConfig, device: str) -> FinetuneTrainer:
     config's seed) and its trainer over the config's corpora, with the
     config's document windows and stride windows."""
     if config.targets != "ner":
-        if config.data.get("doc_context") or config.data.get(
-                "stride_windows"):
-            raise ValueError(
-                "doc_context / stride_windows are NER-tagger data "
-                f"policies; they are not applied under targets: "
-                f"{config.targets}")
-        raise NotImplementedError(
-            f"targets: {config.targets}: the parser and classifier "
-            "families wait for ROADMAP A6 in kbner_tpu_torch")
+        _refuse_tagger_policies(config)
+        raise ValueError(
+            f"targets: {config.targets} builds through _build_parser"
+            if config.targets in PARSER_TARGETS
+            else f"unknown targets: {config.targets}")
     train_config = config.make_train_config()
     corpus = config.load_corpus()
     tokenizer = config.make_tokenizer()
@@ -136,10 +137,105 @@ def _build(config: ExperimentConfig, device: str) -> FinetuneTrainer:
         stride_words=config.data.get("stride_words", 16), device=device)
 
 
-def _load_encoder_weights(model: SequenceTagger, weights_dir: Path) -> None:
-    """Load an HF checkpoint directory into the tagger's float32 master
-    encoder, on its device; a weight of another dtype or shape raises,
-    naming its key."""
+PARSER_TARGETS = ("dependency", "enhancedud", "ner_dp", "classification",
+                  "regression")
+# the column layers cli parse writes for each parsing target
+PARSE_LAYERS = {"dependency": ("head", "deprel"), "enhancedud": ("deps",),
+                "ner_dp": ("ner",)}
+
+
+def _refuse_tagger_policies(config: ExperimentConfig) -> None:
+    if config.data.get("doc_context") or config.data.get("stride_windows"):
+        raise ValueError(
+            "doc_context / stride_windows are NER-tagger data policies; "
+            f"they are not applied under targets: {config.targets}")
+
+
+def _build_parser(config: ExperimentConfig, device: str):
+    """The parser and classifier families (``targets: dependency``,
+    ``enhancedud``, ``ner_dp``, ``classification``, ``regression``): the
+    model (float32 master parameters, made from the train config's seed,
+    the encoder from ``model.encoder_weights`` when given) and its trainer
+    over the config's corpora. Model keys: ``arc_dim`` (256), ``rel_dim``
+    (64), ``dropout`` (0.1), ``arc_loss`` (ce), ``partial``,
+    ``arc_threshold`` (0.5), ``span_dim`` (128), ``max_span_len`` (30),
+    ``multi_label``, ``pooling`` (cls), ``rnn_hidden`` (128); data keys
+    ``dep_layer`` (deps) and ``n_buckets`` (0). Returns ``(corpus,
+    tokenizer, model, trainer)``; an unknown target raises ValueError."""
+    from .device import resolve_device
+    from .models import biaffine as bf
+    from .models import classifier as clf
+    from .train import parser_trainer as pt
+
+    _refuse_tagger_policies(config)
+    if config.targets not in PARSER_TARGETS:
+        raise ValueError(f"unknown targets: {config.targets}")
+    device = resolve_device(device)
+    seed = config.make_train_config().seed
+    corpus = config.load_corpus()
+    tokenizer = config.make_tokenizer()
+    enc_cfg = config.make_train_encoder_config(tokenizer)
+    mc = config.model
+    arc_dim, rel_dim = mc.get("arc_dim", 256), mc.get("rel_dim", 64)
+    kw = dict(n_buckets=config.data.get("n_buckets", 0), device=device)
+    if config.targets == "dependency":
+        rel_dict = pt.build_rel_dictionary(corpus.train)
+        model = bf.BiaffineParser(bf.BiaffineConfig(
+            encoder=enc_cfg, num_rels=max(len(rel_dict), 1), arc_dim=arc_dim,
+            rel_dim=rel_dim, dropout=mc.get("dropout", 0.1),
+            arc_loss=mc.get("arc_loss", "ce"),
+            partial=mc.get("partial", False)), device=device, seed=seed)
+        make = lambda: pt.ParserTrainer(model, corpus, tokenizer, rel_dict,
+                                        **kw)
+    elif config.targets == "enhancedud":
+        dep_layer = config.data.get("dep_layer", "deps")
+        rel_dict = pt.build_semdep_rel_dictionary(corpus.train,
+                                                  layer=dep_layer)
+        model = bf.SemanticDependencyParser(bf.SemDepConfig(
+            encoder=enc_cfg, num_rels=max(len(rel_dict), 1), arc_dim=arc_dim,
+            rel_dim=rel_dim, arc_threshold=mc.get("arc_threshold", 0.5)),
+            device=device, seed=seed)
+        make = lambda: pt.SemDepTrainer(model, corpus, tokenizer, rel_dict,
+                                        dep_layer=dep_layer, **kw)
+    elif config.targets == "ner_dp":
+        label_dict = Dictionary()
+        label_dict.add_item("O")
+        for rec in corpus.train:
+            for tag in rec.tags.get(config.tag_layer, []):
+                if "-" in tag:
+                    label_dict.add_item(tag.split("-", 1)[1])
+        model = bf.BiaffineNER(bf.BiaffineNERConfig(
+            encoder=enc_cfg, num_labels=max(len(label_dict), 2),
+            span_dim=mc.get("span_dim", 128),
+            max_span_len=mc.get("max_span_len", 30)), device=device,
+            seed=seed)
+        make = lambda: pt.BiaffineNERTrainer(
+            model, corpus, tokenizer, label_dict, tag_layer=config.tag_layer,
+            **kw)
+    elif config.targets == "classification":
+        label_dict = clf.build_label_dictionary(corpus.train)
+        multi = mc.get("multi_label", False)
+        model = clf.TextClassifier(clf.TextClassifierConfig(
+            encoder=enc_cfg, num_labels=max(len(label_dict), 2),
+            multi_label=multi, dropout=mc.get("dropout", 0.1),
+            pooling=mc.get("pooling", "cls"),
+            rnn_hidden=mc.get("rnn_hidden", 128)), device=device, seed=seed)
+        make = lambda: pt.ClassificationTrainer(
+            model, corpus, tokenizer, label_dict, multi_label=multi, **kw)
+    else:
+        model = clf.TextRegressor(clf.TextRegressorConfig(
+            encoder=enc_cfg, dropout=mc.get("dropout", 0.1)), device=device,
+            seed=seed)
+        make = lambda: pt.RegressionTrainer(model, corpus, tokenizer, **kw)
+    if mc.get("encoder_weights"):
+        _load_encoder_weights(model, Path(mc["encoder_weights"]))
+    return corpus, tokenizer, model, make()
+
+
+def _load_encoder_weights(model, weights_dir: Path) -> None:
+    """Load an HF checkpoint directory into the model's float32 master
+    encoder (``model.encoder``), on its device; a weight of another dtype
+    or shape raises, naming its key."""
     encoder = model.encoder
     own = encoder.state_dict()
     state = load_hf_checkpoint(weights_dir, encoder.config,
@@ -362,6 +458,8 @@ def cmd_train(args) -> dict:
     config = ExperimentConfig.from_file(args.config)
     target_dir = config.resolve_target_dir()
     _setup_logging(target_dir)
+    if config.targets in PARSER_TARGETS:
+        return _train_parser(config, target_dir, args.device)
     if config.trainer_kind == "lm":
         return _run_lm(config, target_dir, args.device)
     if config.trainer_kind == "swaf":
@@ -387,18 +485,84 @@ def cmd_train(args) -> dict:
     return result
 
 
+def _train_parser(config: ExperimentConfig, target_dir: Path, device: str
+                  ) -> dict:
+    """``cli train`` of a parsing or classification target: train, then
+    score the best model on the test splits together and print the scores
+    as the last line."""
+    corpus, _, _, trainer = _build_parser(config, device)
+    result = trainer.train(target_dir, config.make_train_config())
+    log.info("best dev: %s", result)
+    test = [r for split in corpus.test_list for r in split]
+    if test:
+        trainer.load(target_dir / "best-model.msgpack")
+        scores = trainer.evaluate(test)
+        log.info("test %s", scores)
+        print(json.dumps(scores))
+    return result
+
+
+def _trained_parser(config: ExperimentConfig, device: str):
+    """``_build_parser``'s corpus and trainer, loaded from the best (else
+    final) checkpoint."""
+    corpus, _, _, trainer = _build_parser(config, device)
+    ckpt = _trained_checkpoint(config.resolve_target_dir())
+    if ckpt is None:
+        raise ValueError(f"no best-model.msgpack or final-model.msgpack "
+                         f"under {config.resolve_target_dir()}")
+    trainer.load(ckpt)
+    return corpus, trainer
+
+
 def cmd_test(args) -> None:
     config = ExperimentConfig.from_file(args.config)
     target_dir = config.resolve_target_dir()
     _setup_logging(target_dir)
-    results = _build(config, args.device).final_test(target_dir)
+    if config.targets in PARSER_TARGETS:
+        corpus, trainer = _trained_parser(config, args.device)
+        results = {name: trainer.evaluate(split) for name, split in zip(
+            corpus.targets, corpus.test_list) if split}
+    else:
+        results = _build(config, args.device).final_test(target_dir)
     print(json.dumps(results, indent=2))
+
+
+def _parse_files(args):
+    """(the column files ``parse`` reads, the directory it writes to)."""
+    data_dir = Path(args.target_dir)
+    files = sorted(data_dir.glob("*.txt")) if data_dir.is_dir() else [
+        data_dir]
+    out_dir = Path(args.out_dir) if args.out_dir else (
+        data_dir if data_dir.is_dir() else data_dir.parent)
+    return files, out_dir
+
+
+def _parse_with_parser(config: ExperimentConfig, args) -> None:
+    """``cli parse`` of a parsing target: each file's predicted layers
+    (``head``/``deprel``, ``deps`` or ``ner``) into ``<stem>.conllu``."""
+    if config.targets not in PARSE_LAYERS:
+        raise ValueError(f"cli parse writes column files for targets "
+                         f"{sorted(PARSE_LAYERS)}, not {config.targets}")
+    _, trainer = _trained_parser(config, args.device)
+    spec = config.corpora[0]
+    files, out_dir = _parse_files(args)
+    for f in files:
+        records = read_column_file(f, spec.column_format,
+                                   comment_symbol=spec.comment_symbol,
+                                   tag_to_bioes=None)
+        for rec, layers in zip(records, trainer.predict_records(records)):
+            rec.tags.update(layers)
+        out = out_dir / (f.stem + ".conllu")
+        write_column_file(out, records, layers=PARSE_LAYERS[config.targets])
+        log.info("wrote %s", out)
 
 
 def cmd_parse(args) -> None:
     config = ExperimentConfig.from_file(args.config)
     target_dir = config.resolve_target_dir()
     _setup_logging(None)
+    if config.targets in PARSER_TARGETS:
+        return _parse_with_parser(config, args)
     trainer = _build(config, args.device)
     ckpt = _trained_checkpoint(target_dir)
     if ckpt is None:
@@ -410,11 +574,7 @@ def cmd_parse(args) -> None:
         log.info("saved the tuned encoder to %s",
                  target_dir / "finetuned-encoder.msgpack")
     spec = config.corpora[0]
-    data_dir = Path(args.target_dir)
-    files = sorted(data_dir.glob("*.txt")) if data_dir.is_dir() else [
-        data_dir]
-    out_dir = Path(args.out_dir) if args.out_dir else (
-        data_dir if data_dir.is_dir() else data_dir.parent)
+    files, out_dir = _parse_files(args)
     for f in files:
         records = read_column_file(f, spec.column_format,
                                    comment_symbol=spec.comment_symbol)

@@ -27,7 +27,8 @@ never depends on the padding. All input projections are one matmul; the
 time loop does the recurrent one. Parameters are kept in Flax's layout:
 ``kernel_i [in, 4H]`` and ``kernel_h [H, 4H]`` are the cell's
 ``ii|if|ig|io`` and ``hi|hf|hg|ho`` kernels side by side, ``bias [4H]``
-the ``h*`` biases.
+the ``h*`` biases. :class:`FlaxGRU` is Flax's ``RNN`` of a ``GRUCell``
+in the same style (the text classifier's ``rnn`` pooling).
 
 Initialization draws from Flax's distributions with a ``torch.Generator``
 on the module's device: tables from ``normal(0, 1/D)`` (``nn.Embed``),
@@ -170,6 +171,63 @@ class FlaxLSTM(nn.Module):
         if self.reverse:
             out = flip_sequences(out, seq_lengths)
         return out.transpose(0, 1)
+
+
+class FlaxGRU(nn.Module):
+    """Flax's ``RNN`` of a ``GRUCell(hidden)`` (forward), over batch-major
+    inputs ``[B, T, in]``: ``r = sigmoid(ir(x) + hr(h))``, ``z =
+    sigmoid(iz(x) + hz(h))``, ``n = tanh(in(x) + r * hn(h))``, ``h = (1 -
+    z) * n + z * h`` from a zero carry. In Flax's layout: ``kernel_i [in,
+    3H]`` the ``ir|iz|in`` kernels side by side with their biases
+    ``bias_i [3H]``, ``kernel_h [H, 3H]`` the ``hr|hz|hn`` kernels, and
+    ``bias_hn [H]`` the only recurrent bias. Input kernels are drawn
+    lecun-normal, recurrent ones orthogonal per gate, biases zero."""
+
+    def __init__(self, in_dim: int, hidden: int, device=None):
+        super().__init__()
+        self.hidden = hidden
+        kw = dict(device=device, dtype=torch.float32)
+        self.kernel_i = nn.Parameter(torch.empty(in_dim, 3 * hidden, **kw))
+        self.bias_i = nn.Parameter(torch.empty(3 * hidden, **kw))
+        self.kernel_h = nn.Parameter(torch.empty(hidden, 3 * hidden, **kw))
+        self.bias_hn = nn.Parameter(torch.empty(hidden, **kw))
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        H = self.hidden
+        for g in range(3):
+            lecun_normal_(self.kernel_i[:, g * H:(g + 1) * H],
+                          self.kernel_i.shape[0], gen)
+            nn.init.orthogonal_(self.kernel_h[:, g * H:(g + 1) * H],
+                                generator=gen)
+        self.bias_i.zero_()
+        self.bias_hn.zero_()
+
+    def forward(self, x: torch.Tensor,
+                seq_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """States ``[B, T', H]`` at the first ``T'`` steps, ``T'`` the
+        longest of ``seq_lengths`` (all ``T`` without them); a row's
+        states before its length are Flax's."""
+        B, T, _ = x.shape
+        if seq_lengths is not None:
+            T = int(seq_lengths.max()) if B else 0
+        H = self.hidden
+        xw = torch.addmm(self.bias_i, x[:, :T].reshape(B * T, -1).float(),
+                         self.kernel_i).view(B, T, 3 * H).transpose(0, 1)
+        h = xw.new_zeros(B, H)
+        hs = []
+        for xw_t in xw.unbind(0):
+            hw = h @ self.kernel_h
+            x_r, x_z, x_n = xw_t.chunk(3, dim=1)
+            h_r, h_z, h_n = hw.chunk(3, dim=1)
+            r = torch.sigmoid(x_r + h_r)
+            z = torch.sigmoid(x_z + h_z)
+            n = torch.tanh(x_n + r * (h_n + self.bias_hn))
+            h = (1.0 - z) * n + z * h
+            hs.append(h)
+        if not hs:
+            return xw.new_zeros(B, 0, H)
+        return torch.stack(hs, dim=1)
 
 
 # -- the members ------------------------------------------------------------------

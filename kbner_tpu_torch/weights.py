@@ -17,9 +17,17 @@ backward cells ``OptimizedLSTMCell_0`` and ``_1``, each Flair LM's
 :class:`~.models.embedders.FlaxLSTM`'s fused ``kernel_i``, ``kernel_h``
 and ``bias``. The transitions, and the transition attention's
 ``sent_to_trans_att`` ``[H, L]`` and ``sent_to_trans_att_b`` ``[L]``, keep
-their Flax names and layout. Every function here takes a
-:class:`TaggerConfig` (the plain tagger) or the tagger module itself
-(either kind).
+their Flax names and layout.
+
+The parser and classifier families (:mod:`.models.biaffine`,
+:mod:`.models.classifier`) keep their Flax names: the encoder under
+``encoder``, Dense layers (``mlp_*``, ``head``), the ROOT vector ``root``
+and the biaffine ``weight`` ``[out, in_x, in_y]`` (the same layout in
+both trees); the classifier's GRU ``doc_rnn/cell`` holds ``{ir,iz,in}/
+{kernel,bias}``, ``{hr,hz}/kernel`` and ``hn/{kernel,bias}``, which become
+:class:`~.models.embedders.FlaxGRU`'s fused ``kernel_i``, ``bias_i``,
+``kernel_h`` and ``bias_hn``. Every function here takes a
+:class:`TaggerConfig` (the plain tagger) or the module itself.
 """
 
 from __future__ import annotations
@@ -32,6 +40,9 @@ import torch
 from torch import nn
 
 from . import checkpoint
+from .models.biaffine import (BiaffineNER, BiaffineParser,
+                              SemanticDependencyParser)
+from .models.classifier import TextClassifier, TextRegressor
 from .models.embedders import (CharBiLSTMEmbedder, CharLMHead,
                                FlairLMEmbedder, TransformerWordEmbedder,
                                WordEmbedder)
@@ -42,7 +53,12 @@ from .models.xlmr import XLMRConfig
 _EMBEDS = ("word_embeddings", "position_embeddings", "token_type_embeddings")
 _PROJS = ("query", "key", "value", "out")
 _GATES = "ifgo"
-Target = Union[TaggerConfig, SequenceTagger, CharLMHead, EnsembleModel]
+_GRU_GATES = "rzn"
+_TASK_MODELS = (BiaffineParser, SemanticDependencyParser, BiaffineNER,
+                TextClassifier, TextRegressor)
+Target = Union[TaggerConfig, SequenceTagger, CharLMHead, EnsembleModel,
+               BiaffineParser, SemanticDependencyParser, BiaffineNER,
+               TextClassifier, TextRegressor]
 
 
 def _encoder_pairs(enc: XLMRConfig, src: tuple, dst: str):
@@ -81,8 +97,29 @@ def _config(target: Target) -> TaggerConfig:
 
 
 def _use_crf(target: Target) -> bool:
-    return (not isinstance(target, (CharLMHead, EnsembleModel))
+    return (not isinstance(target, (CharLMHead, EnsembleModel)
+                           + _TASK_MODELS)
             and _config(target).use_crf)
+
+
+def _task_pairs(target: nn.Module):
+    """The parser and classifier families' groups (see the module's
+    docstring)."""
+    out = _encoder_pairs(target.config.encoder, ("encoder",), "encoder")
+    if isinstance(target, BiaffineNER):
+        return out + [(("mlp_start",), "mlp_start", "dense"),
+                      (("mlp_end",), "mlp_end", "dense"),
+                      (("span_attn",), "span_attn", "biaffine")]
+    if isinstance(target, (TextClassifier, TextRegressor)):
+        out.append((("head",), "head", "dense"))
+        if getattr(target, "doc_rnn", None) is not None:
+            out.append((("doc_rnn", "cell"), "doc_rnn", "gru"))
+        return out
+    return out + [(("root",), "root", "param")] + [
+        ((name,), name, "dense") for name in (
+            "mlp_arc_h", "mlp_arc_d", "mlp_rel_h", "mlp_rel_d")] + [
+        (("arc_attn",), "arc_attn", "biaffine"),
+        (("rel_attn",), "rel_attn", "biaffine")]
 
 
 def _crf_leaves(target: Target):
@@ -106,6 +143,8 @@ def _pairs(target: Target):
     if isinstance(target, EnsembleModel):
         return [(("hidden",), "hidden", "dense"),
                 (("hidden2score",), "hidden2score", "dense")]
+    if isinstance(target, _TASK_MODELS):
+        return _task_pairs(target)
     config = _config(target)
     if isinstance(target, StackedSequenceTagger):
         out = [pair for i, m in enumerate(target.stack.members)
@@ -121,7 +160,8 @@ def _pairs(target: Target):
 
 _LEAVES = {"dense": (("kernel", "weight"), ("bias", "bias")),
            "norm": (("scale", "weight"), ("bias", "bias")),
-           "embed": (("embedding", "weight"),)}
+           "embed": (("embedding", "weight"),),
+           "biaffine": (("weight", "weight"),)}
 
 
 def _dtypes(target: Target):
@@ -140,12 +180,16 @@ def _state(p: Mapping[str, Any], pairs, dtype) -> Dict[str, torch.Tensor]:
             node = node[key]
         if kind == "lstm":
             leaves = lstm_from_flax(node)
+        elif kind == "gru":
+            leaves = gru_from_flax(node)
+        elif kind == "param":
+            leaves = {"": _tensor(node)}
         else:
             leaves = {dst: (_tensor(node[src]).T if src == "kernel"
                             else _tensor(node[src]))
                       for src, dst in _LEAVES[kind]}
         for dst, t in leaves.items():
-            name = f"{prefix}.{dst}".lstrip(".")
+            name = f"{prefix}.{dst}".strip(".")
             state[name] = t.to(dtype(name)).contiguous()
     return state
 
@@ -157,11 +201,19 @@ def _tree(state: Mapping[str, torch.Tensor], pairs) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for path, prefix, kind in pairs:
         node = tree
-        for key in path:
+        for key in path[:-1]:
             node = node.setdefault(key, {})
+        if kind == "param":
+            node[path[-1]] = np.ascontiguousarray(array(prefix))
+            continue
+        node = node.setdefault(path[-1], {})
         if kind == "lstm":
             node.update(lstm_to_flax(*(array(f"{prefix}.{n}") for n in (
                 "kernel_i", "kernel_h", "bias"))))
+            continue
+        if kind == "gru":
+            node.update(gru_to_flax(*(array(f"{prefix}.{n}") for n in (
+                "kernel_i", "bias_i", "kernel_h", "bias_hn"))))
             continue
         for src, dst in _LEAVES[kind]:
             arr = array(f"{prefix}.{dst}")
@@ -214,6 +266,32 @@ def lstm_to_flax(kernel_i: np.ndarray, kernel_h: np.ndarray,
         tree[f"i{g}"] = {"kernel": np.ascontiguousarray(kernel_i[:, cols])}
         tree[f"h{g}"] = {"kernel": np.ascontiguousarray(kernel_h[:, cols]),
                          "bias": np.ascontiguousarray(bias[cols])}
+    return tree
+
+
+def gru_from_flax(cell: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """:class:`~.models.embedders.FlaxGRU`'s ``kernel_i``, ``bias_i``,
+    ``kernel_h`` and ``bias_hn`` from a Flax ``GRUCell``'s parameters."""
+    return {"kernel_i": torch.cat([_tensor(cell[f"i{g}"]["kernel"])
+                                   for g in _GRU_GATES], dim=1),
+            "bias_i": torch.cat([_tensor(cell[f"i{g}"]["bias"])
+                                 for g in _GRU_GATES]),
+            "kernel_h": torch.cat([_tensor(cell[f"h{g}"]["kernel"])
+                                   for g in _GRU_GATES], dim=1),
+            "bias_hn": _tensor(cell["hn"]["bias"])}
+
+
+def gru_to_flax(kernel_i: np.ndarray, bias_i: np.ndarray,
+                kernel_h: np.ndarray, bias_hn: np.ndarray) -> Dict[str, Any]:
+    """The inverse of :func:`gru_from_flax`, as numpy arrays."""
+    H = kernel_h.shape[0]
+    tree: Dict[str, Any] = {}
+    for j, g in enumerate(_GRU_GATES):
+        cols = slice(j * H, (j + 1) * H)
+        tree[f"i{g}"] = {"kernel": np.ascontiguousarray(kernel_i[:, cols]),
+                         "bias": np.ascontiguousarray(bias_i[cols])}
+        tree[f"h{g}"] = {"kernel": np.ascontiguousarray(kernel_h[:, cols])}
+    tree["hn"]["bias"] = np.ascontiguousarray(bias_hn)
     return tree
 
 

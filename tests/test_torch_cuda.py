@@ -936,3 +936,93 @@ def test_engine_over_a_sharded_index_matches_the_original(card, tmp_path,
     _assert_same_topk(
         *RetrievalEngine(reopened, **kw).search_encoded(qt, qw, k=10),
         *RetrievalEngine(index, **kw).search_encoded(qt, qw, k=10))
+
+
+def _parser_batch(device, lengths=(9, 4, 1, 6), seed=0, unannotated=0.0):
+    """A batch of random projective trees for the biaffine parser:
+    encoded arrays with ``heads`` (-1 where unannotated) and ``rel_ids``
+    (4 relations), on ``device``."""
+    from kbner_tpu_torch.data.conll import SentenceRecord
+    from kbner_tpu_torch.data.dictionary import Dictionary
+    from kbner_tpu_torch.data.encode import encode_batch
+    from kbner_tpu_torch.models.biaffine import encode_dependency_arrays
+
+    rng = np.random.RandomState(seed)
+
+    def tree(lo, hi, head, out):
+        if lo <= hi:
+            r = rng.randint(lo, hi + 1)
+            out[r - 1] = head
+            tree(lo, r - 1, r, out)
+            tree(r + 1, hi, r, out)
+
+    rels = Dictionary()
+    for r in ("root", "nsubj", "obj", "det"):
+        rels.add_item(r)
+    recs = []
+    for n in lengths:
+        heads = [0] * n
+        tree(1, n, 0, heads)
+        recs.append(SentenceRecord(
+            tokens=[f"w{rng.randint(90)}" for _ in range(n)],
+            tags={"head": ["_" if rng.rand() < unannotated else str(h)
+                           for h in heads],
+                  "deprel": [rels.idx2item[rng.randint(4)]
+                             for _ in range(n)]}))
+    eb = encode_batch(recs, HashTokenizer(vocab_size=1000))
+    encode_dependency_arrays(eb, rel_dict=rels)
+    return {k: torch.from_numpy(v).to(device) for k, v in eb.arrays().items()}
+
+
+@pytest.mark.parametrize("arc_loss,partial", [("ce", False), ("crf", False),
+                                              ("crf", True)])
+def test_parser_loss_and_gradients_on_card_match_cpu(card, arc_loss,
+                                                     partial):
+    """The float32 biaffine parser (tiny encoder) on the card against the
+    same weights on the CPU: the arc scores, the loss (head CE, tree CRF,
+    partial tree CRF) and every parameter's gradient; rtol 1e-4 / atol
+    1e-5 (float32 reductions in another order)."""
+    from kbner_tpu_torch.models.biaffine import BiaffineConfig, BiaffineParser
+
+    cfg = BiaffineConfig(XLMRConfig.tiny(), num_rels=4, arc_dim=32,
+                         rel_dim=16, arc_loss=arc_loss, partial=partial)
+    cpu = BiaffineParser(cfg, device="cpu", seed=0)
+    with torch.no_grad():  # biaffine weights start at zero: make them not
+        gen = torch.Generator().manual_seed(1)
+        for p in (cpu.arc_attn.weight, cpu.rel_attn.weight):
+            p.normal_(0.0, 0.1, generator=gen)
+    gpu = BiaffineParser(cfg, device=card, seed=1)
+    gpu.load_state_dict(cpu.state_dict())
+    kw = dict(unannotated=0.3 if partial else 0.0)
+    b_cpu, b_gpu = _parser_batch("cpu", **kw), _parser_batch(card, **kw)
+    np.testing.assert_allclose(gpu.scores(b_gpu)[0].detach().cpu().numpy(),
+                               cpu.scores(b_cpu)[0].detach().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    l_cpu, l_gpu = cpu.loss(b_cpu), gpu.loss(b_gpu)
+    l_cpu.backward()
+    l_gpu.backward()
+    np.testing.assert_allclose(float(l_gpu.detach()), float(l_cpu.detach()),
+                               rtol=1e-5)
+    for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        np.testing.assert_allclose(q.grad.cpu().numpy(), p.grad.numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def test_tree_crf_marginals_on_card_match_float64_cpu(card):
+    """The inside loop's marginals at a full-width parser's shape (B=16,
+    sentences of 8-40 words) on the card against the same scores in
+    float64 on the CPU: atol 1e-4."""
+    from kbner_tpu_torch.ops.tree_crf import tree_crf_marginals
+
+    rng = np.random.RandomState(3)
+    lens = rng.randint(8, 41, size=16)
+    n = int(lens.max()) + 1
+    scores = (3 * rng.randn(16, n, n)).astype(np.float32)
+    wm = (np.arange(n - 1)[None, :] < lens[:, None]).astype(np.int32)
+    got = tree_crf_marginals(torch.from_numpy(scores).to(card),
+                             torch.from_numpy(wm).to(card))
+    want = tree_crf_marginals(torch.from_numpy(scores).double(),
+                              torch.from_numpy(wm))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
+    np.testing.assert_allclose(got.sum(-1).cpu().numpy()[:, 1:],
+                               wm.astype(np.float32), atol=1e-4)

@@ -60,7 +60,11 @@ def test_importing_every_module_pulls_in_no_jax():
             "kbner_tpu_torch.models.ensemble_model",
             "kbner_tpu_torch.data.windows",
             "kbner_tpu_torch.data.doc_context",
-            "kbner_tpu_torch.data.corpora"} <= set(mods)
+            "kbner_tpu_torch.data.corpora",
+            "kbner_tpu_torch.ops.tree_crf",
+            "kbner_tpu_torch.models.biaffine",
+            "kbner_tpu_torch.models.classifier",
+            "kbner_tpu_torch.train.parser_trainer"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
@@ -287,6 +291,46 @@ def test_checkpoint_and_parity_entry_points_default_to_the_card(no_cuda,
     assert cli.main(argv[:2] + [str(tmp_path / "none")] + argv[3:]) is None
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(argv)
+
+
+def test_parser_and_classifier_entry_points_default_to_the_card(
+        no_cuda, tmp_path):
+    """The parsers, the classifier, the regressor, their trainers and the
+    ``cli train``/``test``/``parse`` routes of every parsing and
+    classification target need the card unless asked for the CPU."""
+    from kbner_tpu_torch.models.biaffine import (
+        BiaffineConfig, BiaffineNER, BiaffineNERConfig, BiaffineParser,
+        SemanticDependencyParser, SemDepConfig)
+    from kbner_tpu_torch.models.classifier import (
+        TextClassifier, TextClassifierConfig, TextRegressor,
+        TextRegressorConfig)
+    from kbner_tpu_torch.train.parser_trainer import RegressionTrainer
+
+    enc = XLMRConfig.tiny()
+    for cls, cfg in ((BiaffineParser, BiaffineConfig(enc, 3)),
+                     (SemanticDependencyParser, SemDepConfig(enc, 3)),
+                     (BiaffineNER, BiaffineNERConfig(enc, 3)),
+                     (TextClassifier, TextClassifierConfig(enc, 2)),
+                     (TextRegressor, TextRegressorConfig(enc))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(cfg)
+        assert cls(cfg, device="cpu").device.type == "cpu"
+    model = TextRegressor(TextRegressorConfig(enc), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RegressionTrainer(model, None, HashTokenizer(1000))
+    fix = REPO / "tests" / "fixtures"
+    cfg = tmp_path / "dep.yaml"
+    cfg.write_text(yaml.safe_dump({
+        "name": "t", "targets": "dependency",
+        "tokenizer": {"type": "hash", "vocab_size": 1000},
+        "model": {"encoder": "tiny"}, "target_dir": str(tmp_path / "r"),
+        "corpora": [{"name": "D", "data_folder": str(fix / "dep_toy"),
+                     "column_format": {1: "text", 6: "head", 7: "deprel"},
+                     "tag_to_bioes": None}]}))
+    for argv in (["train"], ["test"],
+                 ["parse", "--target_dir", str(fix / "dep_toy")]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv[:1] + ["--config", str(cfg)] + argv[1:])
 
 
 def test_engine_modes_of_later_slices_raise():

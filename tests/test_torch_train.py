@@ -38,6 +38,7 @@ from kbner_tpu_torch.data.subword import HashTokenizer
 from kbner_tpu_torch.models.tagger import SequenceTagger, TaggerConfig
 from kbner_tpu_torch.models.xlmr import XLMRConfig, XLMREncoder, dropout
 from kbner_tpu_torch.train import FinetuneTrainer, TrainConfig
+from kbner_tpu_torch.train.parser_trainer import ParserTrainer
 from kbner_tpu_torch.train.optim import (inverse_sqrt_schedule,
                                          linear_warmup_linear_decay,
                                          make_finetune_optimizer)
@@ -394,10 +395,10 @@ def test_cli_serve_answers_with_a_jax_checkpoint(trained_pair, tmp_path,
 
 
 def test_config_refusals(fixtures_path, tmp_path):
-    """Unknown keys and trainers raise; the parser target and a device
-    mesh still raise naming ROADMAP A6. What used to raise here runs:
-    document windows, the distillation trainer's student, conllu corpora
-    and stride windows."""
+    """Unknown keys, trainers and targets raise; a device mesh still
+    raises naming ROADMAP A6. What used to raise here runs: document
+    windows, the distillation trainer's student, the parser target,
+    conllu corpora and stride windows."""
     raw = yaml.safe_load((fixtures_path / "toy_config.yaml").read_text())
     raw["corpora"][0]["data_folder"] = str(fixtures_path / "ner_toy")
     with pytest.raises(ValueError, match="unknown config keys"):
@@ -413,9 +414,12 @@ def test_config_refusals(fixtures_path, tmp_path):
     student = cli._build(ExperimentConfig.from_dict(
         {**raw, "trainer": "ModelDistiller"}), "cpu")
     assert isinstance(student, FinetuneTrainer)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        cli._build(ExperimentConfig.from_dict(
-            {**raw, "targets": "dependency"}), "cpu")
+    parser = cli._build_parser(ExperimentConfig.from_dict(
+        {**raw, "targets": "dependency"}), "cpu")[3]
+    assert isinstance(parser, ParserTrainer)
+    with pytest.raises(ValueError, match="unknown targets"):
+        cli._build_parser(ExperimentConfig.from_dict(
+            {**raw, "targets": "constituency"}), "cpu")
     conllu = dict(raw, corpora=[{"name": "UD", "data_folder": "x",
                                  "format": "conllu"}])
     spec = ExperimentConfig.from_dict(conllu).corpora[0]
