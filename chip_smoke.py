@@ -43,8 +43,7 @@ through one MixEngine over the three (K2 once per language and batch, on
 global ids), held to the per-engine fan-out and, for recall, to the
 exhaustive fan-out (K1), then with entity clauses; and ``cli multistage``
 of two stages, the second starting from the first's exported encoder.
-This stage, ACE, distillation, ``cli parity`` and all but the tree
-parser of the last phase train XLM-R large's width cut to
+This stage and every later one train XLM-R large's width cut to
 ``CUT_LAYERS`` of its 24 layers. Last, the recipe's ACE step: ``cli
 train`` with ``trainer: ReinforcementTrainer`` over the published stack
 (XLM-R frozen, word vectors, a char-BiLSTM and two Flair char-LMs) on KB
@@ -64,11 +63,17 @@ then an HF checkpoint of a seeded encoder (XLM-R large's width at
 parity`` over MultiCoNER-layout folders from it. Last, the parser and
 classifier families: a seeded UD treebank, KB sentences fused through K1
 and fastText documents through ``cli train``, ``test`` and (for the tree
-parser) ``parse`` under ``targets: dependency`` (XLM-R large at full
-depth with the projective tree CRF), ``enhancedud``, ``ner_dp``,
-``classification`` (GRU pooling) and ``regression``, with a float32
-parser held between the card and the CPU, the tree CRF's marginals held
-to float64 and a learning probe. It prints what
+parser) ``parse`` under ``targets: dependency`` (with the projective
+tree CRF), ``enhancedud``, ``ner_dp``, ``classification`` (GRU pooling)
+and ``regression``, with a float32 parser held between the card and the
+CPU, the tree CRF's marginals held to float64 and a learning probe. Last,
+the ACE stack's ELMo and BPEmb members at their published widths (the
+5.5B ELMo's cell 4096, projection 512 and 2,048 filters; BPEmb's 50 x
+100,000) from seeded weight files: ``cli train`` with the ACE trainer
+over the six-member stack and ``cli test`` on it, one step split by
+member, ELMo's features and a pooled Flair table held between the card
+and the CPU, and the MFVI head's loss, gradients and decode over XLM-R
+word features held the same way. It prints what
 it measured on the lines before the last and exits non-zero on any
 failure.
 Its last line is one JSON object naming the device.
@@ -80,6 +85,7 @@ fails before printing a result.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -789,10 +795,12 @@ def stage_split(trainer, batch, config, time_ms):
 
 
 def profile_step(trainer, batch, config, sync, n_top: int = 6):
-    """One ``train_step`` of ``batch`` under ``torch.profiler``: (wall ms
-    under the profiler, the device time of its kernels in ms, [(kernel,
-    ms, launches)] of the ``n_top`` largest). The kernel time is None when
-    the trace holds no device kernels."""
+    """One ``train_step`` of ``batch`` under ``torch.profiler``, tracing
+    the device alone (the host's operators, ~10^5 in an LSTM step, take
+    the profiler a minute): (wall ms under the profiler, the device time
+    of its kernels in ms, [(kernel, ms, launches)] of the ``n_top``
+    largest). The kernel time is None when the trace holds no device
+    kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -801,8 +809,8 @@ def profile_step(trainer, batch, config, sync, n_top: int = 6):
     rng = torch.Generator().manual_seed(2)
     trainer.train_step(batch, opt, config, rng)  # warm-up
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA if torch.cuda.is_available()
+                             else ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         trainer.train_step(batch, opt, config, rng)
         sync()
@@ -2760,6 +2768,41 @@ N_FEATURE_CHECK = 2     # sentences of the float32 card-vs-CPU stack check
 FEATURE_RTOL, FEATURE_ATOL = 1e-4, 1e-4
 
 
+def run_ace_train(cli, cfg, device):
+    """``cli train`` of the ACE config ``cfg``, each
+    ``FinetuneTrainer.train`` (the episodes, then the final training)
+    timed on the host clock after a sync, and the ``(trainer, specs)``
+    that ``cli._build_ace`` built kept for the step's split: (result, wall
+    s, [s per training], (trainer, specs), peak allocated GB)."""
+    import torch
+
+    from kbner_tpu_torch.train import FinetuneTrainer
+
+    train_s, built = [], []
+    train, build = FinetuneTrainer.train, cli._build_ace
+
+    def timed_train(self, base_path, config):
+        t0 = time.perf_counter()
+        result = train(self, base_path, config)
+        torch.cuda.synchronize()
+        train_s.append(time.perf_counter() - t0)
+        return result
+
+    def kept_build(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    FinetuneTrainer.train, cli._build_ace = timed_train, kept_build
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        (result, _), wall = timed(lambda: run_cli(cli, ["train", "--config",
+                                                        str(cfg), *device]))
+    finally:
+        FinetuneTrainer.train, cli._build_ace = train, build
+    return (result, wall, train_s, built[0],
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
 def ace_stage_phase(cli, bm25, dev, card, tmp, encoder="large",
                     splits=None, stack=None, n_check=N_FEATURE_CHECK
                     ) -> dict:
@@ -2864,8 +2907,6 @@ def ace_stage_phase(cli, bm25, dev, card, tmp, encoder="large",
         "train": {"learning_rate": 0.1, "lr_rate": 1.0, "batch_size": 32,
                   "max_epochs": ACE_EPOCHS},
         "trainer": "ReinforcementTrainer", "target_dir": str(run)}))
-    train_s = []
-    train = FinetuneTrainer.train
 
     def describe(members):
         return " + ".join(
@@ -2875,21 +2916,8 @@ def ace_stage_phase(cli, bm25, dev, card, tmp, encoder="large",
             if m["type"] == "char_bilstm" else
             f"Flair {m['embed_dim']}/{m['hidden']}" for m in members)
 
-    def timed_train(self, base_path, config):
-        t0 = time.perf_counter()
-        result = train(self, base_path, config)
-        torch.cuda.synchronize()
-        train_s.append(time.perf_counter() - t0)
-        return result
-
-    FinetuneTrainer.train = timed_train
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        (result, _), wall = timed(lambda: run_cli(cli, ["train", "--config",
-                                                        str(cfg), *device]))
-    finally:
-        FinetuneTrainer.train = train
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    result, wall, train_s, (trainer, specs), peak_gb = run_ace_train(
+        cli, cfg, device)
     history = result["history"]
     state = json.loads((run / "training_state.json").read_text())
     tested = json.loads((run / "test_results.json").read_text())["ACE"]
@@ -2914,9 +2942,9 @@ def ace_stage_phase(cli, bm25, dev, card, tmp, encoder="large",
         f"; test micro F1 {tested['micro_f1']:.4f}; peak allocated "
         f"{peak_gb:.2f} GB ({card})")
 
-    # one optimizer step of the run's largest train batch, split by member
+    # one optimizer step of the run's largest train batch, split by member,
+    # on the trained tagger that cli train built
     config = ExperimentConfig.from_file(cfg)
-    trainer, specs = cli._build_ace(config, dev)
     trainer.selection = np.ones(len(specs), np.float32)
     train_config = config.make_train_config()
     batch = max(trainer._make_train_batches(trainer.corpus.train,
@@ -2961,7 +2989,7 @@ def ace_stage_phase(cli, bm25, dev, card, tmp, encoder="large",
         f"{arrays['char_stream'].shape[1]} stream characters), ms by CUDA "
         f"events: " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
         + f"; one step under the profiler: {busy} ({card})")
-    del trainer, opt, arrays, members, flair
+    del trainer, specs, opt, arrays, members, flair
     torch.cuda.empty_cache()
 
     # -- (c) the stack on the card against the CPU, float32 -------------------
@@ -2991,7 +3019,7 @@ def ace_stage_phase(cli, bm25, dev, card, tmp, encoder="large",
         f"{tuple(feats[0].shape)}): max abs err per member "
         + ", ".join(f"{e:.3g}" for e in errs)
         + f" (rtol {FEATURE_RTOL}, atol {FEATURE_ATOL}) ({card})")
-    del feats
+    del feats, specs
     torch.cuda.empty_cache()
 
     # -- (d) cli parse, ensemble, evaluate, speed -----------------------------
@@ -4269,6 +4297,464 @@ def parse_stage_phase(cli, bm25, dev, card, tmp, cut, encoder="large",
     return {"k1_launches": got["bm25_score_block"]}
 
 
+# phase 4n: the ACE stack's ELMo and BPEmb members at their published
+# widths -- allennlp's elmo_2x4096_512_2048cnn_2xhighway_5.5B_options.json
+# (the 5.5B ELMo that configs/multistage_ace_ensemble.yaml's reference
+# config stacks) and flair's BytePairEmbeddings(language, dim=50,
+# syllables=100000) -- from seeded weights; the pooled Flair table; MFVI
+ELMO_55B = {"type": "elmo", "char_encoding": "elmo_bytes", "char_dim": 16,
+            "n_highway": 2,
+            "filters": [[1, 32], [2, 32], [3, 64], [4, 128], [5, 256],
+                        [6, 512], [7, 1024]],
+            "cell_dim": 4096, "proj_dim": 512, "num_layers": 2,
+            "mode": "all"}
+BPE_PIECES, BPE_DIM = 100_000, 50
+ELMO_EPISODES = 1       # the published search runs 30
+MFVI_BATCH, MFVI_RANK = 16, 64
+ELMO_SEED = 15
+# the ELMo member's trained weights, float64 on the card against the CPU,
+# within this share of the largest |feature| (hundreds of float64 ulps):
+# their token layer reaches ~1e5 and cancels, so float32 strays from
+# float64 by 0.03-0.2 there on either side; float64 on an H100 (700 W)
+# read 3.3e-15 of it
+ELMO_F64_REL = 1e-13
+
+
+def bpemb_vectors(path, records, n_pieces: int, dim: int, seed: int) -> int:
+    """A word2vec text file of ``n_pieces`` pieces of ``dim`` floats:
+    ``<unk>`` (zeros), the pieces ``BPEVocab.build`` makes of ``records``
+    (every character and every word), then seeded filler pieces; vectors
+    normal(0, 0.1) from ``default_rng(seed)``. Returns the corpus's piece
+    count."""
+    import io
+
+    from kbner_tpu_torch.models.embedders import BPEVocab
+
+    pieces = [p for p in BPEVocab.build(records, dim=1, max_words=10 ** 7
+                                        ).pieces if p != "<unk>"]
+    n_corpus = len(pieces)
+    if n_corpus >= n_pieces:
+        raise ValueError(f"the corpus makes {n_corpus} pieces, the file "
+                         f"holds {n_pieces}")
+    pieces += [f"▁filler{i}" for i in range(n_pieces - 1 - n_corpus)]
+    matrix = np.random.default_rng(seed).normal(
+        0.0, 0.1, (len(pieces), dim)).astype(np.float32)
+    buf = io.BytesIO()
+    np.savetxt(buf, matrix, fmt="%.6f")
+    rows = buf.getvalue().decode().splitlines()
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(f"{n_pieces} {dim}\n<unk> {' '.join(['0'] * dim)}\n")
+        f.writelines(f"{p} {r}\n" for p, r in zip(pieces, rows))
+    return n_corpus
+
+
+def elmo_module(spec, device):
+    """The ELMo member ``spec`` describes (as ``cli._build_ace`` builds
+    it, on allennlp's byte ids)."""
+    from kbner_tpu_torch.data.encode import ELMO_CHAR_VOCAB
+    from kbner_tpu_torch.models.embedders import ELMoEmbedder
+
+    return ELMoEmbedder(
+        ELMO_CHAR_VOCAB, spec["char_dim"],
+        filters=[tuple(f) for f in spec["filters"]],
+        n_highway=spec["n_highway"], proj_dim=spec["proj_dim"],
+        num_layers=spec["num_layers"], mode=spec["mode"],
+        cell_dim=spec["cell_dim"], conv_activation="relu",
+        input_key="elmo_char_ids", device=device)
+
+
+def elmo_stage_phase(cli, bm25, dev, card, tmp, encoder="large", elmo=None,
+                     n_pieces=BPE_PIECES, mfvi_batch=MFVI_BATCH) -> dict:
+    """Phase 4n, after 4m in its directory ``tmp`` (4j's fused ACE splits
+    ``ace-conll``): (a) the seeded inputs: a BPEmb word2vec text file of
+    ``n_pieces`` x 50 and the ELMo member's float32 weights at ``elmo``'s
+    widths (the 5.5B ELMo's by default) through ``save_npz``; (b) ``cli
+    train`` with ``trainer: ReinforcementTrainer`` over 4j's stack plus
+    both members (ELMo spliced through ``load_npz``), ``ELMO_EPISODES``
+    episode of ``ACE_EPOCHS`` epoch and the final training, each timed;
+    one optimizer step split by member with CUDA events (ELMo's char CNN
+    and its bi-LM apart, BPEmb), and one step under the profiler; (c)
+    ``cli test`` on the result: its ``test.ACE.tsv`` byte-equal to the
+    one ``cli train`` wrote; (d) the ELMo member's features for
+    ``N_FEATURE_CHECK`` sentences on the card against the CPU: the seeded
+    weights in float32 at ``FEATURE_RTOL``/``ATOL``, the run's trained
+    weights in float64 within ``ELMO_F64_REL`` of the largest feature, and
+    each float32 side's error per output layer against float64; (e)
+    ``build_pooled_flair_table`` over the train split with the run's
+    Flair member: mean, min and max on the card, the mean held to the
+    CPU's; (f) ``MFVIHead``
+    (second and third order, rank ``MFVI_RANK``, parameters normal with
+    variance 1/fan-in so that pair and triple messages weigh) over
+    ``encoder``'s word features at B=``mfvi_batch``: loss forward and
+    backward and decode, card against CPU in float32. No kernel lies on this path: the phase
+    launches none (the corpus was fused through K1 in 4j)."""
+    import torch
+
+    from kbner_tpu_torch import checkpoint, weights
+    from kbner_tpu_torch.config import ExperimentConfig
+    from kbner_tpu_torch.data.conll import read_column_file
+    from kbner_tpu_torch.data.encode import (add_classic_features,
+                                             build_char_vocab, make_batches)
+    from kbner_tpu_torch.models.embedders import (FlairLMEmbedder,
+                                                  TransformerWordEmbedder,
+                                                  build_pooled_flair_table)
+    from kbner_tpu_torch.ops.mfvi import MFVIHead
+
+    elmo_spec = dict(elmo or ELMO_55B)
+    device = ["--device", str(dev)]
+    t_phase = time.perf_counter()
+    reset_counts(bm25)
+    # all of 4j's splits: a train split of one batch would take only the
+    # schedule's first step, whose learning rate is 0
+    fused = tmp / "ace-conll"
+    recs = {s: read_column_file(fused / f"{s}.txt", {0: "text", 1: "ner"},
+                                comment_symbol="# id")
+            for s in ("train", "dev", "test")}
+
+    # -- (a) the seeded inputs ------------------------------------------------
+    vec = tmp / "bpemb.w2v.txt"
+    (n_corpus, ), wall_vec = timed(lambda: (bpemb_vectors(
+        vec, [r for v in recs.values() for r in v], n_pieces, BPE_DIM,
+        ELMO_SEED), ))
+    wfile = tmp / "elmo-weights.npz"
+    module = elmo_module(elmo_spec, dev)
+    module.reset_parameters(torch.Generator(device=dev).manual_seed(ELMO_SEED))
+    n_params = sum(p.numel() for p in module.parameters())
+    n_lstm = sum(p.numel() for n, p in module.named_parameters()
+                 if n.startswith(("fwd", "bwd")))
+    _, wall_npz = timed(lambda: module.save_npz(wfile))
+    del module
+    log(f"ELMo/BPEmb inputs: BPEmb word2vec text of {n_pieces:,} pieces x "
+        f"{BPE_DIM} ({n_corpus:,} from the corpus, the rest seeded filler; "
+        f"{vec.stat().st_size / 1e6:.1f} MB in {wall_vec:.1f} s); the ELMo "
+        f"member (cell {elmo_spec['cell_dim']}, projection "
+        f"{elmo_spec['proj_dim']}, {sum(c for _, c in elmo_spec['filters'])}"
+        f" filters, {elmo_spec['n_highway']} highways, 261 byte ids): "
+        f"{n_params:,} float32 parameters ({n_lstm:,} in the LSTMs), "
+        f"seeded, through save_npz: {wfile.stat().st_size / 1e6:.1f} MB in "
+        f"{wall_npz:.1f} s ({time.perf_counter() - t_phase:.1f} s into 4n)")
+
+    # -- (b) cli train with the ACE trainer -----------------------------------
+    run = tmp / "elmo-ace"
+    cfg = tmp / "elmo-ace.json"
+    stack = ACE_STACK + [dict(elmo_spec, weights=str(wfile)),
+                         {"type": "bpemb", "dim": BPE_DIM,
+                          "vectors": str(vec)}]
+    cfg.write_text(json.dumps({
+        "name": "en-ace-elmo-bpemb",
+        "corpora": [{"name": "ACE", "data_folder": str(fused),
+                     "column_format": {"0": "text", "1": "ner"},
+                     "comment_symbol": "# id", "tag_to_bioes": "ner"}],
+        "tag_layer": "ner",
+        "tokenizer": {"type": "hash", "vocab_size": HASH_VOCAB},
+        "model": {"encoder": encoder, "remat": True,
+                  "remat_policy": "dots_saveable", "use_crf": True,
+                  "embeddings": stack},
+        "ace": {"episodes": ELMO_EPISODES, "controller_lr": 0.1,
+                "reward_kind": "plain"},
+        "train": {"learning_rate": 0.1, "lr_rate": 1.0, "batch_size": 32,
+                  "max_epochs": ACE_EPOCHS},
+        "trainer": "ReinforcementTrainer", "target_dir": str(run)}))
+    result, wall, train_s, (trainer, specs), peak_gb = run_ace_train(
+        cli, cfg, device)
+    history = result["history"]
+    tested = json.loads((run / "test_results.json").read_text())["ACE"]
+    losses = result["final"]["history"]["train_loss"]
+    if (len(history) != ELMO_EPISODES or len(train_s) != ELMO_EPISODES + 1
+            or not all(0.0 <= h["f1"] <= 1.0 for h in history)
+            or not np.isfinite(losses).all()
+            or not 0.0 <= tested["micro_f1"] <= 1.0):
+        raise AssertionError(f"cli train (ACE, ELMo, BPEmb): history "
+                             f"{history}, {len(train_s)} trainings, final "
+                             f"losses {losses}, test {tested}")
+    log(f"cli train, trainer: ReinforcementTrainer (4j's stack + ELMo "
+        f"(cell {elmo_spec['cell_dim']}, projection {elmo_spec['proj_dim']}; "
+        f"npz) + BPEmb {BPE_DIM} x {n_pieces:,}, CRF, batch 32; "
+        f"cuts: {ELMO_EPISODES} episode of {ACE_EPOCHS} epoch, "
+        f"{'/'.join(str(len(v)) for v in recs.values())} train/dev/test "
+        f"sentences of 4j's, XLM-R "
+        f"{encoder_label(encoder)}): {wall:.1f} s in all; "
+        + "; ".join(f"episode {h['episode']} mask {h['mask']} dev F1 "
+                    f"{h['f1']:.4f} in {s:.1f} s"
+                    for h, s in zip(history, train_s))
+        + f"; final training {train_s[-1]:.1f} s, losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; test micro F1 "
+        f"{tested['micro_f1']:.4f}; peak allocated {peak_gb:.2f} GB ({card})")
+
+    # one optimizer step of the run's largest train batch, split by member,
+    # on the trained tagger that cli train built
+    config = ExperimentConfig.from_file(cfg)
+    trainer.selection = np.ones(len(specs), np.float32)
+    train_config = config.make_train_config()
+    batch = max(trainer._make_train_batches(trainer.corpus.train,
+                                            train_config, 0),
+                key=lambda eb: eb.input_ids.shape[0])
+    arrays = trainer._to_device(batch)
+    members = trainer.model.stack.members
+    elmo_m, bpemb = members[4], members[5]
+    tok = elmo_m.tokens(arrays).detach().requires_grad_()
+
+    def fwd_bwd(fn):
+        def step():
+            fn().float().sum().backward()
+            trainer.model.zero_grad(set_to_none=True)
+        return step
+
+    opt = trainer.make_optimizer(train_config)
+    rng = torch.Generator().manual_seed(1)
+    # cli train ran every part in this process: no warm-up but the step's
+    parts = {
+        "ELMo char CNN + highways + projection forward + backward": fwd_bwd(
+            lambda: elmo_m.tokens(arrays)),
+        "ELMo bi-LM (4 LSTMP stacks) forward + backward": fwd_bwd(
+            lambda: elmo_m.contextual(tok, arrays["word_mask"])),
+        "BPEmb forward + backward": fwd_bwd(lambda: bpemb(arrays)),
+        "whole step (train_step)": lambda: trainer.train_step(
+            batch, opt, train_config, rng)}
+    parts["whole step (train_step)"]()  # the optimizer's state
+    split = {name: event_ms(fn) for name, fn in parts.items()}
+    torch.cuda.reset_peak_memory_stats()
+    wall_ms, dev_ms, top = profile_step(trainer, batch, train_config,
+                                        torch.cuda.synchronize)
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    B, S = batch.input_ids.shape
+    W = batch.word_mask.shape[1]
+    busy = ("not measured (the trace holds no device kernels)"
+            if dev_ms is None else
+            f"{dev_ms:.1f} ms of device kernels in {wall_ms:.1f} ms under "
+            f"torch.profiler, idle {max(0.0, 1 - dev_ms / wall_ms):.1%}; "
+            "largest: " + "; ".join(f"{n[:60]} {ms:.1f} ms x{c}"
+                                    for n, ms, c in top))
+    log(f"ACE + ELMo + BPEmb optimizer step (B={B}, S={S} subtokens, W={W} "
+        f"words, T={arrays['char_stream'].shape[1]} stream characters, "
+        f"ELMo window {tuple(arrays['elmo_char_ids'].shape)}), ms by CUDA "
+        f"events: " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + f"; peak allocated in a step {step_peak_gb:.2f} GB; one step "
+        f"under the profiler: {busy} ({card}; {time.perf_counter() - t_phase:.1f}"
+        f" s into 4n)")
+    del trainer, specs, opt, arrays, members, elmo_m, bpemb, tok
+    torch.cuda.empty_cache()
+
+    # -- (c) cli test on the result -------------------------------------------
+    # the tags per word that cli train's final test wrote: cli test rewrites
+    # the file, and a wrong checkpoint or selection changes the tags even
+    # where both score 0
+    tsv = run / "test.ACE.tsv"
+    trained_tsv = tsv.read_bytes()
+    (_, printed), wall_test = timed(lambda: run_cli(
+        cli, ["test", "--config", str(cfg), *device]))
+    again = json.loads(printed[printed.index("{"):])["ACE"]
+    if tsv.read_bytes() != trained_tsv or again != tested:
+        raise AssertionError(f"cli test: {again} and test.ACE.tsv against "
+                             f"cli train's {tested}")
+    log(f"cli test on the result in {wall_test:.1f} s (the stack under the "
+        f"best action {result['best_action']}): {again}, test.ACE.tsv "
+        f"({len(trained_tsv):,} bytes) byte-equal to cli train's ({card}; "
+        f"{time.perf_counter() - t_phase:.1f} s into 4n)")
+
+    # -- (d) the ELMo member on the card against the CPU ----------------------
+    tree = checkpoint.load(run / "best-model.msgpack")["params"]["stack"]
+    eb = make_batches(recs["train"][:N_FEATURE_CHECK],
+                      config.make_tokenizer(), None, N_FEATURE_CHECK)[0]
+    add_classic_features(eb, elmo_bytes=True)
+    loads = {"seeded": lambda m: m.load_npz(wfile),
+             "trained": lambda m: m.load_state_dict(
+                 weights.member_from_jax_params(tree["members_4"], m))}
+    # (weights, side, dtype, cuDNN on): cuDNN off on the card tells the
+    # char CNN's convolutions from the matmuls in the card's float32 error
+    runs = [("seeded", "cpu", torch.float64, True),
+            ("seeded", "cpu", torch.float32, True),
+            ("seeded", dev, torch.float32, True),
+            ("seeded", dev, torch.float32, False),
+            ("trained", "cpu", torch.float64, True),
+            ("trained", dev, torch.float64, True),
+            ("trained", "cpu", torch.float32, True),
+            ("trained", dev, torch.float32, True)]
+    feats, cudnn_was = {}, torch.backends.cudnn.enabled
+    for label, where, dtype, cudnn in runs:
+        m = elmo_module(elmo_spec, where)
+        loads[label](m)
+        # the flag alone: cudnn.flags() would also reset allow_tf32 to True
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            with torch.no_grad():
+                feats[label, str(where), dtype, cudnn] = m.to(dtype)({
+                    k: torch.from_numpy(v).to(where)
+                    for k, v in eb.arrays().items()}).double().cpu()
+        finally:
+            torch.backends.cudnn.enabled = cudnn_was
+        del m
+    # the seeded weights: float32 on both sides within the features'
+    # tolerance. Under the trained ones (AdamW steps at 4j's lr 0.1 move
+    # every weight by ~0.1) float32 on either side strays from float64 in
+    # the token layer, so the card is held to the CPU there in float64
+    seed32 = {w: feats["seeded", w, torch.float32, True]
+              for w in ("cpu", str(dev))}
+    torch.testing.assert_close(seed32[str(dev)], seed32["cpu"],
+                               rtol=FEATURE_RTOL, atol=FEATURE_ATOL)
+    f64_atol = ELMO_F64_REL * float(
+        feats["trained", "cpu", torch.float64, True].abs().max())
+    torch.testing.assert_close(feats["trained", str(dev), torch.float64, True],
+                               feats["trained", "cpu", torch.float64, True],
+                               rtol=0.0, atol=f64_atol)
+    elmo_err = float((seed32[str(dev)] - seed32["cpu"]).abs().max())
+    f64_err = float((feats["trained", str(dev), torch.float64, True]
+                     - feats["trained", "cpu", torch.float64, True]
+                     ).abs().max())
+    per_layer = elmo_spec["proj_dim"] * 2
+
+    def per_layer_max(x):
+        return "/".join(f"{float(x[..., i:i + per_layer].abs().max()):.3g}"
+                        for i in range(0, x.shape[-1], per_layer))
+
+    def layer_errs(key):
+        """max abs err against float64 on the CPU, per output layer."""
+        return per_layer_max(feats[key]
+                             - feats[key[0], "cpu", torch.float64, True])
+
+    log(f"the ELMo member on the card against the CPU ({N_FEATURE_CHECK} "
+        f"train sentences, {tuple(seed32['cpu'].shape)}): the seeded weights"
+        f" (load_npz), float32, card against CPU max abs err {elmo_err:.3g} "
+        f"(rtol {FEATURE_RTOL}, atol {FEATURE_ATOL}); the run's trained "
+        f"weights (best-model.msgpack), float64, card against CPU "
+        f"{f64_err:.3g} (atol {ELMO_F64_REL} x the largest |feature|, "
+        f"{f64_atol:.3g}); float32 against float64 per"
+        f" output layer (token/bi-LM 1/bi-LM 2): seeded CPU "
+        f"{layer_errs(('seeded', 'cpu', torch.float32, True))}, card "
+        f"{layer_errs(('seeded', str(dev), torch.float32, True))}, card "
+        f"without cuDNN "
+        f"{layer_errs(('seeded', str(dev), torch.float32, False))}; trained"
+        f" CPU {layer_errs(('trained', 'cpu', torch.float32, True))}, card "
+        f"{layer_errs(('trained', str(dev), torch.float32, True))}; max "
+        f"|feature| per layer, float64: seeded "
+        f"{per_layer_max(feats['seeded', 'cpu', torch.float64, True])}, "
+        f"trained "
+        f"{per_layer_max(feats['trained', 'cpu', torch.float64, True])} "
+        f"({card}; "
+        f"{time.perf_counter() - t_phase:.1f} s into 4n)")
+    del feats, seed32
+
+    # -- (e) the pooled Flair table, card against CPU -------------------------
+    flair_spec = ACE_STACK[3]
+    char_vocab = build_char_vocab(recs["train"])
+    pooled = {}
+    # every pooling on the card, the mean on the CPU too (the three pool
+    # the same features; the CPU's LMs take seconds a call)
+    for side, where, poolings in (("card", dev, ("mean", "min", "max")),
+                                  ("cpu", "cpu", ("mean",))):
+        m = FlairLMEmbedder(len(char_vocab), flair_spec["embed_dim"],
+                            flair_spec["hidden"], device=where)
+        m.load_state_dict(weights.member_from_jax_params(tree["members_3"],
+                                                         m))
+        for pooling in poolings:
+            (vocab, table), sec = timed(lambda: build_pooled_flair_table(
+                m, recs["train"], config.make_tokenizer(), char_vocab,
+                pooling=pooling))
+            pooled[pooling, side] = (table, sec)
+        del m
+    del tree
+    (cpu_t, cpu_s), (dev_t, dev_s) = pooled["mean", "cpu"], pooled[
+        "mean", "card"]
+    np.testing.assert_allclose(dev_t, cpu_t, rtol=FEATURE_RTOL,
+                               atol=FEATURE_ATOL)
+    lo, hi = pooled["min", "card"][0], pooled["max", "card"][0]
+    if not ((lo <= dev_t + 1e-6).all() and (dev_t <= hi + 1e-6).all()):
+        raise AssertionError("pooled Flair tables: min <= mean <= max fails")
+    pool_err = float(np.abs(dev_t - cpu_t).max())
+    log(f"build_pooled_flair_table over the train split ({len(vocab):,} "
+        f"words x {dev_t.shape[1]}, the run's Flair member): mean on the "
+        f"card against the CPU max abs err {pool_err:.3g} (rtol "
+        f"{FEATURE_RTOL}, atol {FEATURE_ATOL}), min <= mean <= max; "
+        + ", ".join(f"{k} {pooled[k, 'card'][1]:.2f} s on the card"
+                    for k in ("mean", "min", "max"))
+        + f", mean {cpu_s:.2f} s on the CPU ({card}; "
+        f"{time.perf_counter() - t_phase:.1f} s into 4n)")
+
+    # -- (f) MFVI over XLM-R word features, card against CPU ------------------
+    f32 = config.make_encoder_config(config.make_tokenizer(),
+                                     dtype=torch.float32,
+                                     param_dtype=torch.float32)
+    xlmr = TransformerWordEmbedder(f32, device=dev)
+    xlmr.reset_parameters(torch.Generator(device=dev).manual_seed(ELMO_SEED))
+    corpus = config.load_corpus()  # the tags in BIOES, as trained
+    tag_dict = corpus.make_tag_dictionary("ner")
+    eb = make_batches(corpus.train[:mfvi_batch], config.make_tokenizer(),
+                      tag_dict, mfvi_batch, tag_layer="ner")[0]
+    arr = {k: torch.from_numpy(v).to(dev) for k, v in eb.arrays().items()}
+    with torch.no_grad():
+        word_feats = xlmr(arr).float()
+    del xlmr
+    H, K = word_feats.shape[-1], len(tag_dict)
+    # seeded emissions from the features: unary = feats @ emit
+    emit = torch.randn(H, K, generator=torch.Generator().manual_seed(
+        ELMO_SEED)) * H ** -0.5
+    mfvi_out = []
+    for third in (False, True):
+        got = {}
+        for side, where in (("cpu", "cpu"), ("card", dev)):
+            head = MFVIHead(H, K, rank=MFVI_RANK, use_third_order=third,
+                            device=where, seed=ELMO_SEED)
+            if side == "card":
+                head.load_state_dict(got["cpu"]["state"])
+            else:  # unit-scale factors, so that the messages matter
+                gen = torch.Generator().manual_seed(ELMO_SEED)
+                with torch.no_grad():
+                    for prm in head.parameters():
+                        prm.copy_(torch.randn(prm.shape, generator=gen)
+                                  * prm.shape[-1] ** -0.5)
+            f_in = word_feats.to(where).clone().requires_grad_()
+            unary = (f_in.detach() @ emit.to(where)).requires_grad_()
+            args = (arr["tag_ids"].to(where), arr["word_mask"].to(where))
+            loss = head.loss(f_in, unary, *args)
+            loss.backward()
+            with torch.no_grad():
+                tags = head.decode(f_in, unary, args[1])
+            got[side] = dict(
+                state={k: v.detach().cpu().clone()
+                       for k, v in head.state_dict().items()},
+                loss=loss.detach().cpu(), tags=tags.cpu(),
+                grads={n: p.grad.detach().cpu().clone()
+                       for n, p in head.named_parameters()},
+                f_grad=f_in.grad.cpu().clone(),
+                u_grad=unary.grad.cpu().clone())
+            if side == "card":  # the timed call after the checked one
+                got[side]["ms"] = event_ms(
+                    lambda: head.loss(f_in, unary, *args).backward())
+            del head, f_in, unary
+        c, d = got["cpu"], got["card"]
+        errs = {"loss": float((d["loss"] - c["loss"]).abs())}
+        torch.testing.assert_close(d["loss"], c["loss"], rtol=FEATURE_RTOL,
+                                   atol=FEATURE_ATOL)
+        for name in c["grads"]:
+            torch.testing.assert_close(d["grads"][name], c["grads"][name],
+                                       rtol=FEATURE_RTOL, atol=FEATURE_ATOL)
+        for key in ("f_grad", "u_grad"):
+            torch.testing.assert_close(d[key], c[key], rtol=FEATURE_RTOL,
+                                       atol=FEATURE_ATOL)
+        errs["grads"] = max(float((d["grads"][n] - c["grads"][n]).abs().max())
+                            for n in c["grads"])
+        n_diff = int((d["tags"] != c["tags"]).sum())
+        if n_diff:
+            raise AssertionError(f"MFVI decode: {n_diff} tags differ")
+        mfvi_out.append(
+            f"{'third' if third else 'second'} order: loss {float(c['loss']):.5f}"
+            f" (abs err {errs['loss']:.2e}), parameter gradients max abs err "
+            f"{errs['grads']:.2e}, decode equal ({c['tags'].numel()} tags), "
+            f"loss forward + backward {d['ms']:.2f} ms on the card")
+    log(f"MFVIHead (rank {MFVI_RANK}, 3 iterations) over XLM-R "
+        f"{encoder_label(encoder)} word features (float32, seeded weights, "
+        f"B={tuple(word_feats.shape)[0]}, W={tuple(word_feats.shape)[1]}, "
+        f"K={K}), card against CPU (rtol {FEATURE_RTOL}, atol "
+        f"{FEATURE_ATOL}): " + "; ".join(mfvi_out) + f" ({card})")
+    del word_feats, emit, arr
+    torch.cuda.empty_cache()
+    expect_counts("phase 4n", counts(bm25), {})
+    for f in (wfile, vec):
+        f.unlink()
+    log(f"phase 4n in {time.perf_counter() - t_phase:.1f} s")
+    return {"elmo_err": elmo_err, "pool_err": pool_err}
+
+
 def drop_checkpoints(tmp) -> None:
     """Delete the checkpoints (``*.msgpack``) under ``tmp``: the phases
     that wrote them have checked them and no later phase reads them, so
@@ -4830,7 +5316,13 @@ def main() -> int:
         drop_checkpoints(Path(tmp))
         # -- 4m. the parser and classifier families --------------------------
         torch.cuda.empty_cache()
-        parse = parse_stage_phase(cli, bm25, dev, card, Path(tmp), cut)
+        parse = parse_stage_phase(cli, bm25, dev, card, Path(tmp), cut,
+                                  encoder=cut)
+        drop_checkpoints(Path(tmp))
+        # -- 4n. ELMo and BPEmb at published widths, pooled Flair, MFVI -------
+        torch.cuda.empty_cache()
+        elmo_stage_phase(cli, bm25, dev, card, Path(tmp), encoder=cut)
+        drop_checkpoints(Path(tmp))
 
     # -- 5. kernels ----------------------------------------------------------
     kernels = [{

@@ -291,13 +291,21 @@ def _build_ace(config: ExperimentConfig, device: str):
       - {type: word, dim: D}
       - {type: char_bilstm, char_dim: D, hidden: H}
       - {type: flair, embed_dim: D, hidden: H}
+      - {type: elmo, char_dim, filters: [[w, c], ...], n_highway,
+         proj_dim, num_layers, mode, cell_dim (bilm-tf's topology),
+         conv_activation, char_encoding: elmo_bytes (allennlp's byte ids,
+         261 of them), char_vocab_size, weights: FILE (.hdf5/.h5 through
+         ELMoEmbedder.load_hdf5, anything else through load_npz)}
+      - {type: bpemb, dim: D, vectors: W2V_TEXT_FILE, trainable}
 
     Returns ``(trainer, specs)``."""
-    from .data.encode import build_char_vocab, build_word_vocab
+    from .data.encode import (ELMO_CHAR_VOCAB, build_char_vocab,
+                              build_word_vocab)
     from .device import resolve_device
-    from .models.embedders import (CharBiLSTMEmbedder, EmbedderSpec,
-                                   FlairLMEmbedder, TransformerWordEmbedder,
-                                   WordEmbedder)
+    from .models.embedders import (BPEmbEmbedder, BPEVocab,
+                                   CharBiLSTMEmbedder, ELMoEmbedder,
+                                   EmbedderSpec, FlairLMEmbedder,
+                                   TransformerWordEmbedder, WordEmbedder)
     from .models.tagger import StackedSequenceTagger
 
     if config.targets != "ner":
@@ -312,6 +320,9 @@ def _build_ace(config: ExperimentConfig, device: str):
     char_vocab = build_char_vocab(corpus.train)
     enc_cfg = config.make_train_encoder_config(tokenizer)
     specs = []
+    bpe_vocab = None
+    elmo_bytes = False
+    pending = []  # (member index, weight file) spliced after the build
     for i, e in enumerate(config.model.get("embeddings") or [
             {"type": "word", "dim": 32},
             {"type": "char_bilstm", "char_dim": 16, "hidden": 16}]):
@@ -334,10 +345,39 @@ def _build_ace(config: ExperimentConfig, device: str):
             specs.append(EmbedderSpec(f"xlmr{i}", TransformerWordEmbedder(
                 enc_cfg, e.get("fine_tune", False), device=device),
                 enc_cfg.hidden_size))
-        elif kind in ("elmo", "bpemb"):
-            raise NotImplementedError(
-                f"ACE embedding type {kind!r} waits for ROADMAP A6 in "
-                "kbner_tpu_torch (ELMo and BPEmb embedders)")
+        elif kind == "elmo":
+            kw = {}
+            if e.get("filters"):
+                kw["filters"] = tuple((int(w), int(c))
+                                      for w, c in e["filters"])
+            if e.get("n_highway") is not None:
+                kw["n_highway"] = int(e["n_highway"])
+            vocab_size = e.get("char_vocab_size", len(char_vocab))
+            if e.get("char_encoding") == "elmo_bytes":
+                kw["input_key"] = "elmo_char_ids"
+                vocab_size = e.get("char_vocab_size", ELMO_CHAR_VOCAB)
+                elmo_bytes = True
+            mod = ELMoEmbedder(
+                vocab_size, e.get("char_dim", 16),
+                proj_dim=e.get("proj_dim", 16),
+                num_layers=e.get("num_layers", 2), mode=e.get("mode", "all"),
+                cell_dim=e.get("cell_dim"),
+                conv_activation=e.get(
+                    "conv_activation",
+                    "relu" if e.get("cell_dim") else "tanh"),
+                device=device, **kw)
+            if e.get("weights"):
+                pending.append((len(specs), str(e["weights"])))
+            specs.append(EmbedderSpec(f"elmo{i}", mod, mod.out_dim))
+        elif kind == "bpemb":
+            if bpe_vocab is None:
+                bpe_vocab = (
+                    BPEVocab.from_w2v_text(e["vectors"]) if e.get("vectors")
+                    else BPEVocab.build(corpus.train, dim=e.get("dim", 25)))
+            specs.append(EmbedderSpec(f"bpemb{i}", BPEmbEmbedder(
+                len(bpe_vocab.pieces), bpe_vocab.dim,
+                e.get("trainable", True), device=device),
+                2 * bpe_vocab.dim))
         else:
             raise ValueError(f"unknown ACE embedding type {kind!r}")
     m = config.model
@@ -347,10 +387,19 @@ def _build_ace(config: ExperimentConfig, device: str):
         word_dropout=m.get("word_dropout", 0.05))
     model = StackedSequenceTagger(tagger_cfg, specs, device=device,
                                   seed=train_config.seed)
+    for idx, path in pending:
+        member = model.stack.members[idx]
+        if path.endswith((".hdf5", ".h5")):
+            member.load_hdf5(path)
+        else:
+            member.load_npz(path)
+        log.info("loaded ELMo weights for members_%d from %s", idx, path)
     trainer = FinetuneTrainer(model, corpus, tokenizer, tag_dict,
                               tag_layer=config.tag_layer, device=device)
     trainer.word_vocab = word_vocab
     trainer.char_vocab = char_vocab
+    trainer.bpe_vocab = bpe_vocab
+    trainer.elmo_bytes = elmo_bytes
     return trainer, specs
 
 
@@ -522,6 +571,15 @@ def cmd_test(args) -> None:
         corpus, trainer = _trained_parser(config, args.device)
         results = {name: trainer.evaluate(split) for name, split in zip(
             corpus.targets, corpus.test_list) if split}
+    elif config.trainer_kind == "ace":
+        # the stacked tagger under the search's best action, as the final
+        # training ran it
+        trainer, _ = _build_ace(config, args.device)
+        state = target_dir / "training_state.json"
+        if state.exists():
+            trainer.selection = np.asarray(
+                json.loads(state.read_text())["best_action"], np.float32)
+        results = trainer.final_test(target_dir)
     else:
         results = _build(config, args.device).final_test(target_dir)
     print(json.dumps(results, indent=2))

@@ -10,8 +10,8 @@
   lang_ids [B]           source-corpus id
 
 :func:`add_classic_features` adds the inputs of the classic embedders
-(word ids, per-word characters, the sentence's character stream) to a
-batch's ``extra`` arrays.
+(word ids, per-word characters, the sentence's character stream, ELMo's
+byte ids, BPEmb's piece ids) to a batch's ``extra`` arrays.
 The ``<EOS>`` context separator word is encoded as the tokenizer's SEP
 token. The arrays stay numpy here; the tagger moves them to its device.
 """
@@ -258,17 +258,29 @@ def build_char_vocab(records: Sequence[SentenceRecord]) -> Dictionary:
     return vocab
 
 
+# allennlp's ELMoCharacterMapper ids (no +1 shift): utf-8 bytes 0-255,
+# begin and end of word 258 and 259, padding 260 -- the encoding that the
+# character tables of published ELMo weight files were trained on
+ELMO_BOW, ELMO_EOW, ELMO_PAD = 258, 259, 260
+ELMO_CHAR_VOCAB = 261
+ELMO_MAX_CHARS = 50
+
+
 def add_classic_features(
     eb: EncodedBatch,
     word_vocab: Optional[Dictionary] = None,
     char_vocab: Optional[Dictionary] = None,
     max_chars_per_word: int = 16,
     max_stream_chars: int = 1024,
+    bpe_vocab=None,
+    elmo_bytes: bool = False,
 ) -> EncodedBatch:
     """Add the classic embedders' int32 inputs to ``eb.extra``, on the
-    batch's ``[B, W]`` word axis (BPEmb's piece ids and ELMo's byte ids
-    wait for their embedders, ROADMAP A6):
+    batch's ``[B, W]`` word axis:
 
+      elmo_char_ids, elmo_char_mask   with ``elmo_bytes``: each word as
+        [B, W, 50]                    begin-of-word, its first 48 utf-8
+                                      bytes, end-of-word, padded with 260
       word_ids [B, W]                 each word's id in ``word_vocab``
       char_ids, char_mask [B, W, C]   each word's first C characters
       char_stream, char_stream_mask   the words joined by ``' '``, cut at
@@ -276,10 +288,25 @@ def add_classic_features(
                                       to 32 and capped at that cut
       word_char_starts, ..._ends      each word's first and last character
         [B, W]                        in the stream, clipped to T - 1
+      bpe_first_ids, bpe_last_ids     with a ``bpe_vocab``
+        [B, W]                        (:class:`~..models.embedders.
+                                      BPEVocab`): each word's first and
+                                      last piece
     """
     if eb.records is None:
         raise ValueError("add_classic_features needs eb.records")
     B, W = eb.word_mask.shape
+
+    if elmo_bytes:
+        EC = ELMO_MAX_CHARS
+        ids = np.full((B, W, EC), ELMO_PAD, dtype=np.int32)
+        mask = np.zeros((B, W, EC), dtype=np.int32)
+        for b, rec in enumerate(eb.records):
+            for w, tok in enumerate(rec.tokens[:W]):
+                row = [ELMO_BOW, *tok.encode("utf-8")[:EC - 2], ELMO_EOW]
+                ids[b, w, :len(row)] = row
+                mask[b, w, :len(row)] = 1
+        eb.extra.update(elmo_char_ids=ids, elmo_char_mask=mask)
 
     if word_vocab is not None:
         word_ids = np.zeros((B, W), dtype=np.int32)
@@ -327,4 +354,8 @@ def add_classic_features(
                         char_stream_mask=char_stream_mask,
                         word_char_starts=word_char_starts,
                         word_char_ends=word_char_ends)
+
+    if bpe_vocab is not None:
+        first, last = bpe_vocab.encode_first_last(eb)
+        eb.extra.update(bpe_first_ids=first, bpe_last_ids=last)
     return eb

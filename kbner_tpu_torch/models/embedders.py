@@ -13,7 +13,18 @@
     frozen unless ``fine_tune``;
   - :class:`StackedEmbedder`: the members' features concatenated in
     float32, each multiplied by its entry of an ACE selection mask;
-  - :class:`ScalarMix`: a softmax-weighted sum of layers.
+  - :class:`ScalarMix`: a softmax-weighted sum of layers;
+  - :class:`ELMoEmbedder`: a character CNN over each word and a word-level
+    bi-LM over the sentence, in two topologies: the native one (tanh SAME
+    convolutions, :class:`FlaxLSTM` layers sharing a mixed input) and
+    bilm-tf's (``cell_dim`` set: relu VALID convolutions over the whole
+    padded window, :class:`ELMoLSTMP` stacks per direction with residual
+    skips), whose parameters published ELMo weight files fill
+    (:meth:`ELMoEmbedder.load_hdf5`, read by :mod:`.hdf5`);
+  - :class:`BPEVocab` and :class:`BPEmbEmbedder`: subword pieces by greedy
+    longest match, each word's first and last piece vectors;
+  - :func:`build_pooled_flair_table`: a Flair member's features pooled
+    over a corpus into a word table.
 
 Every member maps a batch of arrays to word features ``[B, W, D]``.
 
@@ -41,7 +52,8 @@ Gathers clamp their positions into range, as ``mode="clip"`` does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -459,3 +471,473 @@ class StackedEmbedder(nn.Module):
                 feats = feats * selection[i].float()
             outs.append(feats)
         return torch.cat(outs, dim=-1)
+
+
+# -- ELMo -------------------------------------------------------------------------
+
+class ELMoLSTMP(nn.Module):
+    """bilm-tf's LSTM with a projection, in tf's conventions, over
+    batch-major inputs ``[B, T, in]`` from a zero carry: one fused kernel
+    ``W_0 [in + proj, 4 * cell]`` in gate order i, j, f, o with its bias
+    ``B``, the forget gate biased by 1.0, ``c = clip(sigmoid(f + 1) * c
+    + sigmoid(i) * tanh(j))`` and ``h = clip((sigmoid(o) * tanh(c)) @
+    W_P_0)`` with ``W_P_0 [cell, proj]``, both clipped to ``[-clip,
+    clip]``. ``reverse`` runs right to left within ``seq_lengths`` as
+    :class:`FlaxLSTM` does. Every step's input half of ``W_0`` is one
+    matmul; the time loop does the recurrent half and the projection."""
+
+    def __init__(self, in_dim: int, cell_dim: int, proj_dim: int,
+                 clip: float = 3.0, reverse: bool = False, device=None):
+        super().__init__()
+        self.in_dim = in_dim
+        self.clip = clip
+        self.reverse = reverse
+        kw = dict(device=device, dtype=torch.float32)
+        self.W_0 = nn.Parameter(torch.empty(in_dim + proj_dim, 4 * cell_dim,
+                                            **kw))
+        self.B = nn.Parameter(torch.empty(4 * cell_dim, **kw))
+        self.W_P_0 = nn.Parameter(torch.empty(cell_dim, proj_dim, **kw))
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        lecun_normal_(self.W_0, self.W_0.shape[0], gen)
+        self.B.zero_()
+        lecun_normal_(self.W_P_0, self.W_P_0.shape[0], gen)
+
+    def forward(self, x: torch.Tensor,
+                seq_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Projected states ``[B, T, proj]`` at every step, in input
+        order."""
+        n, T, _ = x.shape
+        xw = torch.addmm(self.B, x.reshape(n * T, -1).to(self.W_0.dtype),
+                         self.W_0[:self.in_dim]).view(n, T, -1).transpose(0, 1)
+        if self.reverse:
+            xw = flip_sequences(xw, seq_lengths)
+        w_h = self.W_0[self.in_dim:]
+        h = xw.new_zeros(n, self.W_P_0.shape[1])
+        c = xw.new_zeros(n, self.W_P_0.shape[0])
+        hs = []
+        for xw_t in xw.unbind(0):
+            i, j, f, o = torch.addmm(xw_t, h, w_h).chunk(4, dim=1)
+            c = torch.addcmul(torch.sigmoid(f + 1.0) * c, torch.sigmoid(i),
+                              torch.tanh(j)).clamp(-self.clip, self.clip)
+            h = ((torch.sigmoid(o) * torch.tanh(c)) @ self.W_P_0).clamp(
+                -self.clip, self.clip)
+            hs.append(h)
+        out = torch.stack(hs)  # [T, B, proj], in scan order
+        if self.reverse:
+            out = flip_sequences(out, seq_lengths)
+        return out.transpose(0, 1)
+
+
+class ELMoEmbedder(nn.Module):
+    """ELMo's architecture: a character CNN encodes each word (one pass
+    over the batch's ``B * W`` words), highways and a projection to
+    ``proj_dim``, then a ``num_layers`` word-level bi-LM over the
+    sentence. ``mode`` combines the layers (token layer included, each
+    ``2 * proj_dim`` wide): ``all`` side by side, ``top`` the last,
+    ``average`` their mean, ``mix`` a learned :class:`ScalarMix`. Padded
+    words come out zero.
+
+    Native topology (``cell_dim`` None): SAME convolutions (an even width
+    pads one more on the right) with ``conv_activation``, max-pooled over
+    the word's real characters (a word of none gets a zero token), and
+    :class:`FlaxLSTM` layers of width ``proj_dim`` whose next input is the
+    sum of both directions. bilm-tf topology (``cell_dim`` set, the
+    published ELMo's): VALID convolutions over all ``C`` embedded
+    characters, pad characters included, activation then max, and
+    separate forward and backward :class:`ELMoLSTMP` stacks, each layer's
+    input the previous layer's output plus its input.
+
+    Character ids are clamped into the table. ``input_key`` names the
+    character window (``char_ids``, or ``elmo_char_ids`` for the byte ids
+    of :func:`~..data.encode.add_classic_features` with ``elmo_bytes``);
+    its mask is the key with ``mask`` for ``ids``. Submodules carry the
+    Flax module's names: ``chars``, ``conv{width}`` (a ``Conv1d``, weight
+    ``[out, in, width]``), ``hw_t{i}``/``hw_h{i}``, ``proj``,
+    ``fwd{i}``/``bwd{i}``, ``mix``."""
+
+    def __init__(self, char_vocab_size: int, char_dim: int = 16,
+                 filters: Sequence[Tuple[int, int]] = ((1, 32), (2, 32),
+                                                       (3, 64)),
+                 n_highway: int = 2, proj_dim: int = 64, num_layers: int = 2,
+                 mode: str = "all", cell_dim: Optional[int] = None,
+                 conv_activation: str = "tanh", lstm_clip: float = 3.0,
+                 input_key: str = "char_ids", device=None):
+        super().__init__()
+        if mode not in ("all", "top", "average", "mix"):
+            raise ValueError(f"unknown ELMo mode {mode!r}")
+        self.char_vocab_size = char_vocab_size
+        self.filters = tuple((int(w), int(c)) for w, c in filters)
+        self.n_highway = n_highway
+        self.proj_dim = proj_dim
+        self.num_layers = num_layers
+        self.mode = mode
+        self.cell_dim = cell_dim
+        self.conv_activation = conv_activation
+        self.input_key = input_key
+        self.chars = nn.Embedding(char_vocab_size, char_dim, device=device)
+        for width, channels in self.filters:
+            self.add_module(f"conv{width}", nn.Conv1d(
+                char_dim, channels, width, device=device))
+        n_filters = sum(c for _, c in self.filters)
+        for i in range(n_highway):
+            self.add_module(f"hw_t{i}", _dense(n_filters, n_filters, device))
+            self.add_module(f"hw_h{i}", _dense(n_filters, n_filters, device))
+        self.proj = _dense(n_filters, proj_dim, device)
+        for i in range(num_layers):
+            for d, reverse in (("fwd", False), ("bwd", True)):
+                self.add_module(f"{d}{i}", ELMoLSTMP(
+                    proj_dim, cell_dim, proj_dim, lstm_clip, reverse,
+                    device=device) if self.bilm else FlaxLSTM(
+                    proj_dim, proj_dim, reverse, device=device))
+        self.mix = (ScalarMix(num_layers + 1, device=device)
+                    if mode == "mix" else None)
+
+    @property
+    def bilm(self) -> bool:
+        return self.cell_dim is not None
+
+    @property
+    def out_dim(self) -> int:
+        per_layer = 2 * self.proj_dim
+        return per_layer * (self.num_layers + 1) if self.mode == "all" \
+            else per_layer
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """Flax's draws: the table normal(0, 1/D), convolutions and dense
+        layers lecun-normal with zero biases, the LSTMs as their own
+        ``reset_parameters``."""
+        embed_normal_(self.chars.weight, gen)
+        for width, _ in self.filters:
+            conv = getattr(self, f"conv{width}")
+            lecun_normal_(conv.weight, conv.weight[0].numel(), gen)
+            conv.bias.zero_()
+        for i in range(self.n_highway):
+            reset_dense_(getattr(self, f"hw_t{i}"), gen)
+            reset_dense_(getattr(self, f"hw_h{i}"), gen)
+        reset_dense_(self.proj, gen)
+        for i in range(self.num_layers):
+            getattr(self, f"fwd{i}").reset_parameters(gen)
+            getattr(self, f"bwd{i}").reset_parameters(gen)
+        if self.mix is not None:
+            self.mix.reset_parameters(gen)
+
+    def tokens(self, batch: Batch) -> torch.Tensor:
+        """The character CNN, highways and projection: ``[B, W, proj]``."""
+        char_ids = batch[self.input_key].long().clamp(
+            0, self.char_vocab_size - 1)
+        B, W, C = char_ids.shape
+        x = self.chars(char_ids.reshape(B * W, C)).transpose(1, 2)
+        m = batch[self.input_key.replace("ids", "mask")].reshape(
+            B * W, C).bool()
+        act = torch.tanh if self.conv_activation == "tanh" else torch.relu
+        pooled = []
+        for width, _ in self.filters:
+            conv = getattr(self, f"conv{width}")
+            if self.bilm:
+                pooled.append(torch.amax(act(conv(x)), dim=2))
+                continue
+            lo = (width - 1) // 2  # SAME: the odd pad goes right
+            h = act(conv(F.pad(x, (lo, width - 1 - lo))))  # [BW, ch, C]
+            pooled.append(torch.amax(h.masked_fill(~m[:, None, :],
+                                                   float("-inf")), dim=2))
+        tok = torch.cat(pooled, dim=-1)
+        if not self.bilm:  # words of no character
+            tok = torch.where(m.any(-1)[:, None], tok, 0.0)
+        for i in range(self.n_highway):
+            t = torch.sigmoid(getattr(self, f"hw_t{i}")(tok))
+            h = torch.relu(getattr(self, f"hw_h{i}")(tok))
+            tok = t * h + (1.0 - t) * tok
+        return self.proj(tok).reshape(B, W, self.proj_dim)
+
+    def forward(self, batch: Batch) -> torch.Tensor:
+        return self.contextual(self.tokens(batch), batch["word_mask"])
+
+    def contextual(self, tok: torch.Tensor, word_mask: torch.Tensor
+                   ) -> torch.Tensor:
+        """The bi-LM over the tokens ``[B, W, proj]`` and the layers
+        combined by ``mode``, zero at pad words."""
+        lengths = word_mask.sum(-1)
+        layers = [torch.cat([tok, tok], dim=-1)]
+        h_f = h_b = tok
+        for i in range(self.num_layers):
+            fwd = getattr(self, f"fwd{i}")(h_f, lengths)
+            bwd = getattr(self, f"bwd{i}")(h_b, lengths)
+            layers.append(torch.cat([fwd, bwd], dim=-1))
+            if self.bilm:
+                h_f, h_b = fwd + h_f, bwd + h_b
+            else:
+                h_f = h_b = fwd + bwd
+        if self.mode == "all":
+            out = torch.cat(layers, dim=-1)
+        elif self.mode == "top":
+            out = layers[-1]
+        elif self.mode == "average":
+            out = sum(layers) / len(layers)
+        else:
+            out = self.mix(torch.stack(layers))
+        return out * word_mask[:, :, None].to(out.dtype)
+
+    # -- weight files ---------------------------------------------------------
+
+    def save_npz(self, path: Union[str, Path]) -> None:
+        """The member's Flax tree flattened to ``a/b/c`` keys in an npz
+        (the layout ``kbner_tpu``'s ``ELMoEmbedder.save_npz`` writes for
+        the member's subtree)."""
+        np.savez(path, **_flatten(self._tree()))
+
+    @torch.no_grad()
+    def load_npz(self, path: Union[str, Path]) -> None:
+        """Every parameter from an npz of ``a/b/c`` keys (written by
+        either package, for the member's subtree or under ``params/``);
+        a missing key or another shape raises."""
+        with np.load(path) as data:
+            def leaf(key, like):
+                name = key if key in data.files else f"params/{key}"
+                if name not in data.files:
+                    raise KeyError(f"{path}: no array {key!r}")
+                arr = data[name]
+                if arr.shape != like.shape:
+                    raise ValueError(f"shape mismatch for {key}: "
+                                     f"{arr.shape} vs {like.shape}")
+                return arr
+
+            flat = {k: leaf(k, v) for k, v in _flatten(self._tree()).items()}
+        self._load_tree(_unflatten(flat))
+
+    @torch.no_grad()
+    def load_hdf5(self, path: Union[str, Path]) -> Dict:
+        """Published ELMo weights (bilm-tf's ``elmo_*_weights.hdf5``, as
+        allennlp reads them) into a bilm-tf-topology member, read by
+        :mod:`.hdf5` without ``h5py``. Every array is a direct copy (the
+        member is in tf's conventions), the convolutions' leading
+        singleton squeezed, each checked against the member's shape.
+        Keys: ``char_embed``, ``CNN/W_cnn_i|b_cnn_i``,
+        ``CNN_high_k/W_carry|b_carry|W_transform|b_transform``,
+        ``CNN_proj/W_proj|b_proj`` and
+        ``RNN_{0,1}/RNN/MultiRNNCell/Cell{L}/LSTMCell/W_0|B|W_P_0``
+        (``RNN_0`` the forward LM). Returns the member's Flax tree."""
+        from .hdf5 import HDF5File
+
+        tree = self._tree()
+
+        def put(dst, arr):
+            node = tree
+            for k in dst[:-1]:
+                node = node[k]
+            want = node[dst[-1]].shape
+            arr = np.asarray(arr, np.float32)
+            if arr.shape != want:
+                raise ValueError(f"{'/'.join(dst)}: file {arr.shape} vs "
+                                 f"model {want}")
+            node[dst[-1]] = arr
+
+        with HDF5File(path) as f:
+            put(("chars", "embedding"), f["char_embed"])
+            for i in sorted(int(k.rsplit("_", 1)[1]) for k in f["CNN"]
+                            if k.startswith("W_cnn_")):
+                kernel = np.asarray(f[f"CNN/W_cnn_{i}"])
+                if kernel.ndim == 4:  # tf's conv2d [1, w, in, out]
+                    kernel = kernel[0]
+                width = kernel.shape[0]
+                put((f"conv{width}", "kernel"), kernel)
+                put((f"conv{width}", "bias"), f[f"CNN/b_cnn_{i}"])
+            k = 0
+            while f"CNN_high_{k}" in f:
+                g = f[f"CNN_high_{k}"]
+                put((f"hw_t{k}", "kernel"), g["W_carry"])
+                put((f"hw_t{k}", "bias"), g["b_carry"])
+                put((f"hw_h{k}", "kernel"), g["W_transform"])
+                put((f"hw_h{k}", "bias"), g["b_transform"])
+                k += 1
+            put(("proj", "kernel"), f["CNN_proj/W_proj"])
+            put(("proj", "bias"), f["CNN_proj/b_proj"])
+            for d, prefix in ((0, "fwd"), (1, "bwd")):
+                layer = 0
+                while f"RNN_{d}/RNN/MultiRNNCell/Cell{layer}" in f:
+                    g = f[f"RNN_{d}/RNN/MultiRNNCell/Cell{layer}/LSTMCell"]
+                    for leaf in ("W_0", "B", "W_P_0"):
+                        put((f"{prefix}{layer}", leaf), g[leaf])
+                    layer += 1
+        self._load_tree(tree)
+        return tree
+
+    def _tree(self) -> Dict:
+        from .. import weights
+        return weights.member_to_jax_params(self.state_dict(), self)
+
+    def _load_tree(self, tree: Dict) -> None:
+        from .. import weights
+        self.load_state_dict(weights.member_from_jax_params(tree, self))
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for key, arr in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = arr
+    return tree
+
+
+# -- BPEmb ------------------------------------------------------------------------
+
+class BPEVocab:
+    """Subword pieces and their vectors for :class:`BPEmbEmbedder`, in
+    SentencePiece's convention (``▁`` opens a word, text lowercased); a
+    word is cut by greedy longest match over the pieces. Read BPEmb's
+    word2vec text files with :meth:`from_w2v_text`, or make an inventory
+    from a corpus with :meth:`build`."""
+
+    def __init__(self, pieces: Dict[str, int], matrix: np.ndarray):
+        if "<unk>" not in pieces:
+            raise ValueError("piece inventory must reserve '<unk>'")
+        self.pieces = pieces
+        self.matrix = matrix
+        self._max_len = max((len(p) for p in pieces), default=1)
+
+    @property
+    def dim(self) -> int:
+        return self.matrix.shape[1]
+
+    @classmethod
+    def from_w2v_text(cls, path) -> "BPEVocab":
+        vocab, matrix = WordEmbedder.load_pretrained_text(path)
+        return cls(vocab, matrix)
+
+    @classmethod
+    def build(cls, records, dim: int = 25, max_words: int = 2000,
+              seed: int = 0) -> "BPEVocab":
+        """Every character of the corpus (as ``▁c`` and ``c``) and its
+        ``max_words`` most frequent lowercased words as ``▁word``; vectors
+        normal(0, 0.1) from ``default_rng(seed)``, ``<unk>`` zero."""
+        from collections import Counter
+        counts: Counter = Counter()
+        chars = set()
+        for rec in records:
+            for tok in rec.tokens:
+                low = tok.lower()
+                counts[low] += 1
+                chars.update(low)
+        pieces = {"<unk>": 0}
+        for ch in sorted(chars):
+            for form in (f"▁{ch}", ch):
+                pieces.setdefault(form, len(pieces))
+        for word, _ in counts.most_common(max_words):
+            pieces.setdefault(f"▁{word}", len(pieces))
+        rng = np.random.default_rng(seed)
+        matrix = rng.normal(0, 0.1, (len(pieces), dim)).astype(np.float32)
+        matrix[0] = 0.0
+        return cls(pieces, matrix)
+
+    def segment(self, word: str) -> List[int]:
+        """The word's piece ids by greedy longest match (a character no
+        piece starts with is ``<unk>``); never empty."""
+        text = "▁" + word.lower()
+        out: List[int] = []
+        i = 0
+        while i < len(text):
+            for ln in range(min(self._max_len, len(text) - i), 0, -1):
+                idx = self.pieces.get(text[i:i + ln])
+                if idx is not None:
+                    out.append(idx)
+                    i += ln
+                    break
+            else:
+                out.append(0)
+                i += 1
+        return out
+
+    def encode_first_last(self, eb) -> Tuple[np.ndarray, np.ndarray]:
+        """Each word's first and last piece ids, int32 ``[B, W]``."""
+        B, W = eb.word_mask.shape
+        first = np.zeros((B, W), dtype=np.int32)
+        last = np.zeros((B, W), dtype=np.int32)
+        for b, rec in enumerate(eb.records):
+            for w, tok in enumerate(rec.tokens[:W]):
+                ids = self.segment(tok)
+                first[b, w] = ids[0]
+                last[b, w] = ids[-1]
+        return first, last
+
+
+class BPEmbEmbedder(nn.Module):
+    """Each word's first and last piece vectors side by side (``2 * dim``
+    wide) from ``bpe_first_ids``/``bpe_last_ids``; frozen unless
+    ``trainable``."""
+
+    def __init__(self, piece_vocab_size: int, dim: int = 25,
+                 trainable: bool = True, device=None):
+        super().__init__()
+        self.trainable = trainable
+        self.table = nn.Embedding(piece_vocab_size, dim, device=device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        embed_normal_(self.table.weight, gen)
+
+    def forward(self, batch: Batch) -> torch.Tensor:
+        out = torch.cat([self.table(batch["bpe_first_ids"].long()),
+                         self.table(batch["bpe_last_ids"].long())], dim=-1)
+        return out if self.trainable else out.detach()
+
+
+# -- pooled Flair tables ----------------------------------------------------------
+
+@torch.no_grad()
+def build_pooled_flair_table(flair_embedder: FlairLMEmbedder, records,
+                             tokenizer, char_vocab, pooling: str = "mean",
+                             batch_size: int = 32):
+    """A Flair member's features over a corpus, pooled per word type by
+    ``mean``, ``min`` or ``max`` (the reference's ``PooledFlairEmbeddings``
+    as a precomputed table): batches of ``batch_size`` sentences in corpus
+    order run on the member's device, and the host sums in float64.
+    Returns ``(vocabulary, [V, 2H] float32)`` over a
+    ``Dictionary(add_unk=True)`` of the corpus's words; a word never seen
+    gets zeros."""
+    from ..data.dictionary import Dictionary
+    from ..data.encode import add_classic_features, encode_batch
+
+    if pooling not in ("mean", "min", "max"):
+        raise ValueError(f"unknown pooling {pooling!r}")
+    vocab = Dictionary(add_unk=True)
+    for rec in records:
+        for tok in rec.tokens:
+            vocab.add_item(tok)
+    dim = 2 * flair_embedder.fwd.lstm.hidden
+    sums = np.zeros((len(vocab), dim), dtype=np.float64)
+    counts = np.zeros(len(vocab), dtype=np.int64)
+    mins = np.full((len(vocab), dim), np.inf)
+    maxs = np.full((len(vocab), dim), -np.inf)
+    device = flair_embedder.fwd.embed.weight.device
+    for i in range(0, len(records), batch_size):
+        chunk = records[i:i + batch_size]
+        eb = add_classic_features(encode_batch(chunk, tokenizer, None), None,
+                                  char_vocab)
+        feats = flair_embedder({k: torch.from_numpy(v).to(device)
+                                for k, v in eb.arrays().items()})
+        feats = feats.cpu().numpy()
+        for b, rec in enumerate(chunk):
+            for w, tok in enumerate(rec.tokens[:feats.shape[1]]):
+                v = vocab.get_idx_for_item(tok)
+                sums[v] += feats[b, w]
+                counts[v] += 1
+                np.minimum(mins[v], feats[b, w], out=mins[v])
+                np.maximum(maxs[v], feats[b, w], out=maxs[v])
+    seen = counts > 0
+    table = {"mean": sums / np.maximum(counts, 1)[:, None], "min": mins,
+             "max": maxs}[pooling]
+    return vocab, np.where(seen[:, None], table, 0.0).astype(np.float32)

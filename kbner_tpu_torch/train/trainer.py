@@ -132,10 +132,12 @@ class FinetuneTrainer:
         self.tag_layer = tag_layer
         # ACE: the embedder-selection mask every batch carries (set per
         # episode by train/reinforce.py), and the classic embedders'
-        # vocabularies (add_classic_features)
+        # vocabularies and ELMo's byte ids (add_classic_features)
         self.selection: Optional[np.ndarray] = None
         self.word_vocab: Optional[Dictionary] = None
         self.char_vocab: Optional[Dictionary] = None
+        self.bpe_vocab = None
+        self.elmo_bytes = False
 
     # -- one step ---------------------------------------------------------------
 
@@ -143,9 +145,12 @@ class FinetuneTrainer:
         """The batch's arrays on the device, with the classic embedders'
         inputs when the trainer has their vocabularies and the ``[N]``
         selection mask when it has one."""
-        if (self.word_vocab is not None or self.char_vocab is not None) \
-                and not {"word_ids", "char_ids"} & set(eb.extra):
-            add_classic_features(eb, self.word_vocab, self.char_vocab)
+        if (self.word_vocab is not None or self.char_vocab is not None
+                or self.bpe_vocab is not None) and not {
+                    "word_ids", "char_ids", "bpe_first_ids"} & set(eb.extra):
+            add_classic_features(eb, self.word_vocab, self.char_vocab,
+                                 bpe_vocab=self.bpe_vocab,
+                                 elmo_bytes=self.elmo_bytes)
         out = {k: torch.from_numpy(v).to(self.device)
                for k, v in eb.arrays().items()}
         if self.selection is not None:

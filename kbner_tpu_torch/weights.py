@@ -15,9 +15,15 @@ backward cells ``OptimizedLSTMCell_0`` and ``_1``, each Flair LM's
 ``{fwd,bwd}/embed`` and ``{fwd,bwd}/OptimizedLSTMCell_0``; an LSTM cell's
 ``{ii,if,ig,io}/kernel`` and ``{hi,hf,hg,ho}/{kernel,bias}`` become
 :class:`~.models.embedders.FlaxLSTM`'s fused ``kernel_i``, ``kernel_h``
-and ``bias``. The transitions, and the transition attention's
-``sent_to_trans_att`` ``[H, L]`` and ``sent_to_trans_att_b`` ``[L]``, keep
-their Flax names and layout.
+and ``bias``. An ELMo member keeps the Flax names: ``chars``,
+``conv{width}`` (a Flax Conv kernel ``[width, in, out]`` is a ``Conv1d``
+weight ``[out, in, width]``), ``hw_t{i}``/``hw_h{i}`` and ``proj`` as
+Dense layers, ``mix/{weights,gamma}``, and either bilm-tf's cells
+``{fwd,bwd}{i}/{W_0,B,W_P_0}`` as they are or, in the native topology,
+the LSTM cells ``OptimizedLSTMCell_{2i}`` (forward, layer i) and
+``_{2i+1}`` (backward); a BPEmb member its ``table``. The transitions,
+and the transition attention's ``sent_to_trans_att`` ``[H, L]`` and
+``sent_to_trans_att_b`` ``[L]``, keep their Flax names and layout.
 
 The parser and classifier families (:mod:`.models.biaffine`,
 :mod:`.models.classifier`) keep their Flax names: the encoder under
@@ -26,7 +32,10 @@ and the biaffine ``weight`` ``[out, in_x, in_y]`` (the same layout in
 both trees); the classifier's GRU ``doc_rnn/cell`` holds ``{ir,iz,in}/
 {kernel,bias}``, ``{hr,hz}/kernel`` and ``hn/{kernel,bias}``, which become
 :class:`~.models.embedders.FlaxGRU`'s fused ``kernel_i``, ``bias_i``,
-``kernel_h`` and ``bias_hn``. Every function here takes a
+``kernel_h`` and ``bias_hn``. The MFVI head (:mod:`.ops.mfvi`) keeps
+``potentials/{U,V}/kernel`` (Dense layers without bias) and
+``potentials/{W1,W2}``, and with third order ``ternary/{W1,W2,W3,T1,T2,
+T3}/kernel`` and ``ternary/tag_emb``. Every function here takes a
 :class:`TaggerConfig` (the plain tagger) or the module itself.
 """
 
@@ -43,12 +52,13 @@ from . import checkpoint
 from .models.biaffine import (BiaffineNER, BiaffineParser,
                               SemanticDependencyParser)
 from .models.classifier import TextClassifier, TextRegressor
-from .models.embedders import (CharBiLSTMEmbedder, CharLMHead,
-                               FlairLMEmbedder, TransformerWordEmbedder,
-                               WordEmbedder)
+from .models.embedders import (BPEmbEmbedder, CharBiLSTMEmbedder,
+                               CharLMHead, ELMoEmbedder, FlairLMEmbedder,
+                               TransformerWordEmbedder, WordEmbedder)
 from .models.ensemble_model import EnsembleModel
 from .models.tagger import SequenceTagger, StackedSequenceTagger, TaggerConfig
 from .models.xlmr import XLMRConfig
+from .ops.mfvi import MFVIHead
 
 _EMBEDS = ("word_embeddings", "position_embeddings", "token_type_embeddings")
 _PROJS = ("query", "key", "value", "out")
@@ -58,7 +68,7 @@ _TASK_MODELS = (BiaffineParser, SemanticDependencyParser, BiaffineNER,
                 TextClassifier, TextRegressor)
 Target = Union[TaggerConfig, SequenceTagger, CharLMHead, EnsembleModel,
                BiaffineParser, SemanticDependencyParser, BiaffineNER,
-               TextClassifier, TextRegressor]
+               TextClassifier, TextRegressor, MFVIHead]
 
 
 def _encoder_pairs(enc: XLMRConfig, src: tuple, dst: str):
@@ -89,7 +99,44 @@ def _member_pairs(member, src: tuple, dst: str):
         return [pair for d in ("fwd", "bwd") for pair in (
             (src + (d, "embed"), f"{dst}.{d}.embed", "embed"),
             (src + (d, "OptimizedLSTMCell_0"), f"{dst}.{d}.lstm", "lstm"))]
+    if isinstance(member, ELMoEmbedder):
+        return _elmo_pairs(member, src, dst)
+    if isinstance(member, BPEmbEmbedder):
+        return [(src + ("table",), f"{dst}.table", "embed")]
     raise TypeError(f"no Flax layout for a {type(member).__name__} member")
+
+
+def _elmo_pairs(member: ELMoEmbedder, src: tuple, dst: str):
+    out = [(src + ("chars",), f"{dst}.chars", "embed")]
+    out += [(src + (f"conv{w}",), f"{dst}.conv{w}", "conv")
+            for w, _ in member.filters]
+    out += [(src + (f"hw_{g}{i}",), f"{dst}.hw_{g}{i}", "dense")
+            for i in range(member.n_highway) for g in "th"]
+    out.append((src + ("proj",), f"{dst}.proj", "dense"))
+    for i in range(member.num_layers):
+        for j, d in enumerate(("fwd", "bwd")):
+            if member.bilm:
+                out += [(src + (f"{d}{i}", leaf), f"{dst}.{d}{i}.{leaf}",
+                         "param") for leaf in ("W_0", "B", "W_P_0")]
+            else:
+                out.append((src + (f"OptimizedLSTMCell_{2 * i + j}",),
+                            f"{dst}.{d}{i}", "lstm"))
+    if member.mix is not None:
+        out += [(src + ("mix", leaf), f"{dst}.mix.{leaf}", "param")
+                for leaf in ("weights", "gamma")]
+    return out
+
+
+def _mfvi_pairs(head: MFVIHead):
+    out = [(("potentials", n), f"potentials.{n}", "dense_nobias")
+           for n in "UV"]
+    out += [(("potentials", n), f"potentials.{n}", "param")
+            for n in ("W1", "W2")]
+    if head.use_third_order:
+        out += [(("ternary", n), f"ternary.{n}", "dense_nobias")
+                for n in ("W1", "W2", "W3", "T1", "T2", "T3")]
+        out.append((("ternary", "tag_emb"), "ternary.tag_emb", "param"))
+    return out
 
 
 def _config(target: Target) -> TaggerConfig:
@@ -97,7 +144,7 @@ def _config(target: Target) -> TaggerConfig:
 
 
 def _use_crf(target: Target) -> bool:
-    return (not isinstance(target, (CharLMHead, EnsembleModel)
+    return (not isinstance(target, (CharLMHead, EnsembleModel, MFVIHead)
                            + _TASK_MODELS)
             and _config(target).use_crf)
 
@@ -134,8 +181,8 @@ def _crf_leaves(target: Target):
 
 def _pairs(target: Target):
     """``(flax path, state-dict prefix, kind)`` of every parameter group
-    of the tagger (or char LM); kind is ``dense``, ``norm``, ``embed`` or
-    ``lstm``."""
+    of the model; kind is a key of ``_LEAVES``, ``lstm``, ``gru`` or
+    ``param`` (one leaf as it is)."""
     if isinstance(target, CharLMHead):
         return [(("lm", "embed"), "lm.embed", "embed"),
                 (("lm", "OptimizedLSTMCell_0"), "lm.lstm", "lstm"),
@@ -143,6 +190,8 @@ def _pairs(target: Target):
     if isinstance(target, EnsembleModel):
         return [(("hidden",), "hidden", "dense"),
                 (("hidden2score",), "hidden2score", "dense")]
+    if isinstance(target, MFVIHead):
+        return _mfvi_pairs(target)
     if isinstance(target, _TASK_MODELS):
         return _task_pairs(target)
     config = _config(target)
@@ -159,9 +208,26 @@ def _pairs(target: Target):
 
 
 _LEAVES = {"dense": (("kernel", "weight"), ("bias", "bias")),
+           "dense_nobias": (("kernel", "weight"),),
+           "conv": (("kernel", "weight"), ("bias", "bias")),
            "norm": (("scale", "weight"), ("bias", "bias")),
            "embed": (("embedding", "weight"),),
            "biaffine": (("weight", "weight"),)}
+
+
+def _kernel_to_torch(kind: str, src: str, t: torch.Tensor) -> torch.Tensor:
+    """A Flax kernel in the torch layout: Dense ``[in, out]`` ->
+    ``[out, in]``, Conv ``[w, in, out]`` -> ``[out, in, w]``."""
+    if src != "kernel":
+        return t
+    return t.permute(2, 1, 0) if kind == "conv" else t.T
+
+
+def _kernel_to_flax(kind: str, src: str, arr: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_kernel_to_torch`."""
+    if src != "kernel":
+        return arr
+    return arr.transpose(2, 1, 0) if kind == "conv" else arr.T
 
 
 def _dtypes(target: Target):
@@ -185,8 +251,7 @@ def _state(p: Mapping[str, Any], pairs, dtype) -> Dict[str, torch.Tensor]:
         elif kind == "param":
             leaves = {"": _tensor(node)}
         else:
-            leaves = {dst: (_tensor(node[src]).T if src == "kernel"
-                            else _tensor(node[src]))
+            leaves = {dst: _kernel_to_torch(kind, src, _tensor(node[src]))
                       for src, dst in _LEAVES[kind]}
         for dst, t in leaves.items():
             name = f"{prefix}.{dst}".strip(".")
@@ -204,7 +269,7 @@ def _tree(state: Mapping[str, torch.Tensor], pairs) -> Dict[str, Any]:
         for key in path[:-1]:
             node = node.setdefault(key, {})
         if kind == "param":
-            node[path[-1]] = np.ascontiguousarray(array(prefix))
+            node[path[-1]] = np.array(array(prefix), order="C")  # 0-d too
             continue
         node = node.setdefault(path[-1], {})
         if kind == "lstm":
@@ -216,9 +281,8 @@ def _tree(state: Mapping[str, torch.Tensor], pairs) -> Dict[str, Any]:
                 "kernel_i", "bias_i", "kernel_h", "bias_hn"))))
             continue
         for src, dst in _LEAVES[kind]:
-            arr = array(f"{prefix}.{dst}")
-            node[src] = np.ascontiguousarray(arr.T if src == "kernel"
-                                             else arr)
+            node[src] = np.ascontiguousarray(_kernel_to_flax(
+                kind, src, array(f"{prefix}.{dst}")))
     return tree
 
 
@@ -243,6 +307,13 @@ def member_from_jax_params(params: Mapping[str, Any], member: nn.Module
     transformer member) from its Flax subtree ``stack/members_<i>``."""
     return _state(params.get("params", params),
                   _member_pairs(member, (), ""), _dtypes(member))
+
+
+def member_to_jax_params(state: Mapping[str, torch.Tensor],
+                         member: nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`member_from_jax_params`: the member's Flax
+    subtree of float32 numpy arrays."""
+    return _tree(state, _member_pairs(member, (), ""))
 
 
 def lstm_from_flax(cell: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -1,7 +1,9 @@
 """The PyTorch port's ACE loop and char-LM trainer against kbner_tpu's:
 the controller's draws, updates and saved state under a stub episode;
 ``cli train`` with ``trainer: ReinforcementTrainer`` end to end; an ACE
-checkpoint crossing between the packages both ways; the char-LM
+checkpoint crossing between the packages both ways, ELMo and BPEmb
+members included (their weights from HDF5, npz and word2vec files; ``cli
+test`` on the result); the char-LM
 trainer's losses against optax's (rtol 1e-5: float32 Adam in another
 operation order, as tests/test_torch_train.py holds the optimizer).
 """
@@ -30,6 +32,7 @@ from kbner_tpu.train.reinforce import \
 from kbner_tpu_torch import checkpoint, cli, weights
 from kbner_tpu_torch.config import ExperimentConfig
 from kbner_tpu_torch.data.dictionary import Dictionary
+from kbner_tpu_torch.models import embedders as emb
 from kbner_tpu_torch.models.embedders import CharLMHead
 from kbner_tpu_torch.models.tagger import StackedSequenceTagger
 from kbner_tpu_torch.train.lm_trainer import (LanguageModelTrainer,
@@ -179,13 +182,127 @@ def test_ace_checkpoints_cross_both_ways(tmp_path):
         trainer.load_encoder(jpath)  # the stack's encoder is not there
 
 
-def test_ace_refuses_embedders_of_a_later_slice(tmp_path):
-    for kind in ("elmo", "bpemb"):
-        path, raw = _config(tmp_path, kind, trainer="ReinforcementTrainer")
-        raw["model"]["embeddings"] = [{"type": kind}]
-        path.write_text(yaml.safe_dump(raw))
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            cli._build_ace(ExperimentConfig.from_file(path), "cpu")
+# a bilm-tf ELMo member on allennlp's byte ids, and a BPEmb member
+ELMO = {"type": "elmo", "char_encoding": "elmo_bytes", "char_dim": 4,
+        "filters": [[1, 3], [2, 4], [4, 2]], "n_highway": 1, "cell_dim": 6,
+        "proj_dim": 5, "num_layers": 2, "mode": "all"}
+
+
+def _elmo_weights(tmp_path, fmt):
+    """Seeded weights of ``ELMO``'s widths, in bilm-tf's HDF5 layout
+    (written with h5py) or as the member's npz."""
+    import h5py
+
+    from kbner_tpu_torch.models.embedders import ELMoEmbedder
+
+    m = ELMoEmbedder(261, 4, filters=((1, 3), (2, 4), (4, 2)), n_highway=1,
+                     proj_dim=5, num_layers=2, cell_dim=6,
+                     conv_activation="relu")
+    m.reset_parameters(torch.Generator().manual_seed(3))
+    if fmt == "npz":
+        m.save_npz(tmp_path / "elmo.npz")
+        return tmp_path / "elmo.npz"
+    tree = weights.member_to_jax_params(m.state_dict(), m)
+    path = tmp_path / "elmo_weights.hdf5"
+    with h5py.File(path, "w") as f:
+        f["char_embed"] = tree["chars"]["embedding"]
+        for i, (w, _) in enumerate(m.filters):
+            f[f"CNN/W_cnn_{i}"] = tree[f"conv{w}"]["kernel"][None]
+            f[f"CNN/b_cnn_{i}"] = tree[f"conv{w}"]["bias"]
+        f["CNN_high_0/W_carry"] = tree["hw_t0"]["kernel"]
+        f["CNN_high_0/b_carry"] = tree["hw_t0"]["bias"]
+        f["CNN_high_0/W_transform"] = tree["hw_h0"]["kernel"]
+        f["CNN_high_0/b_transform"] = tree["hw_h0"]["bias"]
+        f["CNN_proj/W_proj"] = tree["proj"]["kernel"]
+        f["CNN_proj/b_proj"] = tree["proj"]["bias"]
+        for d, prefix in enumerate(("fwd", "bwd")):
+            for layer in range(2):
+                g = f"RNN_{d}/RNN/MultiRNNCell/Cell{layer}/LSTMCell"
+                for leaf in ("W_0", "B", "W_P_0"):
+                    f[f"{g}/{leaf}"] = tree[f"{prefix}{layer}"][leaf]
+    return path
+
+
+@pytest.mark.parametrize("fmt", ["hdf5", "npz"])
+def test_cli_ace_with_elmo_and_bpemb(tmp_path, fmt):
+    """``cli train`` with the ACE trainer over a word + bilm-tf ELMo
+    (byte ids, weights spliced from the file) + BPEmb (word2vec text)
+    stack, then ``cli test``; the spliced weights equal the file's, and
+    the best checkpoint crosses to kbner_tpu and back with an equal tree
+    and the port's emissions."""
+    wfile = _elmo_weights(tmp_path, fmt)
+    vec = tmp_path / "bpe.vec"
+    bpe = emb.BPEVocab.build(ExperimentConfig.from_file(
+        FIX / "toy_config.yaml").load_corpus().train, dim=3, max_words=10)
+    vec.write_text(f"{len(bpe.pieces)} 3\n" + "".join(
+        f"{p} {' '.join(f'{v:.4f}' for v in bpe.matrix[i])}\n"
+        for p, i in bpe.pieces.items()))
+    path, raw = _config(tmp_path, f"elmo_{fmt}",
+                        trainer="ReinforcementTrainer", ace={"episodes": 1})
+    raw["model"]["embeddings"] = [
+        {"type": "word", "dim": 6}, dict(ELMO, weights=str(wfile)),
+        {"type": "bpemb", "dim": 3, "vectors": str(vec)}]
+    raw["train"].update(max_epochs=1, learning_rate=0.05)
+    path.write_text(yaml.safe_dump(raw))
+    config = ExperimentConfig.from_file(path)
+    trainer, specs = cli._build_ace(config, "cpu")
+    elmo = trainer.model.stack.members[1]
+    assert trainer.elmo_bytes and elmo.input_key == "elmo_char_ids"
+    assert [s.dim for s in specs] == [6, 30, 6]
+    want = emb.ELMoEmbedder(261, 4, filters=((1, 3), (2, 4), (4, 2)),
+                            n_highway=1, proj_dim=5, num_layers=2,
+                            cell_dim=6, conv_activation="relu")
+    want.load_npz(wfile) if fmt == "npz" else want.load_hdf5(wfile)
+    for (name, a), b in zip(elmo.state_dict().items(),
+                            want.state_dict().values()):
+        assert torch.equal(a, b), name
+
+    result = cli.main(["train", "--config", str(path), "--device", "cpu"])
+    run = Path(raw["target_dir"])
+    tested = json.loads((run / "test_results.json").read_text())
+    assert np.isfinite(result["final"]["history"]["train_loss"]).all()
+    assert cli.main(["test", "--config", str(path), "--device",
+                     "cpu"]) is None
+    assert json.loads((run / "test_results.json").read_text()) == tested
+
+    best = run / "best-model.msgpack"
+    trainer.load(best)
+    _, jtrainer, jspecs = jcli._build_ace(JExperimentConfig.from_file(path))
+    assert [s.dim for s in jspecs] == [6, 30, 6]
+    jtrainer.load(best)
+    tree = weights.to_jax_params(trainer.model.state_dict(), trainer.model)
+    jtree = serialization.to_state_dict(jtrainer.params)
+    assert jax.tree_util.tree_structure(tree) == \
+        jax.tree_util.tree_structure(jtree)
+    for a, b in zip(jax.tree_util.tree_leaves(tree),
+                    jax.tree_util.tree_leaves(jtree)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    trainer.model.eval()
+    trainer.selection = jtrainer.selection = np.ones(3, np.float32)
+    batch = trainer._to_device(trainer._make_train_batches(
+        config.load_corpus().train, config.make_train_config(), 0)[0])
+    jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    with torch.no_grad():
+        got = trainer.model.emissions(batch)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jtrainer.model.apply(
+        jtrainer.params, jbatch, method=jtrainer.model.emissions)),
+        rtol=1e-5, atol=1e-4)
+    # and kbner_tpu's file back into the port
+    jpath = tmp_path / "jax-model.msgpack"
+    jpath.write_bytes(serialization.msgpack_serialize(jtree))
+    trainer.load(jpath)
+    for a, b in zip(jax.tree_util.tree_leaves(weights.to_jax_params(
+            trainer.model.state_dict(), trainer.model)),
+            jax.tree_util.tree_leaves(jtree)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_ace_refuses_unknown_members(tmp_path):
+    path, raw = _config(tmp_path, "unknown", trainer="ReinforcementTrainer")
+    raw["model"]["embeddings"] = [{"type": "glove"}]
+    path.write_text(yaml.safe_dump(raw))
+    with pytest.raises(ValueError, match="unknown ACE embedding type"):
+        cli._build_ace(ExperimentConfig.from_file(path), "cpu")
 
 
 # -- the char-LM trainer -------------------------------------------------------------------

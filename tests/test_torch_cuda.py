@@ -1,7 +1,8 @@
 """kbner_tpu_torch on the card: the CUDA kernels against their plain
 versions, and retrieval (exhaustive, pruned, entity-boosted and the
-two-operand pruned top-k) and tagging on the card against the same on the
-CPU.
+two-operand pruned top-k), tagging, the ACE members (ELMo and pooled
+Flair tables among them) and the MFVI head on the card against the same
+on the CPU.
 
 These tests need an NVIDIA GPU and skip without one. The machine with the
 card has no JAX, so run them there without the suite's conftest:
@@ -1026,3 +1027,100 @@ def test_tree_crf_marginals_on_card_match_float64_cpu(card):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
     np.testing.assert_allclose(got.sum(-1).cpu().numpy()[:, 1:],
                                wm.astype(np.float32), atol=1e-4)
+
+
+def _elmo_batch(elmo_bytes):
+    """A quality-corpus batch with ELMo's byte ids or the corpus's
+    character ids, and its character vocabulary."""
+    from kbner_tpu_torch.data.encode import (add_classic_features,
+                                             build_char_vocab, encode_batch)
+    from kbner_tpu_torch.data.quality_fixture import make_quality_corpus
+
+    corpus = make_quality_corpus(24, 2, 2, seed=5)
+    cv = build_char_vocab(corpus.train)
+    eb = encode_batch(corpus.train[:12], HashTokenizer(1000))
+    add_classic_features(eb, None, None if elmo_bytes else cv,
+                         elmo_bytes=elmo_bytes)
+    return eb.arrays(), cv, corpus
+
+
+@pytest.mark.parametrize("bilm", [False, True], ids=["native", "bilm"])
+def test_elmo_member_on_card_matches_cpu(card, bilm):
+    """The ELMo member's features and every parameter's gradient on the
+    card against the CPU, float32, same seeded weights: features rtol
+    1e-5, atol 1e-5; gradients rtol 1e-4, atol 1e-5 (sums over characters,
+    words and gates taken in another order)."""
+    from kbner_tpu_torch.models.embedders import ELMoEmbedder
+
+    arrays, cv, _ = _elmo_batch(bilm)
+    kw = dict(filters=((1, 8), (2, 8), (4, 16)), n_highway=2, proj_dim=16,
+              num_layers=2, mode="mix")
+    if bilm:
+        kw.update(cell_dim=64, conv_activation="relu",
+                  input_key="elmo_char_ids")
+    members = [ELMoEmbedder(261 if bilm else len(cv), 8, device=dev, **kw)
+               for dev in ("cpu", card)]
+    members[0].reset_parameters(torch.Generator().manual_seed(2))
+    members[1].load_state_dict(members[0].state_dict())
+    w = torch.from_numpy(np.random.RandomState(3).randn(
+        *arrays["word_mask"].shape, members[0].out_dim).astype(np.float32))
+    outs = []
+    for m, dev in zip(members, ("cpu", card)):
+        out = m({k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
+        (out * w.to(dev)).sum().backward()
+        outs.append(out.detach().cpu())
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-5)
+    for (name, p), q in zip(members[0].named_parameters(),
+                            members[1].parameters()):
+        torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-4,
+                                   atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("third", [False, True])
+def test_mfvi_head_on_card_matches_cpu(card, third):
+    """The MFVI head's loss and gradients (rtol 1e-5 and 1e-4, atol
+    1e-6) and decoded tags (equal) on the card against the CPU."""
+    from kbner_tpu_torch.ops.mfvi import MFVIHead
+
+    rng = np.random.RandomState(4)
+    feats = torch.from_numpy(rng.randn(4, 30, 64).astype(np.float32))
+    unary = torch.from_numpy(rng.randn(4, 30, 9).astype(np.float32))
+    tags = torch.from_numpy(rng.randint(0, 9, size=(4, 30)))
+    mask = torch.ones(4, 30, dtype=torch.int32)
+    mask[1, 20:] = 0
+    heads = [MFVIHead(64, 9, rank=16, use_third_order=third, device=dev)
+             for dev in ("cpu", card)]
+    heads[1].load_state_dict(heads[0].state_dict())
+    runs = []
+    for head, dev in zip(heads, ("cpu", card)):
+        args = [t.to(dev) for t in (feats, unary, tags, mask)]
+        loss = head.loss(*args)
+        loss.backward()
+        with torch.no_grad():
+            decoded = head.decode(args[0], args[1], args[3])
+        runs.append((loss.detach().cpu(), decoded.cpu()))
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-5, atol=1e-6)
+    assert torch.equal(runs[1][1], runs[0][1])
+    for (name, p), q in zip(heads[0].named_parameters(),
+                            heads[1].parameters()):
+        torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-4,
+                                   atol=1e-6, msg=name)
+
+
+@pytest.mark.parametrize("pooling", ["mean", "min", "max"])
+def test_pooled_flair_table_on_card_matches_cpu(card, pooling):
+    """``build_pooled_flair_table`` on the card against the CPU: the same
+    vocabulary, the table within rtol 1e-5, atol 1e-6."""
+    from kbner_tpu_torch.models.embedders import (FlairLMEmbedder,
+                                                  build_pooled_flair_table)
+
+    _, cv, corpus = _elmo_batch(False)
+    flairs = [FlairLMEmbedder(len(cv), 8, 32, device=dev)
+              for dev in ("cpu", card)]
+    flairs[0].reset_parameters(torch.Generator().manual_seed(6))
+    flairs[1].load_state_dict(flairs[0].state_dict())
+    (v_cpu, t_cpu), (v_card, t_card) = (build_pooled_flair_table(
+        f, corpus.train, HashTokenizer(1000), cv, pooling=pooling,
+        batch_size=8) for f in flairs)
+    assert v_card.idx2item == v_cpu.idx2item
+    np.testing.assert_allclose(t_card, t_cpu, rtol=1e-5, atol=1e-6)

@@ -21,6 +21,7 @@ import yaml
 
 import kbner_tpu_torch
 from kbner_tpu_torch import cli, device
+from kbner_tpu_torch.config import ExperimentConfig
 from kbner_tpu_torch.data.conll import write_column_file
 from kbner_tpu_torch.data.dictionary import make_tag_dictionary
 from kbner_tpu_torch.data.quality_fixture import make_quality_corpus
@@ -64,7 +65,14 @@ def test_importing_every_module_pulls_in_no_jax():
             "kbner_tpu_torch.ops.tree_crf",
             "kbner_tpu_torch.models.biaffine",
             "kbner_tpu_torch.models.classifier",
-            "kbner_tpu_torch.train.parser_trainer"} <= set(mods)
+            "kbner_tpu_torch.train.parser_trainer",
+            "kbner_tpu_torch.models.hdf5",
+            "kbner_tpu_torch.ops.mfvi",
+            "kbner_tpu_torch.train.param_search",
+            "kbner_tpu_torch.utils.artifacts",
+            "kbner_tpu_torch.utils.html_viz",
+            "kbner_tpu_torch.utils.plotter",
+            "kbner_tpu_torch.utils.progress"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
@@ -102,6 +110,24 @@ def test_no_module_imports_the_hf_libraries():
             f"for m in {_modules()!r}: importlib.import_module(m)\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {names!r}]\n"
             "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_no_module_imports_h5py():
+    """The card machine has no ``h5py``: ELMo's weight files are read by
+    the port's own HDF5 reader, and no module imports it, at import time
+    or in any source line."""
+    pattern = re.compile(r"^\s*(from|import) h5py(\.|\s|$)")
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pattern.match(line)]
+    assert not hits, hits
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}: importlib.import_module(m)\n"
+            "assert 'h5py' not in sys.modules\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr + out.stdout
@@ -291,6 +317,32 @@ def test_checkpoint_and_parity_entry_points_default_to_the_card(no_cuda,
     assert cli.main(argv[:2] + [str(tmp_path / "none")] + argv[3:]) is None
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(argv)
+
+
+def test_elmo_bpemb_and_mfvi_entry_points_default_to_the_card(no_cuda,
+                                                            tmp_path):
+    """The MFVI head and ``cli train``/``test`` of an ACE stack with ELMo
+    and BPEmb members need the card unless asked for the CPU."""
+    from kbner_tpu_torch.ops.mfvi import MFVIHead
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MFVIHead(8, 3)
+    assert MFVIHead(8, 3, device="cpu").potentials.W1.device.type == "cpu"
+    fix = REPO / "tests" / "fixtures"
+    raw = yaml.safe_load((fix / "toy_config.yaml").read_text())
+    raw["corpora"][0]["data_folder"] = str(fix / "ner_toy")
+    raw.update(trainer="ReinforcementTrainer", target_dir=str(tmp_path))
+    raw["model"]["embeddings"] = [
+        {"type": "elmo", "char_encoding": "elmo_bytes", "cell_dim": 4,
+         "proj_dim": 3, "filters": [[1, 2]], "n_highway": 1},
+        {"type": "bpemb", "dim": 3}]
+    cfg = tmp_path / "ace.yaml"
+    cfg.write_text(yaml.safe_dump(raw))
+    for cmd in ("train", "test"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main([cmd, "--config", str(cfg)])
+    trainer, _ = cli._build_ace(ExperimentConfig.from_file(cfg), "cpu")
+    assert trainer.bpe_vocab is not None and trainer.elmo_bytes
 
 
 def test_parser_and_classifier_entry_points_default_to_the_card(
