@@ -32,7 +32,7 @@ held to the trainer's own prediction. Then the offline KB stage runs
 through the CLI: a dump ingested, a fifth of the KB indexed from JSONL
 and held to the in-memory index, the KB saved and reopened, the native
 host runtime (``kbner_tpu_torch/native``, built with g++) held to its
-numpy twins at full size and the pruned engine built both ways, four
+numpy twins on half the KB and the pruned engine built both ways, four
 ``cli retrieve`` runs over CoNLL splits, the native analyzer held to the
 Python one on 10,000 multilingual sentences, a 50,000-doc zh KB indexed
 with IK and searched both ways, deep pass-1 windows held against the
@@ -73,7 +73,13 @@ the ACE stack's ELMo and BPEmb members at their published widths (the
 over the six-member stack and ``cli test`` on it, one step split by
 member, ELMo's features and a pooled Flair table held between the card
 and the CPU, and the MFVI head's loss, gradients and decode over XLM-R
-word features held the same way. It prints what
+word features held the same way. Last, the sharded retrieval engine:
+two gloo ranks on the card (NCCL refuses two ranks on one card), each
+opening the saved 1M KB and holding its shard of a meshed exhaustive
+(K1) and a meshed pruned (K2) engine, serve two batches whose merged
+top-10 is held to the unsharded engines' on every rank; then the pruned
+engine's pass-1 top-C taken approximately (``topc_recall``) at a C that
+XLA's formula reduces, held to the exact top-C's recall. It prints what
 it measured on the lines before the last and exits non-zero on any
 failure.
 Its last line is one JSON object naming the device.
@@ -1400,6 +1406,10 @@ N_ZH_DOCS = 50_000
 ZH_SPLITS = {"train": 1_500, "dev": 500, "test": 500}
 DEEP = dict(deep_terms=4, deep_cap=4096)
 N_DEEP_QUERIES = 2 * RETRIEVE_BATCH
+# docs of the 1M KB each native entry point meets its numpy twin on (half
+# the KB, to keep the smoke inside its time; the whole pruned engine is
+# still built both ways at 1M)
+N_TWIN_DOCS = 500_000
 TINY_RTOL = 1e-6        # float32 tiny sums in posting order vs float64
 ML_WORDS = (
     # Latin with diacritics and the UAX#29 joins
@@ -1493,14 +1503,17 @@ def same_arrays(label, got, want) -> None:
 
 
 def native_against_twins(index, queries, cap: int, tiny_cap: int,
-                         card: str) -> None:
-    """Phase 4h (b): each postings helper of the native runtime on the 1M
-    KB's arrays beside its numpy twin, once each, native first: equal
-    arrays (the tiny gather within TINY_RTOL of its float64 twin)."""
+                         card: str, n_docs: int = N_TWIN_DOCS) -> None:
+    """Phase 4h (b): each postings helper of the native runtime on the
+    first ``n_docs`` docs of the 1M KB's arrays beside its numpy twin,
+    once each, native first: equal arrays (the tiny gather within
+    TINY_RTOL of its float64 twin). The whole pruned engine is built both
+    ways at 1M docs before it."""
     from kbner_tpu_torch import native
     from kbner_tpu_torch.retrieval import engine as eng
 
-    dt, di, V = index.doc_terms, index.doc_impacts, len(index.vocab)
+    dt, di = index.doc_terms[:n_docs], index.doc_impacts[:n_docs]
+    V = len(index.vocab)
     times = {}
 
     def pair(name, fn, twin):
@@ -1529,7 +1542,7 @@ def native_against_twins(index, queries, cap: int, tiny_cap: int,
     remap = remap.astype(np.int32)
     p = index.params
     dl = np.zeros(dt2.shape[0], np.int64)
-    dl[:len(index.doc_dl)] = index.doc_dl
+    dl[:min(n_docs, len(index.doc_dl))] = index.doc_dl[:n_docs]
     norm = (p.k1 * (1.0 - p.b + p.b * dl / index.avgdl)).astype(np.float32)
     (lens, emit), t_lens = timed(
         lambda: native.delta16_rows(dt2, di2, remap, index.idf, norm))
@@ -1584,8 +1597,9 @@ def native_against_twins(index, queries, cap: int, tiny_cap: int,
     if worst > TINY_RTOL:
         raise AssertionError(f"tiny_exact: {worst:.3g} relative from its "
                              f"float64 twin (bar {TINY_RTOL})")
-    log(f"native runtime against its numpy twins on the 1M KB ({dt.shape[0]}"
-        f" x {dt.shape[1]} doc rows, {len(csr[1])} postings; cap {cap}, tiny "
+    log(f"native runtime against its numpy twins on the 1M KB's first "
+        f"{dt.shape[0]} x {dt.shape[1]} doc rows ({len(csr[1])} postings; "
+        f"cap {cap}, tiny "
         f"df <= {tiny_cap}; tiny_exact over {len(queries)} cli retrieve "
         f"queries, {n_entries} (query, doc) sums, largest relative gap "
         f"{worst:.3g}, bar {TINY_RTOL}), every other result array_equal; "
@@ -4755,6 +4769,310 @@ def elmo_stage_phase(cli, bm25, dev, card, tmp, encoder="large", elmo=None,
     return {"elmo_err": elmo_err, "pool_err": pool_err}
 
 
+# phase 4o: the sharded retrieval engines in a world of gloo ranks on the
+# one card (NCCL refuses two ranks on one GPU), and the pass-1
+# approximate top-C
+SHARDS = 2              # data shards, one gloo rank each, all on cuda:0
+SHARD_TIMEOUT_S = 300   # the gloo group's timeout, and the world's deadline
+MERGE_ITERS = 20        # merges timed per rank (each one all-gather)
+TOPC_C = 64             # a top-C that XLA's formula reduces at P ~ 6,656
+TOPC_RECALL = 0.95
+
+
+def _sharded_rank_run(rank: int, world: int, tmp,
+                      device_type: str = "cuda") -> dict:
+    """Phase 4o, one rank: 4h's saved KB ``kb1m`` opened with ``load_kb``,
+    a meshed exhaustive and a meshed pruned engine (4a's pruned knobs,
+    the title field) over shard ``rank`` of ``world``, each serving the
+    two batches of ``sharded-inputs.npz`` (batch 0 plain, batch 1 with
+    entity clauses); then K1 at its shard's shape and K2 on its shard's
+    rows held to their plain versions, and the merge timed alone. Returns
+    the arrays the parent holds. (``device_type="cpu"`` rehearses it in
+    one process on the CPU, with the CUDA calls stubbed.)"""
+    import torch
+    import torch.distributed as dist
+
+    from kbner_tpu_torch.ops import bm25
+    from kbner_tpu_torch.parallel import make_mesh
+    from kbner_tpu_torch.retrieval.engine import (RetrievalEngine,
+                                                  merge_shard_topk)
+    from kbner_tpu_torch.retrieval.pipeline import load_kb
+
+    mesh = make_mesh(data=world, model=1, device_type=device_type)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    torch.cuda.reset_peak_memory_stats(dev)
+    (text, store, title, _), load_s = timed(lambda: load_kb(tmp / "kb1m"))
+    ex, ex_s = timed(lambda: RetrievalEngine(
+        text, store=store, title_index=title, mesh=mesh, device=dev))
+    pr, pr_s = timed(lambda: RetrievalEngine(
+        text, store=store, title_index=title, mesh=mesh, device=dev,
+        mode="pruned", **PRUNED_KNOBS))
+    torch.cuda.synchronize(dev)
+    z = np.load(tmp / "sharded-inputs.npz")
+    blocks = [(z["qt0"], z["qw0"], None, None),
+              (z["qt1"], z["qw1"], z["tt1"], z["tw1"])]
+    out = {"shard": [ex.n_shards, ex.shard, ex.shard_size, ex.n_padded],
+           "seconds": [load_s, ex_s, pr_s],
+           "backend": dist.get_backend(ex._group)}
+    # the batches twice: the first pass pays each CUDA module's first load
+    # in this process (cold), the second is timed warm and counted
+    for label, eng in (("ex", ex), ("pr", pr)):
+        for run in ("cold", "warm"):
+            reset_counts(bm25)
+            for b, (qt, qw, tt, tw) in enumerate(blocks):
+                t0 = time.perf_counter()
+                s_b, i_b = eng.search_encoded(qt, qw, k=K, title_terms=tt,
+                                              title_weights=tw)
+                out[f"{label}/{b}/{run}_ms"] = (time.perf_counter()
+                                                - t0) * 1e3
+                out[f"{label}/{b}/s"], out[f"{label}/{b}/i"] = s_b, i_b
+        out[f"{label}/launches"] = [counts(bm25)[w] for w in WRAPPERS]
+    # K1 at the shard's [Ld, N / S] shape, K2 on the shard's rows
+    qt = torch.from_numpy(z["qt0"]).to(dev)
+    qw = torch.from_numpy(z["qw0"]).to(dev)
+    dt, di = ex.fields["text"]
+    got = bm25.bm25_score_block(qt, qw, dt, di)
+    want = bm25.bm25_score_block_ref(qt, qw, dt, di)
+    torch.cuda.synchronize(dev)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert_same_topk(got, want, K)
+    out["k1"] = [float((got - want).abs().max()),
+                 time_cuda_ms(lambda: bm25.bm25_score_block(qt, qw, dt, di),
+                              iters=20), dt.shape[0], dt.shape[1]]
+    del got, want
+    keys, fields, _, kw = pr._device_queries(pr._pack_queries(z["qt0"],
+                                                              z["qw0"]))
+    _, _, ops = bm25.pass2_operands(keys, fields, **kw)
+    fn, args = ops[0]
+    if fn is not bm25.delta16_rescore:
+        raise AssertionError(f"the shard's text pass 2 is {fn.__name__}")
+    got = fn(*args)
+    want = bm25.delta16_rescore_ref(*args)
+    torch.cuda.synchronize(dev)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    out["k2"] = [float((got - want).abs().max()),
+                 time_cuda_ms(lambda: fn(*args), iters=20),
+                 args[2].shape[1], args[3].shape[0], args[-1]]
+    # the merge alone: one all-gather of [Q, 2k] and the top k
+    s_m = torch.from_numpy(out["ex/0/s"]).to(dev)
+    i_m = torch.from_numpy(out["ex/0/i"]).to(dev)
+    merge_shard_topk(s_m, i_m, K, ex._group)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(MERGE_ITERS):
+        merge_shard_topk(s_m, i_m, K, ex._group)
+    torch.cuda.synchronize(dev)
+    out["merge_ms"] = (time.perf_counter() - t0) * 1e3 / MERGE_ITERS
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def sharded_rank(rank: int, world: int, tmp: str, out_dir: str) -> None:
+    """A spawned rank of phase 4o: joins the gloo world through a file
+    under ``out_dir``, runs :func:`_sharded_rank_run` and writes its
+    arrays (or its traceback) there."""
+    import datetime
+    import traceback
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{Path(out_dir) / 'init'}",
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        out = _sharded_rank_run(rank, world, Path(tmp))
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
+    except BaseException:
+        (Path(out_dir) / f"rank{rank}.err").write_text(
+            traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_shards(tmp, world: int = SHARDS) -> list:
+    """Run :func:`sharded_rank` in ``world`` spawned processes and return
+    each rank's arrays; ranks still alive at the deadline are terminated
+    and the phase fails, as it does when a rank fails."""
+    import torch.multiprocessing as mp
+
+    out_dir = tmp / "sharded-world"
+    out_dir.mkdir()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, world, str(tmp), str(out_dir)))
+             for r in range(world)]
+    start = time.monotonic()
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(max(SHARD_TIMEOUT_S - (time.monotonic() - start), 1.0))
+    stuck = [r for r, proc in enumerate(procs) if proc.is_alive()]
+    for proc in procs:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+    errors = [(out_dir / f"rank{r}.err").read_text() for r in range(world)
+              if (out_dir / f"rank{r}.err").exists()]
+    if stuck or errors or any(proc.exitcode for proc in procs):
+        raise AssertionError(
+            f"phase 4o: ranks {stuck} outlived {SHARD_TIMEOUT_S} s; exit "
+            f"codes {[proc.exitcode for proc in procs]}\n"
+            + "\n".join(errors))
+    ranks = []
+    for r in range(world):
+        with np.load(out_dir / f"rank{r}.npz") as z:
+            ranks.append({k: z[k] for k in z.files})
+    return ranks
+
+
+def sharded_stage_phase(bm25, dev, card, tmp, index, encoded, ent_blocks,
+                        exact, boosted, pruned_out, boost_ms) -> dict:
+    """Phase 4o, after 4n in its directory ``tmp`` (4h's saved KB
+    ``kb1m``, written from 4a's index and title index): a world of
+    :data:`SHARDS` gloo ranks on the card, each with its shard of a meshed
+    exhaustive and a meshed pruned engine (:func:`_sharded_rank_run`),
+    serves 4a's batch 0 and batch 1 with its entity clauses; every rank's
+    merged top-10 is held to 4a's unsharded exhaustive results (``exact``,
+    ``boosted``: ids within ties, scores at the kernels' tolerance) and
+    the pruned one's recall@10 to the bar against them, with its recall
+    against 4a's unsharded pruned results printed. Then the pass-1
+    approximate top-C on an unsharded pruned engine over 4a's index at C =
+    :data:`TOPC_C`: its recall@10 against the same knobs with the exact
+    top-C, both engines' against exhaustive, and ``approx_max_k``'s
+    device time against ``_top_sorted``'s at that P. Returns the per-rank
+    launches and errors."""
+    import torch
+
+    from kbner_tpu_torch.retrieval.engine import RetrievalEngine
+
+    t_phase = time.perf_counter()
+    (qt0, qw0), (qt1, qw1) = encoded[:2]
+    tt1, tw1 = ent_blocks[1]
+    np.savez(tmp / "sharded-inputs.npz", qt0=qt0, qw0=qw0, qt1=qt1, qw1=qw1,
+             tt1=tt1, tw1=tw1)
+    ranks, world_s = timed(lambda: spawn_shards(tmp))
+    r0 = ranks[0]
+    for r, got in enumerate(ranks):
+        for key in (f"{e}/{b}/{x}" for e in ("ex", "pr") for b in (0, 1)
+                    for x in ("s", "i")):
+            if not np.array_equal(got[key], r0[key]):
+                raise AssertionError(f"phase 4o: rank {r}'s {key} differs "
+                                     "from rank 0's")
+        ex_l, pr_l = list(got["ex/launches"]), list(got["pr/launches"])
+        if ex_l != [3, 0, 0] or pr_l != [0, 2, 0]:
+            raise AssertionError(
+                f"phase 4o: rank {r} launched {ex_l} (exhaustive) and "
+                f"{pr_l} (pruned) of {list(WRAPPERS)}; expected K1 once a "
+                "field and batch, K2 once a batch")
+    sharded_ex = [(r0["ex/0/s"], r0["ex/0/i"]), (r0["ex/1/s"], r0["ex/1/i"])]
+    sharded_pr = [(r0["pr/0/s"], r0["pr/0/i"]), (r0["pr/1/s"], r0["pr/1/i"])]
+    unsharded_ex = [exact[0], boosted["exhaustive"][1]]
+    assert_same_results("phase 4o: sharded exhaustive against 4a's "
+                        "unsharded", unsharded_ex, sharded_ex)
+    recall = recall_at_k(unsharded_ex, sharded_pr)
+    if recall < MIN_RECALL:
+        raise AssertionError(f"phase 4o: sharded pruned recall@{K} "
+                             f"{recall:.4f}, bar {MIN_RECALL}")
+    vs_pruned = recall_at_k([pruned_out[0], boosted["pruned"][1]],
+                            sharded_pr)
+    geo = [list(map(int, r["shard"])) for r in ranks]
+    log(f"phase 4o: a world of {len(ranks)} gloo ranks on the one card "
+        f"(backend {r0['backend']}; the merge all-gathers its CUDA "
+        f"tensors, which gloo stages through host memory), "
+        f"spawned, built and served in {world_s:.1f} s (host clock); "
+        f"shards (S, s, ss, N padded) {geo}; per rank load_kb, exhaustive "
+        f"and pruned builds "
+        + "; ".join(", ".join(f"{x:.1f}" for x in r["seconds"])
+                    for r in ranks)
+        + f" s; every rank returned the same merged top-{K}; sharded "
+        f"exhaustive equals 4a's unsharded (batch 0 plain, batch 1 with "
+        f"entities) within ties at rtol {RTOL}, atol {ATOL}; sharded pruned "
+        f"recall@{K} {recall:.4f} against exhaustive (bar {MIN_RECALL}), "
+        f"{vs_pruned:.4f} against 4a's unsharded pruned ({card})")
+    def per_batch(label, run):
+        return "; ".join(f"{float(r[f'{label}/0/{run}_ms']):.2f}, "
+                         f"{float(r[f'{label}/1/{run}_ms']):.2f}"
+                         for r in ranks)
+
+    log("phase 4o ms per batch (host clock, search_encoded with its "
+        "all-gather and copies; batch 0 plain, batch 1 with entities), per "
+        f"rank, warm: exhaustive {per_batch('ex', 'warm')}, pruned "
+        f"{per_batch('pr', 'warm')}; the first pass (each CUDA module's "
+        f"first load in the rank): exhaustive {per_batch('ex', 'cold')}, "
+        f"pruned {per_batch('pr', 'cold')}"
+        + f"; unsharded (4e, batch 1 with entities): exhaustive "
+        f"{boost_ms['exhaustive'][1]:.2f}, pruned {boost_ms['pruned'][1]:.2f}"
+        f"; the merge alone (one all-gather of [{qt0.shape[0]}, {2 * K}] "
+        f"int64 and the top {K}, {MERGE_ITERS} calls) "
+        + ", ".join(f"{float(r['merge_ms']):.3f}" for r in ranks)
+        + " ms; peak allocated per rank "
+        + ", ".join(f"{float(r['peak_gb']):.2f}" for r in ranks)
+        + f" GB ({card})")
+    log("phase 4o kernels per rank: bm25_score_block at the shard's "
+        + "; ".join(f"[Ld={int(r['k1'][2])}, N={int(r['k1'][3])}] max abs "
+                    f"err {r['k1'][0]:.3g}, {r['k1'][1]:.4f} ms eager"
+                    for r in ranks)
+        + "; delta16_rescore on the shard's rows "
+        + "; ".join(f"C={int(r['k2'][2])}, NR={int(r['k2'][3])}, "
+                    f"R2={int(r['k2'][4])}: max abs err {r['k2'][0]:.3g}, "
+                    f"{r['k2'][1]:.4f} ms eager" for r in ranks)
+        + f"; each held to its plain version (rtol {RTOL}, atol {ATOL}) "
+        f"({card})")
+
+    # -- the pass-1 approximate top-C ------------------------------------
+    t0 = time.perf_counter()
+    topc = RetrievalEngine(index, mode="pruned", device=dev,
+                           **dict(PRUNED_KNOBS, n_candidates=TOPC_C))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    outs = {}
+    for r in (0.0, TOPC_RECALL):
+        topc.topc_recall = r  # read at each search
+        outs[r] = [topc.search_encoded(qt, qw, k=K) for qt, qw in encoded]
+    keys, _, _, kw = topc._device_queries(topc._pack_queries(*encoded[0]))
+    P = keys.shape[1]
+    reduced, log2 = bm25.approx_topk_reduction_size(P, TOPC_C, TOPC_RECALL)
+    if log2 == 0:
+        raise AssertionError(f"phase 4o: XLA's formula does not reduce at "
+                             f"P={P}, C={TOPC_C}")
+    kept = recall_at_k(outs[0.0], outs[TOPC_RECALL])
+    if kept < TOPC_RECALL:
+        raise AssertionError(f"phase 4o: topc_recall={TOPC_RECALL} keeps "
+                             f"recall@{K} {kept:.4f} of the exact top-C")
+    srt = torch.sort(keys, dim=1).values
+    valid = srt != bm25.KEY_PAD
+    partial = bm25._run_partials(
+        srt >> 8, torch.where(valid, bm25._dequantize(
+            srt & 0xFF, kw["imp_lo"], kw["imp_step"]), 0.0), valid,
+        kw["max_dup_shifts"])
+    approx_ms = time_cuda_ms(
+        lambda: bm25.approx_max_k(partial, TOPC_C, TOPC_RECALL), iters=20)
+    exact_ms = time_cuda_ms(lambda: bm25._top_sorted(partial, TOPC_C),
+                            iters=20)
+    n_valid = int(torch.isfinite(partial).sum(1).float().mean())
+    log(f"phase 4o topc_recall: a pruned engine over 4a's index with 4a's "
+        f"knobs at C={TOPC_C}, built in {build_s:.1f} s; P={P} pass-1 keys "
+        f"({n_valid} documents a query on average), XLA's formula at "
+        f"{TOPC_RECALL}: {reduced} bins, log2_reduction {log2}; recall@{K} "
+        f"against the exact top-C {kept:.4f} (bar {TOPC_RECALL}); against "
+        f"exhaustive: exact top-C {recall_at_k(exact, outs[0.0]):.4f}, "
+        f"approximate {recall_at_k(exact, outs[TOPC_RECALL]):.4f}; device "
+        f"ms over the [{partial.shape[0]}, {P}] partials (CUDA events, 20 "
+        f"calls): approx_max_k {approx_ms:.4f}, _top_sorted {exact_ms:.4f} "
+        f"({card})")
+    del topc, keys, partial
+    log(f"phase 4o in {time.perf_counter() - t_phase:.1f} s")
+    return {"k1": [int(r["ex/launches"][0]) for r in ranks],
+            "k2": [int(r["pr/launches"][1]) for r in ranks],
+            "k1_err": max(float(r["k1"][0]) for r in ranks),
+            "k2_err": max(float(r["k2"][0]) for r in ranks)}
+
+
 def drop_checkpoints(tmp) -> None:
     """Delete the checkpoints (``*.msgpack``) under ``tmp``: the phases
     that wrote them have checked them and no later phase reads them, so
@@ -5323,6 +5641,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         elmo_stage_phase(cli, bm25, dev, card, Path(tmp), encoder=cut)
         drop_checkpoints(Path(tmp))
+        # -- 4o. the sharded engines on gloo ranks; topc_recall -------------
+        torch.cuda.empty_cache()
+        shard = sharded_stage_phase(bm25, dev, card, Path(tmp), index,
+                                    encoded, ent_blocks, exact, boosted,
+                                    pruned_out, boost_ms)
 
     # -- 5. kernels ----------------------------------------------------------
     kernels = [{
@@ -5336,7 +5659,9 @@ def main() -> int:
         "kd_launches": kd["k1_launches"],
         "stream_launches": stream["k1"],
         "parse_launches": parse["k1_launches"],
-        "max_abs_err": max(err_cases, k1["err"], k1_title["err"]),
+        "shard_launches": shard["k1"],
+        "max_abs_err": max(err_cases, k1["err"], k1_title["err"],
+                           shard["k1_err"]),
         "ms": k1["dev_ms"],
         "cold_ms": k1["cold_ms"],
         "eager_ms": k1["ms"],
@@ -5353,7 +5678,8 @@ def main() -> int:
         "launches": d16_launches,
         "mix_launches": mix["mix_launches"],
         "stream_launches": stream["k2"],
-        "max_abs_err": max(d16_err_cases, d16_err_main),
+        "shard_launches": shard["k2"],
+        "max_abs_err": max(d16_err_cases, d16_err_main, shard["k2_err"]),
         "ms": d16_ms,
         "cold_ms": d16_cold_ms,
         "eager_ms": d16_eager_ms,

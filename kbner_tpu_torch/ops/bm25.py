@@ -37,8 +37,10 @@ rescores a two-array field (term ids plus 16-bit log codes) with K3
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _kernels
@@ -665,12 +667,74 @@ def _top_sorted(x: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[:, :n], pos[:, :n]
 
 
+def approx_topk_reduction_size(input_size: int, k: int, recall_target: float,
+                               rank: int = 2) -> Tuple[int, int]:
+    """XLA's reduction size of an approximate top-k (``ApproxTopK``'s
+    ``approx_top_k_reduction_output_size`` with ``aggregate_to_topk``
+    false): ``(reduced_size, log2_reduction)``. The last axis of an
+    operand of ``rank`` dimensions is folded into ``reduced_size`` bins,
+    ``2 ** log2_reduction`` elements each, so that a top-k element shares
+    its bin with no other top-k element with probability about
+    ``recall_target`` (``(1 - 1/M) ** (k - 1) ~ exp((1 - k) / M)`` for M
+    bins, arXiv 2206.14286). ``reduced_size`` is a multiple of the TPU
+    tiling (128 lanes, 1024 for rank 1) and ``log2_reduction`` 0 means
+    no reduction. The target is rounded to float32 first, as XLA takes
+    it."""
+    tiling = 1024 if rank == 1 else 128
+    if input_size <= tiling:
+        return input_size, 0
+    r = float(np.float32(recall_target))
+    if not 0.0 < r <= 1.0:
+        raise ValueError(f"recall_target {recall_target} is not in (0, 1]")
+    if r == 1.0:
+        return input_size, 0
+    if k == 1:
+        # a single maximum: fold down to one tile
+        log2 = (-(-input_size // tiling) - 1).bit_length()
+    else:
+        m = min(max(int((1.0 - k) / math.log(r)), tiling), input_size)
+        log2 = (input_size // m).bit_length() - 1
+    if log2 == 0:
+        return input_size, 0
+    per_bin = -(-input_size // (1 << log2))
+    return -(-per_bin // tiling) * tiling, log2
+
+
+def approx_max_k(x: torch.Tensor, k: int, recall_target: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The approximate ``k`` largest of each row of ``x [Q, P]`` (the
+    counterpart of ``lax.approx_max_k`` as the TPU computes it): values
+    and positions, largest first, lower position first among equals.
+
+    Where :func:`approx_topk_reduction_size` gives no reduction this is
+    the exact top-k in ``lax.top_k``'s order. Otherwise the row is folded
+    into ``reduced_size`` bins -- positions ``i`` and ``j`` share a bin
+    when ``i % reduced_size == j % reduced_size`` -- each bin keeps its
+    maximum (the lowest position among equal maxima), and the exact top-k
+    of those maxima is returned, so two large elements that share a bin
+    cost one of them (arXiv 2206.14286's PartialReduce)."""
+    Q, P = x.shape
+    reduced, log2 = approx_topk_reduction_size(P, k, recall_target, rank=2)
+    if log2 == 0:
+        return _top_sorted(x, min(k, P))
+    fold = 1 << log2
+    xp = torch.nn.functional.pad(x, (0, reduced * fold - P),
+                                 value=float("-inf"))
+    xb = xp.reshape(Q, fold, reduced)
+    slot = torch.argmax(xb, dim=1)  # the first maximum of each bin
+    bin_max = torch.gather(xb, 1, slot[:, None, :])[:, 0, :]
+    pos = slot * reduced + torch.arange(reduced, device=x.device)
+    top, at = _top_sorted(bin_max, min(k, reduced))
+    return top, torch.gather(pos, 1, at)
+
+
 def select_candidates(
     cand_keys: torch.Tensor,
     n_candidates: int,
     max_dup_shifts: int = 16,
     imp_lo: float = 0.0,
     imp_step: float = 1.0,
+    topc_recall: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass-1 top-C of :func:`bm25_pruned_topk_packed`: the documents of
     ``cand_keys [Q, P]`` int64 ``(doc << 8) | code8`` (pad
@@ -678,15 +742,20 @@ def select_candidates(
     codes. The keys are sorted so a document's entries are adjacent; a
     segmented doubling scan sums their decoded codes (``exp(imp_lo +
     (code - 1) * imp_step)``) into a ranking partial at each run start.
-    Returns (cand_ids [Q, C] int64, cand_valid [Q, C] bool)."""
+    ``topc_recall > 0`` takes the top C with :func:`approx_max_k` at that
+    recall target instead of exactly. Returns (cand_ids [Q, C] int64,
+    cand_valid [Q, C] bool)."""
     keys = torch.sort(cand_keys, dim=1).values
     doc = keys >> 8
     valid = keys != KEY_PAD
     code = keys & 0xFF
     imp = torch.where(valid, _dequantize(code, imp_lo, imp_step), 0.0)
     partial = _run_partials(doc, imp, valid, max_dup_shifts)
-    part_scores, pos = _top_sorted(partial, min(n_candidates,
-                                                cand_keys.shape[1]))
+    C = min(n_candidates, cand_keys.shape[1])
+    if topc_recall > 0.0:
+        part_scores, pos = approx_max_k(partial, C, topc_recall)
+    else:
+        part_scores, pos = _top_sorted(partial, C)
     return torch.gather(doc, 1, pos), torch.isfinite(part_scores)
 
 
@@ -721,6 +790,7 @@ def pass2_operands(
     imp_step: float = 1.0,
     ragged_rows: Sequence[int] = (),
     rescore_id_offset: int = 0,
+    topc_recall: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, List[tuple]]:
     """Pass 1 of :func:`bm25_pruned_topk_packed` and what it hands pass 2:
     (cand_ids [Q, C] int64, cand_valid [Q, C] bool, one ``(function,
@@ -728,7 +798,8 @@ def pass2_operands(
     candidates at id 0; pass 2 reads the rows of ``id +
     rescore_id_offset``)."""
     cand_ids, cand_valid = select_candidates(
-        cand_keys, n_candidates, max_dup_shifts, imp_lo, imp_step)
+        cand_keys, n_candidates, max_dup_shifts, imp_lo, imp_step,
+        topc_recall)
     safe_ids = torch.where(cand_valid, cand_ids, 0)
     return cand_ids, cand_valid, _rescore_operands(
         safe_ids + rescore_id_offset, fields, ragged_rows)
@@ -777,14 +848,15 @@ def bm25_pruned_topk_packed(
     language's pass-2 rows into one structure, while the pass-1 keys, the
     ``n_real_docs`` bound and the ``tiny_doc`` match stay in the
     language's own ids.
+
+    ``topc_recall > 0`` selects the top C with :func:`approx_max_k` at
+    that recall target (the reference's ``lax.approx_max_k``): a
+    candidate missed near the top-C cut rarely reaches the top k, since
+    C is much larger than k.
     """
-    if topc_recall > 0.0:
-        raise NotImplementedError(
-            "topc_recall > 0 (approx_max_k) has no torch counterpart; the "
-            "exact top-C is the ported path (ROADMAP A4)")
     cand_ids, cand_valid, rescore = pass2_operands(
         cand_keys, fields, n_candidates, max_dup_shifts, imp_lo, imp_step,
-        ragged_rows, rescore_id_offset)
+        ragged_rows, rescore_id_offset, topc_recall)
     safe_ids = torch.where(cand_valid, cand_ids, 0)
 
     total = _sum_pass2(safe_ids, rescore)

@@ -1,5 +1,5 @@
-"""Retrieval engine: device-resident BM25 index, batched top-k
-(counterpart of ``kbner_tpu/retrieval/engine.py``, unsharded).
+"""Retrieval engine: device-resident BM25 index, batched top-k, sharded
+over a mesh or not (counterpart of ``kbner_tpu/retrieval/engine.py``).
 
 Two modes, each over the text field and an optional title field for
 entity-boosted queries:
@@ -21,6 +21,16 @@ entity-boosted queries:
 Only the top-k ids and scores come back. Document texts stay on the host
 and are materialized into result records with the reference's
 retrieval-file fields (sentence/paragraph/title/score/url).
+
+Sharded (``mesh=parallel.make_mesh(...)``): the document axis is cut into
+one contiguous shard per coordinate of the mesh's data axis, each rank
+holds its shard's arrays on its device and searches them with the same
+kernels (K1 on its ``[Ld, N / S]`` slice; pass 1 over its own CSR and K2
+over its own rows, with the full index's scales and remaps), and the
+ranks all-gather their shard top-k over the data axis and merge it, so
+every rank returns the global top-k (the reference's ``shard_map`` and
+``all_gather``). A meshed search is a collective: every rank calls it
+with the same queries, in the same order.
 
 Across languages (the recipe's MIX track, one query searched in every
 language's KB): :func:`mix_search` fans a batch out to each language's
@@ -291,6 +301,179 @@ def _term_scale_from_csr(index: BM25Index, code_bits: int
     return term_lo, max(rng / max(levels, 1), 1e-12)
 
 
+# -- the shards of a meshed engine ---------------------------------------------
+#
+# Functions of the shard count S, the shard size ss and the full index's
+# arrays padded to S * ss docs, so that each can be held against the
+# reference without a world. Shard s holds docs [s * ss, (s + 1) * ss) with
+# shard-local ids; a shared constant (the covering rows r2, the row and CSR
+# widths, the scales) is taken over every shard, the arrays are built for
+# ``shards`` only (all by default) and stacked [len(shards), ...].
+
+def _shards(S: int, shards) -> List[int]:
+    return list(range(S)) if shards is None else list(shards)
+
+
+def shard_rows_delta16(dt_rows: np.ndarray, di_rows: np.ndarray,
+                       remap: np.ndarray, idf: np.ndarray, norm: np.ndarray,
+                       S: int, ss: int, shards=None, lanes: int = 128):
+    """Each shard's delta16 pass-2 rows (:func:`_pack_doc_rows_delta16` of
+    its docs) under the full index's remap, idf and norms: (flat [n, NR,
+    lanes] uint16, off [n, ss] int32, lens [n, ss] int32, r2). r2 is the
+    largest shard's covering rows and NR the widest shard's rows plus r2
+    guard rows, so a covering read from any segment stays in bounds."""
+    lens_all, _ = native.delta16_rows(dt_rows, di_rows, remap, idf, norm)
+    r2, nr_max = 1, 0
+    for s in range(S):
+        seg = lens_all[s * ss:(s + 1) * ss]
+        max_seg = int(seg.max(initial=0))
+        _, nr = _place_length_groups(seg, lanes, max(max_seg, 1))
+        nr_max = max(nr_max, nr)
+        r2 = max(r2, -(-max_seg // lanes))
+    ids = _shards(S, shards)
+    flat = np.zeros((len(ids), nr_max + r2, lanes), np.uint16)
+    off = np.zeros((len(ids), ss), np.int32)
+    lens = np.zeros((len(ids), ss), np.int32)
+    for j, s in enumerate(ids):
+        sl = slice(s * ss, (s + 1) * ss)
+        f, off[j], ln, _ = _pack_doc_rows_delta16(
+            dt_rows[sl], di_rows[sl], remap, idf, norm[sl], lanes=lanes)
+        flat[j, :f.shape[0]] = f
+        lens[j] = ln
+    return flat, off, lens, r2
+
+
+def shard_rows_packed32(dt_rows: np.ndarray, di_rows: np.ndarray,
+                        vocab_size: int, scale, S: int, ss: int,
+                        shards=None, lanes: int = 128):
+    """Each shard's packed32 pass-2 rows (:func:`_pack_doc_rows_ragged` of
+    its docs) on the full index's per-term scale ``(term_lo, step)``:
+    (flat [n, NR, lanes] int32 with -1 pads, off [n, ss] int32, lens [n,
+    ss] uint8|int32, term_bits, step, r2), NR the widest shard's rows (its
+    guard rows included)."""
+    Ld = dt_rows.shape[1]
+    counts = (dt_rows >= 0).sum(axis=1)
+    nr_max = max(_place_length_groups(counts[s * ss:(s + 1) * ss], lanes,
+                                      max(Ld, 1))[1] for s in range(S))
+    ids = _shards(S, shards)
+    parts = [_pack_doc_rows_ragged(dt_rows[s * ss:(s + 1) * ss],
+                                   di_rows[s * ss:(s + 1) * ss], vocab_size,
+                                   lanes=lanes, scale=scale) for s in ids]
+    flat = np.full((len(ids), nr_max, lanes), -1, np.int32)
+    for j, part in enumerate(parts):
+        flat[j, :part[0].shape[0]] = part[0]
+    off = np.stack([part[1] for part in parts])
+    lens = np.stack([part[2] for part in parts])
+    _, _, _, term_bits, _, step, r2 = parts[0]
+    return flat, off, lens, term_bits, step, r2
+
+
+def shard_csr(dt_padded: np.ndarray, di_padded: np.ndarray, vocab_size: int,
+              cap: int, S: int, ss: int, gdf: Optional[np.ndarray] = None,
+              tiny_cap: int = 0, shards=None, lanes: int = 128,
+              guard: int = 32):
+    """Each shard's pass-1 CSR over its own docs (shard-local ids): per
+    term its postings by impact, largest first (ties in doc order), capped
+    at ``cap``, packed ``(code8 << 24) | doc`` on one 8-bit log scale over
+    every impact of the index. With the global dfs ``gdf`` the terms with
+    df <= ``tiny_cap`` are left out of every shard (the host scores
+    them). Returns (offsets [n, V + 1] int32, packed [n, NR, lanes] int32
+    with -1 pads, lo, step), NR the largest shard's rows plus ``guard``."""
+    from .index import log_quantize, pack_postings
+
+    if ss >= 0xFFFFFF:
+        raise ValueError(f"shard size {ss} needs > 24-bit doc ids")
+    _, lo, step = log_quantize(
+        di_padded[dt_padded >= 0].astype(np.float32), bits=8)
+
+    def kept(s):
+        sl_t = dt_padded[s * ss:(s + 1) * ss]
+        valid = sl_t >= 0
+        if gdf is not None:
+            valid &= np.where(valid, gdf[np.maximum(sl_t, 0)] > tiny_cap,
+                              False)
+        return sl_t, valid
+
+    rows = 0
+    for s in range(S):
+        sl_t, valid = kept(s)
+        df = np.bincount(sl_t[valid], minlength=vocab_size)
+        rows = max(rows, -(-int(np.minimum(df, cap).sum()) // lanes))
+    ids = _shards(S, shards)
+    offs = np.zeros((len(ids), vocab_size + 1), np.int32)
+    packed = np.full((len(ids), (rows + guard) * lanes), -1, np.int32)
+    for j, s in enumerate(ids):
+        sl_t, valid = kept(s)
+        terms = sl_t[valid]
+        docs = np.nonzero(valid)[0].astype(np.int32)
+        imps = di_padded[s * ss:(s + 1) * ss][valid].astype(np.float32)
+        order = np.lexsort((-imps, terms))
+        df = np.bincount(terms[order], minlength=vocab_size)
+        start = np.concatenate([[0], np.cumsum(df)])
+        keep = np.arange(len(order)) - np.repeat(start[:-1], df) < cap
+        order = order[keep]
+        np.cumsum(np.minimum(df, cap), out=offs[j, 1:])
+        pk, _, _ = pack_postings(docs[order], imps[order], lanes=lanes,
+                                 guard_rows=0, scale=(lo, step))
+        packed[j, :pk.size] = pk.ravel()
+    return offs, packed.reshape(len(ids), rows + guard, lanes), lo, step
+
+
+def slice_tiny_per_shard(t_doc: np.ndarray, t_ex: np.ndarray, S: int,
+                         ss: int) -> Tuple[Optional[np.ndarray], int]:
+    """The tiny exact block [Q, T] (global doc ids, -1 pads) cut per shard:
+    [S, Q, 2 * Tb] int32, per shard ``Tb`` shard-local doc columns (-1
+    pads, in the block's order) then ``Tb`` bitcast negated float32 sums;
+    ``Tb`` the widest (shard, query) count bucketed to a power of two of
+    at least 128. Returns (block, Tb), or (None, 0) without entries."""
+    Q, T = t_doc.shape
+    m = t_doc >= 0
+    if T == 0 or not m.any():
+        return None, 0
+    qidx = np.broadcast_to(np.arange(Q)[:, None], t_doc.shape)
+    key = (t_doc[m] // ss) * Q + qidx[m]
+    counts = np.bincount(key, minlength=S * Q)
+    Tb = _pow2_width(int(counts.max(initial=0)), 128)
+    order = np.argsort(key, kind="stable")
+    ksort = key[order]
+    run_off = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    pos = np.arange(len(ksort)) - run_off[ksort]
+    out_doc = np.full((S, Q, Tb), -1, np.int32)
+    out_ex = np.zeros((S, Q, Tb), np.float32)
+    s_i, q_i = ksort // Q, ksort % Q
+    out_doc[s_i, q_i, pos] = (t_doc[m][order] - s_i * ss).astype(np.int32)
+    out_ex[s_i, q_i, pos] = t_ex[m][order]
+    return np.concatenate([out_doc, (-out_ex).view(np.int32)], axis=2), Tb
+
+
+def merge_shard_topk(scores: torch.Tensor, ids: torch.Tensor, k: int,
+                     group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top k over every rank's shard top-k (scores [Q, k'] float32,
+    global ids [Q, k'] int64): one ``all_gather`` over ``group`` of [Q,
+    2k'] int64 (the ids, then the scores' bits), laid out [Q, S * k'] in
+    shard order, then the top k, lower position first among equal scores
+    (the reference's ``all_gather`` and ``lax.top_k``). A collective:
+    every rank of ``group`` calls it, with the same Q and k'. The tensors
+    stay on their device: NCCL gathers them there, and gloo (the one-card
+    worlds: NCCL refuses two ranks on one card) takes CUDA tensors too,
+    staging them through host memory itself."""
+    import torch.distributed as dist
+
+    Q, kk = scores.shape
+    if Q == 0:
+        return scores[:, :k], ids[:, :k]
+    buf = torch.cat([ids.long(),
+                     scores.contiguous().view(torch.int32).long()], dim=1)
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    every = torch.stack(parts, dim=1)  # [Q, S, 2k']
+    all_ids = every[:, :, :kk].reshape(Q, -1)
+    all_scores = every[:, :, kk:].to(torch.int32).view(
+        torch.float32).reshape(Q, -1)
+    top, pos = _top_sorted(all_scores, min(k, all_scores.shape[1]))
+    return top, torch.gather(all_ids, 1, pos)
+
+
 def _upload_tree(tree, device: torch.device, stream):
     """Start the upload of every numpy array in ``tree`` (nested lists and
     tuples; anything else passes as is) on ``stream`` from pinned
@@ -421,7 +604,20 @@ class RetrievalEngine:
     ``deep_cap`` postings in pass 1 instead of ``posting_budget //
     rare_terms`` (the text CSR then keeps up to ``deep_cap`` per term).
     The host side (CSR, rows, the tiny terms' exact sums) is built by the
-    native runtime, ``kbner_tpu_torch/native``.
+    native runtime, ``kbner_tpu_torch/native``. ``topc_recall > 0`` takes
+    the pass-1 top C with ``ops.bm25.approx_max_k`` at that recall target.
+
+    With ``mesh`` (a ``DeviceMesh`` with a ``"data"`` dimension, from
+    ``parallel.make_mesh``) the engine holds and searches the shard at its
+    data coordinate (``n_shards`` shards of ``shard_size`` docs, the doc
+    axis padded to ``n_shards * 512``) and merges the shards' top k over
+    the data axis; each rank builds the engine from the same full index.
+    Every search of a meshed engine is a collective: all ranks of the
+    mesh call it with the same queries in the same order (the stream's
+    collectives are issued from the caller's thread, in batch order).
+    As in the reference, a mesh refuses ``device=False`` and
+    ``deep_terms``, and its shards' pass-1 windows are never row-aligned
+    (``align_windows`` has no effect there).
     """
 
     def __init__(
@@ -452,16 +648,14 @@ class RetrievalEngine:
     ):
         if mode not in ("exhaustive", "pruned"):
             raise ValueError(f"unknown engine mode {mode!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded engine (mesh) is not ported yet (ROADMAP A4)")
-        if device is False and mode != "pruned":
+        if device is False and (mesh is not None or mode != "pruned"):
             raise ValueError(
                 "device=False supports only the unsharded pruned engine")
-        if deep_terms and mode != "pruned":
+        if deep_terms and (mode != "pruned" or mesh is not None):
             raise ValueError("deep_terms>0 supports only the unsharded "
                              "pruned engine")
         self.mode = mode
+        self._init_mesh(mesh)
         self.text_index = text_index
         self.title_index = title_index
         self.store = store
@@ -477,6 +671,7 @@ class RetrievalEngine:
         self.device = None if device is False else resolve_device(device)
         # field name -> device (doc_terms_t [Ld, N] int32,
         # doc_impacts_t [Ld, N] float32), the exhaustive kernel's operands
+        # (N the shard's docs on a meshed engine)
         self.fields = {}
         # pruned, per field name: device pass-2 rows, their layout
         # (_row_meta), the per-term log bases of packed32 rows (_term_lo),
@@ -485,18 +680,36 @@ class RetrievalEngine:
         self.csr, self._csr_scale = {}, {}
         self._upload()
 
+    def _init_mesh(self, mesh) -> None:
+        """The engine's place on ``mesh`` (None: unsharded): its shard of
+        the document axis is its coordinate on the mesh's data axis, and
+        its merges gather over that axis's group. Ranks that share a data
+        coordinate hold the same shard."""
+        self.mesh = mesh
+        self.n_shards, self.shard, self._group = 1, 0, None
+        if mesh is None:
+            return
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from ..parallel.mesh import DATA_AXIS, data_size
+
+        if not (isinstance(mesh, DeviceMesh) and mesh.mesh_dim_names
+                and DATA_AXIS in mesh.mesh_dim_names):
+            raise TypeError(
+                f"mesh must be a DeviceMesh with a {DATA_AXIS!r} dimension "
+                f"(parallel.make_mesh), got {type(mesh).__name__}")
+        self.n_shards = data_size(mesh)
+        self.shard = mesh.get_local_rank(DATA_AXIS)
+        self._group = mesh.get_group(DATA_AXIS)
+
     def _init_pruned(self, rare_terms, posting_budget, df_cap, n_candidates,
                      compact_rows, tiny_df_cap, tiny_width, tiny_pack,
                      tiny_f16, row_layout, tiny_cols_floor, d16_width_floor,
                      topc_recall, align_windows, deep_terms,
                      deep_cap) -> None:
         """The pruned knobs and the values derived from them, as the
-        reference derives them; what a later slice ports raises here."""
+        reference derives them."""
         idx = self.text_index
-        if topc_recall > 0.0:
-            raise NotImplementedError(
-                "topc_recall > 0 (approx_max_k) has no torch counterpart; "
-                "the exact top-C is the ported path (ROADMAP A4)")
         if row_layout not in ("auto", "delta16", "packed32"):
             raise ValueError(f"unknown row_layout {row_layout!r}")
         d16_ok = idx.doc_dl is not None and idx.params.quantize_norms
@@ -513,6 +726,9 @@ class RetrievalEngine:
         self.df_cap = df_cap if df_cap is not None else max(
             256, idx.n_docs // 20)
         self.n_candidates = n_candidates
+        # > 0: the pass-1 top-C by ops.bm25.approx_max_k at this recall
+        # target (read at each search)
+        self.topc_recall = topc_recall
         self.per_term_cap = max(1, posting_budget // rare_terms)
         # deep windows: the deep_terms rarest selected terms of a query
         # read deep_cap postings in pass 1 instead of per_term_cap, and the
@@ -527,7 +743,9 @@ class RetrievalEngine:
         self.tiny_width = tiny_width
         self._want_tiny_pack = tiny_pack
         self.tiny_f16 = tiny_f16
-        self._csr_aligned = align_windows
+        # row-aligned pass-1 windows; a meshed engine's shard CSRs keep the
+        # packed layout, as the reference's do
+        self._csr_aligned = align_windows and self.mesh is None
         # never-shrink width floors of the query blocks
         self._d16_w_floor = d16_width_floor
         self._t_cols_floor = tiny_cols_floor
@@ -537,13 +755,18 @@ class RetrievalEngine:
 
     def _upload(self) -> None:
         """Pad the doc axis of every field to one shared multiple of
-        ``_DOC_PAD`` and put the mode's arrays on the device."""
+        ``n_shards * _DOC_PAD`` and put the mode's arrays of this engine's
+        shard (all of it when unsharded) on the device: a contiguous
+        ``[Ld, shard_size]`` copy of each field for the exhaustive mode."""
         fields = {"text": self.text_index}
         if self.title_index is not None:
             fields["title"] = self.title_index
+        pad_to = self.n_shards * _DOC_PAD
         n_padded = max(idx.doc_terms.shape[0] for idx in fields.values())
-        n_padded = -(-n_padded // _DOC_PAD) * _DOC_PAD
+        n_padded = -(-n_padded // pad_to) * pad_to
         self.n_padded = n_padded
+        self.shard_size = ss = n_padded // self.n_shards
+        mine = slice(self.shard * ss, (self.shard + 1) * ss)
         for name, idx in fields.items():
             n = idx.doc_terms.shape[0]
             dt = np.pad(idx.doc_terms, ((0, n_padded - n), (0, 0)),
@@ -552,9 +775,9 @@ class RetrievalEngine:
             if self.mode == "pruned":
                 self._upload_pruned(name, idx, dt, di)
                 continue
-            self.fields[name] = (
-                torch.from_numpy(np.ascontiguousarray(dt.T)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(di.T)).to(self.device))
+            self.fields[name] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a[mine].T)).to(
+                    self.device) for a in (dt, di))
 
     def _put(self, x) -> torch.Tensor:
         """A host array on the engine's device (a tensor passes as is); a
@@ -591,9 +814,13 @@ class RetrievalEngine:
                 self._tiny_pack = (docbits,)
         df = idx.csr[3]
         text = name == "text"
+        dt_rows, di_rows = dt, di
         if text and self.compact_rows:
-            dt, di = _drop_tiny_slots(dt, di, df, self.tiny_cap)
+            dt_rows, di_rows = _drop_tiny_slots(dt, di, df, self.tiny_cap)
         put = self._put
+        # a meshed engine builds its own shard's rows and CSR from the full
+        # index's scales and remaps (S, ss: its place on the mesh)
+        S, ss, mine = self.n_shards, self.shard_size, [self.shard]
         if text and self._row_d16:
             remap, self.n_nontiny = _nontiny_remap(df, self.tiny_cap)
             self._d16_remap = remap
@@ -605,21 +832,35 @@ class RetrievalEngine:
             lut_max = int(dl.max(initial=0)) + 1
             lut = np.fromiter((long_to_int4(i) for i in range(lut_max)),
                               np.uint8, count=lut_max)
-            flat, off, lens, r2 = _pack_doc_rows_delta16(dt, di, remap,
-                                                          idx.idf, norm)
+            normc = lut[dl]
+            if self.mesh is None:
+                flat, off, lens, r2 = _pack_doc_rows_delta16(
+                    dt_rows, di_rows, remap, idx.idf, norm)
+            else:
+                flat, off, lens, r2 = shard_rows_delta16(
+                    dt_rows, di_rows, remap, idx.idf, norm, S, ss, mine)
+                flat, off, lens = flat[0], off[0], lens[0]
+                normc = normc[self.shard * ss:(self.shard + 1) * ss]
             self._row_meta[name] = ("d16", float(p.k1), float(p.b),
                                     float(idx.avgdl), r2)
             # the rows are stored as int16 and read as uint16: the kernel
             # takes the raw 16 bits, the plain version widens with & 0xFFFF
             self.rows[name] = (put(flat.view(np.int16)), put(off),
-                               put(lens.astype(np.int32)), put(lut[dl]))
+                               put(lens.astype(np.int32)), put(normc))
         else:
             code_bits = 32 - max(int(np.ceil(np.log2(len(idx.vocab) + 2))),
                                  1)
             term_lo, t_step = _term_scale_from_csr(idx, code_bits)
             self._term_lo[name] = term_lo
-            flat, off, lens, tb, lo, step, r2 = _pack_doc_rows_ragged(
-                dt, di, len(idx.vocab), scale=(term_lo, t_step))
+            if self.mesh is None:
+                flat, off, lens, tb, lo, step, r2 = _pack_doc_rows_ragged(
+                    dt_rows, di_rows, len(idx.vocab),
+                    scale=(term_lo, t_step))
+            else:
+                flat, off, lens, tb, step, r2 = shard_rows_packed32(
+                    dt_rows, di_rows, len(idx.vocab), (term_lo, t_step), S,
+                    ss, mine)
+                flat, off, lens, lo = flat[0], off[0], lens[0], 0.0
             self._row_meta[name] = ("p32", tb, lo, step, r2)
             self.rows[name] = (put(flat), put(off),
                                put(lens.astype(np.int32)))
@@ -627,10 +868,17 @@ class RetrievalEngine:
             self.max_seg = int(lens.max(initial=0))
         # the device never looks up a tiny text term, so its postings leave
         # the text CSR; the title CSR keeps every term
-        off32, packed, clo, cstep = idx.csr_rows_packed(
-            cap=self.deep_cap if text and self.deep_terms
-            else self.per_term_cap, min_df=self.tiny_cap if text else 0,
-            align_windows=self._csr_aligned)
+        if self.mesh is None:
+            off32, packed, clo, cstep = idx.csr_rows_packed(
+                cap=self.deep_cap if text and self.deep_terms
+                else self.per_term_cap, min_df=self.tiny_cap if text else 0,
+                align_windows=self._csr_aligned)
+        else:
+            off32, packed, clo, cstep = shard_csr(
+                dt, di, len(idx.vocab), self.per_term_cap, S, ss,
+                gdf=df if text and self.compact_rows and self.tiny_cap > 0
+                else None, tiny_cap=self.tiny_cap, shards=mine)
+            off32, packed = off32[0], packed[0]
         self._csr_scale[name] = (clo, cstep)
         self.csr[name] = (put(off32), put(packed))
 
@@ -741,7 +989,10 @@ class RetrievalEngine:
         a document through either field. Returns (rares, tiny, blocks):
         ``rares`` one [Q, M] block per CSR, ``tiny`` None, ``("pack", enc
         int64, lo, step)``, ``("f16", doc, ex float16)`` or ``("f32", doc,
-        ex float32)``, ``blocks`` one (terms, weights) per field."""
+        ex float32)``, ``blocks`` one (terms, weights) per field. On an
+        engine meshed over S > 1 shards the tiny block is its own shard's
+        slice of :func:`slice_tiny_per_shard` (shard-local ids, float32
+        sums)."""
         df_floor = self.tiny_cap if self.compact_rows else 0
         rares = [self._select_rare_terms(q_terms, df_floor=df_floor)]
         blocks = [self._text_query_block(q_terms, q_weights)]
@@ -753,7 +1004,16 @@ class RetrievalEngine:
                            self._fold_weights(title_terms, title_weights,
                                               "title")))
         tiny = None
-        if self.compact_rows:
+        if self.compact_rows and self.n_shards > 1:
+            block, Tb = slice_tiny_per_shard(
+                *self._tiny_block(q_terms, q_weights), self.n_shards,
+                self.shard_size)
+            if block is not None:
+                t_doc = block[self.shard, :, :Tb]
+                t_ex = -block[self.shard, :, Tb:].view(np.float32)
+                tiny = ("f32", t_doc, np.where(t_doc >= 0, t_ex,
+                                               np.float32(0)))
+        elif self.compact_rows:
             t_doc, t_ex = self._tiny_block(q_terms, q_weights)
             t_cols = t_doc.shape[1]
             if t_cols:
@@ -861,22 +1121,36 @@ class RetrievalEngine:
                       max_dup_shifts=(self.rare_terms * len(rares)
                                       + (tiny is not None)),
                       imp_lo=rank_lo, imp_step=rank_step,
-                      ragged_rows=tuple(self._row_meta[n][4] for n in names))
+                      ragged_rows=tuple(self._row_meta[n][4] for n in names),
+                      topc_recall=self.topc_recall)
         return torch.cat(key_blocks, dim=1), fields, (t_doc, t_ex), kwargs
 
-    def _search_pruned(self, q_terms: np.ndarray, q_weights: np.ndarray,
-                       k: int, title_terms: Optional[np.ndarray] = None,
-                       title_weights: Optional[np.ndarray] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Pooled pass 1 and pass 2 of one batch on the device: scores
-        [Q, k] float32 and ids [Q, k] int64 (-1 where fewer score). Without
-        title terms the text field is searched alone."""
-        keys, fields, (t_doc, t_ex), kwargs = self._device_queries(
-            self._pack_queries(q_terms, q_weights, title_terms,
-                               title_weights))
-        return bm25_pruned_topk_packed(
-            keys, fields, n_real_docs=self.text_index.n_docs, k=k,
-            tiny_doc=t_doc, tiny_ex=t_ex, **kwargs)
+    def _run_pruned(self, packed, k: int) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+        """Pooled pass 1 and pass 2 of one batch from the output of
+        :meth:`_pack_queries`, on the device: scores [Q, k] float32 and ids
+        [Q, k] int64 (-1 where fewer score). A meshed engine searches its
+        shard, makes its ids global and merges every shard's top k
+        (:meth:`_merge`)."""
+        keys, fields, (t_doc, t_ex), kwargs = self._device_queries(packed)
+        n_real = (self.text_index.n_docs if self.mesh is None
+                  else self.shard_size)
+        scores, ids = bm25_pruned_topk_packed(
+            keys, fields, n_real_docs=n_real, k=k, tiny_doc=t_doc,
+            tiny_ex=t_ex, **kwargs)
+        if self.mesh is not None:
+            ids = torch.where(ids >= 0, ids + self.shard * self.shard_size,
+                              -1)
+        return self._merge(scores, ids, k)
+
+    def _merge(self, scores: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The top k over every shard's (scores, global ids): one
+        all-gather over the mesh's data axis (:func:`merge_shard_topk`);
+        an unsharded engine's results pass as they are."""
+        if self.mesh is None:
+            return scores, ids
+        return merge_shard_topk(scores, ids, k, self._group)
 
     def _search_device(self, q_terms: np.ndarray, q_weights: np.ndarray,
                        k: int, title_terms: Optional[np.ndarray] = None,
@@ -891,9 +1165,9 @@ class RetrievalEngine:
             if title_terms is not None:
                 title_terms = np.asarray(title_terms)
                 title_weights = np.asarray(title_weights)
-            return self._search_pruned(
-                np.asarray(q_terms), np.asarray(q_weights), k, title_terms,
-                title_weights)
+            return self._run_pruned(self._pack_queries(
+                np.asarray(q_terms), np.asarray(q_weights), title_terms,
+                title_weights), k)
 
         def put(x, dtype):
             return torch.as_tensor(np.asarray(x, dtype=dtype),
@@ -905,7 +1179,9 @@ class RetrievalEngine:
             fields.append((put(title_terms, np.int32),
                            put(title_weights, np.float32),
                            *self.fields["title"]))
-        return bm25_topk(fields, k=k, doc_chunk=self.doc_chunk)
+        return self._merge(*bm25_topk(
+            fields, k=k, doc_chunk=self.doc_chunk,
+            id_offset=self.shard * self.shard_size), k)
 
     def search_encoded(
         self,
@@ -933,6 +1209,8 @@ class RetrievalEngine:
         runs batch i; the results come back through pinned buffers, with
         at most ``depth`` batches dispatched and not yet yielded.
         Exhaustive mode searches each batch with :meth:`search_encoded`.
+        On a meshed engine the merges run on the caller's thread, in batch
+        order, so every rank must consume the stream.
         """
         self._require_device()
 
@@ -945,15 +1223,9 @@ class RetrievalEngine:
 
         if self.mode != "pruned":
             return (self.search_encoded(*encode(b), k=k) for b in batches)
-
-        def run(packed):
-            keys, fields, (t_doc, t_ex), kw = self._device_queries(packed)
-            return bm25_pruned_topk_packed(
-                keys, fields, n_real_docs=self.text_index.n_docs, k=k,
-                tiny_doc=t_doc, tiny_ex=t_ex, **kw)
-
         return _pipelined(batches, encode, lambda e: self._pack_queries(*e),
-                          run, self.device, workers, depth)
+                          lambda packed: self._run_pruned(packed, k),
+                          self.device, workers, depth)
 
     def search(
         self,
@@ -1106,6 +1378,8 @@ class MixEngine:
 
     Build the engines with ``device=False`` so their arrays stay on the
     host until this class uploads the concatenation once to ``device``.
+    ``topc_recall > 0`` takes each language's pass-1 top C with
+    ``ops.bm25.approx_max_k``, as :class:`RetrievalEngine` does.
     """
 
     # never-shrink floors of the query blocks' widths, the reference's
@@ -1113,7 +1387,8 @@ class MixEngine:
     T_COLS_FLOOR = 512   # tiny-block entries
 
     def __init__(self, engines: Dict[str, RetrievalEngine],
-                 n_candidates: int = 512, device="cuda"):
+                 n_candidates: int = 512, device="cuda",
+                 topc_recall: float = 0.0):
         if not engines:
             raise ValueError("MixEngine needs at least one engine")
         self.device = resolve_device(device)
@@ -1125,6 +1400,10 @@ class MixEngine:
                 raise ValueError(
                     f"engine {lang!r}: MixEngine needs pruned mode with "
                     "delta16 rows and compact_rows")
+            if e.mesh is not None:
+                raise ValueError(
+                    f"engine {lang!r}: MixEngine concatenates unsharded "
+                    "engines (shard the mix group over languages instead)")
             if (e.rare_terms, e.per_term_cap) != (
                     e0.rare_terms, e0.per_term_cap):
                 raise ValueError("engines must share pass-1 knobs "
@@ -1139,6 +1418,7 @@ class MixEngine:
         self.rare_terms = e0.rare_terms
         self.per_term_cap = e0.per_term_cap
         self.n_candidates = n_candidates
+        self.topc_recall = topc_recall
         self._csr_aligned = e0._csr_aligned
         self._k1 = float(e0.text_index.params.k1)
         self._b = float(e0.text_index.params.b)
@@ -1269,7 +1549,8 @@ class MixEngine:
                 n_real_docs=n_real, k=k, n_candidates=self.n_candidates,
                 max_dup_shifts=self.rare_terms + 1, imp_lo=lo,
                 imp_step=rank_step, tiny_doc=td, tiny_ex=ex,
-                ragged_rows=(self._r2,), rescore_id_offset=doc_b)
+                ragged_rows=(self._r2,), rescore_id_offset=doc_b,
+                topc_recall=self.topc_recall)
             scores.append(s)
             ids.append(i)
         s, i = torch.cat(scores, dim=1), torch.cat(ids, dim=1)

@@ -68,16 +68,27 @@ def log_quantize(imps: np.ndarray, bits: int
 
 
 def pack_postings(p_doc: np.ndarray, p_imp: np.ndarray, lanes: int = 128,
-                  guard_rows: int = 32) -> Tuple[np.ndarray, float, float]:
+                  guard_rows: int = 32,
+                  scale: Optional[Tuple[float, float]] = None,
+                  ) -> Tuple[np.ndarray, float, float]:
     """Row-block postings into one int32 word each, ``(code8 << 24) |
-    doc_id`` (doc ids must fit 24 bits); padding slots are -1. Returns
-    (packed [NR, lanes] int32, lo, step) of the 8-bit log scale."""
+    doc_id`` (doc ids must fit 24 bits); padding slots are -1. ``scale``
+    is a given ``(lo, step)``, so that the shards of an index share one
+    8-bit log scale; by default it is the impacts' own. Returns (packed
+    [NR, lanes] int32, lo, step)."""
     nnz = len(p_doc)
     if nnz and int(p_doc.max()) >= 0xFFFFFF:
         raise ValueError(
             f"doc id {int(p_doc.max())} needs > 24 bits; shard the index "
             "(per-shard ids are local)")
-    codes, lo, step = log_quantize(p_imp, bits=8)
+    if scale is None:
+        codes, lo, step = log_quantize(p_imp, bits=8)
+    else:
+        lo, step = scale
+        codes = np.zeros(p_imp.shape, np.uint16)
+        pos = p_imp > 0
+        codes[pos] = np.clip(np.rint((np.log(p_imp[pos]) - lo) / step),
+                             0, (1 << 8) - 2).astype(np.uint16) + 1
     nr = (nnz + lanes - 1) // lanes + guard_rows
     packed = np.full((nr * lanes,), -1, dtype=np.int32)
     packed[:nnz] = ((codes.astype(np.uint32) << 24)

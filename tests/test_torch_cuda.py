@@ -939,6 +939,81 @@ def test_engine_over_a_sharded_index_matches_the_original(card, tmp_path,
         *RetrievalEngine(index, **kw).search_encoded(qt, qw, k=10))
 
 
+def _shard_operands(S, s):
+    """One shard's K1 and K2 operands, as a meshed engine at data
+    coordinate ``s`` of ``S`` builds them, and a 32-query batch."""
+    from kbner_tpu_torch.retrieval import engine as eng_mod
+
+    docs, pruned = _pruned_engine("cpu")
+    index = pruned.text_index
+    ss = -(-index.n_docs // (S * 512)) * 512
+    n = index.doc_terms.shape[0]
+    dt = np.pad(index.doc_terms, ((0, S * ss - n), (0, 0)),
+                constant_values=-1)
+    di = np.pad(index.doc_impacts, ((0, S * ss - n), (0, 0)))
+    q, _ = sentence_queries(docs, 32, 64, seed=3)
+    qt, qw = index.encode_queries(
+        [" ".join(f"w{t}" for t in r[r >= 0]) for r in q])
+    mine = slice(s * ss, (s + 1) * ss)
+    k1 = (qt, qw, np.ascontiguousarray(dt[mine].T),
+          np.ascontiguousarray(di[mine].T))
+    df = index.csr[3]
+    dt_r, di_r = eng_mod._drop_tiny_slots(dt, di, df, pruned.tiny_cap)
+    p = index.params
+    dl = np.zeros(S * ss, np.int64)
+    dl[:len(index.doc_dl)] = index.doc_dl
+    norm = (p.k1 * (1.0 - p.b + p.b * dl / index.avgdl)).astype(np.float32)
+    flat, off, lens, r2 = eng_mod.shard_rows_delta16(
+        dt_r, di_r, pruned._d16_remap, index.idf, norm, S, ss, shards=[s])
+    lut = np.asarray([eng_mod.long_to_int4(i)
+                      for i in range(int(dl.max()) + 1)], np.uint8)
+    q2, w2 = pruned._remap_queries_d16(qt, qw)
+    cand = np.random.RandomState(s).randint(0, ss, (32, 1024)).astype(
+        np.int32)
+    k2 = (q2, w2, cand, flat[0].view(np.int16), off[0], lens[0],
+          lut[dl][mine])
+    return k1, k2, (p.k1, p.b, index.avgdl, r2)
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_kernels_on_one_shard_match_plain(card, S):
+    """K1 on a shard's contiguous [Ld, N / S] copy and K2 on its delta16
+    rows (padded to the shards' widest plus the shared r2 guard rows), at
+    every shard of S, against their plain versions on the card."""
+    for s in range(S):
+        k1, k2, (k1p, b, avgdl, r2) = _shard_operands(S, s)
+        k1 = [torch.from_numpy(a).to(card) for a in k1]
+        got = bm25.bm25_score_block(*k1)
+        torch.testing.assert_close(got, bm25.bm25_score_block_ref(*k1),
+                                   rtol=RTOL, atol=ATOL)
+        k2 = [torch.from_numpy(np.ascontiguousarray(a)).to(card)
+              for a in k2]
+        before = bm25.delta16_rescore.launches
+        got = bm25.delta16_rescore(*k2, k1p, b, avgdl, r2)
+        assert bm25.delta16_rescore.launches == before + 1
+        want = bm25.delta16_rescore_ref(*k2, k1p, b, avgdl, r2)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        # the last shard of S = 4 holds padding docs only
+        assert bool((want > 0).any()) == (s * k1[2].shape[1] < 3000)
+
+
+def test_meshed_engines_on_card_match_the_cpu(card, tmp_path):
+    """Two gloo ranks on the one card: the meshed exhaustive and pruned
+    engines launch K1 and K2 on their shards, gather their CUDA tensors
+    over gloo, and return the top 10 their CPU twins return (within
+    ties)."""
+    import torch_world
+
+    ranks = torch_world.World(torch_world.card_engine_rank, 2, tmp_path,
+                              3000).join()
+    for r in ranks:
+        for mode, launches in (("exhaustive", [1, 0]), ("pruned", [0, 1])):
+            assert list(r[f"{mode}/cuda/launches"]) == launches
+            assert list(r[f"{mode}/cpu/launches"]) == [0, 0]
+            _assert_same_topk(r[f"{mode}/cuda/s"], r[f"{mode}/cuda/i"],
+                              r[f"{mode}/cpu/s"], r[f"{mode}/cpu/i"])
+
+
 def _parser_batch(device, lengths=(9, 4, 1, 6), seed=0, unannotated=0.0):
     """A batch of random projective trees for the biaffine parser:
     encoded arrays with ``heads`` (-1 where unannotated) and ``rel_ids``

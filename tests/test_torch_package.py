@@ -386,18 +386,21 @@ def test_parser_and_classifier_entry_points_default_to_the_card(
 
 
 def test_engine_modes_of_later_slices_raise():
-    """The pruned engine's options that a later slice ports raise, each
-    naming its ROADMAP item; an unknown mode or row layout is a plain
-    error. (The title field, packed32 rows and the two-operand top-k are
-    ported: tests/test_torch_rescore.py; deep windows:
-    tests/test_torch_pruned.py; device=False: tests/test_torch_mix.py.)"""
+    """Every engine mode is ported: a mesh that is not a DeviceMesh is a
+    type error, ``topc_recall`` builds, and an unknown mode or row layout
+    is a plain error. (The title field, packed32 rows and the two-operand
+    top-k: tests/test_torch_rescore.py; deep windows:
+    tests/test_torch_pruned.py; device=False: tests/test_torch_mix.py;
+    meshes and topc_recall: tests/test_torch_sharded.py and
+    tests/test_torch_mesh.py.)"""
     index = BM25Index.build(["a b c", "b c d", "c d e"], pad_docs_to=8)
     raw = BM25Index.build(["a b c"], params=BM25Params(quantize_norms=False),
                           pad_docs_to=8)
-    for kwargs in (dict(mesh=object()), dict(topc_recall=0.9)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            RetrievalEngine(index, mode="pruned", **{"device": "cpu",
-                                                     **kwargs})
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        RetrievalEngine(index, mode="pruned", mesh=object(), device="cpu")
+    engine = RetrievalEngine(index, mode="pruned", topc_recall=0.9,
+                             device="cpu")
+    assert engine.topc_recall == 0.9
     with pytest.raises(ValueError, match="quantize_norms"):
         RetrievalEngine(raw, mode="pruned", row_layout="delta16",
                         device="cpu")
