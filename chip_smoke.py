@@ -29,14 +29,14 @@ sentences fused with the exhaustive engine's contexts, once with the
 recipe's batch 1 and accumulation 4 and once at batch 16 for three epochs;
 the best checkpoint is then served through the serve path in bfloat16 and
 held to the trainer's own prediction. Then the offline KB stage runs
-through the CLI: a dump ingested, a fifth of the KB indexed from JSONL
+through the CLI: a dump ingested, a twentieth of the KB indexed from JSONL
 and held to the in-memory index, the KB saved and reopened, the native
 host runtime (``kbner_tpu_torch/native``, built with g++) held to its
-numpy twins on half the KB and the pruned engine built both ways, four
-``cli retrieve`` runs over CoNLL splits, the native analyzer held to the
-Python one on 10,000 multilingual sentences, a 50,000-doc zh KB indexed
-with IK and searched both ways, deep pass-1 windows held against the
-plain pruned engine, retrieval with the trained model's seeds and
+numpy twins on an eighth of the KB and the pruned engine built both
+ways, four ``cli retrieve`` runs over CoNLL splits, the native analyzer
+held to the Python one on 5,000 multilingual sentences, a 50,000-doc zh
+KB indexed with IK and searched both ways, deep pass-1 windows held
+against the plain pruned engine, retrieval with the trained model's seeds and
 BERTScore reranking, and ``cli serve`` from the saved KB. Last, the MIX
 track: a ru KB beside the en and zh ones, ``cli retrieve --route mix``
 through one MixEngine over the three (K2 once per language and batch, on
@@ -79,8 +79,15 @@ opening the saved 1M KB and holding its shard of a meshed exhaustive
 (K1) and a meshed pruned (K2) engine, serve two batches whose merged
 top-10 is held to the unsharded engines' on every rank; then the pruned
 engine's pass-1 top-C taken approximately (``topc_recall``) at a C that
-XLA's formula reduces, held to the exact top-C's recall. It prints what
-it measured on the lines before the last and exits non-zero on any
+XLA's formula reduces, held to the exact top-C's recall. Last, sharded
+training on two gloo ranks on the card, XLM-R large's width at
+``CUT_LAYERS`` layers: ``FinetuneTrainer.train`` data-parallel over 4g's
+fused records with ``checkpoint: true``, one tensor-parallel step and
+one FSDP step (``parallel.shard_params``), each held to a single-rank
+trainer on the same global batches, and the data-parallel run's
+``checkpoint.msgpack`` and ``best-model.msgpack`` reopened unsharded and
+held to the ranks' gathered state bit for bit. It prints what it
+measured on the lines before the last and exits non-zero on any
 failure.
 Its last line is one JSON object naming the device.
 
@@ -903,9 +910,11 @@ def training_phase(engine, requests, bm25, dev, card, tokenizer,
 
     import torch
 
+    from pathlib import Path
+
     from kbner_tpu_torch.cli import serving_tagger
     from kbner_tpu_torch.config import ServeConfig
-    from kbner_tpu_torch.data.conll import ListCorpus, Corpus
+    from kbner_tpu_torch.data.conll import ListCorpus, Corpus, write_column_file
     from kbner_tpu_torch.eval.metrics import evaluate_spans
     from kbner_tpu_torch.models.tagger import SequenceTagger, TaggerConfig
     from kbner_tpu_torch.serve import request_record, serve
@@ -928,6 +937,8 @@ def training_phase(engine, requests, bm25, dev, card, tokenizer,
 
     tag_dict = ListCorpus([Corpus(wide_recs, [], [])]).make_tag_dictionary(
         "ner")
+    # phase 4p trains on (b)'s fused records from this file
+    write_column_file(Path(tmp) / MESH_FOLDER / "train.txt", wide_recs)
     # the recipe's tagger: word dropout 0.1, no locked dropout, and no
     # embedding2nn re-projection (the reference config that
     # configs/en_v3_preretrieved.yaml translates is a "norelearn" run)
@@ -1089,14 +1100,15 @@ def training_phase(engine, requests, bm25, dev, card, tokenizer,
 # the offline KB stage: cli ingest-dump -> cli index -> a saved 1M-doc KB
 # -> cli retrieve into fused CoNLL files -> cli serve --index_dir
 N_DUMP_PAGES = 2000
-N_SERVE_KB_DOCS = 50_000  # cli serve --kb [--store] builds its KB at start
-# cli index's JSONL: the first fifth of the KB, to leave room in the
-# smoke's time limit for phase 4l
-N_INDEX_DOCS = 200_000
-# MultiCoNER EN's dev size; its train (15,300) is cut to three cli
-# retrieve batches and its test (217,818) to 2,000, to leave room in the
-# smoke's time limit for phases 4k and 4l
-SPLITS = {"train": 3_072, "dev": 800, "test": 2_000}
+N_SERVE_KB_DOCS = 20_000  # cli serve --kb [--store] builds its KB at start
+# cli index's JSONL: the first twentieth of the KB, to leave room in the
+# smoke's time limit for phases 4l and 4p
+N_INDEX_DOCS = 50_000
+# MultiCoNER EN's splits (15,300 / 800 / 217,818) cut to two cli retrieve
+# batches of train (the deep-window check's queries), an eighth of the dev
+# and 250 test sentences, to leave room in the smoke's time limit for
+# phases 4k, 4l and 4p
+SPLITS = {"train": 2_048, "dev": 100, "test": 250}
 RETRIEVE_BATCH = 1024   # retrieve_for_records' queries per search
 RETRIEVE_RUNS = (("exhaustive", []), ("pruned", ["--engine_mode", "pruned"]),
                  ("exhaustive + entities", ["--with_entity"]),
@@ -1401,15 +1413,15 @@ def run_cli(cli, argv, stdin=None):
 # the host runtime's checks in phase 4h: the analyzer's multilingual
 # corpus, the zh KB indexed with IK over the builtin lexicon, and the deep
 # windows of the pruned engine (4096 postings for the 4 rarest terms)
-N_ML_SENTENCES = 10_000  # the Python analyzer takes ~55 s per 100k
+N_ML_SENTENCES = 5_000  # the Python analyzer takes ~55 s per 100k
 N_ZH_DOCS = 50_000
-ZH_SPLITS = {"train": 1_500, "dev": 500, "test": 500}
+ZH_SPLITS = {"train": 500, "dev": 150, "test": 150}
 DEEP = dict(deep_terms=4, deep_cap=4096)
 N_DEEP_QUERIES = 2 * RETRIEVE_BATCH
-# docs of the 1M KB each native entry point meets its numpy twin on (half
-# the KB, to keep the smoke inside its time; the whole pruned engine is
-# still built both ways at 1M)
-N_TWIN_DOCS = 500_000
+# docs of the 1M KB each native entry point meets its numpy twin on (an
+# eighth of the KB, to keep the smoke inside its time; the whole pruned
+# engine is built both ways over cli index's KB)
+N_TWIN_DOCS = 125_000
 TINY_RTOL = 1e-6        # float32 tiny sums in posting order vs float64
 ML_WORDS = (
     # Latin with diacritics and the UAX#29 joins
@@ -1472,6 +1484,21 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def pruned_engine(text, title, store, dev):
+    """The pruned engine ``cli retrieve`` builds over a saved KB (text and
+    title index, doc store), the indexes' CSRs built anew; returns when
+    the card has it."""
+    import torch
+
+    from kbner_tpu_torch.retrieval.engine import RetrievalEngine
+
+    text._csr = title._csr = None
+    eng = RetrievalEngine(text, store=store, title_index=title,
+                          mode="pruned", device=dev)
+    torch.cuda.synchronize()
+    return eng
+
+
 def numpy_twins(native):
     """A context in which the engine's and the index's host-side code
     (the build, and the tiny gather of every pruned batch) calls the
@@ -1507,8 +1534,9 @@ def native_against_twins(index, queries, cap: int, tiny_cap: int,
     """Phase 4h (b): each postings helper of the native runtime on the
     first ``n_docs`` docs of the 1M KB's arrays beside its numpy twin,
     once each, native first: equal arrays (the tiny gather within
-    TINY_RTOL of its float64 twin). The whole pruned engine is built both
-    ways at 1M docs before it."""
+    TINY_RTOL of its float64 twin). Before it the whole pruned engine is
+    built both ways over ``cli index``'s KB of :data:`N_INDEX_DOCS` docs,
+    and natively over the saved 1M KB."""
     from kbner_tpu_torch import native
     from kbner_tpu_torch.retrieval import engine as eng
 
@@ -1893,7 +1921,27 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
         f"{open_s:.2f} s; the top-{K} of the {len(texts)} served queries "
         f"equals an exhaustive engine's over build_encoded's index of the "
         f"same docs, by doc id within ties ({card})")
-    del from_jsonl, text_j, title_j
+    # the pruned engine as cli retrieve builds it, over this KB through the
+    # numpy twins and then natively (each with its own CSR build)
+    del from_jsonl
+    with numpy_twins(native):
+        twin, twin_s = timed(lambda: pruned_engine(text_j, title_j, store_j,
+                                                   dev))
+    native_eng, native_s = timed(lambda: pruned_engine(text_j, title_j,
+                                                       store_j, dev))
+    for name in ("text", "title"):
+        for a, b in zip(native_eng.rows[name] + native_eng.csr[name],
+                        twin.rows[name] + twin.csr[name]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"the pruned engine's {name} arrays "
+                                     "differ between its native and numpy "
+                                     "builds")
+    log(f"pruned engine over cli index's {text_j.n_docs} docs (cli "
+        f"retrieve's knobs): built in {native_s:.1f} s with the native "
+        f"runtime, {twin_s:.1f} s with its numpy twins (host clock, twins "
+        f"first, each with its CSR build); every row and CSR array on the "
+        f"card equal ({card})")
+    del twin, native_eng, text_j, title_j
     store_j.close()
 
     # -- (b) the full-size saved KB ----------------------------------------
@@ -1962,33 +2010,14 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
     del reopened
 
     # -- (b) the native runtime against its numpy twins ----------------------
-    # the pruned engine built as cli retrieve builds it, through the numpy
-    # twins and then natively (each with its own CSR build); the native
-    # one serves both pruned cli runs below
-    def build_pruned():
-        text1m._csr = title1m._csr = None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng = RetrievalEngine(text1m, store=store1m, title_index=title1m,
-                              mode="pruned", device=dev)
-        torch.cuda.synchronize()
-        return eng, time.perf_counter() - t0
-
-    with numpy_twins(native):
-        twin, twin_s = build_pruned()
-    pruned, pruned_s = build_pruned()
-    for name in ("text", "title"):
-        for a, b in zip(pruned.rows[name] + pruned.csr[name],
-                        twin.rows[name] + twin.csr[name]):
-            if not torch.equal(a, b):
-                raise AssertionError(f"the pruned engine's {name} arrays "
-                                     "differ between its native and numpy "
-                                     "builds")
-    del twin
+    # the pruned engine built natively as cli retrieve builds it (both ways
+    # over cli index's KB above); it serves both pruned cli runs below
+    torch.cuda.synchronize()
+    pruned, pruned_s = timed(lambda: pruned_engine(text1m, title1m, store1m,
+                                                   dev))
     log(f"pruned engine over the saved 1M KB (cli retrieve's knobs): built "
-        f"in {pruned_s:.1f} s with the native runtime, {twin_s:.1f} s with "
-        f"its numpy twins (host clock, twins first, each with its CSR "
-        f"build); every row and CSR array on the card equal ({card})")
+        f"in {pruned_s:.1f} s with the native runtime, its CSR build "
+        f"included (host clock) ({card})")
     native_against_twins(index, queries[:RETRIEVE_BATCH],
                          pruned.per_term_cap, pruned.tiny_cap, card)
     log(f"delta16_rescore on search_stream's operands for one cli retrieve "
@@ -2226,7 +2255,7 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
 # fine-tuning; after 4h in the same temporary directory (its en and zh
 # KBs, its CoNLL splits and its model config)
 N_RU_DOCS = 50_000
-RU_SPLITS = {"train": 1_000, "dev": 300, "test": 300}
+RU_SPLITS = {"train": 300, "dev": 100, "test": 100}
 MIX_CHECK = (512, 256, 256)  # en, zh, ru queries of the held-equal batch
 CYRILLIC = "абвгдежзиклмнопрстуфхцчшщэюя"
 STAGE_RECORDS = (48, 16, 16)  # train, dev, test sentences per language
@@ -2773,7 +2802,7 @@ ACE_STACK = [{"type": "transformer", "fine_tune": False},
              {"type": "word", "dim": 300},
              {"type": "char_bilstm", "char_dim": 32, "hidden": 64},
              {"type": "flair", "embed_dim": 32, "hidden": 512}]
-ACE_EPISODES = 2        # the published search runs 30
+ACE_EPISODES = 1        # the published search runs 30
 ACE_EPOCHS = 1          # the published training runs 150
 N_FEATURE_CHECK = 2     # sentences of the float32 card-vs-CPU stack check
 # float32 on both sides, sums in another order: the XLM-R layers and
@@ -3527,9 +3556,6 @@ def streamed_index_phase(bm25, dev, card, tmp, docs, index, encoded_s,
             yield c[:, :int(np.flatnonzero((c >= 0).any(0)).max()) + 1]
 
     widths = [c.shape[1] for c in chunks()]
-    # the one-shot build timed again here, just before the streamed one,
-    # so that the two host-clock times come from one point of the run
-    _, again_s = timed(lambda: BM25Index.build_encoded(docs, index.vocab))
     streamed, stream_s = timed(lambda: BM25Index.build_streaming(
         chunks(), index.vocab))
     if (streamed.n_docs, streamed.avgdl, streamed.doc_terms.shape) != (
@@ -3549,8 +3575,9 @@ def streamed_index_phase(bm25, dev, card, tmp, docs, index, encoded_s,
     capped = int((index.doc_terms[:, -1] >= 0).sum())
     log(f"build_streaming over {n_chunks} chunks of 4a's docs (widths "
         f"{widths}, {streamed.n_docs} docs, vocabulary {len(index.vocab)}): "
-        f"{stream_s:.1f} s against build_encoded's {again_s:.1f} s just "
-        f"before it ({encoded_s:.1f} s in 4a; host clock); idf, avgdl and doc_dl equal, every row's (term, impact) "
+        f"{stream_s:.1f} s against build_encoded's {encoded_s:.1f} s in 4a "
+        f"(host clock); idf, avgdl and doc_dl equal, every row's (term, "
+        f"impact) "
         f"pairs equal after sorting by term; {reordered} rows hold their "
         f"terms in another order ({capped} rows fill the Ld="
         f"{index.doc_terms.shape[1]} cap, where the order is free)")
@@ -3808,7 +3835,9 @@ UD_RELS = ("acl advcl advmod amod appos aux case cc ccomp clf compound conj "
            "cop csubj dep det discourse dislocated expl fixed flat goeswith "
            "iobj list mark nmod nsubj nummod obj obl orphan parataxis punct "
            "reparandum root vocative xcomp").split()  # the 37 UD relations
-PARSE_SPLITS = {"train": 256, "dev": 64, "test": 64}
+# a seeded treebank's splits (EWT's 12,544 train), halved to leave room in
+# the smoke's time limit for phase 4p
+PARSE_SPLITS = {"train": 128, "dev": 32, "test": 32}
 PARSE_WORDS = (8, 40)   # words per treebank sentence
 SECOND_HEAD = 0.1       # share of words with a second head in DEPS
 NER_DP_SPLITS = {"train": 64, "dev": 16, "test": 16}  # cut of 4h's splits
@@ -4868,11 +4897,13 @@ def _sharded_rank_run(rank: int, world: int, tmp,
     return out
 
 
-def sharded_rank(rank: int, world: int, tmp: str, out_dir: str) -> None:
-    """A spawned rank of phase 4o: joins the gloo world through a file
-    under ``out_dir``, runs :func:`_sharded_rank_run` and writes its
-    arrays (or its traceback) there."""
+def world_rank(rank: int, world: int, tmp: str, out_dir: str, run,
+               timeout_s: float) -> None:
+    """A spawned rank of phases 4o and 4p: joins the gloo world through a
+    file under ``out_dir``, runs ``run(rank, world, tmp)`` and writes its
+    result (or its traceback) there."""
     import datetime
+    import pickle
     import traceback
     from pathlib import Path
 
@@ -4882,9 +4913,9 @@ def sharded_rank(rank: int, world: int, tmp: str, out_dir: str) -> None:
         dist.init_process_group(
             "gloo", init_method=f"file://{Path(out_dir) / 'init'}",
             rank=rank, world_size=world,
-            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
-        out = _sharded_rank_run(rank, world, Path(tmp))
-        np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
+            timeout=datetime.timedelta(seconds=timeout_s))
+        out = run(rank, world, Path(tmp))
+        (Path(out_dir) / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
     except BaseException:
         (Path(out_dir) / f"rank{rank}.err").write_text(
             traceback.format_exc())
@@ -4894,23 +4925,26 @@ def sharded_rank(rank: int, world: int, tmp: str, out_dir: str) -> None:
             dist.destroy_process_group()
 
 
-def spawn_shards(tmp, world: int = SHARDS) -> list:
-    """Run :func:`sharded_rank` in ``world`` spawned processes and return
-    each rank's arrays; ranks still alive at the deadline are terminated
-    and the phase fails, as it does when a rank fails."""
+def spawn_world(run, tmp, world: int, label: str, timeout_s: float) -> list:
+    """Run ``run`` in ``world`` spawned gloo ranks (:func:`world_rank`,
+    under ``tmp/<label>-world``) and return each rank's result; ranks
+    still alive at the deadline are terminated and the phase fails, as
+    it does when a rank fails."""
+    import pickle
+
     import torch.multiprocessing as mp
 
-    out_dir = tmp / "sharded-world"
+    out_dir = tmp / f"{label}-world"
     out_dir.mkdir()
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=sharded_rank,
-                         args=(r, world, str(tmp), str(out_dir)))
-             for r in range(world)]
+    procs = [ctx.Process(target=world_rank, args=(
+        r, world, str(tmp), str(out_dir), run, timeout_s))
+        for r in range(world)]
     start = time.monotonic()
     for proc in procs:
         proc.start()
     for proc in procs:
-        proc.join(max(SHARD_TIMEOUT_S - (time.monotonic() - start), 1.0))
+        proc.join(max(timeout_s - (time.monotonic() - start), 1.0))
     stuck = [r for r, proc in enumerate(procs) if proc.is_alive()]
     for proc in procs:
         if proc.is_alive():
@@ -4920,14 +4954,11 @@ def spawn_shards(tmp, world: int = SHARDS) -> list:
               if (out_dir / f"rank{r}.err").exists()]
     if stuck or errors or any(proc.exitcode for proc in procs):
         raise AssertionError(
-            f"phase 4o: ranks {stuck} outlived {SHARD_TIMEOUT_S} s; exit "
+            f"phase {label}: ranks {stuck} outlived {timeout_s} s; exit "
             f"codes {[proc.exitcode for proc in procs]}\n"
             + "\n".join(errors))
-    ranks = []
-    for r in range(world):
-        with np.load(out_dir / f"rank{r}.npz") as z:
-            ranks.append({k: z[k] for k in z.files})
-    return ranks
+    return [pickle.loads((out_dir / f"rank{r}.pkl").read_bytes())
+            for r in range(world)]
 
 
 def sharded_stage_phase(bm25, dev, card, tmp, index, encoded, ent_blocks,
@@ -4955,7 +4986,8 @@ def sharded_stage_phase(bm25, dev, card, tmp, index, encoded, ent_blocks,
     tt1, tw1 = ent_blocks[1]
     np.savez(tmp / "sharded-inputs.npz", qt0=qt0, qw0=qw0, qt1=qt1, qw1=qw1,
              tt1=tt1, tw1=tw1)
-    ranks, world_s = timed(lambda: spawn_shards(tmp))
+    ranks, world_s = timed(lambda: spawn_world(
+        _sharded_rank_run, tmp, SHARDS, "4o", SHARD_TIMEOUT_S))
     r0 = ranks[0]
     for r, got in enumerate(ranks):
         for key in (f"{e}/{b}/{x}" for e in ("ex", "pr") for b in (0, 1)
@@ -5071,6 +5103,390 @@ def sharded_stage_phase(bm25, dev, card, tmp, index, encoded, ent_blocks,
             "k2": [int(r["pr/launches"][1]) for r in ranks],
             "k1_err": max(float(r["k1"][0]) for r in ranks),
             "k2_err": max(float(r["k2"][0]) for r in ranks)}
+
+# phase 4p: sharded training on two gloo ranks on the one card (NCCL
+# refuses two ranks on one GPU), XLM-R large's width at CUT_LAYERS layers
+MESH_FOLDER = "4g-fused"  # 4g (b)'s fused records, written by 4g
+MESH_RECORDS = 32       # two steps at global batch 16
+MESH_CONFIG = dict(learning_rate=RECIPE["learning_rate"], lr_rate=1.0,
+                   batch_size=16, max_epochs=1, warmup_fraction=0.0,
+                   use_inverse_sqrt=True, checkpoint=True)
+MESH_LAYOUTS = (("dp", 2, 1, False), ("tp", 1, 2, False),
+                ("fsdp", 2, 1, True))
+MESH_TIMEOUT_S = 300    # the gloo group's timeout, and the world's deadline
+# bfloat16 compute on half the rows (DP, FSDP) or half the heads and
+# features (TP) rounds each GEMM differently from the single rank's:
+MESH_LOSS_RTOL = 1e-2   # the mean loss of a step
+MESH_NORM_RTOL = 2e-2   # the step's global gradient norm (the clip's)
+MESH_MU_RTOL = 5e-2     # ||mu - mu_1|| / ||mu_1|| over the model
+MESH_NU_RTOL = 1e-1     # the same of nu (squares: twice mu's error)
+# an Adam update moves an element by at most ~1.01 lr at steps 1 and 2,
+# so two runs stay within 2.02 lr a step; a slice in the wrong place or
+# a stale weight differs by the weights' own size (~1e-2)
+MESH_STEP_BOUND = 2.02
+# the first step's gradient leaf by leaf, ||g - g_1|| / ||g_1|| of the
+# worst leaf: the model's norms above are the largest leaves' and would
+# not see a small leaf (a LayerNorm, a bias, the head, the transitions)
+# go wrong. The data-parallel run also reads rank 0's gradient before
+# the average over 'data' (a control: what a leaf whose average went
+# missing would read), and its least leaf must read above the bar. At
+# full width sound runs read 2.94e-03 (DP, FSDP) and 1.37e-02 (TP, an
+# attention projection), the control 7.98e-02 at its least leaf (a
+# layer norm): the bar sits between, ~2x from each.
+MESH_LEAF_RTOL = 3e-2
+# a key bias adds one constant to all of a query's scores, which the
+# softmax takes out: its exact gradient is zero and the computed one is
+# rounding, so it is held by its size against its layer's query bias's
+# gradient instead: the largest ratio over the layers (~2e-03 in the
+# single rank and each layout at full width) must stay under the bar
+ZERO_GRAD_LEAF = "attention.key.bias"
+
+
+def leaf_errors(got, want) -> dict:
+    """``||got[k] - want[k]|| / ||want[k]||`` of each leaf ``k`` of
+    ``want`` (0 where both are zero)."""
+    import torch
+
+    out = {}
+    for k, w in want.items():
+        d = float(torch.linalg.vector_norm((got[k] - w).float()))
+        n = float(torch.linalg.vector_norm(w.float()))
+        out[k] = d / n if n else (0.0 if d == 0 else float("inf"))
+    return out
+
+
+def _mesh_rank_run(rank: int, world: int, tmp) -> dict:
+    """Phase 4p, one rank: XLM-R large + CRF (float32 masters, bfloat16
+    compute, dropout off) from seed 0 over 4g's fused records, per layout
+    of :data:`MESH_LAYOUTS` sharded by ``shard_params`` on its mesh:
+    ``FinetuneTrainer.train`` data-parallel (two steps,
+    ``checkpoint: true``), one ``train_step`` tensor-parallel and one
+    FSDP. Each step's ms, loss, global norm and the host ms of its
+    collectives (each timed between device syncs) are kept, and the
+    first step's gradients and the final state are gathered. Rank 0 also
+    runs the single-rank trainer on the same batches and holds each
+    layout to it (rank 1 runs its first step only, to load its kernels
+    before the first sharded step); after the data-parallel run rank 0
+    reopens ``checkpoint.msgpack`` and ``best-model.msgpack`` and holds
+    them to the gathered state bit for bit. Returns the numbers the
+    parent prints."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from kbner_tpu_torch import weights
+    from kbner_tpu_torch.data.conll import Corpus, ListCorpus, read_column_file
+    from kbner_tpu_torch.data.subword import HashTokenizer
+    from kbner_tpu_torch.models.tagger import SequenceTagger, TaggerConfig
+    from kbner_tpu_torch.models.xlmr import XLMRConfig
+    from kbner_tpu_torch.parallel import (gather_state_dict, make_mesh,
+                                          shard_params)
+    from kbner_tpu_torch.train import FinetuneTrainer, TrainConfig, optim
+
+    recs = read_column_file(tmp / MESH_FOLDER / "train.txt",
+                            {0: "text", 1: "ner"})[:MESH_RECORDS]
+    corpus = ListCorpus([Corpus(recs, [], [], name="FUSED")])
+    tag_dict = corpus.make_tag_dictionary("ner")
+    tok = HashTokenizer(vocab_size=HASH_VOCAB)
+    enc = dataclasses.replace(
+        XLMRConfig.large(vocab_size=HASH_VOCAB, param_dtype=torch.float32),
+        num_layers=CUT_LAYERS, hidden_dropout=0.0, attention_dropout=0.0)
+    tcfg = TaggerConfig.for_tag_dictionary(
+        enc, tag_dict, locked_dropout=0.0, word_dropout=0.0,
+        relearn_embeddings=False)
+    config = TrainConfig(**MESH_CONFIG)
+    lr = config.learning_rate
+    make_mesh(data=world, model=1)  # sets this rank's card
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    # the smoke's own instruments: collectives timed between device
+    # syncs, and each global norm the optimizer takes
+    comm = {"ms": 0.0, "calls": 0}
+
+    def timed_collective(fn):
+        def run(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            comm["ms"] += (time.perf_counter() - t0) * 1e3
+            comm["calls"] += 1
+            return out
+        return run
+
+    for op in ("all_reduce", "all_gather", "reduce_scatter"):
+        setattr(dist, op, timed_collective(getattr(dist, op)))
+    norms = []
+    global_norm = optim.FinetuneOptimizer._global_norm
+
+    def keep_norm(self, grads):
+        n = global_norm(self, grads)
+        norms.append(float(n))
+        return n
+
+    optim.FinetuneOptimizer._global_norm = keep_norm
+
+    def local_grads(model):
+        return {n: p.grad.detach().clone()
+                for n, p in model.named_parameters() if p.grad is not None}
+
+    def gathered(trainer, named):
+        """Every rank's slices of ``named`` gathered (a collective on a
+        sharded model); rank 0 keeps them."""
+        sh = trainer.sharding
+        full = {n: sh.gather(n, t) if sh is not None else t
+                for n, t in named.items()}
+        return full if rank == 0 else None
+
+    def timed_steps(trainer, steps, seen):
+        """Time each step of ``trainer``; keep the first step's gradients
+        (as its optimizer meets them) in ``seen["grads"]``, gathered after
+        the step's timed window."""
+        inner = trainer.train_step
+
+        def step(item, opt, cfg, rng, freeze=False):
+            seen["opt"] = opt
+            first = not steps
+            if first:
+                opt_step = opt.step
+
+                def keep_then_step():
+                    seen["local"] = local_grads(trainer.model)
+                    opt.step = opt_step
+                    return opt_step()
+                opt.step = keep_then_step
+            sync()
+            comm.update(ms=0.0, calls=0)
+            t0 = time.perf_counter()
+            loss = inner(item, opt, cfg, rng, freeze)
+            sync()
+            steps.append(((time.perf_counter() - t0) * 1e3, float(loss),
+                          comm["ms"], comm["calls"], norms[-1]))
+            if first:
+                seen["grads"] = gathered(trainer, seen.pop("local"))
+            return loss
+        trainer.train_step = step
+
+    def moments_of(trainer, opt):
+        named = opt.named_moments()
+        if trainer.sharding is not None:
+            named = {k: {n: trainer.sharding.gather(n, t)
+                         for n, t in v.items()} for k, v in named.items()}
+        return named
+
+    # the single-rank trainer on the same global batches: rank 0 keeps it
+    # to hold the layouts to; rank 1 runs its first step, so that both
+    # ranks reach the first sharded step with their kernels loaded
+    ref = {"steps": [], "state": [], "moments": []}
+    model = SequenceTagger(tcfg, device=dev, seed=0)
+    trainer = FinetuneTrainer(model, corpus, tok, tag_dict, device=dev)
+    opt = trainer.make_optimizer(config)
+    rng = torch.Generator().manual_seed(config.seed)
+    seen_ref = {}
+    timed_steps(trainer, ref["steps"], seen_ref)
+    for i, batch in enumerate(trainer._make_train_batches(recs, config, 0)):
+        if rank and i:
+            break
+        trainer.train_step(batch, opt, config, rng)
+        if rank == 0:
+            ref["state"].append({n: p.detach().clone()
+                                 for n, p in model.named_parameters()})
+            ref["moments"].append({k: {n: t.clone() for n, t in
+                                       v.items()} for k, v in
+                                   opt.named_moments().items()})
+    ref["grads"] = seen_ref["grads"]
+    del trainer, model, opt, seen_ref
+    dist.barrier()
+
+    def worst_of(errors, n=3, least=False):
+        return sorted(((v, k) for k, v in errors.items()),
+                      reverse=not least)[:n]
+
+    def held(steps, state, moments, grads, unaveraged):
+        """The layout's distances from the single-rank run after as many
+        steps, and its first step's gradient's leaf by leaf (the parent
+        holds them to their bars)."""
+        n = len(steps)
+        want = ref["state"][n - 1]
+        worst = max(float((state[k] - w).abs().max()) for k, w in
+                    want.items())
+        half = sum(int(((state[k] - w).abs() > lr / 2).sum())
+                   for k, w in want.items())
+        total = sum(w.numel() for w in want.values())
+        rel = {}
+        for key in ("mu", "nu"):
+            num = sum(float((moments[key][k].float()
+                             - w.float()).square().sum())
+                      for k, w in ref["moments"][n - 1][key].items())
+            den = sum(float(w.float().square().sum())
+                      for w in ref["moments"][n - 1][key].values())
+            rel[key] = (num / den) ** 0.5
+        loss_rel = [abs(a[1] - b[1]) / abs(b[1])
+                    for a, b in zip(steps, ref["steps"])]
+        norm_rel = [abs(a[4] - b[4]) / b[4]
+                    for a, b in zip(steps, ref["steps"])]
+        exact = {k: g for k, g in ref["grads"].items()
+                 if not k.endswith(ZERO_GRAD_LEAF)}
+        leaves = worst_of(leaf_errors(grads, exact))
+        control = (worst_of(leaf_errors(unaveraged, exact), least=True)
+                   if unaveraged is not None else [])
+        zero = [max(float(torch.linalg.vector_norm(g[k]) /
+                          torch.linalg.vector_norm(g[k.replace(
+                              ".key.", ".query.")]))
+                    for k in g if k.endswith(ZERO_GRAD_LEAF))
+                for g in (grads, ref["grads"])]
+        return [max(loss_rel), max(norm_rel), worst / (lr * n), half / total,
+                rel["mu"], rel["nu"], leaves, control, zero]
+
+    out = {"ref/steps": ref["steps"]}
+    for label, data, model_n, fsdp in MESH_LAYOUTS:
+        mesh = make_mesh(data=data, model=model_n)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        tagger = shard_params(SequenceTagger(tcfg, device=dev, seed=0), mesh,
+                              fsdp)
+        trainer = FinetuneTrainer(tagger, corpus, tok, tag_dict, mesh=mesh,
+                                  device=dev)
+        sync()
+        build_s = time.perf_counter() - t0
+        steps, seen = [], {}
+        timed_steps(trainer, steps, seen)
+        if label == "dp" and rank == 0:
+            # the control: rank 0's first gradient before the average
+            sync_gradients = trainer.sharding.sync_gradients
+
+            def keep_then_sync(model):
+                seen.setdefault("unaveraged", local_grads(model))
+                return sync_gradients(model)
+            trainer.sharding.sync_gradients = keep_then_sync
+        t0 = time.perf_counter()
+        if label == "dp":
+            trainer.train(tmp / "mesh-dp", config)
+        else:
+            trainer.train_step(trainer._make_train_batches(recs, config, 0)[0],
+                               trainer.make_optimizer(config), config, None)
+        run_s = time.perf_counter() - t0
+        state = gather_state_dict(trainer.model)
+        moments = moments_of(trainer, seen["opt"])
+        out[f"{label}/steps"] = steps
+        out[f"{label}/seconds"] = [build_s, run_s]
+        out[f"{label}/peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        if rank == 0:
+            out[f"{label}/held"] = held(steps, state, moments,
+                                        seen["grads"],
+                                        seen.get("unaveraged"))
+        if rank == 0 and label == "dp":
+            t0 = time.perf_counter()
+            run = tmp / "mesh-dp"
+            blob = weights.checkpoint.load(run / "checkpoint.msgpack")
+            reopened = weights.from_jax_params(blob["params"], tagger)
+            count, _, named = optim.from_optax_state(
+                blob["opt_state"], seen["opt"], tagger)
+            best = weights.load_params(run / "best-model.msgpack", tagger)
+            for k, v in state.items():
+                for what, got in (("checkpoint.msgpack", reopened[k]),
+                                  ("best-model.msgpack", best[k])):
+                    if not torch.equal(got, v.cpu()):
+                        raise AssertionError(f"phase 4p: {what}'s {k} is "
+                                             "not the gathered state")
+            for key, by_name in moments.items():
+                for k, v in by_name.items():
+                    if not torch.equal(named[key][k].to(v.dtype), v.cpu()):
+                        raise AssertionError(f"phase 4p: checkpoint.msgpack"
+                                             f"'s {key} of {k} differs")
+            if count != seen["opt"].count:
+                raise AssertionError(f"phase 4p: checkpoint count {count}")
+            out["reopen"] = [time.perf_counter() - t0, len(state),
+                             (run / "checkpoint.msgpack").stat().st_size]
+            del blob, reopened, named, best
+        del trainer, tagger, state, moments, seen
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def mesh_stage_phase(bm25, card, tmp) -> None:
+    """Phase 4p, after 4o in its directory ``tmp`` (4g's fused records in
+    :data:`MESH_FOLDER`): a world of two gloo ranks on the card runs
+    :func:`_mesh_rank_run`; prints each layout's step ms, collective ms,
+    peak memory and its distance from the single rank."""
+    t_phase = time.perf_counter()
+    reset_counts(bm25)
+    ranks, world_s = timed(lambda: spawn_world(_mesh_rank_run, tmp, 2, "4p",
+                                               MESH_TIMEOUT_S))
+    r0 = ranks[0]
+    failed = []
+    for label, data, model, fsdp in MESH_LAYOUTS:
+        if any([s[1] for s in r[f"{label}/steps"]] != [
+                s[1] for s in r0[f"{label}/steps"]] for r in ranks):
+            failed.append(f"{label}: the ranks' losses differ")
+        (loss_rel, norm_rel, worst, flipped, mu_rel, nu_rel, leaves,
+         control, zero) = r0[f"{label}/held"]
+        for what, got, bar in (
+                ("loss rel", loss_rel, MESH_LOSS_RTOL),
+                ("global norm rel", norm_rel, MESH_NORM_RTOL),
+                ("parameters apart (lr a step)", worst, MESH_STEP_BOUND),
+                ("mu rel", mu_rel, MESH_MU_RTOL),
+                ("nu rel", nu_rel, MESH_NU_RTOL),
+                (f"first-step gradient of {leaves[0][1]}", leaves[0][0],
+                 MESH_LEAF_RTOL),
+                ("key biases' gradient over the query biases'", zero[0],
+                 MESH_LEAF_RTOL)):
+            if not got <= bar:
+                failed.append(f"{label}: {what} {got:.3g} over {bar}")
+        if control and not control[0][0] > MESH_LEAF_RTOL:
+            failed.append(f"{label}: the control's {control[0][1]} reads "
+                          f"{control[0][0]:.3g}, not above {MESH_LEAF_RTOL}")
+        log(f"phase 4p {label} (data={data}, model={model}, fsdp={fsdp}; "
+            f"XLM-R large's width, {CUT_LAYERS} layers, float32 masters, "
+            f"bfloat16 compute, global batch {MESH_CONFIG['batch_size']}): "
+            + "; ".join(
+                f"rank {i}: steps "
+                + ", ".join(f"{s[0]:.1f} ms (loss {s[1]:.4f}, norm "
+                            f"{s[4]:.4f}; {s[3]} collectives {s[2]:.1f} "
+                            f"ms)" for s in r[f"{label}/steps"])
+                + f", build {r[f'{label}/seconds'][0]:.1f} s, run "
+                f"{r[f'{label}/seconds'][1]:.1f} s, peak allocated "
+                f"{r[f'{label}/peak_gb']:.2f} GB" for i, r in
+                enumerate(ranks))
+            + f"; against the single rank on the same batches: loss rel "
+            f"{loss_rel:.2e} (bar {MESH_LOSS_RTOL}), global norm rel "
+            f"{norm_rel:.2e} (bar {MESH_NORM_RTOL}), parameters at most "
+            f"{worst:.3g} lr a step apart (bar {MESH_STEP_BOUND}), "
+            f"{flipped:.3%} of them over lr/2 apart, mu rel {mu_rel:.2e} "
+            f"(bar {MESH_MU_RTOL}), nu rel {nu_rel:.2e} (bar "
+            f"{MESH_NU_RTOL}); the first step's gradient, worst leaves: "
+            + ", ".join(f"{k} {v:.2e}" for v, k in leaves)
+            + f" (bar {MESH_LEAF_RTOL}); key biases (zero gradient in "
+            f"exact arithmetic): largest ||g|| over its query bias's "
+            f"{zero[0]:.2e} (bar {MESH_LEAF_RTOL}), the single rank's "
+            f"{zero[1]:.2e}"
+            + ("; control, rank 0's gradient before the average over "
+               "'data', least leaves: "
+               + ", ".join(f"{k} {v:.2e}" for v, k in control)
+               + " (must read above the bar)" if control else "")
+            + f" ({card})")
+    log("phase 4p single rank (the same batches, one process): steps "
+        + "; ".join(f"rank {i}: " + ", ".join(
+            f"{s[0]:.1f} ms (loss {s[1]:.4f})" for s in r["ref/steps"])
+            for i, r in enumerate(ranks))
+        + f" (rank 0 runs both and keeps its states, rank 1 the first to "
+        f"load its kernels) ({card})")
+    reopen_s, n_leaves, n_bytes = r0["reopen"]
+    log(f"phase 4p: dp's checkpoint.msgpack ({n_bytes / 1e9:.2f} GB) and "
+        f"best-model.msgpack reopened unsharded in {reopen_s:.1f} s: "
+        f"{n_leaves} parameters and their mu and nu equal the ranks' "
+        f"gathered state bit for bit; the world spawned, ran and held in "
+        f"{world_s:.1f} s (host clock) ({card})")
+    if failed:
+        raise AssertionError("phase 4p against the single rank: "
+                             + "; ".join(failed))
+    expect_counts("phase 4p", counts(bm25), {})
+    log(f"phase 4p in {time.perf_counter() - t_phase:.1f} s")
 
 
 def drop_checkpoints(tmp) -> None:
@@ -5646,6 +6062,10 @@ def main() -> int:
         shard = sharded_stage_phase(bm25, dev, card, Path(tmp), index,
                                     encoded, ent_blocks, exact, boosted,
                                     pruned_out, boost_ms)
+        # -- 4p. sharded training on gloo ranks: DP, TP, FSDP -----------------
+        torch.cuda.empty_cache()
+        mesh_stage_phase(bm25, card, Path(tmp))
+        drop_checkpoints(Path(tmp))
 
     # -- 5. kernels ----------------------------------------------------------
     kernels = [{

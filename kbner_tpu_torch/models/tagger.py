@@ -46,7 +46,8 @@ from ..ops.losses import (distillation_loss, feature_l2_loss,
 from ..ops.losses import multi_view_loss as mv_loss
 from .embedders import (EmbedderSpec, StackedEmbedder, reset_dense_,
                         reset_flax_)
-from .xlmr import Linear, XLMRConfig, XLMREncoder, device_generator
+from .xlmr import (Linear, XLMRConfig, XLMREncoder, device_generator,
+                   draw_uniform)
 
 NO_TRANS = -10000.0
 Batch = Dict[str, torch.Tensor]
@@ -91,7 +92,7 @@ class SequenceTagger(nn.Module):
         self.encoder = XLMREncoder(config.encoder, device=device)
         self._heads(config, device, config.encoder.hidden_size,
                     config.encoder.storage_dtype)
-        self._init_weights(torch.Generator(device=device).manual_seed(seed))
+        self._draw(device, seed)
 
     def _heads(self, config: TaggerConfig, device: torch.device, width: int,
                dtype: torch.dtype) -> None:
@@ -118,6 +119,14 @@ class SequenceTagger(nn.Module):
                 torch.empty((width, L), device=device))
             self.sent_to_trans_att_b = nn.Parameter(
                 torch.empty((L,), device=device))
+
+    def _draw(self, device: torch.device, seed: int) -> None:
+        """Draw the parameters from a generator seeded with ``seed``; on
+        the meta device (shapes without storage) there is nothing to
+        draw."""
+        if device.type != "meta":
+            self._init_weights(torch.Generator(device=device).manual_seed(
+                seed))
 
     @torch.no_grad()
     def _init_heads(self, gen: torch.Generator) -> None:
@@ -206,15 +215,14 @@ class SequenceTagger(nn.Module):
         gen = device_generator(rng, feats.device)
         B, W, H = feats.shape
         if gen is not None and cfg.word_dropout > 0:
-            drop = torch.rand((B, W, 1), generator=gen,
-                              device=feats.device) < cfg.word_dropout
+            drop = draw_uniform((B, W, 1), gen,
+                                feats.device) < cfg.word_dropout
             feats = torch.where(drop, 0.0, feats)
         if self.embedding2nn is not None:
             feats = self.embedding2nn(feats)
         if gen is not None and cfg.locked_dropout > 0:
             keep = 1.0 - cfg.locked_dropout
-            mask = torch.rand((B, 1, H), generator=gen,
-                              device=feats.device) < keep
+            mask = draw_uniform((B, 1, H), gen, feats.device) < keep
             feats = feats * mask / keep
         return feats
 
@@ -232,7 +240,8 @@ class SequenceTagger(nn.Module):
     # -- losses ---------------------------------------------------------------
 
     def _gold_loss(self, emissions: torch.Tensor, batch: Batch,
-                   feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   feats: Optional[torch.Tensor] = None,
+                   token_norm: Optional[float] = None) -> torch.Tensor:
         cfg = self.config
         if cfg.use_crf:
             nll = crf_neg_log_likelihood(
@@ -243,14 +252,19 @@ class SequenceTagger(nn.Module):
         logp = F.log_softmax(emissions, dim=-1)
         gold = torch.gather(logp, 2, batch["tag_ids"].long().unsqueeze(2))
         mask = batch["crf_mask"].float()
-        return -(gold.squeeze(2) * mask).sum() / mask.sum().clamp(min=1.0)
+        if token_norm is None:
+            token_norm = mask.sum().clamp(min=1.0)
+        return -(gold.squeeze(2) * mask).sum() / token_norm
 
     def loss(self, batch: Batch, rng: Optional[torch.Generator] = None,
-             return_emissions: bool = False):
+             return_emissions: bool = False,
+             token_norm: Optional[float] = None):
         """Mean per-sentence CRF NLL, or masked token cross-entropy for
-        the softmax head."""
+        the softmax head, the latter over ``token_norm`` when given (a
+        data-parallel rank's share of the global token count) instead of
+        the batch's token count."""
         feats, emissions = self._features_and_emissions(batch, rng)
-        loss = self._gold_loss(emissions, batch, feats)
+        loss = self._gold_loss(emissions, batch, feats, token_norm)
         if return_emissions:
             return loss, emissions
         return loss
@@ -413,7 +427,7 @@ class StackedSequenceTagger(SequenceTagger):
         self.stack = StackedEmbedder([s.module for s in specs]).to(device)
         self._heads(config, device, sum(s.dim for s in specs),
                     torch.float32)
-        self._init_weights(torch.Generator(device=device).manual_seed(seed))
+        self._draw(device, seed)
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:

@@ -25,7 +25,16 @@ generator (``rng``) takes one seed from it per dropout site group (the
 embeddings, then each layer) and draws that group's masks on the device
 from a generator seeded with it. A layer under ``remat`` recomputes its
 masks from the same seed in the backward pass. Without ``rng`` the pass
-is deterministic.
+is deterministic. Inside ``parallel.mesh.batch_rows`` a rank holding
+rows ``i`` of ``n`` of a data-parallel batch draws each mask over the
+global batch and keeps its rows, so the masks are the single-device
+step's.
+
+Under tensor parallelism (``parallel/sharding_rules.py``) a rank holds
+``num_heads / model`` of the heads: the attention takes its head count
+from its query projection's width, and the hooks ``tp_enter`` (before
+the column-parallel projections) and ``tp_gather`` (after the embedding
+lookups) are set; unsharded they are None and nothing changes.
 
 :func:`load_hf_checkpoint` reads an HF xlm-roberta checkpoint directory
 (``model.safetensors`` through the module's own reader, else
@@ -41,7 +50,7 @@ import json
 import math
 import mmap
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +60,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..parallel.mesh import current_batch_rows
 
 _aten = torch.ops.aten
 _SAVED_DOTS = {
@@ -144,16 +154,39 @@ def _remat_context(policy: Optional[str]):
     return functools.partial(create_selective_checkpoint_contexts, choose)
 
 
+def draw_uniform(shape, gen: torch.Generator, device,
+                 heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``gen``. Inside
+    :func:`..parallel.mesh.batch_rows` it is this process's rows of a draw
+    over the global batch (dim 0 times the shard count); with
+    ``heads=(offset, total)`` dim 1 holds heads ``offset, ...`` of a draw
+    over all ``total`` heads."""
+    rows = current_batch_rows()
+    full = list(shape)
+    if rows is not None:
+        full[0] *= rows[1]
+    if heads is not None:
+        full[1] = heads[1]
+    u = torch.rand(full, generator=gen, device=device)
+    if rows is not None:
+        lo = rows[0] * shape[0]
+        u = u[lo:lo + shape[0]]
+    if heads is not None and shape[1] != heads[1]:
+        u = u[:, heads[0]:heads[0] + shape[1]]
+    return u
+
+
 def dropout(x: torch.Tensor, rate: float,
-            gen: Optional[torch.Generator]) -> torch.Tensor:
+            gen: Optional[torch.Generator],
+            heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout as Flax's ``nn.Dropout``: each element is kept
     with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``. The
-    mask comes from ``gen`` (on ``x``'s device); no generator or a zero
-    rate is the identity."""
+    mask comes from ``gen`` (on ``x``'s device; see :func:`draw_uniform`
+    for ``heads``); no generator or a zero rate is the identity."""
     if gen is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    mask = draw_uniform(x.shape, gen, x.device, heads) < keep
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -202,30 +235,38 @@ def _norm(cfg: XLMRConfig, device) -> LayerNorm:
 class SelfAttention(nn.Module):
     def __init__(self, cfg: XLMRConfig, device=None):
         super().__init__()
-        self.num_heads = cfg.num_heads
+        self.num_heads = cfg.num_heads  # every rank's heads together
         self.head_dim = cfg.hidden_size // cfg.num_heads
         self.attention_dropout = cfg.attention_dropout
         self.query = _linear(cfg.hidden_size, cfg.hidden_size, cfg, device)
         self.key = _linear(cfg.hidden_size, cfg.hidden_size, cfg, device)
         self.value = _linear(cfg.hidden_size, cfg.hidden_size, cfg, device)
         self.out = _linear(cfg.hidden_size, cfg.hidden_size, cfg, device)
+        # tensor parallelism: this rank's first head, and the identity
+        # whose backward sums the input's gradient over the model group
+        self.head_offset = 0
+        self.tp_enter: Optional[Callable] = None
 
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        B, S, H = hidden.shape
+        B, S, _ = hidden.shape
+        if self.tp_enter is not None:
+            hidden = self.tp_enter(hidden)
+        q = self.query(hidden)
+        width = q.shape[-1]  # H, or H / model on a tensor-parallel rank
+        n_heads = width // self.head_dim
 
-        def heads(x):  # [B, S, H] -> [B, heads, S, head_dim]
-            return x.view(B, S, self.num_heads, self.head_dim).transpose(1, 2)
+        def heads(x):  # [B, S, width] -> [B, heads, S, head_dim]
+            return x.view(B, S, n_heads, self.head_dim).transpose(1, 2)
 
-        q = heads(self.query(hidden))
-        k = heads(self.key(hidden))
-        v = heads(self.value(hidden))
+        q, k, v = heads(q), heads(self.key(hidden)), heads(self.value(hidden))
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(
             self.head_dim)
         scores = scores + attn_bias  # [B, 1, 1, S] additive mask
         probs = torch.softmax(scores.float(), dim=-1).to(hidden.dtype)
-        probs = dropout(probs, self.attention_dropout, gen)
-        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, H)
+        probs = dropout(probs, self.attention_dropout, gen,
+                        heads=(self.head_offset, self.num_heads))
+        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, width)
         return self.out(ctx)
 
 
@@ -271,6 +312,9 @@ class XLMREncoder(nn.Module):
         self.layers = nn.ModuleList(
             EncoderLayer(cfg, device) for _ in range(cfg.num_layers))
         self._remat_context = _remat_context(cfg.remat_policy)
+        # tensor parallelism: gathers the hidden axis of the summed
+        # embedding lookups over the model group
+        self.tp_gather: Optional[Callable] = None
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -283,6 +327,8 @@ class XLMREncoder(nn.Module):
                   + self.position_embeddings(position_ids).to(cfg.dtype)
                   + self.token_type_embeddings(
                       torch.zeros_like(input_ids)).to(cfg.dtype))
+        if self.tp_gather is not None:
+            hidden = self.tp_gather(hidden)
         hidden = self.embeddings_ln(hidden)
         hidden = dropout(hidden, cfg.hidden_dropout,
                          device_generator(rng, hidden.device))

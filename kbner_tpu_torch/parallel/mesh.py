@@ -20,8 +20,9 @@ N cards (NCCL), or spawned processes with ``init_process_group("gloo",
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,20 +82,61 @@ def replicated(mesh) -> tuple:
 
 
 def shard_batch(batch: Dict[str, np.ndarray], mesh) -> dict:
-    """A host batch as DTensors with the batch axis sharded over 'data':
-    ``shard_batch(b, mesh)[name].to_local()`` is this rank's rows. Every
-    rank holds the same host batch, so each takes its own rows without a
+    """A host batch as DTensors with the batch axis sharded over 'data'
+    (the reference's ``shard_batch``): ``shard_batch(b, mesh)[name]
+    .to_local()`` is this rank's rows, :func:`local_rows`. Every rank
+    holds the same host batch, so each takes its own rows without a
     collective. The batch size must be divisible by the data-axis size;
     :func:`pad_batch_for_mesh` pads it to that multiple."""
-    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor import DTensor
 
     placements = batch_sharding(mesh)
     dev = torch.device(mesh.device_type,
                        torch.cuda.current_device()) \
         if mesh.device_type == "cuda" else torch.device(mesh.device_type)
-    return {k: distribute_tensor(torch.as_tensor(np.asarray(v)).to(dev),
-                                 mesh, placements, src_data_rank=None)
-            for k, v in batch.items()}
+    return {k: DTensor.from_local(torch.as_tensor(np.asarray(v)).to(dev),
+                                  mesh, placements, run_check=False)
+            for k, v in local_rows(batch, mesh).items()}
+
+
+def local_rows(batch: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
+    """This rank's rows of a host batch sharded over 'data', cut on the
+    host (a training step takes its rows this way: DTensor's import and
+    first call take a fresh process seconds). The batch size must be
+    divisible by the data-axis size."""
+    n = data_size(mesh)
+    b = next(iter(batch.values())).shape[0]
+    if b % n:
+        raise ValueError(f"batch of {b} rows over data={n}: pad it first "
+                         "(pad_batch_for_mesh)")
+    lo = mesh.get_local_rank(DATA_AXIS) * (b // n)
+    return {k: v[lo:lo + b // n] for k, v in batch.items()}
+
+
+# (index, count) while this process computes rows ``index`` of ``count``
+# equal shards of a global batch (batch_rows), else None
+_BATCH_ROWS: Optional[Tuple[int, int]] = None
+
+
+@contextlib.contextmanager
+def batch_rows(index: int, count: int):
+    """Within it this process holds rows ``index`` of ``count`` equal
+    shards of a global batch: the models draw each dropout mask over the
+    global batch and keep those rows (``models.xlmr.draw_uniform``), so a
+    data-parallel step draws the single-process step's masks. A plain
+    module global, so the backward pass (and a remat layer's recompute in
+    it) sees it on the autograd engine's threads too."""
+    global _BATCH_ROWS
+    prev, _BATCH_ROWS = _BATCH_ROWS, (index, count)
+    try:
+        yield
+    finally:
+        _BATCH_ROWS = prev
+
+
+def current_batch_rows() -> Optional[Tuple[int, int]]:
+    """``(index, count)`` inside :func:`batch_rows`, else None."""
+    return _BATCH_ROWS
 
 
 def pad_batch_for_mesh(batch: Dict[str, np.ndarray], mesh

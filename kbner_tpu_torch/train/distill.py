@@ -63,6 +63,10 @@ class DistillationTrainer(FinetuneTrainer):
     def __init__(self, *args, teachers: Sequence[SequenceTagger] = (),
                  **kwargs):
         super().__init__(*args, **kwargs)
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "distillation on a mesh: the teacher caches are per-batch "
+                "host arrays that need the batch's mesh padding (ROADMAP A)")
         self.teachers = list(teachers)
 
     # -- the teachers' outputs --------------------------------------------------

@@ -14,13 +14,24 @@
   - accumulation as ``optax.MultiSteps``: the running mean of k micro-step
     gradients, and only every k-th call updates (and advances the count);
   - the first moment optionally stored in bfloat16 (``mu_dtype``), computed
-    in float32.
+    in float32;
+  - on a mesh's slices (``parallel/sharding_rules.py``) the global norm
+    sums each leaf's squared norm over the world, weighted by one over
+    the ranks that hold the same slice, so a replicated leaf counts once;
+    the moments exist for the rank's slices only.
+
+:func:`optax_state` and :func:`from_optax_state` carry the state to and
+from the tree ``kbner_tpu``'s optimizer keeps (``optax.MultiSteps`` of
+``clip_by_global_norm`` and ``multi_transform`` of two masked AdamW
+chains), in the layout ``flax.serialization`` writes, so either package
+resumes the other's ``checkpoint.msgpack``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -70,8 +81,8 @@ class FinetuneOptimizer:
     Call :meth:`step` after the gradients of one micro-batch are in each
     parameter's ``.grad``; it returns True when it updated the
     parameters (every ``accumulation_steps``-th call). The update count
-    and the moments live on the object, so a checkpoint of
-    :meth:`state_dict` resumes it."""
+    and the moments live on the object (:meth:`named_moments`,
+    :func:`optax_state`), so a checkpoint of them resumes it."""
 
     def __init__(
         self,
@@ -84,12 +95,21 @@ class FinetuneOptimizer:
         b1: float = 0.9,
         b2: float = 0.999,
         eps: float = 1e-8,
+        norm_weights: Optional[Mapping[str, float]] = None,
+        norm_group=None,
     ):
         self.groups: Dict[str, List[torch.nn.Parameter]] = {
             "encoder": [], "head": []}
+        names: Dict[str, List[str]] = {"encoder": [], "head": []}
         for name, p in named_params:
-            self.groups["encoder" if is_encoder_param(name) else "head"
-                        ].append(p)
+            group = "encoder" if is_encoder_param(name) else "head"
+            self.groups[group].append(p)
+            names[group].append(name)
+        self.names = names["encoder"] + names["head"]  # as :attr:`params`
+        # a sharded model: each leaf's weight in the world's squared norm
+        self.norm_weights = (None if norm_weights is None else
+                             [norm_weights[n] for n in self.names])
+        self.norm_group = norm_group
         self.schedules = schedules
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
@@ -128,8 +148,7 @@ class FinetuneOptimizer:
             self.mini_step = 0
             grads = self.acc
         if self.grad_clip and self.grad_clip > 0:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            norm = self._global_norm(grads)
             scale = torch.where(norm < self.grad_clip, 1.0,
                                 self.grad_clip / norm)
             torch._foreach_mul_(grads, scale)
@@ -137,6 +156,18 @@ class FinetuneOptimizer:
         if self.acc is not None:
             torch._foreach_zero_(self.acc)
         return True
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.norm_weights is None:
+            return torch.linalg.vector_norm(norms)
+        import torch.distributed as dist
+
+        w = torch.tensor(self.norm_weights, dtype=norms.dtype,
+                         device=norms.device)
+        total = (norms.square() * w).sum()
+        dist.all_reduce(total, group=self.norm_group)
+        return total.sqrt()
 
     def _adamw(self, params: Sequence[torch.Tensor],
                grads: List[torch.Tensor]) -> None:
@@ -177,18 +208,129 @@ class FinetuneOptimizer:
                 m.copy_(new)
         self.count = n
 
-    def state_dict(self) -> dict:
-        return {"count": self.count, "mini_step": self.mini_step,
-                "mu": self.mu, "nu": self.nu, "acc": self.acc}
+    def named_moments(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """``{"mu": {name: tensor}, "nu": ..., "acc": ...}`` (``acc``
+        without accumulation is absent), by parameter name."""
+        out = {"mu": self.mu, "nu": self.nu}
+        if self.acc is not None:
+            out["acc"] = self.acc
+        return {k: dict(zip(self.names, v)) for k, v in out.items()}
 
-    def load_state_dict(self, state: dict) -> None:
-        self.count = state["count"]
-        self.mini_step = state["mini_step"]
-        for dst, src in (("mu", state["mu"]), ("nu", state["nu"]),
-                         ("acc", state["acc"])):
-            if src is not None:
-                for d, s in zip(getattr(self, dst), src):
-                    d.copy_(s)
+    @torch.no_grad()
+    def load_named_moments(self, moments: Mapping[str, Mapping[str, Any]]
+                           ) -> None:
+        """Copy :meth:`named_moments`-shaped tensors into the state (each
+        cast to its moment's dtype)."""
+        for key, named in moments.items():
+            for name, dst in zip(self.names, getattr(self, key)):
+                dst.copy_(named[name])
+
+
+# -- the optax state tree ---------------------------------------------------------
+
+def _masked(tree: Mapping[str, Any], encoder: bool, inside: bool = False
+            ) -> Dict[str, Any]:
+    """``tree`` with the leaves of the other group as ``{}`` (optax's
+    ``MaskedNode`` as flax writes it): a leaf is the encoder's when a key
+    on its path is ``encoder``, as optax's labels say."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        under = inside or k == "encoder"
+        if isinstance(v, dict):
+            out[k] = _masked(v, encoder, under)
+        else:
+            out[k] = v if under == encoder else {}
+    return out
+
+
+def _unmasked(a: Mapping[str, Any], b: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`_masked`: each leaf from whichever of the two
+    group trees holds it."""
+    out: Dict[str, Any] = {}
+    for k, v in a.items():
+        if isinstance(v, dict) and v:
+            out[k] = _unmasked(v, b[k])
+        else:
+            out[k] = b[k] if isinstance(v, dict) else v
+    return out
+
+
+def optax_state(opt: FinetuneOptimizer,
+                moments: Mapping[str, Mapping[str, torch.Tensor]],
+                target) -> Dict[str, Any]:
+    """The state of ``kbner_tpu``'s ``make_finetune_optimizer`` (with
+    ``opt``'s clipping and accumulation) as ``flax.serialization`` writes
+    it, from ``opt``'s counts and the full (gathered) ``moments`` of
+    :meth:`~FinetuneOptimizer.named_moments`. Moments carry the names and
+    transposes of the parameters (``weights.to_jax_params`` of
+    ``target``); a bfloat16 ``mu`` stays bfloat16. Optax keeps one
+    ``count`` per AdamW and schedule; the port's single count fills all
+    four."""
+    from .. import weights
+
+    count = np.array(opt.count, np.int32)
+
+    def tree(named):
+        out = weights.to_jax_params(named, target)
+        dtype = next(iter(named.values())).dtype
+        if dtype != torch.float32:  # exact: the values are dtype's
+            out = _map_leaves(out, lambda a: torch.from_numpy(a).to(dtype))
+        return out
+
+    mu, nu = tree(moments["mu"]), tree(moments["nu"])
+    inner = {"inner_states": {group: {"inner_state": {
+        "0": {"count": count, "mu": _masked(mu, group == "encoder"),
+              "nu": _masked(nu, group == "encoder")},
+        "1": {},
+        "2": {"count": count}}} for group in ("encoder", "head")}}
+    if opt.grad_clip and opt.grad_clip > 0:
+        inner = {"0": {}, "1": inner}
+    if opt.acc is None:
+        return inner
+    return {"mini_step": np.array(opt.mini_step, np.int32),
+            "gradient_step": count, "inner_opt_state": inner,
+            "acc_grads": tree(moments["acc"]), "skip_state": {}}
+
+
+def from_optax_state(tree: Mapping[str, Any], opt: FinetuneOptimizer,
+                     target) -> Tuple[int, int, Dict[str, Dict[str, Any]]]:
+    """``(count, mini_step, moments)`` of an optax state tree (as
+    :func:`optax_state` or ``kbner_tpu``'s trainer writes it), the moments
+    full and by parameter name (``weights.from_jax_params`` of
+    ``target``). Raises ``ValueError`` when the tree's accumulation or
+    clipping differs from ``opt``'s."""
+    from .. import weights
+
+    multi = "inner_opt_state" in tree
+    if multi != (opt.acc is not None):
+        raise ValueError(f"the checkpoint's optimizer "
+                         f"{'accumulates' if multi else 'does not accumulate'}"
+                         f" gradients; this one has accumulation_steps="
+                         f"{opt.k}")
+    inner = tree["inner_opt_state"] if multi else tree
+    clipped = bool(opt.grad_clip and opt.grad_clip > 0)
+    if ("inner_states" not in inner) != clipped:
+        raise ValueError("the checkpoint's optimizer and this one differ in "
+                         "global-norm clipping")
+    if clipped:
+        inner = inner["1"]
+    enc, head = (inner["inner_states"][g]["inner_state"]["0"]
+                 for g in ("encoder", "head"))
+
+    def named(a, b):
+        return weights.from_jax_params(_unmasked(a, b), target)
+
+    moments = {"mu": named(enc["mu"], head["mu"]),
+               "nu": named(enc["nu"], head["nu"])}
+    if multi:
+        moments["acc"] = weights.from_jax_params(tree["acc_grads"], target)
+    mini_step = int(np.asarray(tree["mini_step"])) if multi else 0
+    return int(np.asarray(enc["count"])), mini_step, moments
+
+
+def _map_leaves(tree: Mapping[str, Any], fn) -> Dict[str, Any]:
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 def make_finetune_optimizer(
@@ -203,9 +345,13 @@ def make_finetune_optimizer(
     accumulation_steps: int = 1,
     use_inverse_sqrt: bool = False,
     mu_dtype: Optional[torch.dtype] = None,
+    norm_weights: Optional[Mapping[str, float]] = None,
+    norm_group=None,
 ) -> FinetuneOptimizer:
     """Two-group AdamW: encoder parameters at ``lr``, everything else at
-    ``lr * lr_rate``, each on the chosen schedule."""
+    ``lr * lr_rate``, each on the chosen schedule. On a sharded model
+    ``norm_weights`` (by name: one over the ranks that hold each slice)
+    and ``norm_group`` (the world) make the clipping norm global."""
 
     def make_sched(peak: float) -> Schedule:
         if schedule_fn is not None:
@@ -218,7 +364,8 @@ def make_finetune_optimizer(
         named_params,
         {"encoder": make_sched(lr), "head": make_sched(lr * lr_rate)},
         weight_decay=weight_decay, grad_clip=grad_clip,
-        accumulation_steps=accumulation_steps, mu_dtype=mu_dtype)
+        accumulation_steps=accumulation_steps, mu_dtype=mu_dtype,
+        norm_weights=norm_weights, norm_group=norm_group)
 
 
 class ReduceLROnPlateau:

@@ -17,8 +17,18 @@
     ``finetuned-encoder.msgpack``) in the Flax tree layout the JAX
     package's trainer writes, so either package reads the other's;
   - ``loss.tsv``, ``history.json``, a final save on ``KeyboardInterrupt``;
-  - ``checkpoint``/``resume`` through the port's own ``checkpoint.pt``
-    (parameters, optimizer state, epoch, best score and history).
+  - ``checkpoint``/``resume`` through ``checkpoint.msgpack``, the blob the
+    JAX package's trainer writes (``{"params", "opt_state", "meta"}``:
+    the Flax tree, optax's state tree, and a JSON string of epoch, best
+    score and history), so either package resumes the other's run;
+  - on a ``(data, model)`` mesh (``parallel.make_mesh``, the model
+    sharded on it first with ``parallel.shard_params``): each batch
+    padded to a multiple of ``data`` and cut to this rank's rows, the
+    gradients averaged over ``data`` (an FSDP leaf's backward already
+    did), dropout masks drawn over the global batch, the clipping norm
+    taken over the whole model; every rank evaluates and predicts (TP and
+    FSDP forwards are collectives), and rank 0 alone writes the files, of
+    the gathered state, in the single-rank layout.
 
 Randomness comes from ``torch.Generator``s seeded with ``TrainConfig.seed``:
 the model's init (the caller's), every dropout mask (one host generator
@@ -28,6 +38,7 @@ epoch)``, as the reference shuffles).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -38,6 +49,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from .. import weights
 from ..data import corpus_ops
@@ -50,8 +63,12 @@ from ..data.windows import predict_long, split_long_record
 from ..device import resolve_device
 from ..eval.metrics import Metric, evaluate_spans
 from ..models.tagger import SequenceTagger
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, batch_rows, local_rows,
+                             pad_batch_for_mesh)
+from ..parallel.sharding_rules import gather_state_dict, shard_state_dict
 from ..serve import predict as predict_tags
-from .optim import FinetuneOptimizer, is_encoder_param, make_finetune_optimizer
+from .optim import (FinetuneOptimizer, from_optax_state, is_encoder_param,
+                    make_finetune_optimizer, optax_state)
 
 log = logging.getLogger("kbner_tpu_torch")
 
@@ -100,7 +117,9 @@ class TrainConfig:
 class FinetuneTrainer:
     """Trains ``model`` (a :class:`SequenceTagger` with float32 master
     parameters) on ``corpus`` on ``device`` (the card by default; the
-    model is moved there)."""
+    model is moved there). With ``mesh`` (a ``DeviceMesh`` from
+    ``parallel.make_mesh``) every rank of the mesh runs the same trainer
+    on the same corpus: training, evaluation and saving are collectives."""
 
     def __init__(
         self,
@@ -115,10 +134,7 @@ class FinetuneTrainer:
         stride_words: int = 16,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh waits for sharded training over "
-                "torch.distributed in kbner_tpu_torch (ROADMAP A6)")
+        self._init_mesh(mesh, model)
         self.stride_windows = stride_windows
         self.stride_max_subtokens = stride_max_subtokens
         self.stride_words = stride_words
@@ -139,20 +155,60 @@ class FinetuneTrainer:
         self.bpe_vocab = None
         self.elmo_bytes = False
 
+    # -- the mesh ---------------------------------------------------------------
+
+    def _init_mesh(self, mesh, model: nn.Module) -> None:
+        """The trainer's place on ``mesh`` (None: one process): the
+        model's :class:`~..parallel.sharding_rules.Sharding`, which
+        ``shard_params`` must have set on this mesh, and whether this
+        rank writes the files."""
+        self.mesh = mesh
+        self.sharding = None
+        self.writer = True
+        if mesh is None:
+            return
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not (isinstance(mesh, DeviceMesh) and set(
+                mesh.mesh_dim_names or ()) == {DATA_AXIS, MODEL_AXIS}):
+            raise TypeError(f"mesh must be a DeviceMesh with dimensions "
+                            f"{(DATA_AXIS, MODEL_AXIS)} (parallel."
+                            f"make_mesh), got {type(mesh).__name__}")
+        sh = getattr(model, "sharding", None)
+        if sh is None or sh.mesh is not mesh:
+            raise ValueError("a meshed trainer takes the model that "
+                             "parallel.shard_params(model, mesh) sharded "
+                             "on this mesh")
+        self.sharding = sh
+        self.writer = dist.get_rank() == 0
+
+    def _barrier(self) -> None:
+        """Every rank waits for rank 0's files."""
+        if self.mesh is not None:
+            dist.barrier()
+
     # -- one step ---------------------------------------------------------------
 
-    def _to_device(self, eb: EncodedBatch) -> Dict[str, torch.Tensor]:
+    def _to_device(self, eb: EncodedBatch, shard_rows: bool = False
+                   ) -> Dict[str, torch.Tensor]:
         """The batch's arrays on the device, with the classic embedders'
         inputs when the trainer has their vocabularies and the ``[N]``
-        selection mask when it has one."""
+        selection mask when it has one. With ``shard_rows`` on a mesh the
+        batch is padded to a multiple of its data axis and cut to this
+        rank's rows (the selection mask stays whole), as the reference's
+        ``_to_device`` shards a training batch."""
         if (self.word_vocab is not None or self.char_vocab is not None
                 or self.bpe_vocab is not None) and not {
                     "word_ids", "char_ids", "bpe_first_ids"} & set(eb.extra):
             add_classic_features(eb, self.word_vocab, self.char_vocab,
                                  bpe_vocab=self.bpe_vocab,
                                  elmo_bytes=self.elmo_bytes)
+        arrays = eb.arrays()
+        if shard_rows and self.mesh is not None:
+            arrays = local_rows(pad_batch_for_mesh(arrays, self.mesh),
+                                self.mesh)
         out = {k: torch.from_numpy(v).to(self.device)
-               for k, v in eb.arrays().items()}
+               for k, v in arrays.items()}
         if self.selection is not None:
             out["selection"] = torch.as_tensor(
                 np.asarray(self.selection, np.float32), device=self.device)
@@ -166,16 +222,44 @@ class FinetuneTrainer:
                 self._to_device(eb), self._to_device(orig), rng=rng,
                 agreement_weight=config.mv_agreement_weight,
                 l2_weight=config.mv_l2_weight, kind=config.mv_kind)
-        return self.model.loss(self._to_device(item), rng=rng)
+        return self.model.loss(self._to_device(item, shard_rows=True),
+                               rng=rng, token_norm=self._token_norm(item))
+
+    def _data_split(self) -> int:
+        """The ranks of the mesh's data axis (1 off a mesh)."""
+        return 1 if self.sharding is None else self.sharding.sizes[DATA_AXIS]
+
+    def _token_norm(self, eb: EncodedBatch) -> Optional[float]:
+        """On a split data axis of ``n`` ranks, the softmax head's divisor:
+        the global batch's token count over ``n``, so that the ranks' mean
+        loss is the global token mean (the padding rows count no token);
+        else None, the batch's own count."""
+        n = self._data_split()
+        if n == 1:
+            return None
+        return max(float(eb.arrays()["crf_mask"].sum()), 1.0) / n
+
+    def _data_shard(self):
+        """:func:`~..parallel.mesh.batch_rows` of this rank's rows on a
+        mesh whose data axis is split, else a no-op context."""
+        if self._data_split() == 1:
+            return contextlib.nullcontext()
+        return batch_rows(self.sharding.coords[DATA_AXIS], self._data_split())
 
     def train_step(self, item, opt: FinetuneOptimizer, config: TrainConfig,
                    rng: Optional[torch.Generator], freeze: bool = False
                    ) -> torch.Tensor:
         """Loss, gradients and one optimizer call on one batch (an
         ``EncodedBatch``, or a (context, orig) pair in multi-view mode).
-        Returns the loss, still on the device."""
-        loss = self._loss(item, config, rng)
-        loss.backward()
+        Returns the loss of the (global) batch, still on the device."""
+        with self._data_shard():
+            loss = self._loss(item, config, rng)
+            loss.backward()
+        if self._data_split() > 1:
+            self.sharding.sync_gradients(self.model)
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=self.sharding.groups[DATA_AXIS])
+            loss /= self._data_split()
         if freeze:
             grads = [p.grad for n, p in self.model.named_parameters()
                      if is_encoder_param(n) and p.grad is not None]
@@ -231,10 +315,17 @@ class FinetuneTrainer:
 
     def make_optimizer(self, config: TrainConfig) -> FinetuneOptimizer:
         """The optimizer of :meth:`train`, its horizon from the epoch size
-        of ``config``'s epoch 0."""
+        of ``config``'s epoch 0; on a mesh its clipping norm is the whole
+        model's."""
         steps_per_epoch = max(1, math.ceil(
             len(self._epoch_records(config, 0)) / config.batch_size))
         total_steps = steps_per_epoch * config.max_epochs
+        norm = {}
+        if self.sharding is not None:
+            norm = dict(norm_weights={
+                n: 1.0 / self.sharding.replicas(n)
+                for n, _ in self.model.named_parameters()},
+                norm_group=dist.group.WORLD)
         return make_finetune_optimizer(
             self.model.named_parameters(), lr=config.learning_rate,
             lr_rate=config.lr_rate,
@@ -243,13 +334,20 @@ class FinetuneTrainer:
             grad_clip=config.grad_clip,
             accumulation_steps=config.accumulation_steps,
             use_inverse_sqrt=config.use_inverse_sqrt,
-            mu_dtype=torch.bfloat16 if config.adam_mu_bf16 else None)
+            mu_dtype=torch.bfloat16 if config.adam_mu_bf16 else None,
+            **norm)
 
     def train(self, base_path: str | Path, config: TrainConfig
               ) -> Dict[str, Any]:
+        if self.mesh is not None and config.multi_view:
+            raise NotImplementedError(
+                "multi-view training on a mesh: its agreement terms' "
+                "token means need the global counts (ROADMAP A)")
         base_path = Path(base_path)
-        base_path.mkdir(parents=True, exist_ok=True)
-        self.tag_dict.save(base_path / "tag_dictionary.json")
+        if self.writer:
+            base_path.mkdir(parents=True, exist_ok=True)
+            self.tag_dict.save(base_path / "tag_dictionary.json")
+        self._barrier()
         self._apply_corpus_surgery(config)
         opt = self.make_optimizer(config)
         rng = torch.Generator().manual_seed(config.seed)
@@ -257,7 +355,7 @@ class FinetuneTrainer:
         history: Dict[str, List[float]] = {"train_loss": [], "dev_score": []}
 
         start_epoch = 0
-        ckpt_path = base_path / "checkpoint.pt"
+        ckpt_path = base_path / "checkpoint.msgpack"
         if config.resume and ckpt_path.exists():
             meta = self._load_checkpoint(ckpt_path, opt)
             start_epoch = meta["epoch"] + 1
@@ -265,7 +363,7 @@ class FinetuneTrainer:
             log.info("resumed from checkpoint at epoch %d", start_epoch)
 
         loss_tsv = base_path / "loss.tsv"
-        if start_epoch == 0:
+        if start_epoch == 0 and self.writer:
             loss_tsv.write_text("EPOCH\tTIMESTAMP\tTRAIN_LOSS\tDEV_SCORE\n")
 
         try:
@@ -278,7 +376,7 @@ class FinetuneTrainer:
                 prof = None
                 for i, item in enumerate(batches):
                     if (config.profile_steps and epoch == start_epoch
-                            and i == config.profile_start):
+                            and i == config.profile_start and self.writer):
                         prof = self._start_profile()
                     losses.append(self.train_step(item, opt, config, rng,
                                                   freeze))
@@ -303,9 +401,10 @@ class FinetuneTrainer:
                 history["dev_score"].append(dev_score)
                 log.info("epoch %d  loss %.4f  dev %.4f  (%.1fs)",
                          epoch + 1, train_loss, dev_score, time.time() - t0)
-                with open(loss_tsv, "a") as f:
-                    f.write(f"{epoch + 1}\t{time.strftime('%H:%M:%S')}\t"
-                            f"{train_loss:.6f}\t{dev_score:.6f}\n")
+                if self.writer:
+                    with open(loss_tsv, "a") as f:
+                        f.write(f"{epoch + 1}\t{time.strftime('%H:%M:%S')}"
+                                f"\t{train_loss:.6f}\t{dev_score:.6f}\n")
                 if dev_score >= best_score:
                     best_score = dev_score
                     self.save(base_path / "best-model.msgpack")
@@ -321,7 +420,9 @@ class FinetuneTrainer:
             raise
 
         self.save(base_path / "final-model.msgpack")
-        (base_path / "history.json").write_text(json.dumps(history))
+        if self.writer:
+            (base_path / "history.json").write_text(json.dumps(history))
+        self._barrier()
         return {"best_dev_score": best_score, "history": history}
 
     def _start_profile(self) -> torch.profiler.profile:
@@ -345,17 +446,38 @@ class FinetuneTrainer:
 
     def _save_checkpoint(self, path, opt: FinetuneOptimizer, epoch: int,
                          best_score: float, history) -> None:
-        torch.save({"model": self.model.state_dict(),
-                    "optimizer": opt.state_dict(),
-                    "meta": {"epoch": epoch, "best_score": best_score,
-                             "history": history}}, path)
+        """``checkpoint.msgpack`` as the JAX package's trainer writes it:
+        the Flax tree, optax's state tree (:func:`.optim.optax_state`)
+        and the meta JSON string, of the gathered state on a mesh."""
+        params = gather_state_dict(self.model)
+        moments = opt.named_moments()
+        if self.sharding is not None:
+            moments = {key: {n: self.sharding.gather(n, t)
+                             for n, t in named.items()}
+                       for key, named in moments.items()}
+        if self.writer:
+            weights.checkpoint.dump({
+                "params": weights.to_jax_params(params, self.model),
+                "opt_state": optax_state(opt, moments, self.model),
+                "meta": json.dumps({"epoch": epoch, "best_score": best_score,
+                                    "history": history})}, path)
+        self._barrier()
 
     def _load_checkpoint(self, path, opt: FinetuneOptimizer
                          ) -> Dict[str, Any]:
-        blob = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(blob["model"])
-        opt.load_state_dict(blob["optimizer"])
-        return blob["meta"]
+        """Resume the model and ``opt`` from either package's
+        ``checkpoint.msgpack`` (each rank its slices); returns the meta."""
+        blob = weights.checkpoint.load(path)
+        self.model.load_state_dict(shard_state_dict(
+            self.model, weights.from_jax_params(blob["params"], self.model)))
+        opt.count, opt.mini_step, moments = from_optax_state(
+            blob["opt_state"], opt, self.model)
+        if self.sharding is not None:
+            moments = {key: {n: self.sharding.local(n, t)
+                             for n, t in named.items()}
+                       for key, named in moments.items()}
+        opt.load_named_moments(moments)
+        return json.loads(blob["meta"])
 
     # -- evaluation -----------------------------------------------------------------
 
@@ -448,33 +570,44 @@ class FinetuneTrainer:
             if not test_set:
                 continue
             metric, _ = self.evaluate(
-                test_set, batch_size, out_path=base_path / f"test.{name}.tsv")
+                test_set, batch_size, out_path=base_path / f"test.{name}.tsv"
+                if self.writer else None)
             results[name] = {"micro_f1": metric.micro_avg_f_score(),
                              "macro_f1": metric.macro_avg_f_score()}
             log.info("TEST %s: %s", name, results[name])
-        (base_path / "test_results.json").write_text(json.dumps(results))
+        if self.writer:
+            (base_path / "test_results.json").write_text(json.dumps(results))
+        self._barrier()
         return results
 
     # -- persistence ----------------------------------------------------------------
 
     def save(self, path: str | Path) -> None:
-        weights.save_params(self.model.state_dict(), self.model, path)
+        """The Flax tree of the (gathered) parameters; on a mesh rank 0
+        writes it and every rank waits."""
+        state = gather_state_dict(self.model)
+        if self.writer:
+            weights.save_params(state, self.model, path)
+        self._barrier()
 
     def load(self, path: str | Path) -> None:
-        self.model.load_state_dict(weights.load_params(path, self.model))
+        self.model.load_state_dict(shard_state_dict(
+            self.model, weights.load_params(path, self.model)))
 
     def save_encoder(self, path: str | Path) -> None:
         """Only the tuned encoder's tree (``params.encoder``; a stacked
         tagger has none there, as in the reference)."""
-        tree = weights.to_jax_params(self.model.state_dict(), self.model)
-        weights.checkpoint.dump(tree["params"]["encoder"], path)
+        tree = weights.to_jax_params(gather_state_dict(self.model), self.model)
+        if self.writer:
+            weights.checkpoint.dump(tree["params"]["encoder"], path)
+        self._barrier()
 
     def load_encoder(self, path: str | Path) -> None:
-        tree = weights.to_jax_params(self.model.state_dict(), self.model)
+        tree = weights.to_jax_params(gather_state_dict(self.model), self.model)
         if "encoder" not in tree["params"]:
             raise KeyError("params.encoder: the tagger's tree has none (a "
                            "stacked tagger keeps XLM-R under "
                            "stack/members_<i>/encoder)")
         tree["params"]["encoder"] = weights.checkpoint.load(path)
-        self.model.load_state_dict(
-            weights.from_jax_params(tree, self.model))
+        self.model.load_state_dict(shard_state_dict(
+            self.model, weights.from_jax_params(tree, self.model)))

@@ -1014,6 +1014,38 @@ def test_meshed_engines_on_card_match_the_cpu(card, tmp_path):
                               r[f"{mode}/cpu/s"], r[f"{mode}/cpu/i"])
 
 
+def test_sharded_training_steps_on_card_match_one_rank(card, tmp_path):
+    """Two gloo ranks on the one card: a data-parallel step (7 sentences
+    padded to 8), a tensor-parallel one and an FSDP one, each with the
+    gradients gathered, equal the single-rank step on the padded batch
+    in float32 (the reference's tolerances: loss rel 1e-4, gradients
+    rtol 2e-3, atol 1e-5)."""
+    import torch_world
+    from kbner_tpu_torch.data.encode import encode_batch
+
+    ranks = torch_world.World(torch_world.card_train_rank, 2,
+                              tmp_path).join()
+    corpus = torch_world.toy_corpus()
+    tags = corpus.make_tag_dictionary("ner")
+    arrays = encode_batch(corpus.train[:torch_world.TOY_ROWS],
+                          HashTokenizer(torch_world.TOY_VOCAB),
+                          tags).arrays()
+    for name, (data, _, _) in torch_world.CARD_LAYOUTS.items():
+        model = torch_world.toy_tagger(None, tags, device=card)
+        padded = {k: torch.from_numpy(np.pad(
+            v, [(0, (-v.shape[0]) % data)] + [(0, 0)] * (v.ndim - 1))
+        ).to(card) for k, v in arrays.items()}
+        loss = model.loss(padded)
+        loss.backward()
+        for r in ranks:
+            assert float(r[f"{name}/loss"]) == pytest.approx(float(loss),
+                                                             rel=1e-4)
+            for n, p in model.named_parameters():
+                np.testing.assert_allclose(r[f"{name}/grad/{n}"],
+                                           p.grad.cpu().numpy(), rtol=2e-3,
+                                           atol=1e-5, err_msg=f"{name} {n}")
+
+
 def _parser_batch(device, lengths=(9, 4, 1, 6), seed=0, unannotated=0.0):
     """A batch of random projective trees for the biaffine parser:
     encoded arrays with ``heads`` (-1 where unannotated) and ``rel_ids``

@@ -86,8 +86,9 @@ def test_pad_batch_for_mesh_equals_the_reference(mesh_world, data, model):
 def test_shard_batch_gives_each_rank_the_reference_shard(mesh_world, data,
                                                          model):
     """Rank r sits at mesh coordinate (r // model, r % model), as device r
-    of the reference's ``devices.reshape(data, model)``; its local rows are
-    the JAX sharding's shard on that device."""
+    of the reference's ``devices.reshape(data, model)``; its local rows
+    (``shard_batch``'s DTensor, and ``local_rows`` cut on the host) are the
+    JAX sharding's shard on that device."""
     jmesh = _jax_mesh(data, model)
     padded = j_pad(_batch(), jmesh)
     sharding = NamedSharding(jmesh, PartitionSpec("data"))
@@ -99,6 +100,8 @@ def test_shard_batch_gives_each_rank_the_reference_shard(mesh_world, data,
             index = sharding.devices_indices_map(v.shape)[device]
             np.testing.assert_array_equal(
                 ranks[f"{data}x{model}/local/{k}"], v[index])
+            np.testing.assert_array_equal(
+                ranks[f"{data}x{model}/rows/{k}"], v[index])
 
 
 def test_make_mesh_refuses_a_mesh_that_is_not_the_world(mesh_world,

@@ -435,16 +435,16 @@ def test_config_refusals(fixtures_path, tmp_path):
                               stride_windows=True, stride_max_subtokens=6,
                               stride_words=1, device="cpu")
     assert len(strided._epoch_records(TrainConfig(), 0)) > 8
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         FinetuneTrainer(_port_tagger(tags), quality_fixture
                         .make_quality_corpus(8, 2, 2), HashTokenizer(VOCAB),
                         tags, mesh=object(), device="cpu")
 
 
 def test_checkpoint_resume_and_interrupt(tmp_path, monkeypatch):
-    """checkpoint: true writes checkpoint.pt each epoch; resume: true picks
-    up after its epoch with the same history; an interrupt saves
-    final-model.msgpack and re-raises."""
+    """checkpoint: true writes checkpoint.msgpack (the JAX trainer's
+    blob) each epoch; resume: true picks up after its epoch with the same
+    history; an interrupt saves final-model.msgpack and re-raises."""
     corpus = quality_fixture.make_quality_corpus(16, 4, 4, seed=1)
     tags = corpus.make_tag_dictionary("ner")
     kw = dict(learning_rate=1e-3, lr_rate=1.0, batch_size=8, seed=1,
@@ -463,7 +463,10 @@ def test_checkpoint_resume_and_interrupt(tmp_path, monkeypatch):
     assert len(got["history"]["train_loss"]) == 2
     assert got["history"]["train_loss"][0] == \
         want["history"]["train_loss"][0]
-    assert (tmp_path / "half" / "checkpoint.pt").exists()
+    blob = checkpoint.load(tmp_path / "half" / "checkpoint.msgpack")
+    assert set(blob) == {"params", "opt_state", "meta"}
+    assert json.loads(blob["meta"])["epoch"] == 1
+    assert not (tmp_path / "half" / "checkpoint.pt").exists()
 
     def interrupt(*args, **kwargs):
         raise KeyboardInterrupt

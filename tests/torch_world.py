@@ -150,8 +150,8 @@ def mesh_rank(rank: int, world: int, batch: Dict[str, np.ndarray],
     """parallel.mesh in a world: per ``(data, model)`` of ``shapes`` the
     mesh's coordinates, ``pad_batch_for_mesh`` and each ``shard_batch``
     entry's local rows; and whether a mismatched mesh raises."""
-    from kbner_tpu_torch.parallel import (make_mesh, pad_batch_for_mesh,
-                                          shard_batch)
+    from kbner_tpu_torch.parallel import (local_rows, make_mesh,
+                                          pad_batch_for_mesh, shard_batch)
 
     out: Dict[str, np.ndarray] = {}
     for data, model in shapes:
@@ -164,6 +164,7 @@ def mesh_rank(rank: int, world: int, batch: Dict[str, np.ndarray],
             out[f"{tag}/pad/{k}"] = v
             out[f"{tag}/local/{k}"] = shard_batch(
                 {k: v}, mesh)[k].to_local().numpy()
+            out[f"{tag}/rows/{k}"] = local_rows({k: v}, mesh)[k]
     try:
         make_mesh(data=world + 1, model=1, device_type="cpu")
         out["mismatch"] = np.asarray("no error")
@@ -275,4 +276,208 @@ def card_engine_rank(rank: int, world: int, n_docs: int
             out[f"{mode}/{dev}/launches"] = np.asarray(
                 [bm25.bm25_score_block.launches - before[0],
                  bm25.delta16_rescore.launches - before[1]])
+    return out
+
+
+# -- sharded training (tests/test_torch_mesh_train.py) ----------------------------
+
+TOY_VOCAB = 997
+TOY_FOLDER = Path(__file__).parent / "fixtures" / "ner_toy"
+TOY_ROWS = 7  # of ner_toy's 8 train sentences: odd, so data = 2 pads
+RUN_CONFIG = dict(learning_rate=1e-3, lr_rate=3.0, batch_size=8,
+                  warmup_fraction=0.0, seed=4, checkpoint=True)
+ACC_CONFIG = dict(learning_rate=1e-2, lr_rate=3.0, accumulation_steps=2,
+                  grad_clip=0.5, warmup_fraction=0.0, batch_size=4,
+                  max_epochs=1)
+ACC_ROWS = ((0, 4), (4, 6), (2, 6), (0, 2))  # the micro-batches' rows
+
+
+def toy_corpus():
+    """The ner_toy fixture through the port."""
+    from kbner_tpu_torch.data.conll import load_column_corpus
+
+    return load_column_corpus(TOY_FOLDER, {0: "text", 1: "ner"},
+                              comment_symbol="# id")
+
+
+def quality_corpus():
+    from kbner_tpu_torch.data.quality_fixture import make_quality_corpus
+
+    return make_quality_corpus(16, 4, 4, seed=1)
+
+
+def toy_tagger(tree, tag_dict, use_crf: bool = True, dropout: bool = False,
+               device="cpu"):
+    """The port's tiny tagger (``XLMRConfig.tiny`` at the toy vocabulary)
+    on ``device``: with a Flax tree (numpy leaves) its weights, else drawn
+    from seed 0; ``dropout`` turns every dropout site on."""
+    from kbner_tpu_torch import weights
+    from kbner_tpu_torch.models.tagger import SequenceTagger, TaggerConfig
+    from kbner_tpu_torch.models.xlmr import XLMRConfig
+
+    rates = (dict(hidden_dropout=0.1, attention_dropout=0.1)
+             if dropout else {})
+    cfg = TaggerConfig.for_tag_dictionary(
+        XLMRConfig.tiny(vocab_size=1000, **rates), tag_dict,
+        use_crf=use_crf, locked_dropout=0.5 if dropout else 0.0,
+        word_dropout=0.05 if dropout else 0.0)
+    model = SequenceTagger(cfg, device=device, seed=0)
+    if tree is not None:
+        model.load_state_dict(weights.from_jax_params(tree, model))
+    return model
+
+
+class GradCapture:
+    """Stands in for the optimizer in ``FinetuneTrainer.train_step``: its
+    ``step`` keeps each parameter's gradient (after the trainer's
+    gradient sync) instead of updating."""
+
+    def __init__(self, model):
+        self.model = model
+        self.grads: Dict[str, torch.Tensor] = {}
+
+    def step(self) -> bool:
+        self.grads = {n: (p.grad if p.grad is not None
+                          else torch.zeros_like(p)).detach().clone()
+                      for n, p in self.model.named_parameters()}
+        return True
+
+
+def run_pair(make_trainer, base, epochs=(1, 2)):
+    """A trainer from ``make_trainer()`` trains ``epochs[0]`` epochs with
+    checkpoints under ``base``, then a fresh one resumes there to
+    ``epochs[1]``; returns each run's history, full parameters, moments
+    and update count, keyed ``run0/...`` and ``run1/...``."""
+    from kbner_tpu_torch.parallel import gather_state_dict
+    from kbner_tpu_torch.train import TrainConfig
+
+    out = {}
+    for run, n in enumerate(epochs):
+        t = make_trainer()
+        seen = {}
+        save = t._save_checkpoint
+
+        def keep(path, opt, *args, _save=save, _seen=seen):
+            _seen["opt"] = opt
+            return _save(path, opt, *args)
+
+        t._save_checkpoint = keep
+        res = t.train(base, TrainConfig(max_epochs=n, resume=run > 0,
+                                        **RUN_CONFIG))
+        out[f"run{run}/loss"] = np.asarray(res["history"]["train_loss"])
+        out[f"run{run}/dev"] = np.asarray(res["history"]["dev_score"])
+        for n_, v in gather_state_dict(t.model).items():
+            out[f"run{run}/param/{n_}"] = v.detach().numpy()
+        opt = seen["opt"]
+        for key, named in opt.named_moments().items():
+            for n_, v in named.items():
+                if t.sharding is not None:
+                    v = t.sharding.gather(n_, v)
+                out[f"run{run}/{key}/{n_}"] = v.float().numpy()
+        out[f"run{run}/count"] = np.asarray(opt.count)
+    return out
+
+
+def mesh_train_rank(rank: int, world: int, data: int, model: int,
+                    fsdp: bool, trees: Dict[str, dict], out_dir: str
+                    ) -> Dict[str, np.ndarray]:
+    """Sharded training on a ``(data, model)`` mesh of the CPU, the
+    tagger sharded by ``parallel.shard_params`` (``fsdp`` as given):
+    per head of ``trees`` (``crf``, ``softmax``: Flax trees) the loss and
+    every full gradient of ``FinetuneTrainer.train_step`` on
+    :data:`TOY_ROWS` ner_toy sentences (padded to the data axis); parameters after two
+    updates of accumulation 2 with clipping over :data:`ACC_ROWS`; a
+    train run of one epoch and its resume to two with every dropout on
+    and ``checkpoint: true`` under ``out_dir/run`` (:func:`run_pair`);
+    and the refusals of distillation and multi-view training on a mesh,
+    and of a model that ``shard_params`` did not shard on it."""
+    from kbner_tpu_torch.data.encode import encode_batch
+    from kbner_tpu_torch.data.subword import HashTokenizer
+    from kbner_tpu_torch.parallel import (gather_state_dict, make_mesh,
+                                          shard_params)
+    from kbner_tpu_torch.train import FinetuneTrainer, TrainConfig
+    from kbner_tpu_torch.train.distill import DistillationTrainer
+
+    mesh = make_mesh(data=data, model=model, device_type="cpu")
+    tok = HashTokenizer(TOY_VOCAB)
+    corpus = toy_corpus()
+    tags = corpus.make_tag_dictionary("ner")
+    out: Dict[str, np.ndarray] = {}
+
+    def trainer_of(m, c=corpus, t=tags, cls=FinetuneTrainer):
+        return cls(shard_params(m, mesh, fsdp), c, tok, t, mesh=mesh,
+                   device="cpu")
+
+    eb = encode_batch(corpus.train[:TOY_ROWS], tok, tags)
+    for head, tree in trees.items():
+        trainer = trainer_of(toy_tagger(tree, tags, use_crf=head == "crf"))
+        cap = GradCapture(trainer.model)
+        out[f"{head}/loss"] = np.asarray(float(trainer.train_step(
+            eb, cap, TrainConfig(), None)))
+        for n, g in cap.grads.items():
+            out[f"{head}/grad/{n}"] = trainer.sharding.gather(n, g).numpy()
+    trainer = trainer_of(toy_tagger(trees["crf"], tags))
+    cfg = TrainConfig(**ACC_CONFIG)
+    opt = trainer.make_optimizer(cfg)
+    for lo, hi in ACC_ROWS:
+        trainer.train_step(encode_batch(corpus.train[lo:hi], tok, tags),
+                           opt, cfg, None)
+    for n, v in gather_state_dict(trainer.model).items():
+        out[f"acc/param/{n}"] = v.numpy()
+    out["acc/count"] = np.asarray(opt.count)
+
+    q = quality_corpus()
+    q_tags = q.make_tag_dictionary("ner")
+    out.update(run_pair(lambda: trainer_of(toy_tagger(
+        None, q_tags, dropout=True), q, q_tags), Path(out_dir) / "run"))
+    try:
+        trainer_of(toy_tagger(None, tags), cls=DistillationTrainer)
+        out["distill"] = np.asarray("no error")
+    except NotImplementedError as e:
+        out["distill"] = np.asarray(str(e))
+    try:
+        trainer_of(toy_tagger(None, tags)).train(
+            Path(out_dir) / "mv", TrainConfig(multi_view=True))
+        out["multi_view"] = np.asarray("no error")
+    except NotImplementedError as e:
+        out["multi_view"] = np.asarray(str(e))
+    try:
+        FinetuneTrainer(toy_tagger(None, tags), corpus, tok, tags, mesh=mesh,
+                        device="cpu")
+        out["plain"] = np.asarray("no error")
+    except ValueError as e:
+        out["plain"] = np.asarray(str(e))
+    return out
+
+
+CARD_LAYOUTS = {"dp": (2, 1, False), "tp": (1, 2, False),
+                "fsdp": (2, 1, True)}
+
+
+def card_train_rank(rank: int, world: int) -> Dict[str, np.ndarray]:
+    """Two gloo ranks sharing the card: per layout of
+    :data:`CARD_LAYOUTS` the float32 loss and every full gradient of one
+    sharded ``train_step`` on :data:`TOY_ROWS` ner_toy sentences, the
+    tagger drawn on the card from seed 0."""
+    from kbner_tpu_torch.data.encode import encode_batch
+    from kbner_tpu_torch.data.subword import HashTokenizer
+    from kbner_tpu_torch.parallel import make_mesh, shard_params
+    from kbner_tpu_torch.train import FinetuneTrainer, TrainConfig
+
+    corpus = toy_corpus()
+    tags = corpus.make_tag_dictionary("ner")
+    tok = HashTokenizer(TOY_VOCAB)
+    eb = encode_batch(corpus.train[:TOY_ROWS], tok, tags)
+    out: Dict[str, np.ndarray] = {}
+    for name, (data, model, fsdp) in CARD_LAYOUTS.items():
+        mesh = make_mesh(data=data, model=model, device_type="cuda")
+        tagger = shard_params(toy_tagger(None, tags, device="cuda"), mesh,
+                              fsdp)
+        trainer = FinetuneTrainer(tagger, corpus, tok, tags, mesh=mesh)
+        cap = GradCapture(trainer.model)
+        out[f"{name}/loss"] = np.asarray(float(trainer.train_step(
+            eb, cap, TrainConfig(), None)))
+        for n, g in cap.grads.items():
+            out[f"{name}/grad/{n}"] = trainer.sharding.gather(
+                n, g).cpu().numpy()
     return out
