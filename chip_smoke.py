@@ -5113,6 +5113,16 @@ MESH_CONFIG = dict(learning_rate=RECIPE["learning_rate"], lr_rate=1.0,
                    use_inverse_sqrt=True, checkpoint=True)
 MESH_LAYOUTS = (("dp", 2, 1, False), ("tp", 1, 2, False),
                 ("fsdp", 2, 1, True))
+# (d)-(g): distillation and multi-view training in the same world, each
+# (name, layout, data, model, fsdp, config): (d) DistillationTrainer.train
+# of 2 steps over the teachers' float16 cache, (e) one FSDP KD step with
+# lazy teachers, (f) one TP KD step on the first teacher's 2 best paths,
+# (g) one multi-view step
+MESH_KD_RUNS = (("d", "dp", 2, 1, False, dict(teacher_cache="f16")),
+                ("e", "fsdp", 2, 1, True, dict(teacher_cache="lazy")),
+                ("f", "tp", 1, 2, False, dict(kbest=2)),
+                ("g", "dp", 2, 1, False, dict(multi_view=True, mv_kind="kl",
+                                              mv_l2_weight=0.1)))
 MESH_TIMEOUT_S = 300    # the gloo group's timeout, and the world's deadline
 # bfloat16 compute on half the rows (DP, FSDP) or half the heads and
 # features (TP) rounds each GEMM differently from the single rank's:
@@ -5243,12 +5253,13 @@ def _mesh_rank_run(rank: int, world: int, tmp) -> dict:
         return full if rank == 0 else None
 
     def timed_steps(trainer, steps, seen):
-        """Time each step of ``trainer``; keep the first step's gradients
-        (as its optimizer meets them) in ``seen["grads"]``, gathered after
-        the step's timed window."""
-        inner = trainer.train_step
+        """Time each step of ``trainer`` (its ``_step``, which
+        ``train_step`` and ``kd_step`` run); keep the first step's
+        gradients (as its optimizer meets them) in ``seen["grads"]``,
+        gathered after the step's timed window."""
+        inner = trainer._step
 
-        def step(item, opt, cfg, rng, freeze=False):
+        def step(loss_fn, opt, freeze=False):
             seen["opt"] = opt
             first = not steps
             if first:
@@ -5262,14 +5273,14 @@ def _mesh_rank_run(rank: int, world: int, tmp) -> dict:
             sync()
             comm.update(ms=0.0, calls=0)
             t0 = time.perf_counter()
-            loss = inner(item, opt, cfg, rng, freeze)
+            loss = inner(loss_fn, opt, freeze)
             sync()
             steps.append(((time.perf_counter() - t0) * 1e3, float(loss),
                           comm["ms"], comm["calls"], norms[-1]))
             if first:
                 seen["grads"] = gathered(trainer, seen.pop("local"))
             return loss
-        trainer.train_step = step
+        trainer._step = step
 
     def moments_of(trainer, opt):
         named = opt.named_moments()
@@ -5306,12 +5317,14 @@ def _mesh_rank_run(rank: int, world: int, tmp) -> dict:
         return sorted(((v, k) for k, v in errors.items()),
                       reverse=not least)[:n]
 
-    def held(steps, state, moments, grads, unaveraged):
-        """The layout's distances from the single-rank run after as many
-        steps, and its first step's gradient's leaf by leaf (the parent
-        holds them to their bars)."""
+    def held(steps, state, moments, grads, unaveraged, base=None):
+        """The layout's distances from the single-rank run (``base``, by
+        default the one of (a)-(c)) after as many steps, and its first
+        step's gradient's leaf by leaf (the parent holds them to their
+        bars)."""
+        base = ref if base is None else base
         n = len(steps)
-        want = ref["state"][n - 1]
+        want = base["state"][n - 1]
         worst = max(float((state[k] - w).abs().max()) for k, w in
                     want.items())
         half = sum(int(((state[k] - w).abs() > lr / 2).sum())
@@ -5321,15 +5334,15 @@ def _mesh_rank_run(rank: int, world: int, tmp) -> dict:
         for key in ("mu", "nu"):
             num = sum(float((moments[key][k].float()
                              - w.float()).square().sum())
-                      for k, w in ref["moments"][n - 1][key].items())
+                      for k, w in base["moments"][n - 1][key].items())
             den = sum(float(w.float().square().sum())
-                      for w in ref["moments"][n - 1][key].values())
+                      for w in base["moments"][n - 1][key].values())
             rel[key] = (num / den) ** 0.5
         loss_rel = [abs(a[1] - b[1]) / abs(b[1])
-                    for a, b in zip(steps, ref["steps"])]
+                    for a, b in zip(steps, base["steps"])]
         norm_rel = [abs(a[4] - b[4]) / b[4]
-                    for a, b in zip(steps, ref["steps"])]
-        exact = {k: g for k, g in ref["grads"].items()
+                    for a, b in zip(steps, base["steps"])]
+        exact = {k: g for k, g in base["grads"].items()
                  if not k.endswith(ZERO_GRAD_LEAF)}
         leaves = worst_of(leaf_errors(grads, exact))
         control = (worst_of(leaf_errors(unaveraged, exact), least=True)
@@ -5338,7 +5351,7 @@ def _mesh_rank_run(rank: int, world: int, tmp) -> dict:
                           torch.linalg.vector_norm(g[k.replace(
                               ".key.", ".query.")]))
                     for k in g if k.endswith(ZERO_GRAD_LEAF))
-                for g in (grads, ref["grads"])]
+                for g in (grads, base["grads"])]
         return [max(loss_rel), max(norm_rel), worst / (lr * n), half / total,
                 rel["mu"], rel["nu"], leaves, control, zero]
 
@@ -5406,14 +5419,235 @@ def _mesh_rank_run(rank: int, world: int, tmp) -> dict:
         del trainer, tagger, state, moments, seen
         torch.cuda.empty_cache()
         dist.barrier()
+    del ref
+    out.update(_mesh_kd_runs(rank, tmp, recs, tok, tag_dict, tcfg, dev, sync,
+                             timed_steps, held, moments_of))
     return out
+
+
+def _mesh_kd_runs(rank, tmp, recs, tok, tag_dict, tcfg, dev, sync,
+                  timed_steps, held, moments_of) -> dict:
+    """Phase 4p (d)-(g), one rank, in :func:`_mesh_rank_run`'s world and
+    with its instruments: the records split into two languages, two
+    teachers at the student's width (seeds 1 and 2) routed per sentence,
+    and per run of :data:`MESH_KD_RUNS` the student (seed 0) sharded on
+    its layout's mesh: (d) ``DistillationTrainer.train`` (2 steps), (e)-(f)
+    one ``kd_step``, (g) one multi-view ``train_step``. Rank 0 first runs
+    the same steps in one process on the same batches and holds the run
+    to them as (a)-(c) are held. Returns the numbers the parent prints
+    under ``kd/<run>/...``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from kbner_tpu_torch.data.conll import Corpus, ListCorpus
+    from kbner_tpu_torch.data.encode import make_batches
+    from kbner_tpu_torch.models.tagger import SequenceTagger
+    from kbner_tpu_torch.parallel import (gather_state_dict, make_mesh,
+                                          shard_params)
+    from kbner_tpu_torch.train import FinetuneTrainer, TrainConfig
+    from kbner_tpu_torch.train.distill import (DistillationTrainer,
+                                               DistillConfig)
+
+    half = len(recs) // 2
+    corpus = ListCorpus([Corpus(recs[:half], [], [], name="FUSED-A"),
+                         Corpus(recs[half:], [], [], name="FUSED-B")])
+    langs = np.bincount([r.lang_id for r in corpus.train]).tolist()
+    t0 = time.perf_counter()
+    teachers = [SequenceTagger(tcfg, device=dev, seed=seed)
+                for seed in (1, 2)]
+    sync()
+    out = {"kd/teachers_s": time.perf_counter() - t0, "kd/langs": langs}
+    base_cfg = dict(MESH_CONFIG, checkpoint=False)
+    # the train split's batches as DistillationTrainer.train makes them,
+    # in the order its first epoch visits them
+    batches = make_batches(corpus.train, tok, tag_dict,
+                           base_cfg["batch_size"], shuffle=False,
+                           tag_layer="ner")
+    order = np.random.RandomState(TrainConfig(**base_cfg).seed).permutation(
+        len(batches))
+    forwards = []
+
+    def timed_forwards(teacher):
+        inner = teacher.emissions
+
+        def emissions(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            em = inner(*args, **kwargs)
+            sync()
+            forwards.append((time.perf_counter() - t0) * 1e3)
+            return em
+        teacher.emissions = emissions
+
+    def steps_of(trainer, cfg, opt, mv):
+        """The single rank's steps, and (e)-(g)'s on the mesh: (d) both
+        batches over the teachers' float16 cache in the epoch's order,
+        (e)-(g) the first batch."""
+        if mv:
+            trainer.train_step(trainer._make_train_batches(
+                corpus.train, cfg, 0)[0], opt, cfg, None)
+        elif cfg.kbest:
+            eb = batches[order[0]]
+            trainer.kd_step(eb, trainer._teacher_kbest([eb], cfg.kbest)[0],
+                            opt, cfg, None)
+        elif cfg.teacher_cache == "lazy":
+            trainer.kd_step(batches[order[0]], None, opt, cfg, None)
+        else:
+            cached = trainer._teacher_emissions(batches)
+            for b in order:
+                trainer.kd_step(batches[b], cached[b], opt, cfg, None)
+
+    for name, label, data, model_n, fsdp, kw in MESH_KD_RUNS:
+        mv = kw.get("multi_view", False)
+        cfg = (TrainConfig if mv else DistillConfig)(**base_cfg, **kw)
+        cls, extra = ((FinetuneTrainer, {}) if mv else
+                      (DistillationTrainer, {"teachers": teachers}))
+        lazy = kw.get("teacher_cache") == "lazy"
+        if lazy or kw.get("kbest"):
+            for teacher in teachers:
+                teacher.to(dev)
+        base = {"steps": [], "state": [], "moments": []}
+        if rank == 0:
+            single = cls(SequenceTagger(tcfg, device=dev, seed=0), corpus,
+                         tok, tag_dict, device=dev, **extra)
+            seen_ref = {}
+            timed_steps(single, base["steps"], seen_ref)
+            opt = single.make_optimizer(cfg)
+            inner = single._step
+
+            def keep(loss_fn, opt_, freeze=False, _inner=inner,
+                     _single=single):
+                loss = _inner(loss_fn, opt_, freeze)
+                base["state"].append({n: p.detach().clone() for n, p in
+                                      _single.model.named_parameters()})
+                base["moments"].append({k: {n: t.clone() for n, t in
+                                            v.items()} for k, v in
+                                        opt_.named_moments().items()})
+                return loss
+            single._step = keep
+            steps_of(single, cfg, opt, mv)
+            base["grads"] = seen_ref["grads"]
+            del single, opt, seen_ref, keep
+            gc.collect()
+        dist.barrier()
+        mesh = make_mesh(data=data, model=model_n)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        tagger = shard_params(SequenceTagger(tcfg, device=dev, seed=0), mesh,
+                              fsdp)
+        trainer = cls(tagger, corpus, tok, tag_dict, mesh=mesh, device=dev,
+                      **extra)
+        sync()
+        build_s = time.perf_counter() - t0
+        steps, seen = [], {}
+        timed_steps(trainer, steps, seen)
+        if lazy:
+            forwards.clear()
+            for teacher in teachers:
+                timed_forwards(teacher)
+        t0 = time.perf_counter()
+        if name == "d":
+            trainer.train(tmp / "mesh-kd", cfg)
+            files = sorted(p.name for p in (tmp / "mesh-kd").iterdir())
+        else:
+            steps_of(trainer, cfg, trainer.make_optimizer(cfg), mv)
+            files = []
+        run_s = time.perf_counter() - t0
+        for teacher in teachers:
+            teacher.__dict__.pop("emissions", None)
+        state = gather_state_dict(trainer.model)
+        moments = moments_of(trainer, seen["opt"])
+        key = f"kd/{name}"
+        out[f"{key}/steps"] = steps
+        out[f"{key}/seconds"] = [build_s, run_s]
+        out[f"{key}/peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out[f"{key}/forwards"] = list(forwards)
+        out[f"{key}/files"] = files
+        if rank == 0:
+            out[f"{key}/held"] = held(steps, state, moments, seen["grads"],
+                                      None, base)
+        forwards.clear()
+        del trainer, tagger, state, moments, seen, base
+        # the step wrappers close over their trainers: collect the cycles
+        # so that each run's model and moments leave the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _mesh_held(key, ranks, what, card, notes="") -> list:
+    """Hold a 4p run (``key``: a layout, or ``kd/<run>``) to its bars
+    against the single rank and log it: each rank's steps, then the
+    distances. Returns the failures."""
+    r0 = ranks[0]
+    failed = []
+    if any([s[1] for s in r[f"{key}/steps"]] != [
+            s[1] for s in r0[f"{key}/steps"]] for r in ranks):
+        failed.append(f"{key}: the ranks' losses differ")
+    (loss_rel, norm_rel, worst, flipped, mu_rel, nu_rel, leaves,
+     control, zero) = r0[f"{key}/held"]
+    for name, got, bar in (
+            ("loss rel", loss_rel, MESH_LOSS_RTOL),
+            ("global norm rel", norm_rel, MESH_NORM_RTOL),
+            ("parameters apart (lr a step)", worst, MESH_STEP_BOUND),
+            ("mu rel", mu_rel, MESH_MU_RTOL),
+            ("nu rel", nu_rel, MESH_NU_RTOL),
+            (f"first-step gradient of {leaves[0][1]}", leaves[0][0],
+             MESH_LEAF_RTOL),
+            ("key biases' gradient over the query biases'", zero[0],
+             MESH_LEAF_RTOL)):
+        if not got <= bar:
+            failed.append(f"{key}: {name} {got:.3g} over {bar}")
+    if control and not control[0][0] > MESH_LEAF_RTOL:
+        failed.append(f"{key}: the control's {control[0][1]} reads "
+                      f"{control[0][0]:.3g}, not above {MESH_LEAF_RTOL}")
+    log(f"phase 4p {what} (XLM-R large's width, {CUT_LAYERS} layers, "
+        f"float32 masters, bfloat16 compute, global batch "
+        f"{MESH_CONFIG['batch_size']}): "
+        + "; ".join(
+            f"rank {i}: steps "
+            + ", ".join(f"{s[0]:.1f} ms (loss {s[1]:.4f}, norm "
+                        f"{s[4]:.4f}; {s[3]} collectives {s[2]:.1f} "
+                        f"ms)" for s in r[f"{key}/steps"])
+            + f", build {r[f'{key}/seconds'][0]:.1f} s, run "
+            f"{r[f'{key}/seconds'][1]:.1f} s, peak allocated "
+            f"{r[f'{key}/peak_gb']:.2f} GB" for i, r in enumerate(ranks))
+        + notes
+        + f"; against the single rank on the same batches: loss rel "
+        f"{loss_rel:.2e} (bar {MESH_LOSS_RTOL}), global norm rel "
+        f"{norm_rel:.2e} (bar {MESH_NORM_RTOL}), parameters at most "
+        f"{worst:.3g} lr a step apart (bar {MESH_STEP_BOUND}), "
+        f"{flipped:.3%} of them over lr/2 apart, mu rel {mu_rel:.2e} "
+        f"(bar {MESH_MU_RTOL}), nu rel {nu_rel:.2e} (bar "
+        f"{MESH_NU_RTOL}); the first step's gradient, worst leaves: "
+        + ", ".join(f"{k} {v:.2e}" for v, k in leaves)
+        + f" (bar {MESH_LEAF_RTOL}); key biases (zero gradient in "
+        f"exact arithmetic): largest ||g|| over its query bias's "
+        f"{zero[0]:.2e} (bar {MESH_LEAF_RTOL}), the single rank's "
+        f"{zero[1]:.2e}"
+        + ("; control, rank 0's gradient before the average over "
+           "'data', least leaves: "
+           + ", ".join(f"{k} {v:.2e}" for v, k in control)
+           + " (must read above the bar)" if control else "")
+        + f" ({card})")
+    return failed
+
+
+KD_WHAT = {"d": "DistillationTrainer.train, float16 teacher cache",
+           "e": "one KD step, lazy teachers",
+           "f": "one KD step on the first teacher's 2 best paths",
+           "g": "one multi-view step (kl, L2 weight 0.1)"}
 
 
 def mesh_stage_phase(bm25, card, tmp) -> None:
     """Phase 4p, after 4o in its directory ``tmp`` (4g's fused records in
     :data:`MESH_FOLDER`): a world of two gloo ranks on the card runs
-    :func:`_mesh_rank_run`; prints each layout's step ms, collective ms,
-    peak memory and its distance from the single rank."""
+    :func:`_mesh_rank_run`; prints each run's step ms, collective ms,
+    peak memory and its distance from the single rank: (a)-(c) per
+    layout, (d)-(g) distillation and multi-view training."""
     t_phase = time.perf_counter()
     reset_counts(bm25)
     ranks, world_s = timed(lambda: spawn_world(_mesh_rank_run, tmp, 2, "4p",
@@ -5421,55 +5655,8 @@ def mesh_stage_phase(bm25, card, tmp) -> None:
     r0 = ranks[0]
     failed = []
     for label, data, model, fsdp in MESH_LAYOUTS:
-        if any([s[1] for s in r[f"{label}/steps"]] != [
-                s[1] for s in r0[f"{label}/steps"]] for r in ranks):
-            failed.append(f"{label}: the ranks' losses differ")
-        (loss_rel, norm_rel, worst, flipped, mu_rel, nu_rel, leaves,
-         control, zero) = r0[f"{label}/held"]
-        for what, got, bar in (
-                ("loss rel", loss_rel, MESH_LOSS_RTOL),
-                ("global norm rel", norm_rel, MESH_NORM_RTOL),
-                ("parameters apart (lr a step)", worst, MESH_STEP_BOUND),
-                ("mu rel", mu_rel, MESH_MU_RTOL),
-                ("nu rel", nu_rel, MESH_NU_RTOL),
-                (f"first-step gradient of {leaves[0][1]}", leaves[0][0],
-                 MESH_LEAF_RTOL),
-                ("key biases' gradient over the query biases'", zero[0],
-                 MESH_LEAF_RTOL)):
-            if not got <= bar:
-                failed.append(f"{label}: {what} {got:.3g} over {bar}")
-        if control and not control[0][0] > MESH_LEAF_RTOL:
-            failed.append(f"{label}: the control's {control[0][1]} reads "
-                          f"{control[0][0]:.3g}, not above {MESH_LEAF_RTOL}")
-        log(f"phase 4p {label} (data={data}, model={model}, fsdp={fsdp}; "
-            f"XLM-R large's width, {CUT_LAYERS} layers, float32 masters, "
-            f"bfloat16 compute, global batch {MESH_CONFIG['batch_size']}): "
-            + "; ".join(
-                f"rank {i}: steps "
-                + ", ".join(f"{s[0]:.1f} ms (loss {s[1]:.4f}, norm "
-                            f"{s[4]:.4f}; {s[3]} collectives {s[2]:.1f} "
-                            f"ms)" for s in r[f"{label}/steps"])
-                + f", build {r[f'{label}/seconds'][0]:.1f} s, run "
-                f"{r[f'{label}/seconds'][1]:.1f} s, peak allocated "
-                f"{r[f'{label}/peak_gb']:.2f} GB" for i, r in
-                enumerate(ranks))
-            + f"; against the single rank on the same batches: loss rel "
-            f"{loss_rel:.2e} (bar {MESH_LOSS_RTOL}), global norm rel "
-            f"{norm_rel:.2e} (bar {MESH_NORM_RTOL}), parameters at most "
-            f"{worst:.3g} lr a step apart (bar {MESH_STEP_BOUND}), "
-            f"{flipped:.3%} of them over lr/2 apart, mu rel {mu_rel:.2e} "
-            f"(bar {MESH_MU_RTOL}), nu rel {nu_rel:.2e} (bar "
-            f"{MESH_NU_RTOL}); the first step's gradient, worst leaves: "
-            + ", ".join(f"{k} {v:.2e}" for v, k in leaves)
-            + f" (bar {MESH_LEAF_RTOL}); key biases (zero gradient in "
-            f"exact arithmetic): largest ||g|| over its query bias's "
-            f"{zero[0]:.2e} (bar {MESH_LEAF_RTOL}), the single rank's "
-            f"{zero[1]:.2e}"
-            + ("; control, rank 0's gradient before the average over "
-               "'data', least leaves: "
-               + ", ".join(f"{k} {v:.2e}" for v, k in control)
-               + " (must read above the bar)" if control else "")
-            + f" ({card})")
+        failed += _mesh_held(label, ranks, f"{label} (data={data}, "
+                             f"model={model}, fsdp={fsdp})", card)
     log("phase 4p single rank (the same batches, one process): steps "
         + "; ".join(f"rank {i}: " + ", ".join(
             f"{s[0]:.1f} ms (loss {s[1]:.4f})" for s in r["ref/steps"])
@@ -5480,8 +5667,32 @@ def mesh_stage_phase(bm25, card, tmp) -> None:
     log(f"phase 4p: dp's checkpoint.msgpack ({n_bytes / 1e9:.2f} GB) and "
         f"best-model.msgpack reopened unsharded in {reopen_s:.1f} s: "
         f"{n_leaves} parameters and their mu and nu equal the ranks' "
-        f"gathered state bit for bit; the world spawned, ran and held in "
-        f"{world_s:.1f} s (host clock) ({card})")
+        f"gathered state bit for bit ({card})")
+    langs = r0["kd/langs"]
+    log(f"phase 4p (d)-(g): the {sum(langs)} records split into "
+        f"{len(langs)} languages ({', '.join(map(str, langs))} sentences), "
+        f"two teachers at the student's width (seeds 1 and 2, built in "
+        f"{r0['kd/teachers_s']:.1f} s) routed per sentence ({card})")
+    for name, label, data, model, fsdp, kw in MESH_KD_RUNS:
+        key = f"kd/{name}"
+        notes = ""
+        if name == "d":
+            files = r0[f"{key}/files"]
+            if files != ["best-model.msgpack", "final-model.msgpack",
+                         "tag_dictionary.json"]:
+                failed.append(f"{key}: rank 0 wrote {files}")
+            notes = f"; rank 0 wrote {', '.join(files)}"
+        if kw.get("teacher_cache") == "lazy":
+            notes = "; teacher forwards " + "; ".join(
+                f"rank {i}: {len(ms)} of "
+                + ", ".join(f"{t:.1f}" for t in ms)
+                + f" ms, {sum(ms) / len(r[f'{key}/steps']):.1f} ms a step"
+                for i, r in enumerate(ranks) for ms in [r[f"{key}/forwards"]])
+        failed += _mesh_held(key, ranks, f"({name}) {KD_WHAT[name]} "
+                             f"({label}: data={data}, model={model}, "
+                             f"fsdp={fsdp})", card, notes)
+    log(f"phase 4p: the world spawned, ran and held in {world_s:.1f} s "
+        f"(host clock) ({card})")
     if failed:
         raise AssertionError("phase 4p against the single rank: "
                              + "; ".join(failed))

@@ -277,17 +277,23 @@ class SequenceTagger(nn.Module):
         agreement_weight: float = 1.0,
         l2_weight: float = 0.0,
         kind: str = "kl",
+        token_norm: Optional[float] = None,
+        shared_norm: Optional[float] = None,
     ) -> torch.Tensor:
         """The context view (``batch``) trains on its gold loss; its
         posterior marginals (detached) teach the context-free view
         (``orig_batch``, the same sentences cut at ``<EOS>``) on the shared
-        original positions; an optional L2 term matches their features."""
+        original positions; an optional L2 term matches their features.
+        A data-parallel rank gives its shares of the global batch's counts:
+        ``token_norm`` of ``crf_mask`` (the softmax head's gold term),
+        ``shared_norm`` of the orig view's ``word_mask`` (the agreement and
+        L2 terms)."""
         cfg = self.config
         feats_ctx = self._word_features(batch, rng)
         feats_orig = self._word_features(orig_batch, rng)
         em_ctx = self.emission(feats_ctx.float())
         em_orig = self.emission(feats_orig.float())
-        loss = self._gold_loss(em_ctx, batch)
+        loss = self._gold_loss(em_ctx, batch, token_norm=token_norm)
         if cfg.use_crf:
             trans = self._batch_transitions(batch)
             marg_ctx = crf_marginals(em_ctx, batch["crf_mask"], trans,
@@ -301,10 +307,12 @@ class SequenceTagger(nn.Module):
         W = orig_batch["word_mask"].shape[1]
         shared = orig_batch["word_mask"]
         loss = loss + agreement_weight * mv_loss(
-            marg_ctx[:, :W], marg_orig[:, :W], shared, kind=kind)
+            marg_ctx[:, :W], marg_orig[:, :W], shared, kind=kind,
+            norm=shared_norm)
         if l2_weight > 0:
             loss = loss + l2_weight * feature_l2_loss(
-                feats_ctx[:, :W].float(), feats_orig[:, :W].float(), shared)
+                feats_ctx[:, :W].float(), feats_orig[:, :W].float(), shared,
+                norm=shared_norm)
         return loss
 
     def distill_loss(
@@ -315,14 +323,17 @@ class SequenceTagger(nn.Module):
         interpolation: float = 0.5,
         temperature: float = 1.0,
         posterior: bool = False,
+        token_norm: Optional[float] = None,
     ) -> torch.Tensor:
         """``interpolation * kd + (1 - interpolation) * gold loss``: kd is
         the temperature cross-entropy against the teacher's logits, or
         with ``posterior`` (CRF only) the cross-entropy of the student's
         CRF marginals against the teacher's, both under the per-language
-        transitions."""
+        transitions. Token means (kd, the softmax head's gold term) are
+        over ``token_norm`` when given, as in :meth:`loss`."""
         cfg = self.config
-        loss, emissions = self.loss(batch, rng, return_emissions=True)
+        loss, emissions = self.loss(batch, rng, return_emissions=True,
+                                    token_norm=token_norm)
         mask = batch["crf_mask"]
         if posterior and cfg.use_crf:
             trans = self._batch_transitions(batch)
@@ -331,10 +342,11 @@ class SequenceTagger(nn.Module):
             with torch.no_grad():  # the teacher's side is detached
                 marg_t = crf_marginals(teacher_logits, mask, trans,
                                        cfg.start_idx, cfg.stop_idx)
-            kd = posterior_distillation_loss(marg_s, marg_t, mask)
+            kd = posterior_distillation_loss(marg_s, marg_t, mask,
+                                             norm=token_norm)
         else:
             kd = distillation_loss(emissions, teacher_logits, mask,
-                                   temperature=temperature)
+                                   temperature=temperature, norm=token_norm)
         return interpolation * kd + (1.0 - interpolation) * loss
 
     def kbest_distill_loss(
@@ -344,14 +356,17 @@ class SequenceTagger(nn.Module):
         teacher_weights: torch.Tensor,  # [B, N] path weights
         rng: Optional[torch.Generator] = None,
         interpolation: float = 0.5,
+        token_norm: Optional[float] = None,
     ) -> torch.Tensor:
         """Sequence-level distillation: kd is minus the mean over
         sentences of the weighted log-likelihood of the teacher's N paths
         under the student's CRF (gold score minus log Z, the per-language
-        transitions), mixed with the gold loss. The N paths go through
-        one batched gold-score call over ``B * N`` rows."""
+        transitions), mixed with the gold loss (``token_norm`` as in
+        :meth:`loss`). The N paths go through one batched gold-score call
+        over ``B * N`` rows."""
         cfg = self.config
-        loss, emissions = self.loss(batch, rng, return_emissions=True)
+        loss, emissions = self.loss(batch, rng, return_emissions=True,
+                                    token_norm=token_norm)
         mask = batch["crf_mask"]
         trans = self._batch_transitions(batch)
         log_z = crf_forward(emissions, mask, trans, cfg.start_idx,

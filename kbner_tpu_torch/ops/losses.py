@@ -4,7 +4,9 @@ posterior distillation over CRF marginals, multi-view agreement (the
 context view, detached, teaches the context-free view), L2 feature
 matching, and token cross-entropy with an entropy term.
 
-All take explicit ``[B, W]`` masks and average over unmasked positions.
+All take explicit ``[B, W]`` masks and average over unmasked positions:
+over the batch's own count of them, or over ``norm`` where a caller gives
+one (a data-parallel rank's share of the global batch's count).
 """
 
 from __future__ import annotations
@@ -15,10 +17,12 @@ import torch
 import torch.nn.functional as F
 
 
-def _masked_mean(per_token: torch.Tensor, mask: torch.Tensor
-                 ) -> torch.Tensor:
+def _masked_mean(per_token: torch.Tensor, mask: torch.Tensor,
+                 norm: Optional[float] = None) -> torch.Tensor:
     mask = mask.float()
-    return (per_token * mask).sum() / mask.sum().clamp(min=1.0)
+    if norm is None:
+        norm = mask.sum().clamp(min=1.0)
+    return (per_token * mask).sum() / norm
 
 
 def distillation_loss(
@@ -27,6 +31,7 @@ def distillation_loss(
     mask: torch.Tensor,  # [B, W]
     temperature: float = 1.0,
     kind: Literal["ce", "mse"] = "ce",
+    norm: Optional[float] = None,
 ) -> torch.Tensor:
     """Logit distillation with temperature (teacher side detached)."""
     t = temperature
@@ -38,7 +43,7 @@ def distillation_loss(
         p_teacher = F.softmax(teacher / t, dim=-1)
         logq = F.log_softmax(student_logits / t, dim=-1)
         per = -(p_teacher * logq).sum(-1) * (t * t)
-    return _masked_mean(per, mask)
+    return _masked_mean(per, mask, norm)
 
 
 def posterior_distillation_loss(
@@ -46,12 +51,13 @@ def posterior_distillation_loss(
     teacher_marginals: torch.Tensor,  # [B, W, K]
     mask: torch.Tensor,  # [B, W]
     eps: float = 1e-8,
+    norm: Optional[float] = None,
 ) -> torch.Tensor:
     """Cross-entropy between teacher and student posterior tag
     marginals."""
     teacher = teacher_marginals.detach()
     per = -(teacher * torch.log(student_marginals + eps)).sum(-1)
-    return _masked_mean(per, mask)
+    return _masked_mean(per, mask, norm)
 
 
 def multi_view_loss(
@@ -60,6 +66,7 @@ def multi_view_loss(
     mask: torch.Tensor,  # [B, W] original-sentence positions only
     kind: Literal["kl", "ce"] = "kl",
     eps: float = 1e-8,
+    norm: Optional[float] = None,
 ) -> torch.Tensor:
     """The context view (detached) teaches the context-free view on the
     shared original-sentence positions, by KL or cross-entropy."""
@@ -69,18 +76,19 @@ def multi_view_loss(
     else:
         per = (teacher * (torch.log(teacher + eps)
                           - torch.log(orig_marginals + eps))).sum(-1)
-    return _masked_mean(per, mask)
+    return _masked_mean(per, mask, norm)
 
 
 def feature_l2_loss(
     context_features: torch.Tensor,  # [B, W, H]
     orig_features: torch.Tensor,  # [B, W, H]
     mask: torch.Tensor,  # [B, W]
+    norm: Optional[float] = None,
 ) -> torch.Tensor:
     """L2 feature matching between the two views (context side
     detached)."""
     per = ((context_features.detach() - orig_features) ** 2).sum(-1)
-    return _masked_mean(per, mask)
+    return _masked_mean(per, mask, norm)
 
 
 def token_ce_entropy_loss(

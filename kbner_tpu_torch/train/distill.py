@@ -23,6 +23,18 @@ paths (sequence distillation).
   - ``best-model.msgpack`` is written whenever the epoch's dev score (the
     negated train loss without dev sets) is at least the best so far,
     ``final-model.msgpack`` at the end.
+  - On a mesh (:class:`FinetuneTrainer`'s; the student sharded on it by
+    ``parallel.shard_params``) each step runs as ``train_step`` does:
+    the batch padded to a multiple of ``data`` and cut to this rank's
+    rows, dropout masks drawn over the global batch, token means over the
+    global count, the gradients averaged over ``data``, the clipping norm
+    the whole model's. Each rank's teachers emit for its own rows only,
+    which is what it caches; a padding row gets zero logits, a zero
+    k-best path and zero path weights, so it adds nothing to any term.
+    A teacher is a whole copy on every rank, or sharded by
+    ``shard_params`` on the same mesh: its forward is then a collective,
+    so whether it runs on a batch is decided on the global batch's
+    sentences. Rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -57,61 +69,80 @@ class DistillConfig(TrainConfig):
 
 class DistillationTrainer(FinetuneTrainer):
     """Fine-tunes a student against its ``teachers`` (taggers over the
-    student's tag dictionary); the other arguments are
-    :class:`FinetuneTrainer`'s."""
+    student's tag dictionary; on a mesh, whole or sharded on that mesh);
+    the other arguments are :class:`FinetuneTrainer`'s."""
 
     def __init__(self, *args, teachers: Sequence[SequenceTagger] = (),
                  **kwargs):
         super().__init__(*args, **kwargs)
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "distillation on a mesh: the teacher caches are per-batch "
-                "host arrays that need the batch's mesh padding (ROADMAP A)")
+        for teacher in teachers:
+            sh = getattr(teacher, "sharding", None)
+            if sh is not None and sh.mesh is not self.mesh:
+                raise ValueError("a sharded teacher must be sharded by "
+                                 "parallel.shard_params on the trainer's "
+                                 "mesh")
         self.teachers = list(teachers)
 
     # -- the teachers' outputs --------------------------------------------------
 
-    def _owners(self, eb: EncodedBatch) -> np.ndarray:
-        """Each sentence's teacher index."""
-        return np.clip(eb.lang_ids, 0, len(self.teachers) - 1)
+    def _owners(self, eb: EncodedBatch, local: bool = True) -> np.ndarray:
+        """Each sentence's teacher index; with ``local``, of this rank's
+        rows, -1 on a padding row."""
+        owner = np.clip(eb.lang_ids, 0, len(self.teachers) - 1)
+        if not local:
+            return owner
+        return self._host_rows({"owner": owner + 1})["owner"] - 1
+
+    def _emits(self, t_idx: int, eb: EncodedBatch, owners: np.ndarray
+               ) -> bool:
+        """Whether teacher ``t_idx`` runs on batch ``eb``: it owns one of
+        this rank's rows (``owners``), or for a sharded teacher, whose
+        forward is a collective, one sentence of the global batch."""
+        if getattr(self.teachers[t_idx], "sharding", None) is not None:
+            owners = self._owners(eb, local=False)
+        return bool((owners == t_idx).any())
 
     @torch.no_grad()
     def _batch_emissions(self, eb: EncodedBatch,
                          arrays: Optional[Dict[str, torch.Tensor]] = None
                          ) -> torch.Tensor:
-        """One batch's teacher emissions on the device, each sentence's
-        from its own teacher (every teacher already on the device);
-        ``arrays`` are the batch's on the device, if made already."""
-        arrays = self._to_device(eb) if arrays is None else arrays
-        owner = torch.from_numpy(self._owners(eb)).to(self.device)
-        out = None
+        """This rank's rows of one batch's teacher emissions on the device,
+        each sentence's from its own teacher (every teacher already on the
+        device); ``arrays`` are those rows on the device, if made
+        already."""
+        if arrays is None:
+            arrays = self._to_device(eb, shard_rows=True)
+        owners = self._owners(eb)
+        owner = torch.from_numpy(owners).to(self.device)[:, None, None]
+        out = torch.zeros(arrays["word_mask"].shape
+                          + (self.model.config.num_tags,), device=self.device)
         for t_idx, teacher in enumerate(self.teachers):
-            rows = (owner == t_idx)[:, None, None]
-            if bool(rows.any()):
-                out = torch.where(rows, teacher.emissions(arrays),
-                                  0.0 if out is None else out)
+            if self._emits(t_idx, eb, owners):
+                out = torch.where(owner == t_idx, teacher.emissions(arrays),
+                                  out)
         return out
 
     @torch.no_grad()
     def _teacher_emissions(self, batches: List[EncodedBatch],
                            dtype=np.float16) -> List[np.ndarray]:
-        """Each batch's teacher emissions on the host at ``dtype``, every
-        sentence's from its own teacher. The teachers run one at a time
-        over all batches on the trainer's device, each back on the CPU
-        after its pass. The cache holds ``sentences * W * K * itemsize``
-        bytes."""
-        out: List[Optional[np.ndarray]] = [None] * len(batches)
+        """This rank's rows of each batch's teacher emissions on the host
+        at ``dtype``, every sentence's from its own teacher. The teachers
+        run one at a time over all batches on the trainer's device, each
+        back on the CPU after its pass. The cache holds ``rows * W * K *
+        itemsize`` bytes."""
+        owners = [self._owners(eb) for eb in batches]
+        out = [np.zeros((len(o), eb.word_mask.shape[1],
+                         self.model.config.num_tags), dtype)
+               for o, eb in zip(owners, batches)]
         for t_idx, teacher in enumerate(self.teachers):
             teacher.to(self.device)
-            for b_idx, eb in enumerate(batches):
-                rows = self._owners(eb) == t_idx
-                if not rows.any():
+            for eb, own, cache in zip(batches, owners, out):
+                if not self._emits(t_idx, eb, own):
                     continue
-                logits = teacher.emissions(self._to_device(eb)).cpu(
-                ).numpy().astype(dtype)
-                if out[b_idx] is None:
-                    out[b_idx] = np.zeros_like(logits)
-                out[b_idx][rows] = logits[rows]
+                rows = own == t_idx
+                logits = teacher.emissions(self._to_device(
+                    eb, shard_rows=True)).cpu().numpy().astype(dtype)
+                cache[rows] = logits[rows]
             teacher.to("cpu")
         log.info("cached teacher emissions for %d batches (%s)",
                  len(batches), np.dtype(dtype).name)
@@ -120,19 +151,23 @@ class DistillationTrainer(FinetuneTrainer):
     @torch.no_grad()
     def _teacher_kbest(self, batches: List[EncodedBatch], n_best: int
                        ) -> List[Tuple[np.ndarray, np.ndarray]]:
-        """Each batch's ``teachers[0]`` k-best paths ``[B, N, W]`` and
-        their softmax-normalised scores ``[B, N]``, on the host."""
+        """This rank's rows of each batch's ``teachers[0]`` k-best paths
+        ``[B, N, W]`` and their softmax-normalised scores ``[B, N]``, on
+        the host; zero on a padding row."""
         teacher = self.teachers[0].to(self.device)
         cfg = teacher.config
         trans = teacher.transition_matrix()
         out = []
         for eb in batches:
-            arrays = self._to_device(eb)
+            arrays = self._to_device(eb, shard_rows=True)
             paths, scores = crf_decode_nbest(
                 teacher.emissions(arrays), arrays["crf_mask"], trans,
                 cfg.start_idx, cfg.stop_idx, n_best=n_best)
-            out.append((paths.cpu().numpy(),
-                        torch.softmax(scores, -1).cpu().numpy()))
+            real = torch.from_numpy(self._owners(eb) >= 0).to(
+                self.device)[:, None]
+            out.append((torch.where(real[..., None], paths, 0).cpu().numpy(),
+                        torch.where(real, torch.softmax(scores, -1),
+                                    0.0).cpu().numpy()))
         teacher.to("cpu")
         log.info("cached teacher %d-best sequences for %d batches", n_best,
                  len(batches))
@@ -153,34 +188,39 @@ class DistillationTrainer(FinetuneTrainer):
         return torch.from_numpy(cached).to(self.device).float()
 
     def _kd_loss(self, arrays, targets, config: DistillConfig,
-                 rng: Optional[torch.Generator]) -> torch.Tensor:
+                 rng: Optional[torch.Generator],
+                 token_norm: Optional[float] = None) -> torch.Tensor:
         if config.kbest and config.kbest > 0:
             paths, weights = targets
             return self.model.kbest_distill_loss(
                 arrays, paths, weights, rng=rng,
-                interpolation=config.interpolation)
+                interpolation=config.interpolation, token_norm=token_norm)
         return self.model.distill_loss(
             arrays, targets, rng=rng, interpolation=config.interpolation,
-            temperature=config.temperature, posterior=config.posterior)
+            temperature=config.temperature, posterior=config.posterior,
+            token_norm=token_norm)
 
     def kd_step(self, eb: EncodedBatch, cached, opt, config: DistillConfig,
                 rng: Optional[torch.Generator]) -> torch.Tensor:
         """Loss, gradients and one optimizer call on batch ``eb`` against
-        its entry of the teachers' cache (None: the teachers emit now).
-        Returns the loss, still on the device."""
-        arrays = self._to_device(eb)
-        loss = self._kd_loss(arrays, self._targets(config, eb, arrays,
-                                                   cached), config, rng)
-        loss.backward()
-        opt.step()
-        self.model.zero_grad(set_to_none=True)
-        return loss.detach()
+        its entry of the teachers' cache (None: the teachers emit now),
+        on a mesh as :meth:`train_step`. Returns the (global) batch's
+        loss, still on the device."""
+        def loss_fn():
+            arrays = self._to_device(eb, shard_rows=True)
+            return self._kd_loss(
+                arrays, self._targets(config, eb, arrays, cached), config,
+                rng, self._token_norm(eb))
+
+        return self._step(loss_fn, opt)
 
     def train(self, base_path: str | Path, config: DistillConfig
               ) -> Dict[str, Any]:
         base_path = Path(base_path)
-        base_path.mkdir(parents=True, exist_ok=True)
-        self.tag_dict.save(base_path / "tag_dictionary.json")
+        if self.writer:
+            base_path.mkdir(parents=True, exist_ok=True)
+            self.tag_dict.save(base_path / "tag_dictionary.json")
+        self._barrier()
         self._apply_corpus_surgery(config)
         batches = make_batches(
             self.corpus.train, self.tokenizer, self.tag_dict,
@@ -209,7 +249,7 @@ class DistillationTrainer(FinetuneTrainer):
             total_steps=total_steps, weight_decay=config.weight_decay,
             grad_clip=config.grad_clip,
             accumulation_steps=config.accumulation_steps,
-            use_inverse_sqrt=config.use_inverse_sqrt)
+            use_inverse_sqrt=config.use_inverse_sqrt, **self._norm_options())
         rng = torch.Generator().manual_seed(config.seed)
         rng_order = np.random.RandomState(config.seed)
         best_score = -np.inf

@@ -25,7 +25,8 @@
     sharded on it first with ``parallel.shard_params``): each batch
     padded to a multiple of ``data`` and cut to this rank's rows, the
     gradients averaged over ``data`` (an FSDP leaf's backward already
-    did), dropout masks drawn over the global batch, the clipping norm
+    did), dropout masks drawn over the global batch (in multi-view mode
+    both views' rows, the context view's masks first), the clipping norm
     taken over the whole model; every rank evaluates and predicts (TP and
     FSDP forwards are collectives), and rank 0 alone writes the files, of
     the gathered state, in the single-rank layout.
@@ -204,9 +205,8 @@ class FinetuneTrainer:
                                  bpe_vocab=self.bpe_vocab,
                                  elmo_bytes=self.elmo_bytes)
         arrays = eb.arrays()
-        if shard_rows and self.mesh is not None:
-            arrays = local_rows(pad_batch_for_mesh(arrays, self.mesh),
-                                self.mesh)
+        if shard_rows:
+            arrays = self._host_rows(arrays)
         out = {k: torch.from_numpy(v).to(self.device)
                for k, v in arrays.items()}
         if self.selection is not None:
@@ -214,14 +214,27 @@ class FinetuneTrainer:
                 np.asarray(self.selection, np.float32), device=self.device)
         return out
 
+    def _host_rows(self, arrays: Dict[str, np.ndarray]
+                   ) -> Dict[str, np.ndarray]:
+        """On a mesh, host arrays of a batch padded to a multiple of its
+        data axis and cut to this rank's rows; else ``arrays``."""
+        if self.mesh is None:
+            return arrays
+        return local_rows(pad_batch_for_mesh(arrays, self.mesh), self.mesh)
+
     def _loss(self, item, config: TrainConfig,
               rng: Optional[torch.Generator]) -> torch.Tensor:
         if config.multi_view:
+            # both views hold the same sentences, so the same rows fall
+            # to this rank; the context view's masks are drawn first
             eb, orig = item
             return self.model.multi_view_loss(
-                self._to_device(eb), self._to_device(orig), rng=rng,
+                self._to_device(eb, shard_rows=True),
+                self._to_device(orig, shard_rows=True), rng=rng,
                 agreement_weight=config.mv_agreement_weight,
-                l2_weight=config.mv_l2_weight, kind=config.mv_kind)
+                l2_weight=config.mv_l2_weight, kind=config.mv_kind,
+                token_norm=self._token_norm(eb),
+                shared_norm=self._token_norm(orig, "word_mask"))
         return self.model.loss(self._to_device(item, shard_rows=True),
                                rng=rng, token_norm=self._token_norm(item))
 
@@ -229,15 +242,16 @@ class FinetuneTrainer:
         """The ranks of the mesh's data axis (1 off a mesh)."""
         return 1 if self.sharding is None else self.sharding.sizes[DATA_AXIS]
 
-    def _token_norm(self, eb: EncodedBatch) -> Optional[float]:
-        """On a split data axis of ``n`` ranks, the softmax head's divisor:
-        the global batch's token count over ``n``, so that the ranks' mean
-        loss is the global token mean (the padding rows count no token);
-        else None, the batch's own count."""
+    def _token_norm(self, eb: EncodedBatch, mask: str = "crf_mask"
+                    ) -> Optional[float]:
+        """On a split data axis of ``n`` ranks, a token mean's divisor: the
+        global batch's count of ``mask`` over ``n``, so that the ranks'
+        mean loss is the global token mean (the padding rows count no
+        token); else None, the batch's own count."""
         n = self._data_split()
         if n == 1:
             return None
-        return max(float(eb.arrays()["crf_mask"].sum()), 1.0) / n
+        return max(float(getattr(eb, mask).sum()), 1.0) / n
 
     def _data_shard(self):
         """:func:`~..parallel.mesh.batch_rows` of this rank's rows on a
@@ -252,8 +266,15 @@ class FinetuneTrainer:
         """Loss, gradients and one optimizer call on one batch (an
         ``EncodedBatch``, or a (context, orig) pair in multi-view mode).
         Returns the loss of the (global) batch, still on the device."""
+        return self._step(lambda: self._loss(item, config, rng), opt, freeze)
+
+    def _step(self, loss_fn, opt: FinetuneOptimizer, freeze: bool = False
+              ) -> torch.Tensor:
+        """``loss_fn()`` on this rank's rows and its backward pass, the
+        gradients averaged over ``data``, one optimizer call; returns the
+        global batch's loss, still on the device."""
         with self._data_shard():
-            loss = self._loss(item, config, rng)
+            loss = loss_fn()
             loss.backward()
         if self._data_split() > 1:
             self.sharding.sync_gradients(self.model)
@@ -320,12 +341,6 @@ class FinetuneTrainer:
         steps_per_epoch = max(1, math.ceil(
             len(self._epoch_records(config, 0)) / config.batch_size))
         total_steps = steps_per_epoch * config.max_epochs
-        norm = {}
-        if self.sharding is not None:
-            norm = dict(norm_weights={
-                n: 1.0 / self.sharding.replicas(n)
-                for n, _ in self.model.named_parameters()},
-                norm_group=dist.group.WORLD)
         return make_finetune_optimizer(
             self.model.named_parameters(), lr=config.learning_rate,
             lr_rate=config.lr_rate,
@@ -335,14 +350,20 @@ class FinetuneTrainer:
             accumulation_steps=config.accumulation_steps,
             use_inverse_sqrt=config.use_inverse_sqrt,
             mu_dtype=torch.bfloat16 if config.adam_mu_bf16 else None,
-            **norm)
+            **self._norm_options())
+
+    def _norm_options(self) -> Dict[str, Any]:
+        """On a mesh, the optimizer's options that take its clipping norm
+        over the whole model (each slice weighted by one over its
+        replicas, summed over the world); else none."""
+        if self.sharding is None:
+            return {}
+        return dict(norm_weights={n: 1.0 / self.sharding.replicas(n)
+                                  for n, _ in self.model.named_parameters()},
+                    norm_group=dist.group.WORLD)
 
     def train(self, base_path: str | Path, config: TrainConfig
               ) -> Dict[str, Any]:
-        if self.mesh is not None and config.multi_view:
-            raise NotImplementedError(
-                "multi-view training on a mesh: its agreement terms' "
-                "token means need the global counts (ROADMAP A)")
         base_path = Path(base_path)
         if self.writer:
             base_path.mkdir(parents=True, exist_ok=True)

@@ -1046,6 +1046,51 @@ def test_sharded_training_steps_on_card_match_one_rank(card, tmp_path):
                                            atol=1e-5, err_msg=f"{name} {n}")
 
 
+def test_meshed_distillation_and_multi_view_steps_on_card_match_one_rank(
+        card, tmp_path):
+    """Two gloo ranks on the one card, data-parallel: a logit
+    distillation step and a multi-view step (7 fused sentences padded to
+    8, the teacher's logits padded with zero rows), each with the
+    gradients gathered, equal the single-rank losses on the padded batch
+    in float32 (loss rel 1e-4, gradients rtol 2e-3, atol 1e-5)."""
+    import torch_world
+    from kbner_tpu_torch.data.corpus_ops import make_orig_view
+    from kbner_tpu_torch.data.encode import encode_batch
+
+    ranks = torch_world.World(torch_world.card_kd_rank, 2, tmp_path).join()
+    corpus = torch_world.fused_toy_corpus()
+    tags = corpus.make_tag_dictionary("ner")
+    tok = HashTokenizer(torch_world.TOY_VOCAB)
+    recs = corpus.train[:torch_world.TOY_ROWS]
+
+    def padded(records):
+        return {k: torch.from_numpy(np.pad(
+            v, [(0, (-v.shape[0]) % 2)] + [(0, 0)] * (v.ndim - 1))).to(card)
+            for k, v in encode_batch(records, tok, tags).arrays().items()}
+
+    batch = padded(recs)
+    orig = padded([make_orig_view(r) for r in recs])
+    teacher = torch.from_numpy(torch_world.kd_targets(
+        len(recs), batch["word_mask"].shape[1], len(tags), 2)).to(card)
+    mv = torch_world.MV_CONFIG
+    for kind in ("kd", "mv"):
+        model = torch_world.toy_tagger(None, tags, device=card)
+        if kind == "kd":
+            loss = model.distill_loss(batch, teacher,
+                                      **torch_world.KD_STEPS["logit"])
+        else:
+            loss = model.multi_view_loss(batch, orig, kind=mv["mv_kind"],
+                                         l2_weight=mv["mv_l2_weight"])
+        loss.backward()
+        for r in ranks:
+            assert float(r[f"{kind}/loss"]) == pytest.approx(loss.item(),
+                                                             rel=1e-4)
+            for n, p in model.named_parameters():
+                np.testing.assert_allclose(r[f"{kind}/grad/{n}"],
+                                           p.grad.cpu().numpy(), rtol=2e-3,
+                                           atol=1e-5, err_msg=f"{kind} {n}")
+
+
 def _parser_batch(device, lengths=(9, 4, 1, 6), seed=0, unannotated=0.0):
     """A batch of random projective trees for the biaffine parser:
     encoded arrays with ``heads`` (-1 where unannotated) and ``rel_ids``

@@ -298,13 +298,10 @@ def test_rank_zero_files_open_unsharded_in_both_packages(worlds, single,
 
 
 @pytest.mark.parametrize("key, words", [
-    ("distill", ("distillation on a mesh", "ROADMAP A")),
-    ("multi_view", ("multi-view training on a mesh", "ROADMAP A")),
     ("plain", ("parallel.shard_params(model, mesh)",)),
 ])
 def test_meshed_trainer_refusals(worlds, key, words):
-    """Distillation and multi-view training on a mesh raise naming ROADMAP
-    A; a model that ``shard_params`` did not shard on the mesh is
+    """A model that ``shard_params`` did not shard on the mesh is
     refused."""
     for name, ranks_dir in worlds[0].items():
         for got in ranks_dir[0]:

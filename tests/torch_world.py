@@ -1,6 +1,7 @@
 """Spawned gloo worlds for the port's tests of meshed code
-(tests/test_torch_mesh.py, tests/test_torch_sharded.py on the CPU; one
-test of tests/test_torch_cuda.py on the card).
+(tests/test_torch_mesh.py, tests/test_torch_sharded.py,
+tests/test_torch_mesh_train.py and tests/test_torch_mesh_distill.py on
+the CPU; three tests of tests/test_torch_cuda.py on the card).
 
 A :class:`World` starts one process per rank with ``torch.multiprocessing``'s
 spawn context; each rank joins a gloo group through a file under the test's
@@ -389,14 +390,13 @@ def mesh_train_rank(rank: int, world: int, data: int, model: int,
     updates of accumulation 2 with clipping over :data:`ACC_ROWS`; a
     train run of one epoch and its resume to two with every dropout on
     and ``checkpoint: true`` under ``out_dir/run`` (:func:`run_pair`);
-    and the refusals of distillation and multi-view training on a mesh,
-    and of a model that ``shard_params`` did not shard on it."""
+    and the refusal of a model that ``shard_params`` did not shard on
+    the mesh."""
     from kbner_tpu_torch.data.encode import encode_batch
     from kbner_tpu_torch.data.subword import HashTokenizer
     from kbner_tpu_torch.parallel import (gather_state_dict, make_mesh,
                                           shard_params)
     from kbner_tpu_torch.train import FinetuneTrainer, TrainConfig
-    from kbner_tpu_torch.train.distill import DistillationTrainer
 
     mesh = make_mesh(data=data, model=model, device_type="cpu")
     tok = HashTokenizer(TOY_VOCAB)
@@ -404,9 +404,9 @@ def mesh_train_rank(rank: int, world: int, data: int, model: int,
     tags = corpus.make_tag_dictionary("ner")
     out: Dict[str, np.ndarray] = {}
 
-    def trainer_of(m, c=corpus, t=tags, cls=FinetuneTrainer):
-        return cls(shard_params(m, mesh, fsdp), c, tok, t, mesh=mesh,
-                   device="cpu")
+    def trainer_of(m, c=corpus, t=tags):
+        return FinetuneTrainer(shard_params(m, mesh, fsdp), c, tok, t,
+                               mesh=mesh, device="cpu")
 
     eb = encode_batch(corpus.train[:TOY_ROWS], tok, tags)
     for head, tree in trees.items():
@@ -430,17 +430,6 @@ def mesh_train_rank(rank: int, world: int, data: int, model: int,
     q_tags = q.make_tag_dictionary("ner")
     out.update(run_pair(lambda: trainer_of(toy_tagger(
         None, q_tags, dropout=True), q, q_tags), Path(out_dir) / "run"))
-    try:
-        trainer_of(toy_tagger(None, tags), cls=DistillationTrainer)
-        out["distill"] = np.asarray("no error")
-    except NotImplementedError as e:
-        out["distill"] = np.asarray(str(e))
-    try:
-        trainer_of(toy_tagger(None, tags)).train(
-            Path(out_dir) / "mv", TrainConfig(multi_view=True))
-        out["multi_view"] = np.asarray("no error")
-    except NotImplementedError as e:
-        out["multi_view"] = np.asarray(str(e))
     try:
         FinetuneTrainer(toy_tagger(None, tags), corpus, tok, tags, mesh=mesh,
                         device="cpu")
@@ -479,5 +468,315 @@ def card_train_rank(rank: int, world: int) -> Dict[str, np.ndarray]:
             eb, cap, TrainConfig(), None)))
         for n, g in cap.grads.items():
             out[f"{name}/grad/{n}"] = trainer.sharding.gather(
+                n, g).cpu().numpy()
+    return out
+
+
+# -- distillation and multi-view training on a mesh
+# (tests/test_torch_mesh_distill.py) ------------------------------------------
+
+MV_CONFIG = dict(multi_view=True, mv_kind="kl", mv_l2_weight=0.1)
+KD_STEPS = {"logit": dict(temperature=2.0, interpolation=0.3),
+            "posterior": dict(posterior=True, interpolation=0.3),
+            "kbest": dict(kbest=2, interpolation=0.3)}
+RUN_BASE = dict(learning_rate=1e-3, lr_rate=3.0, max_epochs=1,
+                warmup_fraction=0.0, seed=4)
+# one-epoch runs against the JAX trainers (dropout off); the JAX meshed
+# distillation trainer runs at batch 4 only (at 3 its targets are not
+# padded)
+JAX_RUNS = {"f16": dict(teacher_cache="f16", batch_size=4),
+            "lazy": dict(teacher_cache="lazy", batch_size=4,
+                         interpolation=0.7),
+            "kbest": dict(kbest=2, batch_size=4),
+            "mv3": dict(batch_size=3, **MV_CONFIG),
+            "mv4": dict(batch_size=4, **MV_CONFIG)}
+# one-epoch runs at batch 3 (padded over data = 2) with every dropout on,
+# against the port's single-process trainer on the same padded batches
+PADDED_RUNS = {"f16": dict(teacher_cache="f16", batch_size=3),
+               "f32": dict(teacher_cache="f32", batch_size=3,
+                           temperature=2.0),
+               "lazy": dict(teacher_cache="lazy", batch_size=3,
+                            posterior=True),
+               "kbest": dict(kbest=2, batch_size=3),
+               "mv3": dict(batch_size=3, **MV_CONFIG)}
+ROUTED = (0, 0, 1, 1)  # a batch's languages: each rank of data = 2 one
+
+
+def with_contexts(records, make):
+    """Each record followed by ``<EOS>`` and the first five words of the
+    next as its retrieved context (tagged S-X), built with ``make(tokens,
+    tags)``: fused sentences of either package's record class."""
+    out = []
+    for i, rec in enumerate(records):
+        ctx = records[(i + 1) % len(records)].tokens[:5]
+        out.append(make(list(rec.tokens) + ["<EOS>"] + list(ctx),
+                        list(rec.tags["ner"]) + ["S-X"] * (len(ctx) + 1)))
+    return out
+
+
+def fused_toy_corpus():
+    """ner_toy with contexts (:func:`with_contexts`) in its train split;
+    its dev split as it is."""
+    from kbner_tpu_torch.data.conll import Corpus, ListCorpus, SentenceRecord
+
+    toy = toy_corpus()
+    train = with_contexts(toy.train, lambda t, g: SentenceRecord(
+        tokens=t, tags={"ner": g}))
+    return ListCorpus([Corpus(train=train, dev=[], test=[],
+                              name="TOY")])
+
+
+def padded_trainer(cls, data: int):
+    """``cls`` (a trainer class) whose training batches are padded to a
+    multiple of ``data`` rows, as a mesh's data axis pads them, in one
+    process: the single-process run that a meshed one must equal."""
+    class Padded(cls):
+        def _host_rows(self, arrays):
+            rem = (-next(iter(arrays.values())).shape[0]) % data
+            return {k: np.pad(v, [(0, rem)] + [(0, 0)] * (v.ndim - 1))
+                    for k, v in arrays.items()}
+    return Padded
+
+
+def count_forwards(model, counts: List[int]):
+    """Count ``model.emissions`` calls in ``counts[0]``."""
+    inner = model.emissions
+
+    def counted(*args, **kwargs):
+        counts[0] += 1
+        return inner(*args, **kwargs)
+    model.emissions = counted
+    return model
+
+
+def kd_run(trainer, config, base) -> Dict[str, np.ndarray]:
+    """One ``train`` of ``trainer`` under ``config`` (a DistillConfig or a
+    TrainConfig) at ``base``: its epoch losses, dev scores, gathered
+    parameters and update count; in one process also, per element,
+    whether a step's gradient (as the optimizer takes it) was nonzero and
+    under 1e-5 (``small/<name>``)."""
+    from kbner_tpu_torch.parallel import gather_state_dict
+
+    seen: Dict[str, object] = {}
+    inner = trainer._step
+
+    def step(loss_fn, opt, freeze=False):
+        if "opt" not in seen and trainer.sharding is None:
+            opt_step = opt.step
+
+            def recorded():
+                for n, p in trainer.model.named_parameters():
+                    g = (p.grad if p.grad is not None
+                         else torch.zeros_like(p)).abs()
+                    small = (g > 0) & (g < 1e-5)
+                    seen[n] = seen.get(n, small) | small
+                return opt_step()
+            opt.step = recorded
+        seen["opt"] = opt
+        return inner(loss_fn, opt, freeze)
+
+    trainer._step = step
+    res = trainer.train(base, config)
+    out = {"loss": np.asarray(res["history"]["train_loss"]),
+           "dev": np.asarray(res["history"]["dev_score"]),
+           "count": np.asarray(seen.pop("opt").count)}
+    for n, v in gather_state_dict(trainer.model).items():
+        out[f"param/{n}"] = v.detach().numpy()
+    out.update({f"small/{n}": g.numpy() for n, g in seen.items()})
+    return out
+
+
+def run_config(kw):
+    """The DistillConfig or (multi-view) TrainConfig of a run's
+    keywords."""
+    from kbner_tpu_torch.train import TrainConfig
+    from kbner_tpu_torch.train.distill import DistillConfig
+
+    cls = TrainConfig if kw.get("multi_view") else DistillConfig
+    return cls(**RUN_BASE, **kw)
+
+
+def run_trainer(kw, student, corpus, tok, tags, teachers, cls=None,
+                **extra):
+    """The trainer of a run's keywords on the CPU: ``cls``, by default a
+    FinetuneTrainer in multi-view mode, else a DistillationTrainer over
+    ``teachers``."""
+    from kbner_tpu_torch.train import FinetuneTrainer
+    from kbner_tpu_torch.train.distill import DistillationTrainer
+
+    if kw.get("multi_view"):
+        return (cls or FinetuneTrainer)(student, corpus, tok, tags,
+                                        device="cpu", **extra)
+    return (cls or DistillationTrainer)(student, corpus, tok, tags,
+                                        teachers=teachers, device="cpu",
+                                        **extra)
+
+
+def mesh_distill_rank(rank: int, world: int, data: int, model: int,
+                      fsdp: bool, trees: Dict[str, dict],
+                      steps: Dict[str, tuple], out_dir: str
+                      ) -> Dict[str, np.ndarray]:
+    """Distillation and multi-view training on a ``(data, model)`` mesh of
+    the CPU, every student sharded by ``parallel.shard_params`` (``fsdp``
+    as given), over :func:`fused_toy_corpus`:
+
+      - ``step/<kind>/...``: the loss and every full gradient of one
+        ``kd_step`` (:data:`KD_STEPS`, against the targets of ``steps``,
+        given for the whole padded batch) or multi-view ``train_step``
+        (``mv_crf``, ``mv_softmax``) on the first :data:`TOY_ROWS` fused
+        sentences;
+      - ``jax/<run>/...``: :data:`JAX_RUNS` from ``trees["crf"]`` with
+        dropout off (:func:`kd_run`), taught by ``trees["teacher1"]``;
+      - ``pad/<run>/...``: :data:`PADDED_RUNS` with every dropout on;
+      - ``route/...``: this rank's rows of a batch in :data:`ROUTED`'s
+        languages as two teachers (``teacher1``, ``teacher2``) emit them,
+        cached (float32) and lazily, with each teacher's forwards, whole
+        on each rank and sharded on the mesh; and the k-best targets of
+        a batch of 3 (a padding row over data = 2);
+      - ``refused/...``: a teacher sharded on another mesh, and a sharded
+        teacher off a mesh."""
+    from kbner_tpu_torch.data.corpus_ops import make_orig_view
+    from kbner_tpu_torch.data.encode import encode_batch
+    from kbner_tpu_torch.data.subword import HashTokenizer
+    from kbner_tpu_torch.parallel import make_mesh, shard_params
+    from kbner_tpu_torch.train import FinetuneTrainer, TrainConfig
+    from kbner_tpu_torch.train.distill import (DistillationTrainer,
+                                               DistillConfig)
+
+    mesh = make_mesh(data=data, model=model, device_type="cpu")
+    tok = HashTokenizer(TOY_VOCAB)
+    corpus = fused_toy_corpus()
+    tags = corpus.make_tag_dictionary("ner")
+    out: Dict[str, np.ndarray] = {}
+
+    def student(tree, **kw):
+        return shard_params(toy_tagger(tree, tags, **kw), mesh, fsdp)
+
+    def teacher(name):
+        return toy_tagger(trees[name], tags)
+
+    recs = corpus.train[:TOY_ROWS]
+    eb = encode_batch(recs, tok, tags)
+    orig = encode_batch([make_orig_view(r) for r in recs], tok, tags)
+    for kind, target in steps.items():
+        if kind.startswith("mv_"):
+            head = kind[3:]
+            trainer = FinetuneTrainer(
+                student(trees[head], use_crf=head == "crf"), corpus, tok,
+                tags, mesh=mesh, device="cpu")
+            cap = GradCapture(trainer.model)
+            loss = trainer.train_step((eb, orig), cap,
+                                      TrainConfig(**MV_CONFIG), None)
+        else:
+            trainer = DistillationTrainer(student(trees["crf"]), corpus, tok,
+                                          tags, mesh=mesh, device="cpu")
+            cap = GradCapture(trainer.model)
+            local = trainer._host_rows(dict(enumerate(target)))
+            cached = (local[0], local[1]) if kind == "kbest" else local[0]
+            loss = trainer.kd_step(eb, cached, cap,
+                                   DistillConfig(**KD_STEPS[kind]), None)
+        out[f"step/{kind}/loss"] = np.asarray(float(loss))
+        for n, g in cap.grads.items():
+            out[f"step/{kind}/grad/{n}"] = trainer.sharding.gather(
+                n, g).numpy()
+
+    for prefix, runs, dropout in (("jax", JAX_RUNS, False),
+                                  ("pad", PADDED_RUNS, True)):
+        for name, kw in runs.items():
+            trainer = run_trainer(
+                kw, student(trees["crf"], dropout=dropout), corpus, tok,
+                tags, [teacher("teacher1")], mesh=mesh)
+            got = kd_run(trainer, run_config(kw),
+                         Path(out_dir) / prefix / name)
+            out.update({f"{prefix}/{name}/{k}": v for k, v in got.items()})
+
+    routed = [type(r)(tokens=r.tokens, tags=r.tags, lang_id=lang)
+              for r, lang in zip(corpus.train, ROUTED)]
+    r_eb = encode_batch(routed, tok, tags)
+    for how in ("whole", "sharded"):
+        counts = [[0], [0]]
+        ts = [count_forwards(teacher(f"teacher{i + 1}"), c)
+              for i, c in enumerate(counts)]
+        if how == "sharded":
+            ts = [shard_params(t, mesh, fsdp) for t in ts]
+        trainer = DistillationTrainer(student(None), corpus, tok, tags,
+                                      mesh=mesh, teachers=ts, device="cpu")
+        out[f"route/{how}/cached"] = trainer._teacher_emissions(
+            [r_eb], np.float32)[0]
+        out[f"route/{how}/lazy"] = trainer._batch_emissions(r_eb).numpy()
+        out[f"route/{how}/forwards"] = np.asarray([c[0] for c in counts])
+    out["route/owners"] = trainer._owners(r_eb)
+    out["coord"] = np.asarray([mesh.get_local_rank("data"),
+                               mesh.get_local_rank("model")])
+    trainer = DistillationTrainer(student(None), corpus, tok, tags,
+                                  mesh=mesh, teachers=[teacher("teacher1")],
+                                  device="cpu")
+    paths, weights = trainer._teacher_kbest(
+        [encode_batch(recs[:3], tok, tags)], 2)[0]
+    out["route/kbest/paths"], out["route/kbest/weights"] = paths, weights
+
+    other = make_mesh(data=data, model=model, device_type="cpu")
+    for what, t_mesh, s_mesh in (("other_mesh", other, mesh),
+                                 ("no_mesh", mesh, None)):
+        try:
+            DistillationTrainer(
+                toy_tagger(None, tags) if s_mesh is None else student(None),
+                corpus, tok, tags, mesh=s_mesh, device="cpu",
+                teachers=[shard_params(teacher("teacher1"), t_mesh, fsdp)])
+            out[f"refused/{what}"] = np.asarray("no error")
+        except ValueError as e:
+            out[f"refused/{what}"] = np.asarray(str(e))
+    return out
+
+
+def kd_targets(n_rows: int, n_words: int, n_tags: int, data: int
+               ) -> np.ndarray:
+    """Seeded teacher logits ``[n_rows, n_words, n_tags]`` padded with zero
+    rows to a multiple of ``data``."""
+    t = (2 * np.random.RandomState(4).standard_normal(
+        (n_rows, n_words, n_tags))).astype(np.float32)
+    return np.pad(t, [(0, (-n_rows) % data), (0, 0), (0, 0)])
+
+
+def card_kd_rank(rank: int, world: int) -> Dict[str, np.ndarray]:
+    """Two gloo ranks sharing the card, data-parallel: the float32 loss
+    and every full gradient of one ``kd_step`` (logit distillation
+    against :func:`kd_targets`) and of one multi-view ``train_step``, on
+    the first :data:`TOY_ROWS` fused sentences (padded to the data axis),
+    the tagger drawn on the card from seed 0."""
+    from kbner_tpu_torch.data.corpus_ops import make_orig_view
+    from kbner_tpu_torch.data.encode import encode_batch
+    from kbner_tpu_torch.data.subword import HashTokenizer
+    from kbner_tpu_torch.parallel import make_mesh, shard_params
+    from kbner_tpu_torch.train import FinetuneTrainer, TrainConfig
+    from kbner_tpu_torch.train.distill import (DistillationTrainer,
+                                               DistillConfig)
+
+    corpus = fused_toy_corpus()
+    tags = corpus.make_tag_dictionary("ner")
+    tok = HashTokenizer(TOY_VOCAB)
+    recs = corpus.train[:TOY_ROWS]
+    eb = encode_batch(recs, tok, tags)
+    orig = encode_batch([make_orig_view(r) for r in recs], tok, tags)
+    mesh = make_mesh(data=world, model=1, device_type="cuda")
+    out: Dict[str, np.ndarray] = {}
+    for kind in ("kd", "mv"):
+        tagger = shard_params(toy_tagger(None, tags, device="cuda"), mesh)
+        if kind == "kd":
+            trainer = DistillationTrainer(tagger, corpus, tok, tags,
+                                          mesh=mesh)
+            cap = GradCapture(trainer.model)
+            cached = trainer._host_rows({"t": kd_targets(
+                *eb.word_mask.shape, len(tags), world)})["t"]
+            loss = trainer.kd_step(eb, cached, cap,
+                                   DistillConfig(**KD_STEPS["logit"]), None)
+        else:
+            trainer = FinetuneTrainer(tagger, corpus, tok, tags, mesh=mesh)
+            cap = GradCapture(trainer.model)
+            loss = trainer.train_step((eb, orig), cap,
+                                      TrainConfig(**MV_CONFIG), None)
+        out[f"{kind}/loss"] = np.asarray(float(loss))
+        for n, g in cap.grads.items():
+            out[f"{kind}/grad/{n}"] = trainer.sharding.gather(
                 n, g).cpu().numpy()
     return out
