@@ -1809,7 +1809,7 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
                    n_dump_pages=N_DUMP_PAGES, n_serve_kb=N_SERVE_KB_DOCS,
                    n_index=N_INDEX_DOCS,
                    n_ml=N_ML_SENTENCES, n_zh=N_ZH_DOCS, zh_splits=None
-                   ) -> None:
+                   ):
     """The recipe's first stage through the port's CLI: (a) ``cli
     ingest-dump`` on a synthetic dump and ``cli index`` on a JSONL of the
     first ``n_index`` KB sentences, reopened and held to an exhaustive
@@ -1825,7 +1825,8 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
     with the trained model in ``model_dir`` predicting the entity seeds,
     and with BERTScore reranking; ``cli serve --index_dir`` and ``--kb
     --store`` (over the first ``n_serve_kb`` docs) held to the in-memory
-    engine."""
+    engine. Returns the pruned engine over the saved KB, which phase 4q's
+    pruned ``cli retrieve`` shares, and its open doc store."""
     import json
     from pathlib import Path
 
@@ -2150,8 +2151,7 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
         "retrieve batch of the train split: "
         + k2_at_retrieve_shape(bm25, deep, queries[:RETRIEVE_BATCH])
         + f" ({card})")
-    del pruned, deep
-    store1m.close()
+    del deep
 
     # -- (d) the trained model's seeds, and BERTScore reranking -------------
     held = tmp / "conll-held"
@@ -2249,6 +2249,211 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
         f"the checkpoint load, launches {served}; responses equal serve() "
         f"on the in-memory engine with the same tagger; --kb --store over "
         f"the first {n_serve_kb} docs' JSONL answers as --kb does ({card})")
+    return pruned, store1m
+
+
+
+# phase 4q: the port's own tokenizer.json reader on the served and the
+# offline path, over 4h's saved 1M KB with 4g's trained checkpoint (XLM-R
+# large, 250,002 vocabulary rows, so the HF ids index it as they stand)
+HF_PIECES = 249_997     # + 4 specials + <mask>: XLM-R's 250,002 ids
+
+
+def encoded_pieces(tokenizer, rec, max_subtokens: int = 512) -> list:
+    """The ids ``encode_batch`` gives ``rec``: CLS, each word's pieces
+    (``<EOS>`` as SEP) while they fit, SEP."""
+    from kbner_tpu_torch.data.conll import EOS_MARKER
+
+    ids = [tokenizer.cls_id]
+    for w in rec.tokens:
+        piece = ([tokenizer.sep_id] if w == EOS_MARKER
+                 else tokenizer.encode_word(w))
+        if len(ids) + len(piece) + 1 > max_subtokens:
+            break
+        ids += piece
+    return ids + [tokenizer.sep_id]
+
+
+def hf_tokenizer_phase(cli, bm25, dev, card, tmp, engine, requests,
+                       model_dir, pruned, n_pieces=HF_PIECES) -> None:
+    """(a) the seeded XLM-R-shaped tokenizer (``synth_tokenizer``) written
+    and read by ``HFTokenizer``, and ``encode_word`` over 4h's en dev
+    split, uncached and cached (host clock); (b) ``cli serve --config``
+    with ``tokenizer: {type: hf, dir}`` over ``--index_dir`` (exhaustive),
+    one micro-batch: K1 launched, the answers equal ``serve()`` with
+    ``config.make_tokenizer()`` on the in-memory engine and the CLI's
+    tagger, and every row the encoder got is the HF pieces of its fused
+    words; (c) ``cli retrieve --hf_tokenizer`` over the dev split,
+    exhaustive (K1) and pruned (K2, on 4h's pruned engine over the same
+    KB, handed over as 4h's pruned runs get it): every fused sentence
+    within 510 subtokens by the HF tokenizer's count, the sentences whose
+    fusion differs from 4h's hash-proxy files counted."""
+    import json
+    from pathlib import Path
+
+    import torch
+
+    import kbner_tpu_torch.serve as serve_mod
+    from kbner_tpu_torch.config import ServeConfig
+    from kbner_tpu_torch.data.conll import read_column_file, write_column_file
+    from kbner_tpu_torch.data.dictionary import Dictionary
+    from kbner_tpu_torch.data.subword import HFTokenizer, subtoken_length
+    from kbner_tpu_torch.data.synth_tokenizer import \
+        write_xlmr_like_tokenizer
+
+    t_phase = time.perf_counter()
+    tmp = Path(tmp)
+    kb_dir = tmp / "kb1m"
+    device = ["--device", str(dev)]
+
+    # -- (a) the tokenizer ----------------------------------------------------
+    tok_dir, write_s = timed(lambda: write_xlmr_like_tokenizer(
+        tmp / "hf-tok", n_pieces=n_pieces, seed=0))
+    tok, load_s = timed(lambda: HFTokenizer(str(tok_dir)))
+    if tok.vocab_size != n_pieces + 5 or tok.encode_word("<mask>") != [
+            n_pieces + 4]:
+        raise AssertionError(f"phase 4q: the synth tokenizer has "
+                             f"{tok.vocab_size} ids, <mask> "
+                             f"{tok.encode_word('<mask>')}")
+    dev_recs = read_column_file(tmp / "conll" / "dev.txt",
+                                {0: "text", 1: "ner"}, comment_symbol="# id")
+    words = [w for r in dev_recs for w in r.tokens]
+    distinct = sorted(set(words))
+    _, cold_s = timed(lambda: [tok.encode_word(w) for w in distinct])
+    _, warm_s = timed(lambda: [tok.encode_word(w) for w in words])
+    pieces = sum(map(tok.word_length, words))
+    log(f"phase 4q (a): the synth XLM-R tokenizer ({tok.vocab_size} ids, "
+        f"Precompiled charsmap, WhitespaceSplit + Metaspace) written in "
+        f"{write_s:.2f} s and read by HFTokenizer in {load_s:.2f} s; "
+        f"encode_word over 4h's en dev split ({len(words)} words, "
+        f"{len(distinct)} distinct, {pieces / len(words):.2f} pieces a "
+        f"word): uncached {len(distinct) / cold_s:.0f} words/s, cached "
+        f"{len(words) / warm_s:.0f} words/s (host clock; {host_line()})")
+
+    # -- (b) cli serve with tokenizer: {type: hf, dir} --------------------
+    raw = json.loads((tmp / "model.yaml").read_text())
+    raw["tokenizer"] = {"type": "hf", "dir": str(tok_dir)}
+    hf_cfg = tmp / "model-hf.yaml"
+    hf_cfg.write_text(json.dumps(raw))
+    batch = requests[:BATCH]
+    stdin = "\n".join(json.dumps(r) for r in batch) + "\n"
+    seen, taggers = [], []
+    make_batches, serving_tagger = serve_mod.make_batches, cli.serving_tagger
+
+    def recorded(*args, **kwargs):
+        for eb in make_batches(*args, **kwargs):
+            seen.append(eb)
+            yield eb
+
+    def kept(*args, **kwargs):
+        taggers.append(serving_tagger(*args, **kwargs))
+        return taggers[-1]
+
+    serve_mod.make_batches, cli.serving_tagger = recorded, kept
+    try:
+        reset_counts(bm25)
+        (_, out), serve_s = timed(lambda: run_cli(cli, [
+            "serve", "--config", str(hf_cfg), "--index_dir", str(kb_dir),
+            *device], stdin))
+        served = counts(bm25)
+        expect_counts("phase 4q cli serve", served,
+                      {"bm25_score_block": None})
+        cli_batches = list(seen)
+        config = ServeConfig.from_file(hf_cfg)
+        tag_dict = Dictionary.load(Path(model_dir) / "tag_dictionary.json")
+        want = serve_mod.serve(batch, engine, taggers[0],
+                               config.make_tokenizer(), tag_dict, k=K,
+                               batch_size=BATCH)
+    finally:
+        serve_mod.make_batches = make_batches
+        cli.serving_tagger = serving_tagger
+    got = [json.loads(line) for line in out.splitlines()]
+    if len(got) != len(batch) or got != json.loads(json.dumps(want)):
+        raise AssertionError("phase 4q: cli serve with the HF tokenizer "
+                             "answers differ from serve() on the in-memory "
+                             "engine")
+    fresh = HFTokenizer(str(tok_dir))
+    n_rows = n_ids = 0
+    for eb in cli_batches:
+        for b, rec in enumerate(eb.records):
+            ids = eb.input_ids[b][eb.attention_mask[b] > 0].tolist()
+            if ids != encoded_pieces(fresh, rec):
+                raise AssertionError(f"phase 4q: row {b} of a served batch "
+                                     "is not the HF tokenizer's pieces")
+            n_rows, n_ids = n_rows + 1, n_ids + len(ids)
+    del taggers
+    torch.cuda.empty_cache()
+    log(f"phase 4q (b): cli serve --index_dir (the saved 1M KB, the trained "
+        f"checkpoint in bf16) with tokenizer: {{type: hf}}: {len(got)} "
+        f"requests in {serve_s:.1f} s with the KB open and the checkpoint "
+        f"load, launches {served}; responses equal serve() on the "
+        f"in-memory engine with config.make_tokenizer(); the encoder got "
+        f"{n_rows} rows, {n_ids} ids, each row CLS, the HF pieces of its "
+        f"fused words, SEP ({card})")
+
+    # -- (c) cli retrieve --hf_tokenizer -------------------------------------
+    data = tmp / "conll-hf"
+    write_column_file(data / "dev.txt", dev_recs)
+    parts = []
+    engine_class = cli.RetrievalEngine
+
+    def shared_pruned(*args, mode="exhaustive", **kwargs):
+        if mode == "pruned":
+            return pruned
+        return engine_class(*args, mode=mode, **kwargs)
+
+    cli.RetrievalEngine = shared_pruned
+    try:
+        for i, (label, extra) in enumerate(RETRIEVE_RUNS[:2]):
+            parts.append(hf_retrieve_run(cli, bm25, tmp, i, label, extra,
+                                         kb_dir, tok_dir, data, dev_recs,
+                                         fresh, device))
+    finally:
+        cli.RetrievalEngine = engine_class
+    log(f"phase 4q (c): cli retrieve --index_dir --hf_tokenizer over 4h's en "
+        f"dev split: " + "; ".join(parts) + f"; every fused sentence within "
+        f"510 subtokens by the HF tokenizer's count ({card})")
+    log(f"phase 4q in {time.perf_counter() - t_phase:.1f} s")
+
+
+def hf_retrieve_run(cli, bm25, tmp, i, label, extra, kb_dir, tok_dir, data,
+                    dev_recs, tokenizer, device) -> str:
+    """One ``cli retrieve --hf_tokenizer`` run of phase 4q (c), checked;
+    its summary."""
+    from kbner_tpu_torch.data.conll import read_column_file
+    from kbner_tpu_torch.data.subword import subtoken_length
+
+    out_dir = tmp / f"fused-hf-{i}"
+    reset_counts(bm25)
+    _, wall = timed(lambda: run_cli(cli, [
+        "retrieve", "--index_dir", str(kb_dir), "--hf_tokenizer",
+        str(tok_dir), "--data_folder", str(data), "--out", str(out_dir),
+        *device, *extra]))
+    got = counts(bm25)
+    expect_counts(f"phase 4q cli retrieve --hf_tokenizer ({label})", got,
+                  {"delta16_rescore": None} if extra
+                  else {"bm25_score_block": None})
+    fused = read_column_file(out_dir / "dev.txt", {0: "text", 1: "ner"},
+                             comment_symbol="# id")
+    longest = max(subtoken_length(tokenizer, [
+        w for w in r.tokens if w != "<EOS>"]) + ("<EOS>" in r.tokens)
+        for r in fused)
+    n_ctx = sum("<EOS>" in r.tokens for r in fused)
+    if len(fused) != len(dev_recs) or longest > 510 or n_ctx == 0:
+        raise AssertionError(
+            f"phase 4q cli retrieve --hf_tokenizer ({label}): {len(fused)} "
+            f"fused sentences, {n_ctx} with context, longest {longest} "
+            "subtokens")
+    # 4h's run in the same setting measured the budget with the hash proxy
+    # (fused-0 exhaustive, fused-1 pruned)
+    proxy = read_column_file(tmp / f"fused-{i}" / "dev.txt",
+                             {0: "text", 1: "ner"}, comment_symbol="# id")
+    differ = sum(a.tokens != b.tokens for a, b in zip(fused, proxy))
+    return (f"{label} {wall:.1f} s, launches {got}, longest {longest} "
+            f"subtokens, {n_ctx} with context, {differ} of {len(fused)} "
+            f"fused otherwise than with the hash proxy "
+            f"({sum(len(r.tokens) for r in fused)} words fused against "
+            f"{sum(len(r.tokens) for r in proxy)})")
 
 
 # phase 4i: MIX retrieval over three saved language KBs, and staged
@@ -2804,7 +3009,9 @@ ACE_STACK = [{"type": "transformer", "fine_tune": False},
              {"type": "flair", "embed_dim": 32, "hidden": 512}]
 ACE_EPISODES = 1        # the published search runs 30
 ACE_EPOCHS = 1          # the published training runs 150
-N_FEATURE_CHECK = 2     # sentences of the float32 card-vs-CPU stack check
+# sentences of the card-vs-CPU stack (4j) and ELMo (4n) checks: one (two
+# until phase 4q came) to leave room in the smoke's time limit
+N_FEATURE_CHECK = 1
 # float32 on both sides, sums in another order: the XLM-R layers and
 # 1024-step LSTMs. The largest error read on an H100 (700 W) was 1.07e-05,
 # XLM-R large's features at 24 layers; the LSTM members' 1.8e-07 and below
@@ -3058,7 +3265,7 @@ def ace_stage_phase(cli, bm25, dev, card, tmp, encoder="large",
                                atol=FEATURE_ATOL)
     log(f"the stack's features on the card against the CPU (float32 on "
         f"both, the ACE run's best-model.msgpack, every member selected, "
-        f"{n_check} train sentences, "
+        f"{n_check} train sentence(s), "
         f"{tuple(feats[0].shape)}): max abs err per member "
         + ", ".join(f"{e:.3g}" for e in errs)
         + f" (rtol {FEATURE_RTOL}, atol {FEATURE_ATOL}) ({card})")
@@ -4656,8 +4863,9 @@ def elmo_stage_phase(cli, bm25, dev, card, tmp, encoder="large", elmo=None,
                              - feats[key[0], "cpu", torch.float64, True])
 
     log(f"the ELMo member on the card against the CPU ({N_FEATURE_CHECK} "
-        f"train sentences, {tuple(seed32['cpu'].shape)}): the seeded weights"
-        f" (load_npz), float32, card against CPU max abs err {elmo_err:.3g} "
+        f"train sentence(s), {tuple(seed32['cpu'].shape)}): the seeded "
+        f"weights (load_npz), float32, card against CPU max abs err "
+        f"{elmo_err:.3g} "
         f"(rtol {FEATURE_RTOL}, atol {FEATURE_ATOL}); the run's trained "
         f"weights (best-model.msgpack), float64, card against CPU "
         f"{f64_err:.3g} (atol {ELMO_F64_REL} x the largest |feature|, "
@@ -6231,9 +6439,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         # -- 4h. the offline KB stage, with 4g's trained model -------------
         t_phase = time.perf_counter()
-        kb_stage_phase(engine, docs, title_docs, encoded, exact, requests,
-                       bm25, dev, card, tmp, f"{tmp}/b")
+        pruned_1m, store_1m = kb_stage_phase(
+            engine, docs, title_docs, encoded, exact, requests, bm25, dev,
+            card, tmp, f"{tmp}/b")
         log(f"phase 4h in {time.perf_counter() - t_phase:.1f} s")
+        # -- 4q. the HF tokenizer over 4h's saved KB and 4g's checkpoint ---
+        torch.cuda.empty_cache()
+        hf_tokenizer_phase(cli, bm25, dev, card, Path(tmp), engine, requests,
+                           f"{tmp}/b", pruned_1m)
+        del pruned_1m
+        store_1m.close()
         # -- 4i. MIX retrieval over three language KBs, staged training ----
         torch.cuda.empty_cache()
         t_phase = time.perf_counter()

@@ -80,7 +80,7 @@ from . import checkpoint, weights
 from .config import ExperimentConfig, ServeConfig
 from .data.conll import ListCorpus, read_column_file, write_column_file
 from .data.dictionary import Dictionary
-from .data.subword import HashTokenizer
+from .data.subword import HashTokenizer, HFTokenizer
 from .models.tagger import SequenceTagger, TaggerConfig
 from .models.xlmr import load_hf_checkpoint
 from .retrieval.engine import RetrievalEngine
@@ -846,22 +846,21 @@ def cmd_retrieve(args) -> Dict[str, Dict[str, float]]:
     from .retrieval.rerank import rerank_by_edit_distance
 
     _setup_logging(None)
-    if args.hf_tokenizer:
-        raise NotImplementedError(
-            "--hf_tokenizer: HF tokenizers wait until the repository holds "
-            "tokenizer files (ROADMAP A6); use --tokenizer_config")
     if args.rerank == "bertscore" and not args.model_config:
         raise SystemExit("--rerank bertscore needs --model_config (the "
                          "encoder supplying the token embeddings)")
     run_search = (_mix_search_fn(args) if args.route == "mix"
                   else _single_search_fn(args))
-    # the fusion budget is measured with the training tokenizer
+    # the fusion budget is measured with the training tokenizer: the
+    # experiment config's, an HF tokenizer directory, else a hash proxy
     if args.tokenizer_config:
         tokenizer = ServeConfig.from_file(
             args.tokenizer_config).make_tokenizer()
+    elif args.hf_tokenizer:
+        tokenizer = HFTokenizer(args.hf_tokenizer)
     else:
-        log.warning("no --tokenizer_config: the fusion budget uses a "
-                    "250002-entry hash tokenizer")
+        log.warning("no --tokenizer_config/--hf_tokenizer: the fusion "
+                    "budget uses a 250002-entry hash tokenizer")
         tokenizer = HashTokenizer(vocab_size=250002)
     # a trained model predicts the entity seeds of dev and test (train
     # keeps its gold entities) and embeds for BERTScore
@@ -981,12 +980,13 @@ def cmd_parity(args) -> Optional[dict]:
     the multilingual folder and exports its encoder, stage 2 fine-tunes
     on the EN folder from that export, then the EN test predictions go
     through conlleval's span F1. With ``--weights`` the encoder starts
-    from that HF checkpoint directory, always with the hash tokenizer: a
-    rehearsal whose F1 does not compare with the reference's (the port
-    has no HF tokenizer, so a directory that holds tokenizer files needs
-    ``--hash_tokenizer``, and raises without it); without it, from a random ``--encoder``
-    of a named size. Skips with a message and a JSON line when the
-    weights or a data folder are missing. Writes and prints
+    from that HF checkpoint directory, with its own tokenizer where the
+    directory holds tokenizer files (``tokenizer.json``; one with only
+    ``sentencepiece.bpe.model`` raises) and ``--hash_tokenizer`` is not
+    given, else with the hash tokenizer (a rehearsal whose F1 does not
+    compare with the reference's); without it, from a random
+    ``--encoder`` of a named size. Skips with a message and a JSON line
+    when the weights or a data folder are missing. Writes and prints
     ``parity.json``; returns the summary (None when skipped)."""
     from .eval.conlleval import conll_evaluate
 
@@ -1011,14 +1011,14 @@ def cmd_parity(args) -> Optional[dict]:
         has_tok = any((weights_dir / f).exists() for f in (
             "sentencepiece.bpe.model", "tokenizer.json"))
         if has_tok and not args.hash_tokenizer:
-            # the checkpoint's own tokenizer needs HFTokenizer, which the
-            # port does not have: refuse before any stage runs
-            raise NotImplementedError(
-                f"{weights_dir} holds tokenizer files, but the port has no "
-                "HF tokenizer; pass --hash_tokenizer to rehearse with the "
-                "hash tokenizer (F1 not reference-comparable)")
-        log.warning("[parity] hash tokenizer with checkpoint weights: "
-                    "rehearsal mode, F1 not reference-comparable")
+            # the checkpoint's own tokenizer (a directory with only
+            # sentencepiece.bpe.model raises when the stages build it)
+            tok_cfg = {"type": "hf", "dir": str(weights_dir)}
+        else:
+            # hash ids index the checkpoint's larger embedding safely; F1
+            # numbers are then not reference-comparable
+            log.warning("[parity] hash tokenizer with checkpoint weights: "
+                        "rehearsal mode, F1 not reference-comparable")
 
     data = Path(args.data)
     stage1_dir = data / args.stage1_folder
@@ -1298,9 +1298,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="encoder when --weights is absent: tiny/base/large")
     sp.add_argument("--hash_vocab", type=int, default=4096)
     sp.add_argument("--hash_tokenizer", action="store_true",
-                    help="the hash tokenizer even where --weights holds "
-                         "tokenizer files (a rehearsal: F1 not comparable); "
-                         "without it such a directory raises")
+                    help="force the hash tokenizer even with --weights "
+                         "(550M rehearsal mode; F1 not comparable)")
     sp.add_argument("--epochs_stage1", type=int, default=3)
     sp.add_argument("--epochs_stage2", type=int, default=10)
     sp.add_argument("--batch_size", type=int, default=8)
@@ -1378,7 +1377,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "store at this path")
     sp.add_argument("--kb_fail_file", default=None,
                     help="append unparseable KB lines here and go on")
-    sp.add_argument("--hf_tokenizer", help="not ported (ROADMAP A6)")
+    sp.add_argument("--hf_tokenizer", default=None,
+                    help="local HF tokenizer dir (overrides the hash "
+                         "proxy for the 510-subtoken fusion budget)")
     sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     sp.set_defaults(fn=cmd_retrieve)
     return parser

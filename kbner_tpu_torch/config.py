@@ -28,7 +28,7 @@ import torch
 from .data.conll import (Corpus, ListCorpus, load_column_corpus,
                          load_conllu_corpus, read_fasttext_file)
 from .data.doc_context import make_doc_context_records
-from .data.subword import HashTokenizer
+from .data.subword import HashTokenizer, HFTokenizer, SubwordTokenizer
 from .models.xlmr import XLMRConfig
 from .train.trainer import TrainConfig
 
@@ -62,26 +62,28 @@ class ServeConfig:
         fields = {f.name for f in dataclasses.fields(ServeConfig)}
         return ServeConfig(**{k: v for k, v in raw.items() if k in fields})
 
-    def make_tokenizer(self) -> HashTokenizer:
+    def make_tokenizer(self) -> SubwordTokenizer:
+        """``tokenizer: {type: hash, vocab_size: N}`` or ``{type: hf, dir:
+        DIR}`` (a saved HF tokenizer directory; a missing ``dir`` is a
+        ``KeyError``)."""
         t = dict(self.tokenizer)
         kind = t.pop("type", "hash")
         if kind == "hash":
             return HashTokenizer(**t)
         if kind == "hf":
-            raise NotImplementedError(
-                "HF tokenizers wait until the repository holds tokenizer "
-                "files; use tokenizer: {type: hash, vocab_size: 250002}")
+            return HFTokenizer(t["dir"])
         raise ValueError(f"unknown tokenizer type {kind!r}")
 
-    def make_encoder_config(self, tokenizer: HashTokenizer,
+    def make_encoder_config(self, tokenizer: SubwordTokenizer,
                             **overrides) -> XLMRConfig:
         """``model.encoder``: a named size (tiny, base, large), its
-        vocabulary cut to the hash tokenizer's (``vocab_size: 250002``
-        keeps XLM-R's full table), or an HF checkpoint directory, read
-        from its ``config.json`` with its own vocabulary (hash ids are
-        smaller, so they index it safely); with ``model.remat``/
-        ``model.remat_policy`` and ``overrides`` (for example
-        ``param_dtype=torch.float32`` for training)."""
+        vocabulary cut to a hash tokenizer's (``vocab_size: 250002``
+        keeps XLM-R's full table; an HF tokenizer keeps the size's own),
+        or an HF checkpoint directory, read from its ``config.json`` with
+        its own vocabulary (hash ids are smaller, so they index it
+        safely); with ``model.remat``/``model.remat_policy`` and
+        ``overrides`` (for example ``param_dtype=torch.float32`` for
+        training)."""
         enc = self.model.get("encoder", self.model.get("size", "base"))
         sizes = {"tiny": XLMRConfig.tiny, "base": XLMRConfig.base,
                  "large": XLMRConfig.large}
@@ -92,7 +94,9 @@ class ServeConfig:
             kw["remat_policy"] = str(self.model["remat_policy"])
         kw.update(overrides)
         if enc in sizes:
-            return sizes[enc](**{"vocab_size": tokenizer.vocab_size, **kw})
+            if self.tokenizer.get("type", "hash") == "hash":
+                kw = {"vocab_size": tokenizer.vocab_size, **kw}
+            return sizes[enc](**kw)
         return XLMRConfig.from_hf_config(Path(enc) / "config.json", **kw)
 
     def resolve_target_dir(self) -> Path:
@@ -269,7 +273,7 @@ class ExperimentConfig(ServeConfig):
                 f"known: {sorted(known)}")
         return cls_(**self.train)
 
-    def make_train_encoder_config(self, tokenizer: HashTokenizer
+    def make_train_encoder_config(self, tokenizer: SubwordTokenizer
                                   ) -> XLMRConfig:
         """The encoder config to train: float32 master parameters."""
         return self.make_encoder_config(tokenizer,

@@ -10,7 +10,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from .conll import ListCorpus, SentenceRecord
-from .subword import HashTokenizer, subtoken_length
+from .subword import SubwordTokenizer, subtoken_length
 
 
 def resample_language_sizes(
@@ -62,7 +62,7 @@ def down_sample(corpus: ListCorpus, amount: int, seed: int = 0) -> None:
 
 
 def clip_sentences(
-    corpus: ListCorpus, tokenizer: HashTokenizer, max_subtokens: int = 510
+    corpus: ListCorpus, tokenizer: SubwordTokenizer, max_subtokens: int = 510
 ) -> int:
     """Drop train sentences over the subtoken budget in place; returns the
     number removed."""

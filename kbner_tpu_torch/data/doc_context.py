@@ -14,14 +14,14 @@ from collections import defaultdict
 from typing import Dict, List, Sequence, Tuple
 
 from .conll import SentenceRecord
-from .subword import HashTokenizer, subtoken_length
+from .subword import SubwordTokenizer, subtoken_length
 
 X_TAG = "S-X"
 
 
 def make_doc_context_records(
     records: Sequence[SentenceRecord],
-    tokenizer: HashTokenizer,
+    tokenizer: SubwordTokenizer,
     budget: int = 510,
     tag_layer: str = "ner",
 ) -> Tuple[List[SentenceRecord], List[int]]:

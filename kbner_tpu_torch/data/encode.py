@@ -25,7 +25,7 @@ import numpy as np
 
 from .conll import EOS_MARKER, SentenceRecord
 from .dictionary import Dictionary
-from .subword import HashTokenizer, subtoken_length
+from .subword import SubwordTokenizer, subtoken_length
 
 
 @dataclasses.dataclass
@@ -60,7 +60,7 @@ def round_up(x: int, multiple: int) -> int:
 
 def encode_batch(
     records: Sequence[SentenceRecord],
-    tokenizer: HashTokenizer,
+    tokenizer: SubwordTokenizer,
     tag_dict: Optional[Dictionary] = None,
     tag_layer: str = "ner",
     max_subtokens: int = 512,
@@ -194,7 +194,7 @@ def _budget_chunks(order, lengths, batch_size: int, token_budget: int):
 
 def make_batches(
     records: Sequence[SentenceRecord],
-    tokenizer: HashTokenizer,
+    tokenizer: SubwordTokenizer,
     tag_dict: Optional[Dictionary],
     batch_size: int,
     shuffle: bool = False,

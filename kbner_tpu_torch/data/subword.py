@@ -2,15 +2,17 @@
 
 Tokenizers meet the :class:`SubwordTokenizer` protocol: per-word subtoken
 ids, which ``encode.py`` flattens into padded arrays with first-subtoken
-alignment. Only the deterministic ``HashTokenizer`` is carried: the
-repository holds no HF tokenizer files, so ``HFTokenizer`` waits until
-one does.
+alignment. ``HFTokenizer`` reads a saved HF tokenizer directory's
+``tokenizer.json`` with the port's own reader (:mod:`.hf_tokenizer`);
+``HashTokenizer`` is the deterministic tokenizer that needs no file.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import List, Protocol, Sequence
+from typing import Dict, List, Optional, Protocol, Sequence
+
+from .hf_tokenizer import load_pretrained
 
 
 class SubwordTokenizer(Protocol):
@@ -21,6 +23,10 @@ class SubwordTokenizer(Protocol):
 
     def encode_word(self, word: str) -> List[int]:
         """Subtoken ids for one word (no specials)."""
+        ...
+
+    def word_length(self, word: str) -> int:
+        """``len(encode_word(word))``."""
         ...
 
 
@@ -54,6 +60,43 @@ class HashTokenizer:
         return max(1, min(-(-len(word) // 4), self.max_pieces))
 
 
-def subtoken_length(tokenizer: HashTokenizer, words: Sequence[str]) -> int:
+class HFTokenizer:
+    """A locally saved HF tokenizer directory (``tokenizer.json`` and the
+    files beside it), read as ``transformers``' ``AutoTokenizer`` reads it:
+    ``cls_id``/``sep_id``/``pad_id`` from the named special tokens (XLM-R's
+    defaults where the class is XLM-R's and nothing names them),
+    ``vocab_size`` the model's vocabulary united with the added tokens. A
+    directory without ``tokenizer.json`` raises."""
+
+    def __init__(self, tokenizer_dir: str):
+        self._tok, specials = load_pretrained(tokenizer_dir)
+        ids = {k: self._id(v) for k, v in specials.items()}
+        self.unk_id = ids["unk_token"]
+        self.cls_id = ids["cls_token"]
+        self.sep_id = ids["sep_token"]
+        self.pad_id = ids["pad_token"]
+        self.vocab_size = len(self._tok)
+        self._cache: Dict[str, List[int]] = {}
+
+    def _id(self, token: Optional[str]) -> Optional[int]:
+        if token is None:
+            return None
+        return self._tok.token_to_id(token)
+
+    def encode_word(self, word: str) -> List[int]:
+        """The ids of ``" " + word`` (a leading space marks the word
+        boundary), or ``[unk_id]`` when there are none; cached per word."""
+        ids = self._cache.get(word)
+        if ids is None:
+            ids = self._tok.encode(" " + word) or [self.unk_id]
+            self._cache[word] = ids
+        return ids
+
+    def word_length(self, word: str) -> int:
+        return len(self.encode_word(word))
+
+
+def subtoken_length(tokenizer: SubwordTokenizer, words: Sequence[str]
+                    ) -> int:
     """Total subtokens for a word sequence."""
     return sum(map(tokenizer.word_length, words))

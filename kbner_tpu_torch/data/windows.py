@@ -12,12 +12,12 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 from .conll import SentenceRecord
-from .subword import HashTokenizer
+from .subword import SubwordTokenizer
 
 
 def split_long_record(
     rec: SentenceRecord,
-    tokenizer: HashTokenizer,
+    tokenizer: SubwordTokenizer,
     max_subtokens: int = 510,
     stride_words: int = 16,
 ) -> List[Tuple[SentenceRecord, int]]:

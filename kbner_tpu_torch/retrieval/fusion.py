@@ -19,7 +19,7 @@ import re
 from typing import List, Literal, Sequence
 
 from ..data.conll import EOS_MARKER, SentenceRecord
-from ..data.subword import HashTokenizer, subtoken_length
+from ..data.subword import SubwordTokenizer, subtoken_length
 from .engine import RetrievedDoc
 
 ContextMode = Literal["paragraph", "sentence_link", "sentence"]
@@ -82,7 +82,7 @@ def context_tokens(doc: RetrievedDoc, mode: ContextMode) -> List[str]:
 def fuse_contexts(
     records: Sequence[SentenceRecord],
     results: Sequence[Sequence[RetrievedDoc]],
-    tokenizer: HashTokenizer,
+    tokenizer: SubwordTokenizer,
     mode: ContextMode = "sentence_link",
     budget: int = 510,
     max_contexts: int = 10,

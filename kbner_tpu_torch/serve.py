@@ -21,7 +21,7 @@ import torch
 from .data.conll import X_LABEL, SentenceRecord
 from .data.dictionary import Dictionary
 from .data.encode import EncodedBatch, make_batches
-from .data.subword import HashTokenizer
+from .data.subword import SubwordTokenizer
 from .data.tag_schemes import get_spans
 from .models.tagger import SequenceTagger
 from .retrieval.engine import RetrievalEngine
@@ -33,7 +33,7 @@ _X_TAG = "S-" + X_LABEL
 def predict(
     records: Sequence[SentenceRecord],
     tagger: SequenceTagger,
-    tokenizer: HashTokenizer,
+    tokenizer: SubwordTokenizer,
     tag_dict: Dictionary,
     batch_size: int = 32,
     tag_layer: str = "ner",
@@ -81,7 +81,7 @@ def serve(
     requests: Sequence[Dict[str, Any]],
     engine: Optional[RetrievalEngine],
     tagger: SequenceTagger,
-    tokenizer: HashTokenizer,
+    tokenizer: SubwordTokenizer,
     tag_dict: Dictionary,
     k: int = 10,
     mode: str = "sentence_link",

@@ -59,7 +59,7 @@ from ..data.conll import X_LABEL, Corpus, ListCorpus, SentenceRecord
 from ..data.dictionary import Dictionary
 from ..data.encode import (EncodedBatch, add_classic_features, encode_batch,
                            make_batches)
-from ..data.subword import HashTokenizer
+from ..data.subword import SubwordTokenizer
 from ..data.windows import predict_long, split_long_record
 from ..device import resolve_device
 from ..eval.metrics import Metric, evaluate_spans
@@ -126,7 +126,7 @@ class FinetuneTrainer:
         self,
         model: SequenceTagger,
         corpus: ListCorpus | Corpus,
-        tokenizer: HashTokenizer,
+        tokenizer: SubwordTokenizer,
         tag_dict: Dictionary,
         mesh=None,
         tag_layer: str = "ner",

@@ -96,10 +96,12 @@ def test_no_source_line_imports_jax_or_kbner_tpu():
 
 
 def test_no_module_imports_the_hf_libraries():
-    """The card machine has no ``safetensors``, ``transformers`` or
-    ``tokenizers``: no module of the port imports them, at import time or
-    in any source line (the checkpoint reader is the port's own)."""
-    names = ("safetensors", "transformers", "tokenizers")
+    """The card machine has no ``safetensors``, ``transformers``,
+    ``tokenizers``, ``sentencepiece`` or ``regex``: no module of the port
+    imports them, at import time or in any source line (the checkpoint
+    reader and the ``tokenizer.json`` reader are the port's own)."""
+    names = ("safetensors", "transformers", "tokenizers", "sentencepiece",
+             "regex")
     pattern = re.compile(rf"^\s*(from|import) ({'|'.join(names)})(\.|\s|$)")
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     hits = [f"{f}:{i}" for f in files

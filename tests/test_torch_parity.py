@@ -94,18 +94,66 @@ def test_parity_skips_without_weights(parity_data, tmp_path, capsys):
 
 def test_parity_refuses_tokenizer_files_without_hash_tokenizer(
         parity_data, tmp_path):
-    """A checkpoint directory that ships its tokenizer (as a real
-    xlm-roberta-large export does) raises before any stage runs, naming
-    ``--hash_tokenizer``: the port has no HF tokenizer."""
+    """A checkpoint directory whose only tokenizer file is
+    ``sentencepiece.bpe.model`` raises before any stage runs, naming
+    ``tokenizer.json``: the port reads that file only."""
     ckpt = tmp_path / "ckpt"
     ckpt.mkdir()
     (ckpt / "config.json").write_text("{}")
-    (ckpt / "tokenizer.json").write_text("{}")
+    (ckpt / "sentencepiece.bpe.model").write_bytes(b"\0" * 16)
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="--hash_tokenizer"):
+    with pytest.raises(FileNotFoundError, match="tokenizer.json"):
         main(_stage_args(parity_data, out, "--weights", str(ckpt),
                          "--device", "cpu"))
     assert not (out / "stage1").exists()
+
+
+def _tiny_checkpoint(path, vocab_size=251):
+    """A tiny XLM-R checkpoint written by transformers."""
+    transformers = pytest.importorskip("transformers")
+    cfg = transformers.XLMRobertaConfig(
+        vocab_size=vocab_size, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=64,
+        max_position_embeddings=64, type_vocab_size=1, pad_token_id=1,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    torch.manual_seed(0)
+    hf = transformers.XLMRobertaModel(cfg, add_pooling_layer=False)
+    hf.save_pretrained(path)
+    return hf
+
+
+def test_parity_with_the_checkpoint_tokenizer_matches_jax(
+        parity_data, tmp_path, monkeypatch):
+    """``--weights DIR`` with ``tokenizer.json`` in DIR runs both stages
+    with the checkpoint's own tokenizer in both packages: the summaries
+    have the same keys, and the port's tokenizer was the HF one, which
+    encoded the corpus (the numbers differ: each package draws its head
+    from its own random generator)."""
+    from kbner_tpu_torch.data import subword
+    from kbner_tpu_torch.data.synth_tokenizer import \
+        write_xlmr_like_tokenizer
+
+    ckpt = tmp_path / "ckpt"
+    _tiny_checkpoint(ckpt)
+    write_xlmr_like_tokenizer(ckpt, n_pieces=246, seed=0)   # 251 ids
+    words = []
+    encode = subword.HFTokenizer.encode_word
+    monkeypatch.setattr(subword.HFTokenizer, "encode_word",
+                        lambda self, w: words.append(w) or encode(self, w))
+    args = ["--weights", str(ckpt), "--epochs_stage1", "1",
+            "--epochs_stage2", "1", "--lr", "0.0", "--lr_rate", "0.0",
+            "--batch_size", "8"]
+    summary = main(_stage_args(parity_data, tmp_path / "out", *args,
+                               "--device", "cpu"))
+    j_main(_stage_args(parity_data, tmp_path / "j_out", *args))
+    j_summary = json.loads((tmp_path / "j_out" / "parity.json").read_text())
+    assert summary["parity"] == j_summary["parity"] == "ran"
+    assert _keys(summary) == _keys(j_summary)
+    assert "Berlin" in words
+    exported = checkpoint.load(
+        tmp_path / "out" / "stage1" / "finetuned-encoder.msgpack")
+    assert np.asarray(exported["word_embeddings"]["embedding"]).shape == (
+        251, 32)
 
 
 def test_parity_weights_actually_loaded(parity_data, tmp_path):
@@ -113,16 +161,8 @@ def test_parity_weights_actually_loaded(parity_data, tmp_path):
     the exported stage-1 encoder equals the checkpoint's weights bit for
     bit. ``--hash_tokenizer`` is the rehearsal mode (no sentencepiece
     files needed)."""
-    transformers = pytest.importorskip("transformers")
-    cfg = transformers.XLMRobertaConfig(
-        vocab_size=251, hidden_size=32, num_hidden_layers=2,
-        num_attention_heads=4, intermediate_size=64,
-        max_position_embeddings=64, type_vocab_size=1, pad_token_id=1,
-        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
-    torch.manual_seed(0)
-    hf = transformers.XLMRobertaModel(cfg, add_pooling_layer=False)
     ckpt = tmp_path / "ckpt"
-    hf.save_pretrained(ckpt)
+    hf = _tiny_checkpoint(ckpt)
 
     out = tmp_path / "out"
     summary = main(_stage_args(

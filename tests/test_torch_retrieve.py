@@ -316,13 +316,53 @@ def test_cli_retrieve_from_a_saved_kb_and_store(kb_path, tmp_path):
 
 
 def test_cli_retrieve_refuses_unported_options(kb_path, tmp_path):
+    """What cli retrieve refuses: BERTScore reranking without the model
+    that embeds (``--hf_tokenizer`` runs: the test below)."""
     common = ["retrieve", "--kb", str(kb_path), "--data_folder",
               str(FIX / "ner_toy"), "--out", str(tmp_path), "--device",
               "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        cli.main(common + ["--hf_tokenizer", "tok_dir"])
     with pytest.raises(SystemExit):
         cli.main(common + ["--rerank", "bertscore"])
+    with pytest.raises(FileNotFoundError, match="tokenizer.json"):
+        cli.main(common + ["--hf_tokenizer", str(tmp_path)])
+
+
+@pytest.mark.parametrize("route", ["hf_tokenizer", "tokenizer_config"])
+def test_cli_retrieve_hf_tokenizer_matches_jax(kb_path, tmp_path, route):
+    """``--hf_tokenizer DIR`` and ``--tokenizer_config`` with ``tokenizer:
+    {type: hf, dir: DIR}`` measure the fusion budget with the HF
+    tokenizer, as the JAX CLI does (tests/test_serve_decoupled.py): the
+    same files. A 300-piece XLM-R-shaped tokenizer splits words into many
+    pieces, so the budget binds and the fused files differ from the hash
+    proxy's."""
+    from kbner_tpu_torch.data.synth_tokenizer import \
+        write_xlmr_like_tokenizer
+
+    tok = write_xlmr_like_tokenizer(tmp_path / "tok", n_pieces=300, seed=0)
+    if route == "hf_tokenizer":
+        flag = ["--hf_tokenizer", str(tok)]
+    else:
+        cfg = tmp_path / "tok.yaml"
+        cfg.write_text(yaml.safe_dump({
+            "name": "tok", "corpora": [],
+            "tokenizer": {"type": "hf", "dir": str(tok)}}))
+        flag = ["--tokenizer_config", str(cfg)]
+    common = ["--kb", str(kb_path), "--data_folder", str(FIX / "ner_toy"),
+              "--k", "10"]
+    cli.main(["retrieve", *common, *flag, "--out", str(tmp_path / "port"),
+              "--device", "cpu"])
+    jcli.main(["retrieve", *common, *flag, "--out", str(tmp_path / "jax")])
+    cli.main(["retrieve", *common, "--out", str(tmp_path / "hash"),
+              "--device", "cpu"])
+    differs = 0
+    for split in ("train", "dev", "test"):
+        assert_same_retrieval_files(
+            tmp_path / "port" / f"{split}.retrieval.tsv",
+            tmp_path / "jax" / f"{split}.retrieval.tsv")
+        fused = (tmp_path / "port" / f"{split}.txt").read_bytes()
+        assert fused == (tmp_path / "jax" / f"{split}.txt").read_bytes()
+        differs += fused != (tmp_path / "hash" / f"{split}.txt").read_bytes()
+    assert differs
 
 
 # -- a trained model in cli retrieve ------------------------------------------

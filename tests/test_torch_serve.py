@@ -236,15 +236,16 @@ def test_cli_serve_writes_serve_responses(both, kb_path, tmp_path, capsys,
 @pytest.mark.parametrize("argv,err", [
     # a sharded engine is not a mode of the port (ROADMAP A6, multi-GPU)
     (["--engine_mode", "sharded"], ValueError),
-    # HF tokenizers wait for tokenizer files (ROADMAP A6)
-    (["--config", "hf.yaml"], NotImplementedError),
+    # an HF tokenizer without its dir, a KeyError as in kbner_tpu
+    (["--config", "hf.yaml"], KeyError),
     # a zh KB saved with an IK dictionary that has gone missing
     (["--index_dir", "kb_dir"], FileNotFoundError),
 ])
 def test_cli_serve_refuses_later_slices(both, kb_path, tmp_path, monkeypatch,
                                         argv, err):
     """What cli serve still refuses. (zh KBs, --store and --index_dir are
-    served: tests/test_torch_zh.py, test_torch_retrieve.py.)"""
+    served: tests/test_torch_zh.py, test_torch_retrieve.py; HF tokenizers
+    with their dir: the test below.)"""
     _, _, tags, _, _, _ = both
     target = tmp_path / "run"
     tags.save(target / "tag_dictionary.json")
@@ -262,6 +263,49 @@ def test_cli_serve_refuses_later_slices(both, kb_path, tmp_path, monkeypatch,
     with pytest.raises(err):
         cli.main(["serve", "--config", str(cfg), "--kb", str(kb_path),
                   "--device", "cpu", *argv])
+
+
+def test_cli_serve_hf_tokenizer_matches_jax_cli(both, tmp_path, capsys,
+                                                monkeypatch):
+    """``tokenizer: {type: hf, dir: DIR}``: both CLIs serve the same
+    answers from one checkpoint (the JAX CLI's tiny tagger, its weights
+    moved off their draw) over a 1,000-id XLM-R-shaped tokenizer, whose
+    ids index the tiny encoder's own 1,000-row table as they stand."""
+    from kbner_tpu import cli as j_cli
+    from kbner_tpu.config import ExperimentConfig as JExperimentConfig
+    from kbner_tpu_torch.data.synth_tokenizer import \
+        write_xlmr_like_tokenizer
+
+    _, _, tags, _, _, _ = both
+    tok = write_xlmr_like_tokenizer(tmp_path / "tok", n_pieces=995, seed=0)
+    target = tmp_path / "run"
+    tags.save(target / "tag_dictionary.json")
+    raw = yaml.safe_load(_write_config(tmp_path, target).read_text())
+    raw.update(tokenizer={"type": "hf", "dir": str(tok)}, corpora=[])
+    cfg = tmp_path / "hf.yaml"
+    cfg.write_text(yaml.safe_dump(raw))
+    _, _, _, trainer = j_cli._build_for_inference(
+        JExperimentConfig.from_file(cfg))
+    rng = np.random.RandomState(5)
+    trainer.params = jax.tree_util.tree_map(
+        lambda x: jnp.asarray(np.asarray(x) + 0.1 * rng.standard_normal(
+            x.shape).astype(np.float32)), trainer.params)
+    trainer.save(target / "best-model.msgpack")
+    # without a KB: the tiny encoder has 128 positions, fewer than a
+    # fused sentence takes in pieces this small (cli retrieve's fusion
+    # through the HF tokenizer is held to the JAX CLI's in
+    # tests/test_torch_retrieve.py)
+    reqs = _requests()[:-1]
+    stdin = "\n".join(json.dumps(r) for r in reqs) + "\n"
+    outs = []
+    for main, extra in ((cli.main, ["--device", "cpu"]), (j_cli.main, [])):
+        monkeypatch.setattr("sys.stdin", io.StringIO(stdin))
+        main(["serve", "--config", str(cfg), "--batch_size", "4", *extra])
+        outs.append([json.loads(line) for line in
+                     capsys.readouterr().out.strip().splitlines()])
+    assert len(outs[0]) == len(reqs)
+    assert outs[0] == outs[1]
+    assert any(s for r in outs[0] for s in r["spans"])
 
 
 def test_cli_serve_needs_the_tag_dictionary(tmp_path):
