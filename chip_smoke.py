@@ -34,7 +34,7 @@ and held to the in-memory index, the KB saved and reopened, the native
 host runtime (``kbner_tpu_torch/native``, built with g++) held to its
 numpy twins on an eighth of the KB and the pruned engine built both
 ways, four ``cli retrieve`` runs over CoNLL splits, the native analyzer
-held to the Python one on 5,000 multilingual sentences, a 50,000-doc zh
+held to the Python one on 5,000 multilingual sentences, a 25,000-doc zh
 KB indexed with IK and searched both ways, deep pass-1 windows held
 against the plain pruned engine, retrieval with the trained model's seeds and
 BERTScore reranking, and ``cli serve`` from the saved KB. Last, the MIX
@@ -86,9 +86,15 @@ fused records with ``checkpoint: true``, one tensor-parallel step and
 one FSDP step (``parallel.shard_params``), each held to a single-rank
 trainer on the same global batches, and the data-parallel run's
 ``checkpoint.msgpack`` and ``best-model.msgpack`` reopened unsharded and
-held to the ranks' gathered state bit for bit. It prints what it
-measured on the lines before the last and exits non-zero on any
-failure.
+held to the ranks' gathered state bit for bit. Right after the HF
+tokenizer's phase comes the last of ``kbner_tpu``'s public surface: the
+tagger's, the parser's and the classifier's quality gates trained on the
+card to the reference's bars, the port's walkthrough
+(``examples/end_to_end_torch.py``) on the card through K1 held to the
+same run on the CPU, and ``SGDW`` steps over the trained XLM-R-large
+checkpoint's float32 parameters held to the same steps on the CPU. It
+prints what it measured on the lines before the last and exits non-zero
+on any failure.
 Its last line is one JSON object naming the device.
 
 It needs CUDA and the rest of the repository beside it: without either it
@@ -1414,7 +1420,7 @@ def run_cli(cli, argv, stdin=None):
 # corpus, the zh KB indexed with IK over the builtin lexicon, and the deep
 # windows of the pruned engine (4096 postings for the 4 rarest terms)
 N_ML_SENTENCES = 5_000  # the Python analyzer takes ~55 s per 100k
-N_ZH_DOCS = 50_000
+N_ZH_DOCS = 25_000  # cut, with N_RU_DOCS, to pay for phase 4r
 ZH_SPLITS = {"train": 500, "dev": 150, "test": 150}
 DEEP = dict(deep_terms=4, deep_cap=4096)
 N_DEEP_QUERIES = 2 * RETRIEVE_BATCH
@@ -2456,10 +2462,213 @@ def hf_retrieve_run(cli, bm25, tmp, i, label, extra, kb_dir, tok_dir, data,
             f"{sum(len(r.tokens) for r in proxy)})")
 
 
+# phase 4r: the last of kbner_tpu's public surface on the card: the three
+# quality gates at the reference's sizes, its end-to-end walkthrough
+# (examples/end_to_end_torch.py) through K1 against the same run on the
+# CPU, and SGDW over 4g's trained XLM-R-large checkpoint
+GATES = (("tagger", "run_quality_gate", "held-out span F1", 0.95),
+         ("parser", "run_parser_quality_gate", "held-out UAS", 0.9),
+         ("classifier", "run_classifier_quality_gate", "held-out accuracy",
+          0.95))
+SGDW_STEPS = 3
+SGDW_RTOL, SGDW_ATOL = 1e-6, 1e-9  # the same float32 roundings, op by op
+# seeded normals per step, laid end to end over the leaves: a leaf within
+# one pass of the block is a view of it; only the longer ones (the word
+# embeddings) and those that wrap are copies
+SGDW_GRAD_BLOCK = 1 << 24
+
+
+def walkthrough_module():
+    """``examples/end_to_end_torch.py`` of this checkout, imported."""
+    import importlib.util
+    from pathlib import Path
+
+    path = (Path(__file__).resolve().parent / "examples"
+            / "end_to_end_torch.py")
+    spec = importlib.util.spec_from_file_location("end_to_end_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ranked(results, k: int):
+    """Per-query ``RetrievedDoc`` lists as ``[(scores [Q, k], ids [Q,
+    k])]``, short rows padded with -inf and -1."""
+    scores = np.full((len(results), k), -np.inf, np.float32)
+    ids = np.full((len(results), k), -1, np.int64)
+    for q, docs in enumerate(results):
+        scores[q, :len(docs)] = [d.score for d in docs]
+        ids[q, :len(docs)] = [d.doc_id for d in docs]
+    return [(scores, ids)]
+
+
+def checkpoint_leaves(tree) -> list:
+    """The arrays of a checkpoint's tree, in sorted key order."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree)
+                for leaf in checkpoint_leaves(tree[key])]
+    return [np.asarray(tree)]
+
+
+def tiled_grads(block, shapes) -> list:
+    """Gradients of ``shapes`` from ``block``'s values repeated end to end
+    over the leaves laid end to end (each a view of ``block`` where it
+    does not wrap)."""
+    out, off, size = [], 0, block.numel()
+    for shape in shapes:
+        n = int(np.prod(shape))
+        start = off % size
+        if start + n <= size:
+            out.append(block[start:start + n].view(shape))
+        else:
+            reps = -(-(start + n) // size)
+            out.append(block.repeat(reps)[start:start + n].view(shape))
+        off += n
+    return out
+
+
+def surface_phase(bm25, dev, card, tmp) -> dict:
+    """(a) the tagger's, the parser's and the classifier's quality gates
+    on the card, each held to the reference's bar; (b) the walkthrough's
+    ``main`` on the card (K1 launched) and on the CPU: the KB, the
+    retrieved ids (within ties) and scores, the fused train records and
+    the v4 dev records equal; (c) ``SGDW`` (momentum 0.9, weight decay
+    0.01, ``exp_anneal_schedule(5e-6, 0.5)``) for ``SGDW_STEPS`` steps
+    over the float32 parameters of 4g's ``b/best-model.msgpack`` on the
+    card and on the CPU from the same seeded gradients: parameters,
+    momenta and each parameter's total update held card to CPU. Returns
+    the walkthrough's K1 launches."""
+    import warnings
+
+    import torch
+
+    from kbner_tpu_torch import checkpoint
+    from kbner_tpu_torch.data import quality_fixture
+    from kbner_tpu_torch.train import SGDW, exp_anneal_schedule
+
+    t_phase = time.perf_counter()
+
+    # -- (a) the quality gates ----------------------------------------------
+    for family, fn, metric, bar in GATES:
+        torch.cuda.reset_peak_memory_stats()
+        value, secs = timed(lambda: getattr(quality_fixture, fn)(device=dev))
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"phase 4r (a): the {family} quality gate ({fn}, the "
+            f"reference's sizes) on the card: {metric} {value:.4f} (bar "
+            f"{bar}), {secs:.1f} s, peak allocated {peak_gb:.3f} GB ({card})")
+        if not value >= bar:
+            raise AssertionError(f"phase 4r: the {family} quality gate "
+                                 f"reads {metric} {value:.4f} < {bar}")
+
+    # -- (b) the walkthrough through K1, card against CPU --------------------
+    walk = walkthrough_module()
+    reset_counts(bm25)
+    gpu, gpu_s = timed(lambda: walk.main(device=dev,
+                                         work_dir=tmp / "walk-cuda"))
+    launched = counts(bm25)
+    expect_counts("phase 4r walkthrough", launched,
+                  {"bm25_score_block": None})
+    cpu, cpu_s = timed(lambda: walk.main(device="cpu",
+                                         work_dir=tmp / "walk-cpu"))
+    if gpu["n_sentences"] != cpu["n_sentences"]:
+        raise AssertionError("phase 4r walkthrough: the KBs differ")
+    assert_same_results("phase 4r walkthrough retrieval",
+                        ranked(cpu["results"], 3), ranked(gpu["results"], 3))
+    for split in ("fused", "v4"):
+        if [r.tokens for r in gpu[split]] != [r.tokens for r in cpu[split]]:
+            raise AssertionError(f"phase 4r walkthrough: the {split} "
+                                 "records differ between the card and the "
+                                 "CPU")
+    if not (gpu["work"] / "ner.html").exists():
+        raise AssertionError("phase 4r walkthrough wrote no ner.html")
+    log(f"phase 4r (b): examples/end_to_end_torch.py main() on the card "
+        f"{gpu_s:.1f} s (launches {launched}), on the CPU {cpu_s:.1f} s: "
+        f"{gpu['n_sentences']} KB sentences, {len(gpu['fused'])} fused train "
+        f"and {len(gpu['v4'])} v4 dev records equal token for token, the "
+        f"retrieved ids equal within ties and scores within rtol {RTOL}, "
+        f"atol {ATOL}; train span F1 {gpu['f1']:.4f} on the card, "
+        f"{cpu['f1']:.4f} on the CPU ({card})")
+
+    # -- (c) SGDW at full width over 4g's checkpoint --------------------------
+    tree, load_s = timed(lambda: checkpoint.load(
+        tmp / "b" / "best-model.msgpack"))
+    start = checkpoint_leaves(tree.get("params", tree))
+    del tree
+    if any(a.dtype != np.float32 for a in start):
+        raise AssertionError("phase 4r: 4g's checkpoint holds parameters "
+                             "that are not float32")
+    n_params = sum(a.size for a in start)
+    shapes = [a.shape for a in start]
+    with warnings.catch_warnings():
+        # the loaded arrays are read-only; these tensors are only read
+        warnings.simplefilter("ignore", UserWarning)
+        start = [torch.from_numpy(a) for a in start]
+    torch.cuda.reset_peak_memory_stats()
+    on_card = [torch.nn.Parameter(t.to(dev, copy=True)) for t in start]
+    on_cpu = [torch.nn.Parameter(t.clone()) for t in start]
+    opts = [SGDW(ps, lr=exp_anneal_schedule(5e-6, 0.5), momentum=0.9,
+                 weight_decay=0.01) for ps in (on_card, on_cpu)]
+    gen = torch.Generator().manual_seed(0)
+    step_ms, cpu_step_s = [], []
+    for _ in range(SGDW_STEPS):
+        block = torch.randn(SGDW_GRAD_BLOCK, generator=gen)
+        for ps, grads in ((on_card, tiled_grads(block.to(dev), shapes)),
+                          (on_cpu, tiled_grads(block, shapes))):
+            for p, g in zip(ps, grads):
+                p.grad = g
+        step_ms.append(event_ms(opts[0].step))
+        cpu_step_s.append(timed(opts[1].step)[1])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    worst = {"parameters": 0.0, "momenta": 0.0, "updates": 0.0}
+    t_check = time.perf_counter()
+    for pg, pc, p0 in zip(on_card, on_cpu, start):
+        pairs = (("parameters", pg.detach().cpu(), pc.detach()),
+                 ("momenta", opts[0].state[pg]["momentum_buffer"].cpu(),
+                  opts[1].state[pc]["momentum_buffer"]))
+        for what, got, want in pairs:
+            if torch.equal(got, want):  # the expected case: one pass
+                continue
+            torch.testing.assert_close(got, want, rtol=SGDW_RTOL,
+                                       atol=SGDW_ATOL,
+                                       msg=f"phase 4r SGDW {what}")
+            worst[what] = max(worst[what], float((got - want).abs().max()))
+        got, want = pairs[0][1:]
+        if torch.equal(want, p0):
+            raise AssertionError("phase 4r: SGDW left a parameter as it was")
+        if not torch.equal(got, want):
+            worst["updates"] = max(worst["updates"], float(
+                ((got - p0) - (want - p0)).abs().max()
+                / (want - p0).abs().max()))
+    check_s = time.perf_counter() - t_check
+    if worst["updates"] > SGDW_RTOL:
+        raise AssertionError(f"phase 4r: SGDW's update on the card differs "
+                             f"from the CPU's by {worst['updates']:.3g} of "
+                             f"its largest")
+    moved_bytes = 5 * 4 * n_params  # p, g, m read; p, m written
+    log(f"phase 4r (c): SGDW (momentum 0.9, weight decay 0.01, lr "
+        f"exp_anneal_schedule(5e-6, 0.5)) over 4g's best-model.msgpack "
+        f"({n_params} float32 parameters in {len(start)} leaves, read in "
+        f"{load_s:.1f} s), {SGDW_STEPS} steps from seeded CPU gradients: "
+        f"card against CPU worst abs err parameters "
+        f"{worst['parameters']:.3g}, momenta {worst['momenta']:.3g} (rtol "
+        f"{SGDW_RTOL}, atol {SGDW_ATOL}), total update {worst['updates']:.3g} "
+        f"of its largest; ms per step on the card "
+        + ", ".join(f"{v:.2f}" for v in step_ms)
+        + f" (CUDA events; bound {moved_bytes / PEAK_BYTES_PER_S * 1e3:.2f} "
+        f"ms by bytes, {moved_bytes / 1e9:.1f} GB), on the CPU "
+        + ", ".join(f"{v:.2f}" for v in cpu_step_s)
+        + f" s (host clock); checked in {check_s:.1f} s; peak allocated "
+        f"{peak_gb:.2f} GB ({card})")
+    del on_card, on_cpu, opts, start
+    log(f"phase 4r in {time.perf_counter() - t_phase:.1f} s")
+    return {"k1_launches": launched["bm25_score_block"]}
+
+
 # phase 4i: MIX retrieval over three saved language KBs, and staged
 # fine-tuning; after 4h in the same temporary directory (its en and zh
 # KBs, its CoNLL splits and its model config)
-N_RU_DOCS = 50_000
+N_RU_DOCS = 25_000
 RU_SPLITS = {"train": 300, "dev": 100, "test": 100}
 MIX_CHECK = (512, 256, 256)  # en, zh, ru queries of the held-equal batch
 CYRILLIC = "абвгдежзиклмнопрстуфхцчшщэюя"
@@ -2477,8 +2686,9 @@ DE_WORDS = {"visited": "besuchte", "yesterday": "gestern", "hired":
 # heads, FFN 4096, vocabulary 250002) cut to CUT_LAYERS of its 24 layers,
 # through an HF config.json that model.encoder names: a depth cut that
 # keeps the smoke within its time limit on the slower of the card
-# machine's hosts (the whole run took 1,279.8 s there at full depth)
-CUT_LAYERS = 8
+# machine's hosts (the whole run took 1,279.8 s there at full depth, and
+# 1,139.5 s at 8 layers once phase 4r came)
+CUT_LAYERS = 6
 
 
 def cut_encoder(tmp) -> str:
@@ -4562,6 +4772,10 @@ BPE_PIECES, BPE_DIM = 100_000, 50
 ELMO_EPISODES = 1       # the published search runs 30
 MFVI_BATCH, MFVI_RANK = 16, 64
 ELMO_SEED = 15
+# the pooled Flair table's card-against-CPU check over the dev split's 16
+# sentences, not train's 48: the CPU's LMs take seconds a call, and the
+# time pays for phase 4r
+POOLED_SPLIT = "dev"
 # the ELMo member's trained weights, float64 on the card against the CPU,
 # within this share of the largest |feature| (hundreds of float64 ulps):
 # their token layer reaches ~1e5 and cancels, so float32 strays from
@@ -4630,9 +4844,9 @@ def elmo_stage_phase(cli, bm25, dev, card, tmp, encoder="large", elmo=None,
     weights in float32 at ``FEATURE_RTOL``/``ATOL``, the run's trained
     weights in float64 within ``ELMO_F64_REL`` of the largest feature, and
     each float32 side's error per output layer against float64; (e)
-    ``build_pooled_flair_table`` over the train split with the run's
-    Flair member: mean, min and max on the card, the mean held to the
-    CPU's; (f) ``MFVIHead``
+    ``build_pooled_flair_table`` over the ``POOLED_SPLIT`` split with the
+    run's Flair member: mean, min and max on the card, the mean held to
+    the CPU's; (f) ``MFVIHead``
     (second and third order, rank ``MFVI_RANK``, parameters normal with
     variance 1/fan-in so that pair and triple messages weigh) over
     ``encoder``'s word features at B=``mfvi_batch``: loss forward and
@@ -4899,7 +5113,7 @@ def elmo_stage_phase(cli, bm25, dev, card, tmp, encoder="large", elmo=None,
                                                          m))
         for pooling in poolings:
             (vocab, table), sec = timed(lambda: build_pooled_flair_table(
-                m, recs["train"], config.make_tokenizer(), char_vocab,
+                m, recs[POOLED_SPLIT], config.make_tokenizer(), char_vocab,
                 pooling=pooling))
             pooled[pooling, side] = (table, sec)
         del m
@@ -4912,7 +5126,8 @@ def elmo_stage_phase(cli, bm25, dev, card, tmp, encoder="large", elmo=None,
     if not ((lo <= dev_t + 1e-6).all() and (dev_t <= hi + 1e-6).all()):
         raise AssertionError("pooled Flair tables: min <= mean <= max fails")
     pool_err = float(np.abs(dev_t - cpu_t).max())
-    log(f"build_pooled_flair_table over the train split ({len(vocab):,} "
+    log(f"build_pooled_flair_table over the {POOLED_SPLIT} split "
+        f"({len(vocab):,} "
         f"words x {dev_t.shape[1]}, the run's Flair member): mean on the "
         f"card against the CPU max abs err {pool_err:.3g} (rtol "
         f"{FEATURE_RTOL}, atol {FEATURE_ATOL}), min <= mean <= max; "
@@ -6449,6 +6664,9 @@ def main() -> int:
                            f"{tmp}/b", pruned_1m)
         del pruned_1m
         store_1m.close()
+        # -- 4r. the quality gates, the walkthrough through K1, SGDW -------
+        torch.cuda.empty_cache()
+        surface = surface_phase(bm25, dev, card, Path(tmp))
         # -- 4i. MIX retrieval over three language KBs, staged training ----
         torch.cuda.empty_cache()
         t_phase = time.perf_counter()
@@ -6506,6 +6724,7 @@ def main() -> int:
         "stream_launches": stream["k1"],
         "parse_launches": parse["k1_launches"],
         "shard_launches": shard["k1"],
+        "walkthrough_launches": surface["k1_launches"],
         "max_abs_err": max(err_cases, k1["err"], k1_title["err"],
                            shard["k1_err"]),
         "ms": k1["dev_ms"],

@@ -47,6 +47,9 @@ class SentenceRecord:
         eos = self.eos_index
         return self.tokens[:eos] if eos >= 0 else self.tokens
 
+    def get_tags(self, layer: str) -> List[str]:
+        return self.tags[layer]
+
 
 def read_column_file(
     path: Union[str, Path],

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List, Union
+from typing import Dict, Iterable, List, Union
 
 
 class Dictionary:
@@ -39,6 +39,9 @@ class Dictionary:
     def get_item_for_index(self, idx: int) -> str:
         return self.idx2item[idx]
 
+    def get_items(self) -> List[str]:
+        return list(self.idx2item)
+
     def __len__(self) -> int:
         return len(self.idx2item)
 
@@ -53,8 +56,13 @@ class Dictionary:
     @classmethod
     def load(cls, path: Union[str, Path]) -> "Dictionary":
         data = json.loads(Path(path).read_text())
-        d = cls()
-        for item in data["items"]:
+        return cls.from_items(data["items"])
+
+    @classmethod
+    def from_items(cls, items: Iterable[str],
+                   add_unk: bool = False) -> "Dictionary":
+        d = cls(add_unk=add_unk)
+        for item in items:
             d.add_item(item)
         return d
 

@@ -41,6 +41,10 @@ class EncodedBatch:
     # the classic embedders' inputs (add_classic_features)
     extra: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
 
+    @property
+    def num_sentences(self) -> int:
+        return self.input_ids.shape[0]
+
     def arrays(self) -> Dict[str, np.ndarray]:
         return {
             "input_ids": self.input_ids,

@@ -475,23 +475,28 @@ class StackedEmbedder(nn.Module):
 
 # -- ELMo -------------------------------------------------------------------------
 
-class ELMoLSTMP(nn.Module):
-    """bilm-tf's LSTM with a projection, in tf's conventions, over
-    batch-major inputs ``[B, T, in]`` from a zero carry: one fused kernel
-    ``W_0 [in + proj, 4 * cell]`` in gate order i, j, f, o with its bias
-    ``B``, the forget gate biased by 1.0, ``c = clip(sigmoid(f + 1) * c
-    + sigmoid(i) * tanh(j))`` and ``h = clip((sigmoid(o) * tanh(c)) @
-    W_P_0)`` with ``W_P_0 [cell, proj]``, both clipped to ``[-clip,
-    clip]``. ``reverse`` runs right to left within ``seq_lengths`` as
-    :class:`FlaxLSTM` does. Every step's input half of ``W_0`` is one
-    matmul; the time loop does the recurrent half and the projection."""
+def _lstmp_step(z: torch.Tensor, c: torch.Tensor, w_p: torch.Tensor,
+                clip: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One bilm-tf LSTMP update from the gate pre-activations ``z [B, 4 *
+    cell]`` (order i, j, f, o) and the cell state ``c``: ``(c, h)``."""
+    i, j, f, o = z.chunk(4, dim=1)
+    c = torch.addcmul(torch.sigmoid(f + 1.0) * c, torch.sigmoid(i),
+                      torch.tanh(j)).clamp(-clip, clip)
+    h = ((torch.sigmoid(o) * torch.tanh(c)) @ w_p).clamp(-clip, clip)
+    return c, h
+
+
+class _LSTMPParams(nn.Module):
+    """The parameters of bilm-tf's LSTM with a projection, in tf's
+    layouts: one fused kernel ``W_0 [in + proj, 4 * cell]`` (gate order i,
+    j, f, o), its bias ``B`` and the projection ``W_P_0 [cell, proj]``,
+    drawn as Flax draws them (lecun normal, zero bias)."""
 
     def __init__(self, in_dim: int, cell_dim: int, proj_dim: int,
-                 clip: float = 3.0, reverse: bool = False, device=None):
+                 clip: float = 3.0, device=None):
         super().__init__()
         self.in_dim = in_dim
         self.clip = clip
-        self.reverse = reverse
         kw = dict(device=device, dtype=torch.float32)
         self.W_0 = nn.Parameter(torch.empty(in_dim + proj_dim, 4 * cell_dim,
                                             **kw))
@@ -503,6 +508,46 @@ class ELMoLSTMP(nn.Module):
         lecun_normal_(self.W_0, self.W_0.shape[0], gen)
         self.B.zero_()
         lecun_normal_(self.W_P_0, self.W_P_0.shape[0], gen)
+
+
+class ELMoLSTMPCell(_LSTMPParams):
+    """One step of bilm-tf's LSTM with a projection (the reference's Flax
+    ``ELMoLSTMPCell``): ``c = clip(sigmoid(f + 1) * c + sigmoid(i) *
+    tanh(j))`` and ``h = clip((sigmoid(o) * tanh(c)) @ W_P_0)``, both
+    clipped to ``[-clip, clip]``, the gates from ``[x, h] @ W_0 + B``.
+    The carry is ``(c [..., cell], h [..., proj])``."""
+
+    def forward(self, carry: Tuple[torch.Tensor, torch.Tensor],
+                x: torch.Tensor):
+        """``((c, h), h)`` after one step on ``x [..., in]``."""
+        c, h = carry
+        lead = x.shape[:-1]
+        inp = torch.cat([x, h], dim=-1).reshape(-1, self.W_0.shape[0])
+        c, h = _lstmp_step(torch.addmm(self.B, inp, self.W_0),
+                           c.reshape(inp.shape[0], -1), self.W_P_0,
+                           self.clip)
+        c, h = c.view(*lead, -1), h.view(*lead, -1)
+        return (c, h), h
+
+    def initialize_carry(self, rng, input_shape):
+        """Zero ``(c, h)`` for inputs of ``input_shape`` (``rng`` is
+        unused, as in Flax's)."""
+        lead = tuple(input_shape[:-1])
+        return (self.W_0.new_zeros(lead + (self.W_P_0.shape[0],)),
+                self.W_0.new_zeros(lead + (self.W_P_0.shape[1],)))
+
+
+class ELMoLSTMP(_LSTMPParams):
+    """:class:`ELMoLSTMPCell`'s recurrence over batch-major inputs ``[B,
+    T, in]`` from a zero carry. ``reverse`` runs right to left within
+    ``seq_lengths`` as :class:`FlaxLSTM` does. Every step's input half of
+    ``W_0`` is one matmul; the time loop does the recurrent half and the
+    projection."""
+
+    def __init__(self, in_dim: int, cell_dim: int, proj_dim: int,
+                 clip: float = 3.0, reverse: bool = False, device=None):
+        super().__init__(in_dim, cell_dim, proj_dim, clip, device)
+        self.reverse = reverse
 
     def forward(self, x: torch.Tensor,
                 seq_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -518,11 +563,8 @@ class ELMoLSTMP(nn.Module):
         c = xw.new_zeros(n, self.W_P_0.shape[0])
         hs = []
         for xw_t in xw.unbind(0):
-            i, j, f, o = torch.addmm(xw_t, h, w_h).chunk(4, dim=1)
-            c = torch.addcmul(torch.sigmoid(f + 1.0) * c, torch.sigmoid(i),
-                              torch.tanh(j)).clamp(-self.clip, self.clip)
-            h = ((torch.sigmoid(o) * torch.tanh(c)) @ self.W_P_0).clamp(
-                -self.clip, self.clip)
+            c, h = _lstmp_step(torch.addmm(xw_t, h, w_h), c, self.W_P_0,
+                               self.clip)
             hs.append(h)
         out = torch.stack(hs)  # [T, B, proj], in scan order
         if self.reverse:

@@ -183,6 +183,16 @@ def merge_topk(
     return top_scores, torch.gather(ids, 1, idx)
 
 
+def _ties_by_id(scores: torch.Tensor, ids: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A top-k's rows with each run of equal scores in ascending id order
+    (``torch.topk`` promises no order among equals)."""
+    ids, perm = torch.sort(ids, dim=1)
+    scores, perm2 = torch.sort(torch.gather(scores, 1, perm), dim=1,
+                               descending=True, stable=True)
+    return scores, torch.gather(ids, 1, perm2)
+
+
 def bm25_topk(
     fields: Sequence[FieldOperands],
     k: int = 10,
@@ -196,8 +206,9 @@ def bm25_topk(
     are added. With ``doc_chunk`` the document axis is scanned in pieces of
     that size with a running top-k merge, bounding memory at
     ``[Q, doc_chunk]`` instead of ``[Q, N]``. ``id_offset`` shifts the
-    returned ids. Ties may come back in another order than ``lax.top_k``
-    gives them.
+    returned ids. Equal scores come back lower id first, as ``lax.top_k``
+    orders them; where equal scores straddle the k-th place, which of them
+    are kept is ``torch.topk``'s choice, not always the lower ids.
     """
     fields = tuple(fields)
     Q = fields[0][0].shape[0]
@@ -206,7 +217,7 @@ def bm25_topk(
     if doc_chunk is None or doc_chunk >= N:
         scores = _score_fields(fields, 0, N)
         top_scores, top_ids = torch.topk(scores, min(k, N), dim=1)
-        return top_scores, top_ids + id_offset
+        return _ties_by_id(top_scores, top_ids + id_offset)
 
     if N % doc_chunk != 0:
         raise ValueError(f"N={N} must be a multiple of doc_chunk={doc_chunk}")
@@ -219,7 +230,7 @@ def bm25_topk(
         c_scores, c_ids = torch.topk(scores, min(k, doc_chunk), dim=1)
         run_scores, run_ids = merge_topk(
             run_scores, run_ids, c_scores, c_ids + (start + id_offset), k)
-    return run_scores, run_ids
+    return _ties_by_id(run_scores, run_ids)
 
 
 # -- two-pass pruned search (MaxScore-style) -----------------------------------

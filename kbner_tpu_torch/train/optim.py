@@ -20,6 +20,9 @@
     the ranks that hold the same slice, so a replicated leaf counts once;
     the moments exist for the rank's slices only.
 
+:class:`SGDW` and :func:`exp_anneal_schedule` are the reference's
+``sgdw`` and ``exp_anneal_schedule``; as there, no trainer uses them.
+
 :func:`optax_state` and :func:`from_optax_state` carry the state to and
 from the tree ``kbner_tpu``'s optimizer keeps (``optax.MultiSteps`` of
 ``clip_by_global_norm`` and ``multi_transform`` of two masked AdamW
@@ -366,6 +369,60 @@ def make_finetune_optimizer(
         weight_decay=weight_decay, grad_clip=grad_clip,
         accumulation_steps=accumulation_steps, mu_dtype=mu_dtype,
         norm_weights=norm_weights, norm_group=norm_group)
+
+
+def exp_anneal_schedule(base_lr: float, gamma: float) -> Schedule:
+    """``base_lr * gamma ** count`` (the reference's ExpAnnealLR, optax's
+    ``exponential_decay`` with ``transition_steps=1``, not staircased)."""
+
+    def schedule(count: int) -> float:
+        return base_lr * gamma ** count
+
+    return schedule
+
+
+class SGDW(torch.optim.Optimizer):
+    """SGD with momentum and decoupled weight decay (the reference's
+    ``sgdw``, flair's SGDW), as optax's chain ``trace(momentum)`` ->
+    ``add_decayed_weights(weight_decay)`` -> ``scale_by_learning_rate``
+    computes it: ``m = g + momentum * m``, then ``p -= lr * (m +
+    weight_decay * p)``, the decay added after the momentum trace (where
+    ``torch.optim.SGD`` adds it to the gradient before). ``lr`` is a
+    float or a schedule of the group's update count, read before the
+    update. A parameter without a gradient is skipped. Each product and
+    sum is its own rounding, so the update is the same on every
+    device."""
+
+    def __init__(self, params, lr: float | Schedule, momentum: float = 0.9,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay, count=0))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            lr = group["lr"]
+            lr = lr(group["count"]) if callable(lr) else lr
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if "momentum_buffer" not in state:
+                    state["momentum_buffer"] = torch.zeros_like(p)
+                m = state["momentum_buffer"]
+                m.mul_(group["momentum"]).add_(p.grad)
+                if group["weight_decay"] > 0:
+                    u = torch.mul(p, group["weight_decay"]).add_(m)
+                    u.mul_(-lr)
+                else:
+                    u = m * -lr
+                p.add_(u)
+            group["count"] += 1
+        return loss
 
 
 class ReduceLROnPlateau:
