@@ -658,6 +658,64 @@ def retrieve_breakdown(engine, index, batch, bm25) -> dict:
     return out
 
 
+def tie_check(bm25, dt_t, di_t, qt, qw, card) -> None:
+    """Equal scores at the K-th place, on the card at the serve shape: each
+    of BATCH queries is one of the KB's most frequent terms alone (weight 1,
+    the other MAX_QUERY_TERMS slots padded), so runs of documents with one
+    tf and one norm code share a score across the K-th place. ``bm25_topk``
+    on the card is held, ids and scores, to the first K of a stable
+    descending sort of the same K1 scores on the CPU (``lax.top_k``'s ids
+    and order), and timed on these queries; then on the served batch's
+    queries ``qt``/``qw`` against K1 and a bare ``torch.topk`` (the
+    selection before the repair, ties at the cut left to it), in turns
+    (CUDA events, eager)."""
+    import torch
+
+    dev = dt_t.device
+    terms = torch.topk(torch.bincount(dt_t[dt_t >= 0]), BATCH).indices
+    one_t = torch.full((BATCH, MAX_QUERY_TERMS), -1, dtype=torch.int32,
+                       device=dev)
+    one_w = torch.zeros((BATCH, MAX_QUERY_TERMS), dtype=torch.float32,
+                        device=dev)
+    one_t[:, 0], one_w[:, 0] = terms.to(torch.int32), 1.0
+    fields = [(one_t, one_w, dt_t, di_t)]
+    got_s, got_i = bm25.bm25_topk(fields, k=K)
+    scores = bm25.bm25_score_block(one_t, one_w, dt_t, di_t).cpu()
+    top = torch.topk(scores, K + 1, dim=1).values
+    tied = int((top[:, K - 1] == top[:, K]).sum())
+    want_s, want_i = torch.sort(scores, dim=1, descending=True, stable=True)
+    if tied == 0:
+        raise AssertionError("tie check: no crafted query ties at the "
+                             f"{K}-th place")
+    if not (torch.equal(got_s.cpu(), want_s[:, :K])
+            and torch.equal(got_i.cpu(), want_i[:, :K])):
+        raise AssertionError("tie check: bm25_topk on the card differs from "
+                             "the stable sort's first K on the CPU")
+    run = int((scores == top[:, K - 1:K]).sum())
+    ms = time_cuda_ms(lambda: bm25.bm25_topk(fields, k=K), iters=20)
+    log(f"tie check (Q={BATCH} one-term queries, Lq={MAX_QUERY_TERMS}, "
+        f"N={dt_t.shape[1]}): {tied} of {BATCH} rows tie at the {K}-th "
+        f"place ({run} documents carry those rows' {K}-th scores); "
+        f"bm25_topk on the card equals the CPU's stable sort, ids and "
+        f"scores; {ms:.4f} ms a search (CUDA events, eager) ({card})")
+    served = [(qt, qw, dt_t, di_t)]
+    top = torch.topk(bm25.bm25_score_block(qt, qw, dt_t, di_t), K + 1,
+                     dim=1).values
+    served_tied = int((top[:, K - 1] == top[:, K]).sum())
+    exact, bare = [], []
+    for fn, out in ((bm25.bm25_topk, exact), (None, bare), (None, bare),
+                    (bm25.bm25_topk, exact)):
+        out.append(time_cuda_ms(
+            (lambda: fn(served, k=K)) if fn else
+            (lambda: torch.topk(bm25.bm25_score_block(qt, qw, dt_t, di_t),
+                                K, dim=1)), iters=20))
+    log(f"the served batch's exhaustive search ({qt.shape[0]} queries, "
+        f"{served_tied} rows tied at the {K}-th place): bm25_topk "
+        + ", ".join(f"{v:.4f}" for v in exact) + " ms; K1 + a bare "
+        f"torch.topk " + ", ".join(f"{v:.4f}" for v in bare) + " ms, in "
+        f"turns (CUDA events, eager) ({card})")
+
+
 def held_against_exact(label, exact, got, score_rtol=SCORE_RTOL,
                        why="") -> None:
     """Print and check recall@K of ``got`` against the exhaustive
@@ -2263,6 +2321,8 @@ def kb_stage_phase(engine, docs, title_docs, encoded, exact, requests, bm25,
 # offline path, over 4h's saved 1M KB with 4g's trained checkpoint (XLM-R
 # large, 250,002 vocabulary rows, so the HF ids index it as they stand)
 HF_PIECES = 249_997     # + 4 specials + <mask>: XLM-R's 250,002 ids
+ROBERTA_MERGES = 50_004  # + 4 specials, 256 bytes, <mask>: roberta-base's
+MBERT_PIECES = 119_443   # + 104 specials: bert-base-multilingual-cased's
 
 
 def encoded_pieces(tokenizer, rec, max_subtokens: int = 512) -> list:
@@ -2280,20 +2340,141 @@ def encoded_pieces(tokenizer, rec, max_subtokens: int = 512) -> list:
     return ids + [tokenizer.sep_id]
 
 
+def tokenizer_rates(make, words):
+    """A tokenizer directory read by ``make()`` and ``encode_word`` over
+    ``words``, uncached (each distinct word once) and cached (host
+    clock): the tokenizer and the summary."""
+    tok, load_s = timed(make)
+    distinct = sorted(set(words))
+    _, cold_s = timed(lambda: [tok.encode_word(w) for w in distinct])
+    _, warm_s = timed(lambda: [tok.encode_word(w) for w in words])
+    pieces = sum(map(tok.word_length, words))
+    return tok, (f"read by HFTokenizer in {load_s:.2f} s; encode_word over 4h's "
+            f"en dev split ({len(words)} words, {len(distinct)} distinct, "
+            f"{pieces / len(words):.2f} pieces a word): uncached "
+            f"{len(distinct) / cold_s:.0f} words/s, cached "
+            f"{len(words) / warm_s:.0f} words/s (host clock; "
+            f"{host_line()})")
+
+
 def hf_tokenizer_phase(cli, bm25, dev, card, tmp, engine, requests,
-                       model_dir, pruned, n_pieces=HF_PIECES) -> None:
+                       model_dir, pruned, n_pieces=HF_PIECES,
+                       roberta_merges=ROBERTA_MERGES,
+                       mbert_pieces=MBERT_PIECES) -> None:
     """(a) the seeded XLM-R-shaped tokenizer (``synth_tokenizer``) written
     and read by ``HFTokenizer``, and ``encode_word`` over 4h's en dev
     split, uncached and cached (host clock); (b) ``cli serve --config``
     with ``tokenizer: {type: hf, dir}`` over ``--index_dir`` (exhaustive),
-    one micro-batch: K1 launched, the answers equal ``serve()`` with
-    ``config.make_tokenizer()`` on the in-memory engine and the CLI's
-    tagger, and every row the encoder got is the HF pieces of its fused
-    words; (c) ``cli retrieve --hf_tokenizer`` over the dev split,
-    exhaustive (K1) and pruned (K2, on 4h's pruned engine over the same
-    KB, handed over as 4h's pruned runs get it): every fused sentence
-    within 510 subtokens by the HF tokenizer's count, the sentences whose
-    fusion differs from 4h's hash-proxy files counted."""
+    one micro-batch (:func:`hf_serve_run`); (c) ``cli retrieve
+    --hf_tokenizer`` over the dev split, exhaustive (K1) and pruned (K2, on
+    4h's pruned engine over the same KB, handed over as 4h's pruned runs
+    get it): every fused sentence within 510 subtokens by the HF
+    tokenizer's count, the sentences whose fusion differs from 4h's
+    hash-proxy files counted; (d) (b) with the seeded RoBERTa-shaped
+    ByteLevel BPE (roberta-base's 50,265 ids); (e) (c)'s pruned run with
+    the seeded mBERT-shaped WordPiece (BertNormalizer, BertPreTokenizer;
+    119,547 ids)."""
+    from pathlib import Path
+
+    from kbner_tpu_torch.data.conll import read_column_file, write_column_file
+    from kbner_tpu_torch.data.subword import HFTokenizer
+    from kbner_tpu_torch.data.synth_tokenizer import (
+        write_mbert_like_tokenizer, write_roberta_like_tokenizer,
+        write_xlmr_like_tokenizer)
+
+    t_phase = time.perf_counter()
+    tmp = Path(tmp)
+    kb_dir = tmp / "kb1m"
+    device = ["--device", str(dev)]
+    dev_recs = read_column_file(tmp / "conll" / "dev.txt",
+                                {0: "text", 1: "ner"}, comment_symbol="# id")
+    words = [w for r in dev_recs for w in r.tokens]
+
+    # -- (a) the tokenizer ----------------------------------------------------
+    tok_dir, write_s = timed(lambda: write_xlmr_like_tokenizer(
+        tmp / "hf-tok", n_pieces=n_pieces, seed=0))
+    tok, rates = tokenizer_rates(lambda: HFTokenizer(str(tok_dir)), words)
+    if tok.vocab_size != n_pieces + 5 or tok.encode_word("<mask>") != [
+            n_pieces + 4]:
+        raise AssertionError(f"phase 4q: the synth tokenizer has "
+                             f"{tok.vocab_size} ids, <mask> "
+                             f"{tok.encode_word('<mask>')}")
+    log(f"phase 4q (a): the synth XLM-R tokenizer ({tok.vocab_size} ids, "
+        f"Precompiled charsmap, WhitespaceSplit + Metaspace) written in "
+        f"{write_s:.2f} s and " + rates)
+
+    # -- (b) cli serve with tokenizer: {type: hf, dir} --------------------
+    log("phase 4q (b): " + hf_serve_run(
+        cli, bm25, dev, card, tmp, engine, requests, model_dir, tok_dir,
+        "model-hf.yaml"))
+
+    # -- (c) cli retrieve --hf_tokenizer -------------------------------------
+    data = tmp / "conll-hf"
+    write_column_file(data / "dev.txt", dev_recs)
+    engine_class = cli.RetrievalEngine
+
+    def shared_pruned(*args, mode="exhaustive", **kwargs):
+        if mode == "pruned":
+            return pruned
+        return engine_class(*args, mode=mode, **kwargs)
+
+    def retrieve(runs, tok_dir, tokenizer, tag):
+        cli.RetrievalEngine = shared_pruned
+        try:
+            return [hf_retrieve_run(cli, bm25, tmp, i, label, extra, kb_dir,
+                                    tok_dir, data, dev_recs, tokenizer,
+                                    device, tag)
+                    for i, (label, extra) in runs]
+        finally:
+            cli.RetrievalEngine = engine_class
+
+    parts = retrieve(list(enumerate(RETRIEVE_RUNS[:2])), tok_dir, tok, "")
+    log(f"phase 4q (c): cli retrieve --index_dir --hf_tokenizer over 4h's en "
+        f"dev split: " + "; ".join(parts) + f"; every fused sentence within "
+        f"510 subtokens by the HF tokenizer's count ({card})")
+
+    # -- (d) cli serve with a RoBERTa-shaped ByteLevel BPE -------------------
+    rob_dir, write_s = timed(lambda: write_roberta_like_tokenizer(
+        tmp / "hf-roberta", n_merges=roberta_merges, seed=0))
+    rob, rates = tokenizer_rates(lambda: HFTokenizer(str(rob_dir)), words)
+    if (rob.vocab_size, rob.cls_id, rob.sep_id, rob.pad_id) != (
+            roberta_merges + 261, 0, 2, 1):
+        raise AssertionError(f"phase 4q (d): the synth RoBERTa tokenizer "
+                             f"has {rob.vocab_size} ids, cls/sep/pad "
+                             f"{rob.cls_id}/{rob.sep_id}/{rob.pad_id}")
+    log(f"phase 4q (d): the synth RoBERTa tokenizer ({rob.vocab_size} ids, "
+        f"{roberta_merges} merges, ByteLevel) written in {write_s:.2f} s and "
+        + rates)
+    log("phase 4q (d): " + hf_serve_run(
+        cli, bm25, dev, card, tmp, engine, requests, model_dir, rob_dir,
+        "model-hf-roberta.yaml"))
+
+    # -- (e) pruned cli retrieve with an mBERT-shaped WordPiece -------------
+    bert_dir, write_s = timed(lambda: write_mbert_like_tokenizer(
+        tmp / "hf-mbert", n_pieces=mbert_pieces, seed=0))
+    bert, rates = tokenizer_rates(lambda: HFTokenizer(str(bert_dir)), words)
+    if (bert.vocab_size, bert.cls_id, bert.sep_id, bert.pad_id) != (
+            mbert_pieces + 104, 101, 102, 0):
+        raise AssertionError(f"phase 4q (e): the synth mBERT tokenizer "
+                             f"has {bert.vocab_size} ids, cls/sep/pad "
+                             f"{bert.cls_id}/{bert.sep_id}/{bert.pad_id}")
+    log(f"phase 4q (e): the synth mBERT tokenizer ({bert.vocab_size} ids, "
+        f"WordPiece, BertNormalizer + BertPreTokenizer) written in "
+        f"{write_s:.2f} s and " + rates)
+    parts = retrieve([(1, RETRIEVE_RUNS[1])], bert_dir, bert, "-mbert")
+    log(f"phase 4q (e): cli retrieve --index_dir --hf_tokenizer (mBERT) "
+        f"over 4h's en dev split: " + "; ".join(parts) + f"; every fused "
+        f"sentence within 510 subtokens by that tokenizer's count ({card})")
+    log(f"phase 4q in {time.perf_counter() - t_phase:.1f} s")
+
+
+def hf_serve_run(cli, bm25, dev, card, tmp, engine, requests, model_dir,
+                 tok_dir, cfg_name) -> str:
+    """``cli serve --config`` with ``tokenizer: {type: hf, dir: tok_dir}``
+    over ``--index_dir`` (exhaustive), one micro-batch: K1 launched, the
+    answers equal ``serve()`` with ``config.make_tokenizer()`` on the
+    in-memory engine and the CLI's tagger, and every row the encoder got
+    is CLS, the HF pieces of its fused words, SEP; its summary."""
     import json
     from pathlib import Path
 
@@ -2301,45 +2482,12 @@ def hf_tokenizer_phase(cli, bm25, dev, card, tmp, engine, requests,
 
     import kbner_tpu_torch.serve as serve_mod
     from kbner_tpu_torch.config import ServeConfig
-    from kbner_tpu_torch.data.conll import read_column_file, write_column_file
     from kbner_tpu_torch.data.dictionary import Dictionary
-    from kbner_tpu_torch.data.subword import HFTokenizer, subtoken_length
-    from kbner_tpu_torch.data.synth_tokenizer import \
-        write_xlmr_like_tokenizer
+    from kbner_tpu_torch.data.subword import HFTokenizer
 
-    t_phase = time.perf_counter()
-    tmp = Path(tmp)
-    kb_dir = tmp / "kb1m"
-    device = ["--device", str(dev)]
-
-    # -- (a) the tokenizer ----------------------------------------------------
-    tok_dir, write_s = timed(lambda: write_xlmr_like_tokenizer(
-        tmp / "hf-tok", n_pieces=n_pieces, seed=0))
-    tok, load_s = timed(lambda: HFTokenizer(str(tok_dir)))
-    if tok.vocab_size != n_pieces + 5 or tok.encode_word("<mask>") != [
-            n_pieces + 4]:
-        raise AssertionError(f"phase 4q: the synth tokenizer has "
-                             f"{tok.vocab_size} ids, <mask> "
-                             f"{tok.encode_word('<mask>')}")
-    dev_recs = read_column_file(tmp / "conll" / "dev.txt",
-                                {0: "text", 1: "ner"}, comment_symbol="# id")
-    words = [w for r in dev_recs for w in r.tokens]
-    distinct = sorted(set(words))
-    _, cold_s = timed(lambda: [tok.encode_word(w) for w in distinct])
-    _, warm_s = timed(lambda: [tok.encode_word(w) for w in words])
-    pieces = sum(map(tok.word_length, words))
-    log(f"phase 4q (a): the synth XLM-R tokenizer ({tok.vocab_size} ids, "
-        f"Precompiled charsmap, WhitespaceSplit + Metaspace) written in "
-        f"{write_s:.2f} s and read by HFTokenizer in {load_s:.2f} s; "
-        f"encode_word over 4h's en dev split ({len(words)} words, "
-        f"{len(distinct)} distinct, {pieces / len(words):.2f} pieces a "
-        f"word): uncached {len(distinct) / cold_s:.0f} words/s, cached "
-        f"{len(words) / warm_s:.0f} words/s (host clock; {host_line()})")
-
-    # -- (b) cli serve with tokenizer: {type: hf, dir} --------------------
     raw = json.loads((tmp / "model.yaml").read_text())
     raw["tokenizer"] = {"type": "hf", "dir": str(tok_dir)}
-    hf_cfg = tmp / "model-hf.yaml"
+    hf_cfg = tmp / cfg_name
     hf_cfg.write_text(json.dumps(raw))
     batch = requests[:BATCH]
     stdin = "\n".join(json.dumps(r) for r in batch) + "\n"
@@ -2359,12 +2507,11 @@ def hf_tokenizer_phase(cli, bm25, dev, card, tmp, engine, requests,
     try:
         reset_counts(bm25)
         (_, out), serve_s = timed(lambda: run_cli(cli, [
-            "serve", "--config", str(hf_cfg), "--index_dir", str(kb_dir),
-            *device], stdin))
+            "serve", "--config", str(hf_cfg), "--index_dir",
+            str(tmp / "kb1m"), "--device", str(dev)], stdin))
         served = counts(bm25)
-        expect_counts("phase 4q cli serve", served,
+        expect_counts(f"phase 4q cli serve ({Path(tok_dir).name})", served,
                       {"bm25_score_block": None})
-        cli_batches = list(seen)
         config = ServeConfig.from_file(hf_cfg)
         tag_dict = Dictionary.load(Path(model_dir) / "tag_dictionary.json")
         want = serve_mod.serve(batch, engine, taggers[0],
@@ -2375,61 +2522,37 @@ def hf_tokenizer_phase(cli, bm25, dev, card, tmp, engine, requests,
         cli.serving_tagger = serving_tagger
     got = [json.loads(line) for line in out.splitlines()]
     if len(got) != len(batch) or got != json.loads(json.dumps(want)):
-        raise AssertionError("phase 4q: cli serve with the HF tokenizer "
-                             "answers differ from serve() on the in-memory "
-                             "engine")
+        raise AssertionError(f"phase 4q: cli serve with {tok_dir} answers "
+                             "differ from serve() on the in-memory engine")
     fresh = HFTokenizer(str(tok_dir))
     n_rows = n_ids = 0
-    for eb in cli_batches:
+    for eb in seen:
         for b, rec in enumerate(eb.records):
             ids = eb.input_ids[b][eb.attention_mask[b] > 0].tolist()
             if ids != encoded_pieces(fresh, rec):
                 raise AssertionError(f"phase 4q: row {b} of a served batch "
-                                     "is not the HF tokenizer's pieces")
+                                     f"is not {tok_dir}'s pieces")
             n_rows, n_ids = n_rows + 1, n_ids + len(ids)
     del taggers
     torch.cuda.empty_cache()
-    log(f"phase 4q (b): cli serve --index_dir (the saved 1M KB, the trained "
-        f"checkpoint in bf16) with tokenizer: {{type: hf}}: {len(got)} "
-        f"requests in {serve_s:.1f} s with the KB open and the checkpoint "
-        f"load, launches {served}; responses equal serve() on the "
-        f"in-memory engine with config.make_tokenizer(); the encoder got "
-        f"{n_rows} rows, {n_ids} ids, each row CLS, the HF pieces of its "
-        f"fused words, SEP ({card})")
-
-    # -- (c) cli retrieve --hf_tokenizer -------------------------------------
-    data = tmp / "conll-hf"
-    write_column_file(data / "dev.txt", dev_recs)
-    parts = []
-    engine_class = cli.RetrievalEngine
-
-    def shared_pruned(*args, mode="exhaustive", **kwargs):
-        if mode == "pruned":
-            return pruned
-        return engine_class(*args, mode=mode, **kwargs)
-
-    cli.RetrievalEngine = shared_pruned
-    try:
-        for i, (label, extra) in enumerate(RETRIEVE_RUNS[:2]):
-            parts.append(hf_retrieve_run(cli, bm25, tmp, i, label, extra,
-                                         kb_dir, tok_dir, data, dev_recs,
-                                         fresh, device))
-    finally:
-        cli.RetrievalEngine = engine_class
-    log(f"phase 4q (c): cli retrieve --index_dir --hf_tokenizer over 4h's en "
-        f"dev split: " + "; ".join(parts) + f"; every fused sentence within "
-        f"510 subtokens by the HF tokenizer's count ({card})")
-    log(f"phase 4q in {time.perf_counter() - t_phase:.1f} s")
+    return (f"cli serve --index_dir (the saved 1M KB, the trained "
+            f"checkpoint in bf16) with tokenizer: {{type: hf, dir: "
+            f"{Path(tok_dir).name}}}: {len(got)} requests in {serve_s:.1f} s "
+            f"with the KB open and the checkpoint load, launches {served}; "
+            f"responses equal serve() on the in-memory engine with "
+            f"config.make_tokenizer(); the encoder got {n_rows} rows, "
+            f"{n_ids} ids, each row CLS, the HF pieces of its fused words, "
+            f"SEP ({card})")
 
 
 def hf_retrieve_run(cli, bm25, tmp, i, label, extra, kb_dir, tok_dir, data,
-                    dev_recs, tokenizer, device) -> str:
-    """One ``cli retrieve --hf_tokenizer`` run of phase 4q (c), checked;
-    its summary."""
+                    dev_recs, tokenizer, device, tag: str = "") -> str:
+    """One ``cli retrieve --hf_tokenizer`` run of phase 4q (c) or (e),
+    checked; its summary."""
     from kbner_tpu_torch.data.conll import read_column_file
     from kbner_tpu_torch.data.subword import subtoken_length
 
-    out_dir = tmp / f"fused-hf-{i}"
+    out_dir = tmp / f"fused-hf{tag}-{i}"
     reset_counts(bm25)
     _, wall = timed(lambda: run_cli(cli, [
         "retrieve", "--index_dir", str(kb_dir), "--hf_tokenizer",
@@ -2686,9 +2809,10 @@ DE_WORDS = {"visited": "besuchte", "yesterday": "gestern", "hired":
 # heads, FFN 4096, vocabulary 250002) cut to CUT_LAYERS of its 24 layers,
 # through an HF config.json that model.encoder names: a depth cut that
 # keeps the smoke within its time limit on the slower of the card
-# machine's hosts (the whole run took 1,279.8 s there at full depth, and
-# 1,139.5 s at 8 layers once phase 4r came)
-CUT_LAYERS = 6
+# machine's hosts (the whole run took 1,279.8 s there at full depth,
+# 1,139.5 s at 8 layers once phase 4r came, 1,158.9 s at 6 once phase
+# 4q's RoBERTa and mBERT runs came, and 1,137.2 s at 4)
+CUT_LAYERS = 2
 
 
 def cut_encoder(tmp) -> str:
@@ -6311,6 +6435,7 @@ def main() -> int:
         f"matches = {n_match / k1['ops']:.2%} of the {k1['ops']} (non-pad "
         f"slot, query) pairs; torch.topk(scores, {K}) over the [{Q}, {N}] "
         f"scores {topk_ms:.4f} ms ({card})")
+    tie_check(bm25, dt_t, di_t, qt, qw, card)
     # the title field: each query's entity is its source sentence's title
     tt_np, tw_np = title_index.encode_queries(
         [" ".join(f"w{t}" for t in title_docs[s]) for s in src[:BATCH]],

@@ -10,9 +10,10 @@ alignment. ``HFTokenizer`` reads a saved HF tokenizer directory's
 from __future__ import annotations
 
 import hashlib
+import random
 from typing import Dict, List, Optional, Protocol, Sequence
 
-from .hf_tokenizer import load_pretrained
+from .hf_tokenizer import DROPOUT_SEED, load_pretrained
 
 
 class SubwordTokenizer(Protocol):
@@ -63,13 +64,17 @@ class HashTokenizer:
 class HFTokenizer:
     """A locally saved HF tokenizer directory (``tokenizer.json`` and the
     files beside it), read as ``transformers``' ``AutoTokenizer`` reads it:
-    ``cls_id``/``sep_id``/``pad_id`` from the named special tokens (XLM-R's
-    defaults where the class is XLM-R's and nothing names them),
-    ``vocab_size`` the model's vocabulary united with the added tokens. A
-    directory without ``tokenizer.json`` raises."""
+    ``cls_id``/``sep_id``/``pad_id`` from the named special tokens (the
+    class's defaults where nothing names them; None where the class has
+    none, as GPT-2's), ``vocab_size`` the model's vocabulary united with
+    the added tokens. BPE dropout draws from this tokenizer's own
+    ``random.Random(seed)`` (``seed`` 0 by default); as each word's ids
+    are cached, a word keeps its first draw. A directory without
+    ``tokenizer.json`` raises."""
 
-    def __init__(self, tokenizer_dir: str):
-        self._tok, specials = load_pretrained(tokenizer_dir)
+    def __init__(self, tokenizer_dir: str, seed: int = DROPOUT_SEED):
+        self._rng = random.Random(seed)
+        self._tok, specials = load_pretrained(tokenizer_dir, self._rng)
         ids = {k: self._id(v) for k, v in specials.items()}
         self.unk_id = ids["unk_token"]
         self.cls_id = ids["cls_token"]
@@ -85,7 +90,9 @@ class HFTokenizer:
 
     def encode_word(self, word: str) -> List[int]:
         """The ids of ``" " + word`` (a leading space marks the word
-        boundary), or ``[unk_id]`` when there are none; cached per word."""
+        boundary), or ``[unk_id]`` when there are none (``[None]`` where
+        the class has no unk token, as the reference gives); cached per
+        word."""
         ids = self._cache.get(word)
         if ids is None:
             ids = self._tok.encode(" " + word) or [self.unk_id]

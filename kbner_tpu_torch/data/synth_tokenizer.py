@@ -1,13 +1,25 @@
-"""A seeded XLM-R-shaped tokenizer directory, written with plain ``json``.
+"""Seeded tokenizer directories, written with plain ``json``.
 
 The repository holds no published tokenizer files, so tests and the card
-smoke write one: a ``tokenizer.json`` shaped as XLM-R's (a Unigram model
-with ``<s> <pad> </s> <unk>`` at ids 0-3, seeded ``▁``-prefixed and bare
-pieces with scores and ``<mask>`` last as an ``lstrip`` added token; a
-``Precompiled`` normalizer; the legacy ``WhitespaceSplit`` +
-``Metaspace(add_prefix_space)`` pre-tokenizer) and a
-``tokenizer_config.json`` naming ``XLMRobertaTokenizer``. With
-``n_pieces=249_997`` it has XLM-R's 250,002 ids.
+smoke write them:
+
+- :func:`write_xlmr_like_tokenizer`: a ``tokenizer.json`` shaped as
+  XLM-R's (a Unigram model with ``<s> <pad> </s> <unk>`` at ids 0-3,
+  seeded ``▁``-prefixed and bare pieces with scores and ``<mask>`` last as
+  an ``lstrip`` added token; a ``Precompiled`` normalizer; the legacy
+  ``WhitespaceSplit`` + ``Metaspace(add_prefix_space)`` pre-tokenizer) and
+  a ``tokenizer_config.json`` naming ``XLMRobertaTokenizer``. With
+  ``n_pieces=249_997`` it has XLM-R's 250,002 ids.
+- :func:`write_roberta_like_tokenizer`: RoBERTa's layout, a ByteLevel BPE
+  (GPT-2's byte alphabet, seeded merges, ``<s> <pad> </s> <unk>`` first and
+  ``<mask>`` last) naming ``RobertaTokenizer``; with ``n_merges=50_004``
+  it has ``roberta-base``'s 50,265 ids.
+- :func:`write_mbert_like_tokenizer`: multilingual BERT's layout, a
+  WordPiece (``[PAD]``, 99 unused, ``[UNK] [CLS] [SEP] [MASK]``, then
+  seeded cased pieces, bare and ``##``-prefixed) behind ``BertNormalizer``
+  and ``BertPreTokenizer``, naming ``BertTokenizer`` with
+  ``do_lower_case`` false; with ``n_pieces=119_443`` it has
+  ``bert-base-multilingual-cased``'s 119,547 ids.
 
 The charsmap is built here (``build_double_array``, a minimal Darts-clone
 construction) from seeded NFKC mappings, many of them with
@@ -25,6 +37,8 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from .hf_tokenizer import BYTE_CHARS
 
 SPECIAL_PIECES = ("<s>", "<pad>", "</s>", "<unk>")
 MASK = "<mask>"
@@ -300,3 +314,155 @@ def sample_words(n: int, seed: int = 0) -> List[str]:
             w = "".join(parts)
         words.append(w)
     return words[:n]
+
+
+def _merge_words(n: int, rng: np.random.RandomState) -> List[str]:
+    """Seeded words for merges to build: ASCII syllables, capitalized or
+    not, digit runs and multilingual letters, most after a space."""
+    lower = [chr(c) for c in range(0x61, 0x7B)]
+    vowels = list("aeiouy")
+    alpha = _alphabet()
+    words: List[str] = []
+    for _ in range(n):
+        kind = rng.randint(10)
+        if kind < 7:
+            w = "".join(lower[rng.randint(26)] + vowels[rng.randint(6)]
+                        for _ in range(rng.randint(1, 5)))
+            if rng.rand() < 0.25:
+                w = w.capitalize()
+        elif kind < 8:
+            w = "".join(str(d) for d in rng.randint(10, size=rng.randint(
+                1, 5)))
+        else:
+            w = "".join(alpha[i] for i in rng.randint(len(alpha),
+                                                      size=rng.randint(1, 4)))
+        words.append((" " if rng.rand() < 0.8 else "") + w)
+    return words
+
+
+def roberta_like_spec(n_merges: int = 50_004, seed: int = 0) -> dict:
+    """The ``tokenizer.json`` object of :func:`write_roberta_like_tokenizer`:
+    each seeded word's UTF-8 bytes in GPT-2's alphabet merged left to
+    right, one merge per prefix not built yet, until ``n_merges``."""
+    rng = np.random.RandomState(seed)
+    vocab: Dict[str, int] = {t: i for i, t in enumerate(SPECIAL_PIECES)}
+    for c in BYTE_CHARS:
+        vocab[c] = len(vocab)
+    merges: List[List[str]] = []
+    while len(merges) < n_merges:
+        for w in _merge_words(4096, rng):
+            b = "".join(BYTE_CHARS[x] for x in w.encode("utf-8"))
+            for i in range(1, len(b)):
+                if b[:i + 1] not in vocab and len(merges) < n_merges:
+                    merges.append([b[:i], b[i]])
+                    vocab[b[:i + 1]] = len(vocab)
+    vocab[MASK] = len(vocab)
+    added = [{"id": i, "content": t, "single_word": False,
+              "lstrip": t == MASK, "rstrip": False, "normalized": False,
+              "special": True}
+             for t, i in list(vocab.items())[:4] + [(MASK, vocab[MASK])]]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                          "trim_offsets": True, "use_regex": True},
+        "post_processor": {"type": "RobertaProcessing", "sep": ["</s>", 2],
+                           "cls": ["<s>", 0], "trim_offsets": True,
+                           "add_prefix_space": False},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                  "fuse_unk": False, "byte_fallback": False,
+                  "ignore_merges": False, "vocab": vocab, "merges": merges},
+    }
+
+
+def write_roberta_like_tokenizer(out_dir, n_merges: int = 50_004,
+                                 seed: int = 0) -> Path:
+    """Write a RoBERTa-shaped ``tokenizer.json`` (:func:`roberta_like_spec`)
+    and a ``tokenizer_config.json`` naming ``RobertaTokenizer`` under
+    ``out_dir``; returns it."""
+    return _write(out_dir, roberta_like_spec(n_merges, seed),
+                  {"tokenizer_class": "RobertaTokenizer",
+                   "model_max_length": 512})
+
+
+MBERT_SPECIALS = ("[PAD]",) + tuple(f"[unused{i}]" for i in range(1, 100)) + (
+    "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+def mbert_like_spec(n_pieces: int = 119_443, seed: int = 0) -> dict:
+    """The ``tokenizer.json`` object of :func:`write_mbert_like_tokenizer`:
+    the specials, every alphabet char bare and ``##``-prefixed, then
+    seeded 2-8 char cased pieces (half ``##``-prefixed), ``n_pieces`` after
+    the specials in all."""
+    rng = np.random.RandomState(seed)
+    vocab: Dict[str, int] = {t: i for i, t in enumerate(MBERT_SPECIALS)}
+    alpha = _alphabet()
+    target = len(vocab) + n_pieces
+    for c in alpha:
+        for p in (c, "##" + c):
+            if p not in vocab and len(vocab) < target:
+                vocab[p] = len(vocab)
+    lower = [chr(c) for c in range(0x61, 0x7B)]
+    chars = np.array(alpha + lower * 40 + [c.upper() for c in lower] * 4)
+    while len(vocab) < target:
+        m = 4 * (target - len(vocab)) + 64
+        lens = rng.randint(2, 9, m)
+        picks = chars[rng.randint(len(chars), size=(m, 8))]
+        prefix = rng.rand(m) < 0.5
+        for k in range(m):
+            p = ("##" if prefix[k] else "") + "".join(picks[k, :lens[k]])
+            if p not in vocab:
+                vocab[p] = len(vocab)
+                if len(vocab) == target:
+                    break
+    added = [{"id": vocab[t], "content": t, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True}
+             for t in ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None,
+                       "lowercase": False},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "[SEP]", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "[SEP]", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}},
+                     {"SpecialToken": {"id": "[SEP]", "type_id": 1}}],
+            "special_tokens": {
+                t: {"id": t, "ids": [vocab[t]], "tokens": [t]}
+                for t in ("[CLS]", "[SEP]")}},
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                  "continuing_subword_prefix": "##",
+                  "max_input_chars_per_word": 100, "vocab": vocab},
+    }
+
+
+def write_mbert_like_tokenizer(out_dir, n_pieces: int = 119_443,
+                               seed: int = 0) -> Path:
+    """Write an mBERT-shaped ``tokenizer.json`` (:func:`mbert_like_spec`)
+    and a ``tokenizer_config.json`` naming ``BertTokenizer`` (cased:
+    ``do_lower_case`` false) under ``out_dir``; returns it."""
+    return _write(out_dir, mbert_like_spec(n_pieces, seed),
+                  {"tokenizer_class": "BertTokenizer",
+                   "do_lower_case": False, "model_max_length": 512})
+
+
+def _write(out_dir, spec: dict, config: dict) -> Path:
+    d = Path(out_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "tokenizer.json").write_text(
+        json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps(config))
+    return d

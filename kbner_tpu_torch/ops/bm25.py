@@ -176,10 +176,12 @@ def merge_topk(
     scores_b: torch.Tensor, ids_b: torch.Tensor,
     k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Merge two per-query top-k lists -> top-k of the union."""
+    """Merge two per-query top-k lists -> top-k of the union, the earlier
+    position first among equal scores (``lax.top_k`` over the
+    concatenation: list a's entries before list b's)."""
     scores = torch.cat([scores_a, scores_b], dim=1)
     ids = torch.cat([ids_a, ids_b], dim=1)
-    top_scores, idx = torch.topk(scores, k, dim=1)
+    top_scores, idx = _top_sorted(scores, k)
     return top_scores, torch.gather(ids, 1, idx)
 
 
@@ -191,6 +193,42 @@ def _ties_by_id(scores: torch.Tensor, ids: torch.Tensor
     scores, perm2 = torch.sort(torch.gather(scores, 1, perm), dim=1,
                                descending=True, stable=True)
     return scores, torch.gather(ids, 1, perm2)
+
+
+# tied rows refilled at once: bounds the [rows, N] temporaries of a refill
+REFILL_ROWS = 64
+
+
+def _row_topk(scores: torch.Tensor, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``k`` of a stable descending sort of each row of
+    ``scores`` [Q, N] (``lax.top_k``'s set and order), without sorting
+    the row: ``torch.topk`` takes k + 1, and only in the rows whose k-th
+    and (k+1)-th scores are equal is the tied run refilled from the lowest
+    positions that carry that score (a smallest-k over the row's int32
+    positions, N elsewhere). Finding those rows waits for the device
+    once."""
+    n = scores.shape[1]
+    if not 0 < k < n:
+        return _top_sorted(scores, min(k, n))
+    top_s, top_i = torch.topk(scores, k + 1, dim=1)
+    s, i = _ties_by_id(top_s[:, :k], top_i[:, :k])
+    tied = torch.nonzero(top_s[:, k - 1] == top_s[:, k]).flatten()
+    if tied.numel():
+        t = top_s[tied, k - 1:k]                     # [R, 1] the k-th score
+        pos = torch.arange(n, dtype=torch.int32, device=scores.device)
+        lowest = torch.cat([
+            torch.topk(torch.where(scores[rows] == tr, pos, n), k, dim=1,
+                       largest=False).values
+            for rows, tr in zip(tied.split(REFILL_ROWS),
+                                t.split(REFILL_ROWS))]).long()
+        above = (s[tied] > t).sum(dim=1, keepdim=True)   # kept as they are
+        j = torch.arange(k, device=scores.device)
+        keep = j < above
+        s[tied] = torch.where(keep, s[tied], t)
+        i[tied] = torch.where(keep, i[tied], torch.gather(
+            lowest, 1, (j - above).clamp(min=0)))
+    return s, i
 
 
 def bm25_topk(
@@ -206,18 +244,18 @@ def bm25_topk(
     are added. With ``doc_chunk`` the document axis is scanned in pieces of
     that size with a running top-k merge, bounding memory at
     ``[Q, doc_chunk]`` instead of ``[Q, N]``. ``id_offset`` shifts the
-    returned ids. Equal scores come back lower id first, as ``lax.top_k``
-    orders them; where equal scores straddle the k-th place, which of them
-    are kept is ``torch.topk``'s choice, not always the lower ids.
+    returned ids. The result is ``lax.top_k``'s, ids and order: where
+    equal scores straddle the k-th place the lowest ids among them are
+    kept, and equal scores come back lower id first (chunked, the running
+    list holds lower ids than every later chunk, and the merge prefers it).
     """
     fields = tuple(fields)
     Q = fields[0][0].shape[0]
     N = fields[0][2].shape[1]
 
     if doc_chunk is None or doc_chunk >= N:
-        scores = _score_fields(fields, 0, N)
-        top_scores, top_ids = torch.topk(scores, min(k, N), dim=1)
-        return _ties_by_id(top_scores, top_ids + id_offset)
+        top_scores, top_ids = _row_topk(_score_fields(fields, 0, N), k)
+        return top_scores, top_ids + id_offset
 
     if N % doc_chunk != 0:
         raise ValueError(f"N={N} must be a multiple of doc_chunk={doc_chunk}")
@@ -226,11 +264,11 @@ def bm25_topk(
                             device=dev)
     run_ids = torch.full((Q, k), -1, dtype=torch.int64, device=dev)
     for start in range(0, N, doc_chunk):
-        scores = _score_fields(fields, start, doc_chunk)
-        c_scores, c_ids = torch.topk(scores, min(k, doc_chunk), dim=1)
+        c_scores, c_ids = _row_topk(_score_fields(fields, start, doc_chunk),
+                                    min(k, doc_chunk))
         run_scores, run_ids = merge_topk(
             run_scores, run_ids, c_scores, c_ids + (start + id_offset), k)
-    return _ties_by_id(run_scores, run_ids)
+    return run_scores, run_ids
 
 
 # -- two-pass pruned search (MaxScore-style) -----------------------------------

@@ -1210,22 +1210,34 @@ class RetrievalEngine:
         at most ``depth`` batches dispatched and not yet yielded.
         Exhaustive mode searches each batch with :meth:`search_encoded`.
         On a meshed engine the merges run on the caller's thread, in batch
-        order, so every rank must consume the stream.
+        order, so every rank must consume the stream. An empty batch (no
+        query strings, or query arrays of no rows) yields empty ``[0, k]``
+        results in its place and searches nothing.
         """
         self._require_device()
 
         def encode(b):
-            if b and isinstance(b[0], str):
+            if len(b) and isinstance(b[0], str):
                 b = self.text_index.encode_queries(
                     list(b), max_query_terms=max_query_terms)
+            if not len(b):
+                return None
             qt, qw = (np.asarray(x) for x in b)
-            return qt, qw
+            return (qt, qw) if len(qt) else None
+
+        def none_found(on):
+            return (torch.zeros((0, k), dtype=torch.float32, device=on),
+                    torch.zeros((0, k), dtype=torch.int64, device=on))
 
         if self.mode != "pruned":
-            return (self.search_encoded(*encode(b), k=k) for b in batches)
-        return _pipelined(batches, encode, lambda e: self._pack_queries(*e),
-                          lambda packed: self._run_pruned(packed, k),
-                          self.device, workers, depth)
+            return (tuple(t.numpy() for t in none_found("cpu")) if e is None
+                    else self.search_encoded(*e, k=k)
+                    for e in map(encode, batches))
+        return _pipelined(
+            batches, encode, lambda e: e and self._pack_queries(*e),
+            lambda packed: (none_found(self.device) if packed is None
+                            else self._run_pruned(packed, k)),
+            self.device, workers, depth)
 
     def search(
         self,

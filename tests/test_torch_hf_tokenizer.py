@@ -279,29 +279,35 @@ def test_encode_batch_arrays_equal(case, tmp_path):
 
 
 UNSUPPORTED = {
-    "normalizer": ({"type": "BertNormalizer"}, "BertNormalizer"),
-    "pre_tokenizer": ({"type": "ByteLevel"}, "ByteLevel"),
-    "model": ({"type": "WordPiece", "vocab": {}}, "WordPiece"),
-    "byte_fallback": ("byte_fallback", "byte_fallback"),
-    "regex": ({"type": "Replace", "pattern": {"Regex": r"\p{L}+"},
-               "content": "x"}, "Replace pattern"),
-    "prepend_scheme": (_metaspace(prepend_scheme="sometimes"),
+    # (position, spec, what the error names)
+    "normalizer": ("normalizer", {"type": "UnicodeFold"}, "UnicodeFold"),
+    "sequence_member": ("normalizer", {"type": "Sequence", "normalizers": [
+        {"type": "NFC"}, {"type": "UnicodeFold"}]}, "UnicodeFold"),
+    "pre_tokenizer": ("pre_tokenizer", {"type": "UnicodeWords"},
+                      "UnicodeWords"),
+    "model": ("model", {"type": "Bigram", "vocab": {}}, "Bigram"),
+    "regex": ("normalizer", {"type": "Replace", "pattern": {
+        "Regex": r"(\w)\1"}, "content": "x"}, r"Onig construct \\1"),
+    "split_regex": ("pre_tokenizer", {
+        "type": "Split", "pattern": {"Regex": r"\p{Han}+"},
+        "behavior": "Isolated", "invert": False}, "Han"),
+    "split_behavior": ("pre_tokenizer", {
+        "type": "Split", "pattern": {"String": " "},
+        "behavior": "Scattered", "invert": False}, "Scattered"),
+    "prepend_scheme": ("pre_tokenizer", _metaspace(prepend_scheme="sometimes"),
                        "prepend_scheme"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(UNSUPPORTED))
 def test_unsupported_types_raise(what, tmp_path):
-    value, match = UNSUPPORTED[what]
+    """What the reader does not read raises ``NotImplementedError`` naming
+    it: an unknown type in each position, an Onig construct the regex
+    translator refuses, an
+    unknown split behavior and an unknown Metaspace scheme."""
+    position, value, match = UNSUPPORTED[what]
     spec = st.tokenizer_spec(100, seed=0, charsmap=0)
-    if what in ("normalizer", "regex"):
-        spec["normalizer"] = value
-    elif what in ("pre_tokenizer", "prepend_scheme"):
-        spec["pre_tokenizer"] = value
-    elif what == "model":
-        spec["model"] = value
-    else:
-        spec["model"]["byte_fallback"] = True
+    spec[position] = value
     with pytest.raises(NotImplementedError, match=match):
         hf.TokenizerJson(spec)
 

@@ -316,6 +316,25 @@ def test_mesh_of_one_equals_the_unsharded_engine(world_of_one, unsharded,
             assert_same_sets(*got, us, ui)
 
 
+@pytest.mark.parametrize("name", ["exhaustive", "d16"])
+def test_mesh_of_one_stream_passes_empty_batches(world_of_one, name):
+    """A meshed engine's stream yields ``[0, k]`` results for an empty
+    batch, and the non-empty batches' results are the stream's without
+    it (every rank sees the same stream, so every rank skips the same
+    merges)."""
+    text, _ = port_indices(zipf_corpus(n_docs=400))
+    eng = RetrievalEngine(text, mesh=world_of_one, device="cpu",
+                          **CONFIGS[name])
+    qt, qw = _queries(text, port_indices(zipf_corpus(n_docs=400))[1])[:2]
+    batches = [(qt[:5], qw[:5]), (qt[5:12], qw[5:12])]
+    got = list(eng.search_stream([[], batches[0], [], batches[1]], k=K))
+    want = list(eng.search_stream(batches, k=K))
+    assert [g[1].shape for g in got] == [(0, K), (5, K), (0, K), (7, K)]
+    for (gs, gi), (ws, wi) in zip([got[1], got[3]], want):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gs, ws)
+
+
 def _message(fn):
     with pytest.raises(ValueError) as err:
         fn()
