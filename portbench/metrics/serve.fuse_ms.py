@@ -1,0 +1,12 @@
+"""Host milliseconds of the fuse stage per micro-batch over the window, as
+``serve(timings=)``'s ``fuse`` key sums them (the stage ends with
+its results on the host)."""
+
+LAYER, UNIT, SOURCE = "fusion", "ms", "program_span"
+MOVES, BETTER = "serve_sentences_per_s", "lower"
+
+
+def read(ctx):
+    if "stage_s" not in ctx or not ctx["batches"]:
+        return None
+    return ctx["stage_s"]["fuse"] / ctx["batches"] * 1e3
