@@ -44,6 +44,7 @@ from ..ops.crf import (crf_decode, crf_forward, crf_gold_score,
 from ..ops.losses import (distillation_loss, feature_l2_loss,
                           posterior_distillation_loss)
 from ..ops.losses import multi_view_loss as mv_loss
+from ..utils.spans import span
 from .embedders import (EmbedderSpec, StackedEmbedder, reset_dense_,
                         reset_flax_)
 from .xlmr import (Linear, XLMRConfig, XLMREncoder, device_generator,
@@ -244,11 +245,12 @@ class SequenceTagger(nn.Module):
                    token_norm: Optional[float] = None) -> torch.Tensor:
         cfg = self.config
         if cfg.use_crf:
-            nll = crf_neg_log_likelihood(
-                emissions, batch["tag_ids"], batch["crf_mask"],
-                self._batch_transitions(batch, feats), cfg.start_idx,
-                cfg.stop_idx)
-            return nll.mean()
+            with span("kbner.train.crf"):
+                nll = crf_neg_log_likelihood(
+                    emissions, batch["tag_ids"], batch["crf_mask"],
+                    self._batch_transitions(batch, feats), cfg.start_idx,
+                    cfg.stop_idx)
+                return nll.mean()
         logp = F.log_softmax(emissions, dim=-1)
         gold = torch.gather(logp, 2, batch["tag_ids"].long().unsqueeze(2))
         mask = batch["crf_mask"].float()
@@ -263,7 +265,8 @@ class SequenceTagger(nn.Module):
         the softmax head, the latter over ``token_norm`` when given (a
         data-parallel rank's share of the global token count) instead of
         the batch's token count."""
-        feats, emissions = self._features_and_emissions(batch, rng)
+        with span("kbner.train.forward"):
+            feats, emissions = self._features_and_emissions(batch, rng)
         loss = self._gold_loss(emissions, batch, feats, token_norm)
         if return_emissions:
             return loss, emissions
@@ -393,7 +396,8 @@ class SequenceTagger(nn.Module):
         the forward-backward marginals (``posterior=True``), or the
         softmax head's argmax. Masked positions get ``pad_tag``."""
         cfg = self.config
-        feats, emissions = self._features_and_emissions(batch)
+        with span("kbner.tag.forward"):
+            feats, emissions = self._features_and_emissions(batch)
         mask = batch["crf_mask"].bool()
         if cfg.use_crf and posterior:
             marg = crf_marginals(emissions, mask,
@@ -402,9 +406,11 @@ class SequenceTagger(nn.Module):
             best, tags = marg.max(dim=-1)
             score = (torch.log(best + 1e-9) * mask).sum(-1)
         elif cfg.use_crf:
-            return crf_decode(emissions, mask,
-                              self._batch_transitions(batch, feats),
-                              cfg.start_idx, cfg.stop_idx, pad_tag=pad_tag)
+            with span("kbner.tag.crf", columns=emissions.shape[1]):
+                return crf_decode(emissions, mask,
+                                  self._batch_transitions(batch, feats),
+                                  cfg.start_idx, cfg.stop_idx,
+                                  pad_tag=pad_tag)
         else:
             tags = emissions.argmax(dim=-1)
             score = F.log_softmax(emissions, -1).max(dim=-1).values.sum(-1)

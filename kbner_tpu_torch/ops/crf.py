@@ -34,6 +34,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.spans import current
+
 NEG_INF = -1e30
 
 
@@ -77,6 +79,7 @@ def crf_forward(
     B = emissions.shape[0]
     trans = _trans3(transitions, B)
     emissions, mask, _ = _active_columns(emissions, mask)
+    current().add("columns", emissions.shape[1])
     alpha = trans[:, start_idx, :] + emissions[:, 0, :]
     for t in range(1, emissions.shape[1]):
         # scores[b, i, j] = alpha[b, i] + trans[b, i, j] + emit[b, j]

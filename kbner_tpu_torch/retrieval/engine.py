@@ -53,6 +53,7 @@ from .. import native
 from ..device import resolve_device
 from ..ops.bm25 import (KEY_PAD, _top_sorted, bm25_pruned_topk_packed,
                         bm25_topk, gather_pruned_candidate_keys)
+from ..utils.spans import span
 from .index import BM25Index, long_to_int4
 
 _DOC_PAD = 512  # the doc axis is padded to a multiple of this on upload
@@ -1161,27 +1162,28 @@ class RetrievalEngine:
         self._require_device()
         if title_terms is not None and self.title_index is None:
             raise ValueError("engine built without a title index")
-        if self.mode == "pruned":
+        with span("kbner.retrieve.score", docs=self.text_index.n_docs):
+            if self.mode == "pruned":
+                if title_terms is not None:
+                    title_terms = np.asarray(title_terms)
+                    title_weights = np.asarray(title_weights)
+                return self._run_pruned(self._pack_queries(
+                    np.asarray(q_terms), np.asarray(q_weights), title_terms,
+                    title_weights), k)
+
+            def put(x, dtype):
+                return torch.as_tensor(np.asarray(x, dtype=dtype),
+                                       device=self.device)
+
+            fields = [(put(q_terms, np.int32), put(q_weights, np.float32),
+                       *self.fields["text"])]
             if title_terms is not None:
-                title_terms = np.asarray(title_terms)
-                title_weights = np.asarray(title_weights)
-            return self._run_pruned(self._pack_queries(
-                np.asarray(q_terms), np.asarray(q_weights), title_terms,
-                title_weights), k)
-
-        def put(x, dtype):
-            return torch.as_tensor(np.asarray(x, dtype=dtype),
-                                   device=self.device)
-
-        fields = [(put(q_terms, np.int32), put(q_weights, np.float32),
-                   *self.fields["text"])]
-        if title_terms is not None:
-            fields.append((put(title_terms, np.int32),
-                           put(title_weights, np.float32),
-                           *self.fields["title"]))
-        return self._merge(*bm25_topk(
-            fields, k=k, doc_chunk=self.doc_chunk,
-            id_offset=self.shard * self.shard_size), k)
+                fields.append((put(title_terms, np.int32),
+                               put(title_weights, np.float32),
+                               *self.fields["title"]))
+            return self._merge(*bm25_topk(
+                fields, k=k, doc_chunk=self.doc_chunk,
+                id_offset=self.shard * self.shard_size), k)
 
     def search_encoded(
         self,
@@ -1194,7 +1196,8 @@ class RetrievalEngine:
         """Top-k over pre-encoded queries. Returns (scores, ids) [Q, k]."""
         scores, ids = self._search_device(q_terms, q_weights, k, title_terms,
                                           title_weights)
-        return scores.cpu().numpy(), ids.cpu().numpy()
+        with span("kbner.retrieve.pull"):
+            return scores.cpu().numpy(), ids.cpu().numpy()
 
     def search_stream(self, batches, k: int = 10, workers: int = 3,
                       depth: int = 2, max_query_terms: int = 64):
@@ -1253,16 +1256,19 @@ class RetrievalEngine:
         terms hit the title field with ``title_boost`` (ES bool.should with
         match(title=entity, boost=2.0)).
         """
-        q_terms, q_weights = self.text_index.encode_queries(
-            list(queries), max_query_terms=max_query_terms)
-        t_terms = t_weights = None
-        if entity_queries is not None:
-            if self.title_index is None:
-                raise ValueError("entity queries need a title index")
-            joined = [" ".join(ents) for ents in entity_queries]
-            t_terms, t_weights = self.title_index.encode_queries(
-                joined, max_query_terms=max_query_terms,
-                boosts=[title_boost] * len(joined))
+        with span("kbner.retrieve.analyze", queries=len(queries)) as s:
+            q_terms, q_weights = self.text_index.encode_queries(
+                list(queries), max_query_terms=max_query_terms)
+            t_terms = t_weights = None
+            if entity_queries is not None:
+                if self.title_index is None:
+                    raise ValueError("entity queries need a title index")
+                joined = [" ".join(ents) for ents in entity_queries]
+                t_terms, t_weights = self.title_index.encode_queries(
+                    joined, max_query_terms=max_query_terms,
+                    boosts=[title_boost] * len(joined))
+            if s:
+                s.add("terms", np.count_nonzero(q_weights))
         scores, ids = self.search_encoded(
             q_terms, q_weights, k=k, title_terms=t_terms,
             title_weights=t_weights)
@@ -1274,17 +1280,20 @@ class RetrievalEngine:
         and the -1 fill of a short top-k are dropped."""
         results: List[List[RetrievedDoc]] = []
         n_real = self.text_index.n_docs
-        for qi in range(ids.shape[0]):
-            row = []
-            for r in range(ids.shape[1]):
-                d, s = int(ids[qi, r]), float(scores[qi, r])
-                if d < 0 or d >= n_real or s <= 0.0:
-                    continue
-                if self.store is not None:
-                    row.append(self.store.materialize(d, s))
-                else:
-                    row.append(RetrievedDoc(doc_id=d, score=s))
-            results.append(row)
+        with span("kbner.retrieve.materialize") as sp:
+            for qi in range(ids.shape[0]):
+                row = []
+                for r in range(ids.shape[1]):
+                    d, s = int(ids[qi, r]), float(scores[qi, r])
+                    if d < 0 or d >= n_real or s <= 0.0:
+                        continue
+                    if self.store is not None:
+                        row.append(self.store.materialize(d, s))
+                    else:
+                        row.append(RetrievedDoc(doc_id=d, score=s))
+                results.append(row)
+            if sp:
+                sp.add("docs_returned", sum(map(len, results)))
         return results
 
     def search_texts_stream(self, queries: Sequence[str], k: int = 10,

@@ -13,7 +13,6 @@ and response schema:
 
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -26,6 +25,7 @@ from .data.tag_schemes import get_spans
 from .models.tagger import SequenceTagger
 from .retrieval.engine import RetrievalEngine
 from .retrieval.fusion import fuse_contexts
+from .utils.spans import span, timed
 
 _X_TAG = "S-" + X_LABEL
 
@@ -51,21 +51,33 @@ def predict(
     """
     results: List[Optional[List[str]]] = [None] * len(records)
     rec_index = {id(r): i for i, r in enumerate(records)}
-    for eb in make_batches(records, tokenizer, None, batch_size,
-                           sort_by_length=sort_by_length,
-                           tag_layer=tag_layer):
-        batch = (to_device(eb) if to_device is not None else
-                 {k: torch.from_numpy(v).to(tagger.device)
-                  for k, v in eb.arrays().items()})
+    with span("kbner.tag.encode") as s:
+        batches = make_batches(records, tokenizer, None, batch_size,
+                               sort_by_length=sort_by_length,
+                               tag_layer=tag_layer)
+        if s:
+            for eb in batches:
+                s.add("rows", eb.num_sentences)
+                s.add("subtokens", eb.attention_mask.sum())
+                s.add("slots", eb.attention_mask.size)
+    for eb in batches:
+        with span("kbner.tag.upload"):
+            batch = (to_device(eb) if to_device is not None else
+                     {k: torch.from_numpy(v).to(tagger.device)
+                      for k, v in eb.arrays().items()})
         tags, _ = tagger.decode(batch)
-        tags = tags.cpu().numpy()
-        for b, rec in enumerate(eb.records):
-            n_words = int(eb.word_mask[b].sum())
-            out = [_X_TAG if eb.crf_mask[b, w] == 0
-                   else tag_dict.get_item_for_index(int(tags[b, w]))
-                   for w in range(n_words)]
-            out.extend(["O"] * (len(rec.tokens) - n_words))
-            results[rec_index[id(rec)]] = out
+        with span("kbner.tag.pull"):
+            tags = tags.cpu().numpy()
+        with span("kbner.tag.render") as s:
+            for b, rec in enumerate(eb.records):
+                n_words = int(eb.word_mask[b].sum())
+                out = [_X_TAG if eb.crf_mask[b, w] == 0
+                       else tag_dict.get_item_for_index(int(tags[b, w]))
+                       for w in range(n_words)]
+                out.extend(["O"] * (len(rec.tokens) - n_words))
+                results[rec_index[id(rec)]] = out
+                if s:
+                    s.add("words", n_words)
     return results
 
 
@@ -97,28 +109,33 @@ def serve(
     wall seconds of each stage added to its ``retrieve``, ``fuse`` and
     ``tag`` keys (each stage ends with its results on the host).
     """
-    stage = {"retrieve": 0.0, "fuse": 0.0, "tag": 0.0}
-    orig = [request_record(r, tag_layer) for r in requests]
-    records = orig
-    if engine is not None:
-        t0 = time.perf_counter()
-        results = engine.search([" ".join(r.tokens) for r in orig], k=k)
-        t1 = time.perf_counter()
-        records = fuse_contexts(orig, results, tokenizer, mode=mode)
-        stage["retrieve"] = t1 - t0
-        stage["fuse"] = time.perf_counter() - t1
-    t2 = time.perf_counter()
-    preds = predict(records, tagger, tokenizer, tag_dict,
-                    batch_size=batch_size, tag_layer=tag_layer)
-    stage["tag"] = time.perf_counter() - t2
-    if timings is not None:
-        for key, sec in stage.items():
-            timings[key] = timings.get(key, 0.0) + sec
-    out = []
-    for req, rec, tags in zip(requests, orig, preds):
-        tags = tags[:len(rec.tokens)]  # context tokens stay internal
-        spans = [{"start": s.start, "end": s.end, "label": s.label}
-                 for s in get_spans(tags, ignore_labels=(X_LABEL,))]
-        out.append({"id": req.get("id"), "tokens": rec.tokens, "tags": tags,
-                    "spans": spans})
-    return out
+    with span("kbner.serve.batch", requests=len(requests)):
+        stage = {"retrieve": 0.0, "fuse": 0.0, "tag": 0.0}
+        orig = [request_record(r, tag_layer) for r in requests]
+        records = orig
+        if engine is not None:
+            with timed("kbner.serve.retrieve") as t:
+                results = engine.search([" ".join(r.tokens) for r in orig],
+                                        k=k)
+            stage["retrieve"] = t.seconds
+            with timed("kbner.serve.fuse") as t:
+                records = fuse_contexts(orig, results, tokenizer, mode=mode)
+                if t:
+                    t.add("contexts", sum(len(r) for r in results))
+            stage["fuse"] = t.seconds
+        with timed("kbner.serve.tag") as t:
+            preds = predict(records, tagger, tokenizer, tag_dict,
+                            batch_size=batch_size, tag_layer=tag_layer)
+        stage["tag"] = t.seconds
+        if timings is not None:
+            for key, sec in stage.items():
+                timings[key] = timings.get(key, 0.0) + sec
+        with span("kbner.serve.respond"):
+            out = []
+            for req, rec, tags in zip(requests, orig, preds):
+                tags = tags[:len(rec.tokens)]  # context tokens stay internal
+                spans = [{"start": s.start, "end": s.end, "label": s.label}
+                         for s in get_spans(tags, ignore_labels=(X_LABEL,))]
+                out.append({"id": req.get("id"), "tokens": rec.tokens,
+                            "tags": tags, "spans": spans})
+        return out

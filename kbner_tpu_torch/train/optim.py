@@ -39,6 +39,8 @@ from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
 import numpy as np
 import torch
 
+from ..utils.spans import span
+
 Schedule = Callable[[int], float]
 
 
@@ -151,13 +153,15 @@ class FinetuneOptimizer:
             self.mini_step = 0
             grads = self.acc
         if self.grad_clip and self.grad_clip > 0:
-            norm = self._global_norm(grads)
-            scale = torch.where(norm < self.grad_clip, 1.0,
-                                self.grad_clip / norm)
-            torch._foreach_mul_(grads, scale)
-        self._adamw(params, grads)
-        if self.acc is not None:
-            torch._foreach_zero_(self.acc)
+            with span("kbner.optim.clip"):
+                norm = self._global_norm(grads)
+                scale = torch.where(norm < self.grad_clip, 1.0,
+                                    self.grad_clip / norm)
+                torch._foreach_mul_(grads, scale)
+        with span("kbner.optim.update"):
+            self._adamw(params, grads)
+            if self.acc is not None:
+                torch._foreach_zero_(self.acc)
         return True
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:

@@ -68,6 +68,7 @@ from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, batch_rows, local_rows,
                              pad_batch_for_mesh)
 from ..parallel.sharding_rules import gather_state_dict, shard_state_dict
 from ..serve import predict as predict_tags
+from ..utils import spans
 from .optim import (FinetuneOptimizer, from_optax_state, is_encoder_param,
                     make_finetune_optimizer, optax_state)
 
@@ -110,7 +111,8 @@ class TrainConfig:
     checkpoint: bool = False
     resume: bool = False
     # a torch.profiler trace of the first epoch's steps [profile_start,
-    # profile_start + profile_steps) into <target_dir>/profile
+    # profile_start + profile_steps), with the program's spans
+    # (utils/spans.py) on, into <target_dir>/profile/trace.json
     profile_steps: int = 0
     profile_start: int = 2
 
@@ -207,11 +209,18 @@ class FinetuneTrainer:
         arrays = eb.arrays()
         if shard_rows:
             arrays = self._host_rows(arrays)
-        out = {k: torch.from_numpy(v).to(self.device)
-               for k, v in arrays.items()}
-        if self.selection is not None:
-            out["selection"] = torch.as_tensor(
-                np.asarray(self.selection, np.float32), device=self.device)
+        with spans.span("kbner.train.upload") as s:
+            out = {k: torch.from_numpy(v).to(self.device)
+                   for k, v in arrays.items()}
+            if self.selection is not None:
+                out["selection"] = torch.as_tensor(
+                    np.asarray(self.selection, np.float32),
+                    device=self.device)
+            if s:
+                mask = arrays["attention_mask"]
+                s.add("rows", mask.shape[0])
+                s.add("subtokens", mask.sum())
+                s.add("slots", mask.size)
         return out
 
     def _host_rows(self, arrays: Dict[str, np.ndarray]
@@ -273,21 +282,24 @@ class FinetuneTrainer:
         """``loss_fn()`` on this rank's rows and its backward pass, the
         gradients averaged over ``data``, one optimizer call; returns the
         global batch's loss, still on the device."""
-        with self._data_shard():
-            loss = loss_fn()
-            loss.backward()
-        if self._data_split() > 1:
-            self.sharding.sync_gradients(self.model)
-            loss = loss.detach().clone()
-            dist.all_reduce(loss, group=self.sharding.groups[DATA_AXIS])
-            loss /= self._data_split()
-        if freeze:
-            grads = [p.grad for n, p in self.model.named_parameters()
-                     if is_encoder_param(n) and p.grad is not None]
-            torch._foreach_mul_(grads, 0.0)
-        opt.step()
-        self.model.zero_grad(set_to_none=True)
-        return loss.detach()
+        with spans.span("kbner.train.step"):
+            with self._data_shard():
+                loss = loss_fn()
+                with spans.span("kbner.train.backward"):
+                    loss.backward()
+            if self._data_split() > 1:
+                self.sharding.sync_gradients(self.model)
+                loss = loss.detach().clone()
+                dist.all_reduce(loss, group=self.sharding.groups[DATA_AXIS])
+                loss /= self._data_split()
+            if freeze:
+                grads = [p.grad for n, p in self.model.named_parameters()
+                         if is_encoder_param(n) and p.grad is not None]
+                torch._foreach_mul_(grads, 0.0)
+            with spans.span("kbner.train.optimizer"):
+                opt.step()
+            self.model.zero_grad(set_to_none=True)
+            return loss.detach()
 
     # -- training ---------------------------------------------------------------
 
@@ -451,6 +463,8 @@ class FinetuneTrainer:
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
+        # the program's spans lie on the trace beside the kernels
+        self._own_spans = spans.enable()
         prof.start()
         return prof
 
@@ -458,6 +472,9 @@ class FinetuneTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
+        if self._own_spans:
+            spans.disable()
+            spans.collect()
         out = base_path / "profile"
         out.mkdir(exist_ok=True)
         prof.export_chrome_trace(str(out / "trace.json"))
