@@ -40,7 +40,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.crf import (crf_decode, crf_forward, crf_gold_score,
-                       crf_marginals, crf_neg_log_likelihood)
+                       crf_marginals, crf_neg_log_likelihood, live_columns)
 from ..ops.losses import (distillation_loss, feature_l2_loss,
                           posterior_distillation_loss)
 from ..ops.losses import multi_view_loss as mv_loss
@@ -396,9 +396,13 @@ class SequenceTagger(nn.Module):
         the forward-backward marginals (``posterior=True``), or the
         softmax head's argmax. Masked positions get ``pad_tag``."""
         cfg = self.config
-        with span("kbner.tag.forward"):
-            feats, emissions = self._features_and_emissions(batch)
         mask = batch["crf_mask"].bool()
+        with span("kbner.tag.forward"):
+            # before the forward is queued, so that finding them waits
+            # for the mask alone and the loop queues behind the encoder
+            cols = (live_columns(mask) if cfg.use_crf and not posterior
+                    else None)
+            feats, emissions = self._features_and_emissions(batch)
         if cfg.use_crf and posterior:
             marg = crf_marginals(emissions, mask,
                                  self._batch_transitions(batch, feats),
@@ -406,11 +410,13 @@ class SequenceTagger(nn.Module):
             best, tags = marg.max(dim=-1)
             score = (torch.log(best + 1e-9) * mask).sum(-1)
         elif cfg.use_crf:
-            with span("kbner.tag.crf", columns=emissions.shape[1]):
+            with span("kbner.tag.crf", columns=emissions.shape[1]) as s:
+                if s:
+                    s.add("live_columns", cols.numel())
                 return crf_decode(emissions, mask,
                                   self._batch_transitions(batch, feats),
                                   cfg.start_idx, cfg.stop_idx,
-                                  pad_tag=pad_tag)
+                                  pad_tag=pad_tag, cols=cols)
         else:
             tags = emissions.argmax(dim=-1)
             score = F.log_softmax(emissions, -1).max(dim=-1).values.sum(-1)

@@ -19,18 +19,22 @@ Conventions:
   - all CRF math runs in float32.
 
 The loops over the word axis are plain PyTorch with autograd: the JAX
-package runs them as ``lax.scan`` and has no kernel for them. The forward
-recursions skip the word columns after the first that are masked in
-every sentence of the batch (in a fused batch, the context words after
-the longest sentence): a masked step is an exact carry, so dropping such a
-column changes no value and no gradient, and the loop runs over the
-sentence words only.
-That costs one host sync per call.
+package runs them as ``lax.scan`` and has no kernel for them. The
+recursions and the Viterbi decode skip the word columns after the first
+that are masked in every sentence of the batch (in a fused batch, the
+context words after the longest sentence): a masked step is an exact
+carry, so dropping such a column changes no value, gradient or tag, and
+the loop runs over the sentence words only.
+Finding those columns (:func:`live_columns`) costs one host sync, which
+waits for whatever the mask waits for; a caller that knows the mask
+before the emissions finds them first and hands them to
+:func:`crf_decode`, so the loop is queued behind the emissions without
+waiting for them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -53,16 +57,24 @@ def _trans3(transitions: torch.Tensor, B: int) -> torch.Tensor:
     return transitions
 
 
-def _active_columns(emissions: torch.Tensor, mask: torch.Tensor):
-    """``(emissions, mask, cols)`` without the word columns after the
-    first that are masked in every sentence; ``cols`` indexes the kept
-    columns (None when every column is kept). Column 0 always stays: the
-    recursions start there whatever its mask."""
-    live = mask.any(0)
+def live_columns(mask: torch.Tensor) -> torch.Tensor:
+    """Indices of the word columns that some sentence leaves unmasked, and
+    of column 0, which always stays: the recursions start there whatever
+    its mask. One host sync, on the mask alone."""
+    live = mask.bool().any(0)
     live[0] = True
-    if bool(live.all()):
+    return live.nonzero().squeeze(1)
+
+
+def _active_columns(emissions: torch.Tensor, mask: torch.Tensor,
+                    cols: Optional[torch.Tensor] = None):
+    """``(emissions, mask, cols)`` over the ``cols`` columns
+    (:func:`live_columns` when not given); ``cols`` is None when every
+    column is kept."""
+    if cols is None:
+        cols = live_columns(mask)
+    if cols.numel() == mask.shape[1]:
         return emissions, mask, None
-    cols = live.nonzero().squeeze(1)
     return emissions[:, cols], mask[:, cols], cols
 
 
@@ -149,26 +161,31 @@ def crf_decode(
     start_idx: int,
     stop_idx: int,
     pad_tag: int = 0,
+    cols: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched Viterbi decode with transition-skip masking.
 
     Returns ``(best_tags [B, T] int32, best_score [B] float32)``. Masked
-    positions are filled with ``pad_tag``.
+    positions are filled with ``pad_tag``. The recursion runs over the
+    ``cols`` word columns, :func:`live_columns` of ``mask`` (found here
+    when not given; a caller passes them to spare the wait for
+    ``emissions`` that finding them here would take).
     """
     emissions = emissions.float()
     mask = mask.bool()
     B, T, K = emissions.shape
     trans = _trans3(transitions, B)
+    em, m, cols = _active_columns(emissions, mask, cols)
     identity_bp = torch.arange(K, device=emissions.device).expand(B, K)
 
-    alpha = trans[:, start_idx, :] + emissions[:, 0, :]
-    bps = []  # bps[i] maps the tag at position i+1 to the best tag at i
-    for t in range(1, T):
+    alpha = trans[:, start_idx, :] + em[:, 0, :]
+    bps = []  # bps[i] maps the tag at column i+1 to the best tag at i
+    for t in range(1, em.shape[1]):
         scores = alpha.unsqueeze(2) + trans  # [B, K(from), K(to)]
         best_score, best_prev = scores.max(dim=1)
-        m = mask[:, t, None]
-        alpha = torch.where(m, best_score + emissions[:, t, :], alpha)
-        bps.append(torch.where(m, best_prev, identity_bp))
+        m_t = m[:, t, None]
+        alpha = torch.where(m_t, best_score + em[:, t, :], alpha)
+        bps.append(torch.where(m_t, best_prev, identity_bp))
 
     final = alpha + trans[:, :, stop_idx]
     best_score, tag = final.max(dim=1)
@@ -176,9 +193,13 @@ def crf_decode(
     for bp in reversed(bps):
         tag = torch.gather(bp, 1, tag.unsqueeze(1)).squeeze(1)
         tags.append(tag)
-    tags = torch.stack(tags[::-1], dim=1)  # [B, T]
-    tags = torch.where(mask, tags, torch.full_like(tags, pad_tag))
-    return tags.to(torch.int32), best_score
+    tags = torch.stack(tags[::-1], dim=1)  # [B, em.shape[1]]
+    tags = torch.where(m, tags, torch.full_like(tags, pad_tag))
+    tags = tags.to(torch.int32)
+    if cols is not None:
+        tags = torch.full((B, T), pad_tag, dtype=torch.int32,
+                          device=tags.device).index_copy(1, cols, tags)
+    return tags, best_score
 
 
 def crf_marginals(

@@ -151,6 +151,89 @@ def test_dropping_all_masked_columns_changes_nothing():
                                    rtol=RTOL)
 
 
+def _plain_viterbi(em, mask, trans, start, stop, pad_tag):
+    """Viterbi with one step for every word column, masked or not: the
+    loop as it runs without dropping any column."""
+    em, mask = torch.from_numpy(em), torch.from_numpy(mask).bool()
+    B, T, K = em.shape
+    trans = torch.from_numpy(trans)
+    if trans.dim() == 2:
+        trans = trans.expand(B, K, K)
+    identity = torch.arange(K).expand(B, K)
+    alpha = trans[:, start, :] + em[:, 0, :]
+    bps = []
+    for t in range(1, T):
+        best, prev = (alpha.unsqueeze(2) + trans).max(dim=1)
+        m = mask[:, t, None]
+        alpha = torch.where(m, best + em[:, t, :], alpha)
+        bps.append(torch.where(m, prev, identity))
+    score, tag = (alpha + trans[:, :, stop]).max(dim=1)
+    tags = [tag]
+    for bp in reversed(bps):
+        tag = torch.gather(bp, 1, tag.unsqueeze(1)).squeeze(1)
+        tags.append(tag)
+    tags = torch.stack(tags[::-1], dim=1)
+    tags = torch.where(mask, tags, torch.full_like(tags, pad_tag))
+    return tags.to(torch.int32).numpy(), score.numpy()
+
+
+def _decode_mask(kind, rng, B, T):
+    """Masks of the shapes a served batch gives ``crf_decode``."""
+    lengths = rng.randint(1, 9, size=B)
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.int32)
+    if kind == "fused":  # a live prefix, then context masked in every row
+        return mask
+    if kind == "interior":  # and columns masked in some rows only
+        inner = rng.rand(B, T) < 0.3
+        inner[:, 0] = False
+        mask[inner] = 0
+        return mask
+    if kind == "all_live":
+        return np.ones((B, T), np.int32)
+    # a stride window that starts in context: column 0 masked in some
+    # rows, or in every row
+    mask[1::2, 0] = 0
+    if kind == "col0_masked_everywhere":
+        mask[:, 0] = 0
+    return mask
+
+
+@pytest.mark.parametrize("kind", ["fused", "interior", "all_live",
+                                  "col0_masked", "col0_masked_everywhere"])
+@pytest.mark.parametrize("per_sentence", [False, True])
+@pytest.mark.parametrize("integer", [False, True])
+def test_decode_over_live_columns_equals_the_full_loop(kind, per_sentence,
+                                                       integer):
+    """``crf_decode`` runs over the live columns only, given or found: the
+    tags and scores are exactly those of a step for every column, ties
+    (integer scores) going to the lowest index."""
+    rng = np.random.RandomState(7)
+    B, T, K = 5, 40, 6
+    draw = ((lambda *s: rng.randint(-2, 3, size=s).astype(np.float32))
+            if integer else
+            (lambda *s: rng.randn(*s).astype(np.float32)))
+    em = draw(B, T, K)
+    trans = draw(*((B, K, K) if per_sentence else (K, K)))
+    start, stop = K - 2, K - 1
+    trans[..., :, start] = -10000.0
+    trans[..., stop, :] = -10000.0
+    mask = _decode_mask(kind, rng, B, T)
+    live = mask.any(0)
+    live[0] = True
+    cols = crf.live_columns(torch.from_numpy(mask))
+    np.testing.assert_array_equal(cols.numpy(), np.nonzero(live)[0])
+    args = (torch.from_numpy(em), torch.from_numpy(mask),
+            torch.from_numpy(trans), start, stop)
+    for pad_tag in (0, 2):
+        want_tags, want_score = _plain_viterbi(em, mask, trans, start, stop,
+                                               pad_tag)
+        for given in (None, cols, torch.arange(T)):
+            tags, score = crf.crf_decode(*args, pad_tag=pad_tag, cols=given)
+            assert tags.dtype == torch.int32 and tags.shape == (B, T)
+            np.testing.assert_array_equal(tags.numpy(), want_tags)
+            np.testing.assert_array_equal(score.numpy(), want_score)
+
+
 def _loss_inputs(seed, B=3, W=7, K=5, H=6):
     rng = np.random.RandomState(seed)
     mask = (rng.rand(B, W) < 0.8).astype(np.int32)

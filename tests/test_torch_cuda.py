@@ -390,6 +390,39 @@ def test_tagging_on_card_matches_cpu(card):
         predict(fused, cpu_tagger, tok, tags, batch_size=8)
 
 
+@pytest.mark.parametrize("per_sentence", [False, True])
+def test_crf_decode_over_live_columns_on_card(card, per_sentence):
+    """Viterbi at a served batch's shape (32 rows, 337 word columns, most
+    of them context masked in every row): on the card, over the live
+    columns (given or found), the tags and scores of a step for every
+    column, and the CPU's."""
+    from kbner_tpu_torch.ops.crf import crf_decode, live_columns
+
+    rng = np.random.RandomState(11)
+    B, T, K = 32, 337, 27
+    em = rng.randn(B, T, K).astype(np.float32)
+    trans = rng.randn(*((B, K, K) if per_sentence else (K, K))).astype(
+        np.float32)
+    trans[..., :, K - 2] = -10000.0
+    trans[..., K - 1, :] = -10000.0
+    lengths = rng.randint(4, 41, size=B)
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.int32)
+    mask[rng.rand(B, T) < 0.1] = 0
+    args = [torch.from_numpy(x) for x in (em, mask, trans)]
+    want = crf_decode(*args, K - 2, K - 1, pad_tag=3)
+    on = [x.to(card) for x in args]
+    cols = live_columns(on[1])
+    assert cols.numel() == int(np.maximum(mask.any(0),
+                                          np.arange(T) == 0).sum()) < T // 4
+    full = crf_decode(*on, K - 2, K - 1, pad_tag=3,
+                      cols=torch.arange(T, device=card))
+    for given in (None, cols):
+        got = crf_decode(*on, K - 2, K - 1, pad_tag=3, cols=given)
+        for g, f, w in zip(got, full, want):
+            assert torch.equal(g, f)
+            assert torch.equal(g.cpu(), w)
+
+
 def _zero_gradient(name):
     """The attention's key bias: softmax over the keys is unchanged by it,
     so its gradient is zero in exact arithmetic, and float32 leaves

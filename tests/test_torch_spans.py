@@ -260,7 +260,7 @@ def test_serve_counts_match_the_host_arrays(stack):
         "slots": int(sum(eb.attention_mask.size for eb in batches))}
     assert enc["subtokens"] < enc["slots"]
     crf = [s for s in kept if s.name == "kbner.tag.crf"]
-    # the Viterbi loop runs over every word column of its batch
+    # the span counts every word column of its batch (live or not)
     assert [s.counts["columns"] for s in crf] == \
         [eb.word_mask.shape[1] for eb in batches]
     assert sum(s.counts["words"] for s in kept
@@ -277,6 +277,24 @@ def test_serve_counts_match_the_host_arrays(stack):
     assert _one(kept, "kbner.retrieve.materialize").counts == \
         {"docs_returned": n_docs}
     assert _one(kept, "kbner.serve.fuse").counts == {"contexts": n_docs}
+
+
+def test_crf_span_counts_the_live_columns(stack):
+    """``kbner.tag.crf`` counts the word columns the Viterbi runs over:
+    those some row of the batch leaves unmasked, and column 0."""
+    engine, tagger, tok, tags = stack
+    _, kept = _traced(lambda: _serve(stack))
+    recs = [request_record(r) for r in REQUESTS]
+    fused = fuse_contexts(recs, engine.search([" ".join(r.tokens)
+                                               for r in recs], k=K), tok)
+    batches = make_batches(fused, tok, None, BATCH)
+    crf = [s.counts for s in kept if s.name == "kbner.tag.crf"]
+    live = [eb.crf_mask.any(0) for eb in batches]
+    for m in live:
+        m[0] = True
+    assert [c["live_columns"] for c in crf] == [int(m.sum()) for m in live]
+    # the retrieved context after <EOS> is masked in every row
+    assert all(c["live_columns"] < c["columns"] for c in crf)
 
 
 def test_timings_are_the_stage_spans(stack):

@@ -217,6 +217,42 @@ def test_crf_decode_masking_equals_compaction():
     torch.testing.assert_close(score, c_score)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(), dict(num_languages=2),
+    dict(num_languages=2, transition_attention=True)])
+def test_decode_of_a_fused_batch_equals_the_full_loop(kw):
+    """``decode`` finds the live word columns before the forward and runs
+    the Viterbi over them: the same tags and scores as a step for every
+    word column, retrieved context included, under ``[K, K]`` and
+    per-sentence transitions."""
+    tags = make_tag_dictionary([TAGS + ["S-X"]])
+    cfg = TaggerConfig.for_tag_dictionary(
+        XLMRConfig.tiny(vocab_size=VOCAB), tags, **kw)
+    tagger = SequenceTagger(cfg, device="cpu", seed=4).eval()
+    ctx = ["[", "Berlin", "]", "is", "the", "capital", "of", "Germany"] * 3
+    records = [SentenceRecord(tokens=r.tokens + ["<EOS>"] + ctx,
+                              tags={"ner": r.tags["ner"]
+                                    + ["S-X"] * (1 + len(ctx))},
+                              lang_id=r.lang_id)
+               for r in _tagged_records(SentenceRecord)]
+    batch = _torch_batch(encode_batch(records, HashTokenizer(VOCAB),
+                                      tags).arrays())
+    mask = batch["crf_mask"].bool()
+    W = mask.shape[1]
+    assert int(mask.any(0).sum()) < W // 2  # most columns are context
+    for pad_tag in (0, 3):
+        got_tags, got_scores = tagger.decode(batch, pad_tag=pad_tag)
+        with torch.no_grad():
+            feats, em = tagger._features_and_emissions(batch)
+            want_tags, want_scores = crf_decode(
+                em, mask, tagger._batch_transitions(batch, feats),
+                cfg.start_idx, cfg.stop_idx, pad_tag=pad_tag,
+                cols=torch.arange(W))
+        np.testing.assert_array_equal(got_tags.numpy(), want_tags.numpy())
+        np.testing.assert_array_equal(got_scores.numpy(),
+                                      want_scores.numpy())
+
+
 def test_unported_decode_options_raise():
     """The options that used to raise here (transition attention and the
     distillation losses) now run, held to the Flax tagger: the attention
